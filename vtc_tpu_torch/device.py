@@ -1,0 +1,26 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means the card: raise when there is none, never drop to the
+    CPU quietly. An explicit device is taken as given.
+
+    fp32 matmuls and convolutions are pinned to full fp32 on the card
+    (PyTorch lets cuDNN use TF32 by default), so an fp32 run keeps the
+    reference's numerics."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
