@@ -8,29 +8,48 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. device: require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. build: compile the CUDA kernels from ``vtc_tpu_torch/csrc`` with nvcc
-   (sm_90a) and the Triton kernels, and print the seconds;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   flagship's shapes (batch 160), fp32 and bf16, with times (CUDA-graph
-   replays of launches over rotating inputs larger than the L2 cache, median
-   of 5), the time of one PyTorch library call for the same function where
-   there is one, and the least time the card could take (bytes over
-   3.35 TB/s or operations over the type's peak, the larger); in bf16,
-   ``fused_mha`` is held to one ulp of its typical output, a limit shown to
-   catch a P left unrounded;
+   (sm_90a), all sources at once, and the Triton kernels, and print the
+   seconds;
+3. kernels: each kernel against its plain PyTorch version on the card, fp32
+   and bf16, at the shapes of the path that runs it: the flagship's (batch
+   160) for ``layernorm``, ``add_layernorm`` and ``fused_mha``; the video
+   model's temporal attention (batch 50, 8 frames: B·H = 29,400 sequences of
+   L = 8, as strided head views of the merged qkv) and a masked shape
+   (B·H = 960·8, L = 16, causal and a seeded additive mask) for
+   ``fused_attention``; ``[8000, 768]`` for the LN sweep's ``ln_mxu`` and
+   ``ln_mxu_bf16``. With times (CUDA-graph replays of launches over rotating
+   inputs larger than the L2 cache, median of 5), the time of one PyTorch
+   library call for the same function where there is one, and the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   type's peak, the larger). In bf16 ``fused_mha`` is held to one ulp of its
+   typical output, and ``fused_attention`` to at most 1e-4 of its outputs
+   beyond that and none beyond one ulp of its largest; each limit is shown
+   to catch a P left unrounded;
 4. flagship: ``PretrainedCLIP_finaltf`` ViT-B/32 forward, fp32, batch 32,
    bench.py's inputs (uint8 patches, 16-token title and 5 comments, one
    empty), on the card against the same seeded weights on the CPU (plain
    versions); the CAM is moved off its zero-init by seeded noise so its
    attention and MLP branches count;
 5. kernel use: the launch counters of that forward must read 29 layernorm,
-   26 add_layernorm and 26 fused_mha launches;
+   26 add_layernorm and 26 fused_mha launches, and none of the others;
 6. serving: a RetrievalIndex of the card's image features plus 10^4 seeded
    rows answers ragged text and image batches; top-k ids equal the CPU's;
 7. bf16: the flagship with ``convert_weights`` tracks fp32 (cosine > 0.995);
    its throughput at batch 160 (all the work of 20 windows over all their
    time, with the windows' spread) and a ``torch.profiler`` window of it
    (device time per kernel family, the device's idle share) are printed;
-8. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+8. video: ``PretrainedCLIP_TimeSformer_finaltf`` built from the ``arch``
+   block of ``configs/pretrained_clip_timesformer_comments_attention.jsonc``
+   (ViT-B/32, 8 frames), fp32, batch 4 of uint8 patch frames with the
+   flagship's texts, card against CPU; the CAM, ``temporal_fc`` and
+   ``temporal_embed`` moved off their zero-init by seeded noise, so the
+   temporal branch (``fused_attention``) counts. One forward must launch 41
+   layernorm, 26 add_layernorm, 26 fused_mha and 12 fused_attention; in
+   bf16 it tracks fp32 (cosine > 0.995), and its throughput in videos/s at
+   the configuration's batch of 50 and a profiler window are printed;
+9. LN sweep: ``vtc_tpu_torch.scripts.bench_ln_kernel`` at its defaults, the
+   counts of its designs' launches read around it;
+10. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -44,6 +63,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,13 +76,31 @@ FP32_ATOL = 2e-5  # the repo's fp32 kernel tolerance (tests/test_pallas_attentio
 FEAT_ATOL = 1e-4  # card vs CPU at full depth: GEMM sums in another order
 COS_MIN = 0.995  # bf16 vs fp32 (tests/test_clip_parity.py::test_bf16_close_to_fp32)
 CAM_NOISE = 0.05  # tests/test_torch_models.py's ``tiny`` fixture
-WARMUP, WINDOWS, PER_WINDOW = 20, 20, 10  # bf16 throughput: forwards
+TEMPORAL_NOISE = 0.02  # the std of the attention projections' init
+# fused_attention in bf16: the share of outputs allowed beyond one ulp at the
+# median |output|. Where the plain version's cuBLAS sums the fp32 scores in
+# another order than the kernel, P's rounding to bf16 flips at a few entries
+# (at L = 8, a share of about 1e-5 on the H100); a P left unrounded moves a
+# share of about 0.06.
+ATTN_BF16_SHARE = 1e-4
+WARMUP, WINDOWS, PER_WINDOW = 20, 20, 10  # flagship bf16 throughput: forwards
+VIDEO_WARMUP, VIDEO_WINDOWS, VIDEO_PER_WINDOW = 5, 10, 4  # video: forwards
 PROFILED = 5  # bf16 forwards under torch.profiler
-EXPECTED_LAUNCHES = {"layernorm": 29, "add_layernorm": 26, "fused_mha": 26}
+VIDEO_CONFIG = "configs/pretrained_clip_timesformer_comments_attention.jsonc"
+VIDEO_FWD_BATCH = 4
+NFRAMES = 8
+LN_SWEEP = (8000, 768)  # scripts/bench_ln_kernel.py's default rows
+EXPECTED_LAUNCHES = {"layernorm": 29, "add_layernorm": 26, "fused_mha": 26,
+                     "fused_attention": 0, "ln_mxu": 0, "ln_mxu_bf16": 0}
+# video: 26 LN in the tower (ln_pre, 12 × (ln_time + ln_1), ln_post), 13 in
+# the text tower, 2 in the CAM; add+LN and fused_mha 12 + 12 + 2
+EXPECTED_VIDEO_LAUNCHES = {"layernorm": 41, "add_layernorm": 26, "fused_mha": 26,
+                           "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0}
 KERNEL_FAMILIES = (  # device-kernel name fragments, matched in this order
     ("add_layernorm", ("_addln_kernel",)),
     ("layernorm", ("_ln_kernel",)),
     ("fused_mha", ("fused_mha_kernel",)),
+    ("fused_attention", ("fused_attention_kernel",)),
     ("gemm", ("gemm", "Gemm", "gemv", "nvjet", "cutlass", "xmma")),
 )
 SOURCES = {
@@ -72,6 +110,12 @@ SOURCES = {
                       "vtc_tpu/ops/pallas_addln.py:79"),
     "fused_mha": ("cuda", "vtc_tpu_torch/csrc/fused_mha.cu",
                   "vtc_tpu/ops/pallas_attention.py:288"),
+    "fused_attention": ("cuda", "vtc_tpu_torch/csrc/fused_attention.cu",
+                        "vtc_tpu/ops/pallas_attention.py:131"),
+    "ln_mxu": ("triton", "vtc_tpu_torch/ops/ln_designs.py",
+               "scripts/bench_ln_kernel.py:39"),
+    "ln_mxu_bf16": ("triton", "vtc_tpu_torch/ops/ln_designs.py",
+                    "scripts/bench_ln_kernel.py:61"),
 }
 
 
@@ -112,33 +156,17 @@ def mha_p_unrounded(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     return out.reshape(b, l, e).to(q.dtype)
 
 
-def time_ms(fn, arg_sets, windows: int = 5) -> float:
-    """Device time of one ``fn(*args)``: a CUDA graph of launches cycling
-    through ``arg_sets`` (together larger than the L2 cache, so each launch
-    reads from device memory), replayed ``windows`` times; the median."""
-    for args in arg_sets[:2]:
-        fn(*args)  # warm up: Triton compiles, allocator pools fill
-    torch.cuda.synchronize()
-    iters = len(arg_sets) * max(1, math.ceil(32 / len(arg_sets)))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    del graph
-    return statistics.median(times)
+def attention_p_unrounded(q, k, v, mask) -> torch.Tensor:
+    """``fused_attention_plain`` with P left in fp32."""
+    scores = torch.einsum("...id,...jd->...ij", q.float(), k.float()) * q.shape[-1] ** -0.5
+    if mask is not None:
+        scores = scores + mask
+    return torch.einsum("...ij,...jd->...id", torch.softmax(scores, -1),
+                        v.float()).to(q.dtype)
 
 
-def n_sets(bytes_per_call: int) -> int:
-    return int(min(32, max(2, math.ceil(200e6 / bytes_per_call))))
+def share_beyond(out, ref, tol: float) -> float:
+    return ((out.float() - ref.float()).abs() > tol).float().mean().item()
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -151,9 +179,12 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 def check_kernels(ops) -> dict:
     """-> {kernel: {"cases": [...], "headline": case}}; a case holds the
-    error, its tolerance and the times. The headline case is the ViT shape
-    in bf16, the largest launch of the bench configuration."""
+    error, its tolerance and the times. The headline case is the largest
+    bf16 launch of the kernel's path: the ViT shape at batch 160, the video
+    model's temporal attention at batch 50, the sweep's [8000, 768]."""
     import torch.nn.functional as F
+
+    from vtc_tpu_torch.utils.timing import n_sets, time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -164,12 +195,13 @@ def check_kernels(ops) -> dict:
     out = {k: {"cases": []} for k in SOURCES}
 
     def record(kernel, shape_name, dtype, err, tol, ms, plain_ms, library_ms,
-               bound_ms, bound_by, desc):
+               bound_ms, bound_by, desc, headline=None):
         case = dict(shape=shape_name, dtype=str(dtype).split(".")[-1],
                     max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         out[kernel]["cases"].append(case)
-        if shape_name == "vit" and dtype == torch.bfloat16:
+        if headline if headline is not None else (
+                shape_name == "vit" and dtype == torch.bfloat16):
             out[kernel]["headline"] = case
         lib = "n/a" if library_ms is None else f"{library_ms:.5f}"
         log(f"kernel {kernel} {shape_name} {case['dtype']} {desc}: "
@@ -264,18 +296,146 @@ def check_kernels(ops) -> dict:
                    f"B={bsz} L={l} E={e} H={h} causal={causal}")
         del sets, x_sets, ab_sets, qkv_sets
         torch.cuda.empty_cache()
+
+        check_fused_attention(ops, dtype, g, record)
+        torch.cuda.empty_cache()
+
+    check_ln_designs(ops, g, record)
     return out
 
 
-# ---- phases 4-7: the port's main path ----------------------------------------
+def check_fused_attention(ops, dtype, g, record) -> None:
+    """``fused_attention`` at the video model's temporal shape (strided head
+    views of a [2450, 8, 3·768] qkv buffer, no mask) and at a masked shape.
+    Yardsticks: SDPA (with ``attn_mask`` where there is a mask) and, at the
+    temporal shape, ``fused_mha`` on the same buffer, the same function at
+    Dh = 64."""
+    import torch.nn.functional as F
 
-def bench_inputs(batch: int, patch: int, seed: int = 0):
+    from vtc_tpu_torch.utils.timing import n_sets, time_ms
+
+    dev = torch.device("cuda")
+    esize = torch.finfo(dtype).bits // 8
+    seqs, t, e, h = 50 * 49, NFRAMES, 768, 12
+    dh = e // h
+    lengths = {"temporal": t, "causal": 16, "additive": 16}
+    seeded = torch.randn(16, 16, device=dev, generator=g)
+    seeded = seeded.masked_fill(torch.rand(16, 16, device=dev, generator=g) < 0.3,
+                                float("-inf")).fill_diagonal_(0.0)
+    masks = {"temporal": None, "causal": ops.causal_mask(16, dev), "additive": seeded}
+
+    for name, mask in masks.items():
+        length = lengths[name]
+        if name == "temporal":
+            per = 4 * seqs * t * e * esize
+            buffers = [torch.randn(seqs, t, 3 * e, device=dev, generator=g).to(dtype)
+                       for _ in range(n_sets(per))]
+            sets = [tuple(x.unflatten(-1, (h, dh)).transpose(1, 2) for x in buf.chunk(3, -1))
+                    for buf in buffers]
+            nbh = seqs * h
+            desc = f"B·H={seqs}·{h} L={t} D={dh} strided head views, no mask"
+        else:
+            nbh = 960 * 8
+            per = 4 * nbh * length * dh * esize
+            sets = [tuple(torch.randn(nbh, length, dh, device=dev, generator=g).to(dtype)
+                          for _ in range(3)) for _ in range(n_sets(per))]
+            desc = f"B·H={nbh} L={length} D={dh} {name} mask"
+        q, k, v = sets[0]
+        o = ops.fused_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = ops.fused_attention_plain(q, k, v, mask)
+        err = (o.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            tol = FP32_ATOL
+        else:
+            tol = bf16_tol(ref, 1)
+            median_ulp = bf16_ulp_at_median(ref)
+            share = share_beyond(o, ref, median_ulp)
+            fault = attention_p_unrounded(q, k, v, mask)
+            fault_share = share_beyond(fault, ref, median_ulp)
+            log(f"kernel fused_attention {name} bfloat16: {share:.3g} of outputs "
+                f"beyond one ulp at the median ({median_ulp:.3g}), limit "
+                f"{ATTN_BF16_SHARE:g}; P left unrounded: {fault_share:.3g} of them, "
+                f"max diff {(fault.float() - ref.float()).abs().max().item():.3g}")
+            require(share <= ATTN_BF16_SHARE,
+                    f"fused_attention {name}: {share} of outputs beyond {median_ulp}")
+            require(fault_share > ATTN_BF16_SHARE,
+                    f"fused_attention {name}: the bf16 check cannot see P's "
+                    f"rounding ({fault_share})")
+        mask_bytes = 0 if mask is None else length * length * 4
+        bms, by = bound(per + mask_bytes, 4 * nbh * length * length * dh, dtype)
+
+        def kernel(q, k, v):
+            return ops.fused_attention(q, k, v, mask)
+
+        def plain(q, k, v):
+            return ops.fused_attention_plain(q, k, v, mask)
+
+        def sdpa(q, k, v):
+            if q.dim() == 3:
+                q, k, v = (x.view(960, 8, length, dh) for x in (q, k, v))
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        if name == "temporal":
+            mha_ms = time_ms(lambda buf: ops.fused_mha(*buf.chunk(3, -1), h),
+                             [(buf,) for buf in buffers])
+            log(f"kernel fused_attention temporal {str(dtype)[6:]}: fused_mha on "
+                f"the same qkv buffer {mha_ms:.5f} ms")
+        record("fused_attention", name, dtype, err, tol, time_ms(kernel, sets),
+               time_ms(plain, sets), time_ms(sdpa, sets), bms, by, desc,
+               headline=name == "temporal" and dtype == torch.bfloat16)
+        del sets
+
+
+def check_ln_designs(ops, g, record) -> None:
+    """The LN sweep's two product designs at [8000, 768], against their
+    plain versions. ``ln_mxu`` on fp32 rows: 2e-5, the sums in another order
+    and ``E[x²] − E[x]²``'s cancellation (under one bit for mean 0.5, std
+    2); on bf16 rows, and ``ln_mxu_bf16``: one bf16 ulp at the largest
+    |output| (the order of the sums can move a rounding to bf16 by a step)."""
+    import torch.nn.functional as F
+
+    from vtc_tpu_torch.utils.timing import n_sets, time_ms
+
+    dev = torch.device("cuda")
+    rows, d = LN_SWEEP
+    w = (1 + 0.2 * torch.randn(d, device=dev, generator=g)).contiguous()
+    bias = (0.2 * torch.randn(d, device=dev, generator=g)).contiguous()
+    for name, fn, plain, dtypes in (
+        ("ln_mxu", ops.ln_mxu, ops.ln_mxu_plain, (torch.float32, torch.bfloat16)),
+        ("ln_mxu_bf16", ops.ln_mxu_bf16, ops.ln_mxu_bf16_plain, (torch.bfloat16,)),
+    ):
+        for dtype in dtypes:
+            esize = torch.finfo(dtype).bits // 8
+            nbytes = rows * d * 2 * esize + 2 * d * 4
+            x_sets = [((2 * torch.randn(rows, d, device=dev, generator=g) + 0.5)
+                       .to(dtype),) for _ in range(n_sets(nbytes))]
+            x = x_sets[0][0]
+            y = fn(x, w, bias)
+            torch.cuda.synchronize()
+            ref = plain(x, w, bias)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref.float(), 1)
+            w_l, b_l = w.to(dtype), bias.to(dtype)
+            bms, by = bound(nbytes, 8 * rows * d, dtype)
+            record(name, "sweep", dtype, err, tol,
+                   time_ms(lambda x: fn(x, w, bias), x_sets),
+                   time_ms(lambda x: plain(x, w, bias), x_sets),
+                   time_ms(lambda x: F.layer_norm(x, (d,), w_l, b_l, 1e-5), x_sets),
+                   bms, by, f"rows={rows} d={d}", headline=dtype == torch.bfloat16)
+
+
+# ---- phases 4-9: the port's main paths ---------------------------------------
+
+def bench_inputs(batch: int, patch: int, seed: int = 0, frames: int = 0):
     """bench.py's recipe: uint8 patches and synthetic 16-token texts, plus one
-    empty comment (row 0, comment 4) so the mask embedding is on the path."""
+    empty comment (row 0, comment 4) so the mask embedding is on the path.
+    With ``frames``, the patches are of ``[batch, frames]`` video frames."""
     from vtc_tpu_torch.data import EOT_ID, SOT_ID, extract_patches, synthetic_tokens
 
     rng = np.random.default_rng(seed)
-    u8 = rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+    lead = (batch, frames) if frames else (batch,)
+    u8 = rng.integers(0, 256, lead + (224, 224, 3), dtype=np.uint8)
     vis = extract_patches(u8, patch)
     title = synthetic_tokens((batch,), 16, 14, rng)
     comments = synthetic_tokens((batch, 5), 16, 14, rng)
@@ -289,29 +449,46 @@ def cosines(a, b):
 
 
 @torch.no_grad()
-def perturb_cam(model, seed: int = 0):
-    """Move the CAM off its zero-init, identically on every device: seeded
-    N(0, CAM_NOISE) noise on each ``final_transformer``/``final_linear``
-    parameter, as the CPU tests' ``tiny`` fixture does. At zero-init the
-    adapter's attention and MLP branches are multiplied by zero weights and
-    the end-to-end checks could not see how the CAM calls its kernels."""
+def perturb(model, seed: int = 0):
+    """Move the zero-init parameters off zero, identically on every device:
+    seeded N(0, CAM_NOISE) noise on each ``final_transformer``/
+    ``final_linear`` parameter, as the CPU tests' ``tiny`` fixture does, and
+    N(0, TEMPORAL_NOISE) on each ``temporal_fc``/``temporal_embed``. At
+    zero-init the adapter's attention and MLP branches, and the
+    TimeSformer's temporal branch, are multiplied by zero weights, and the
+    end-to-end checks could not see how they call their kernels."""
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         if name.startswith(("final_transformer.", "final_linear.")):
-            p.add_(CAM_NOISE * torch.randn(p.shape, generator=g).to(p.device))
+            std = CAM_NOISE
+        elif ".temporal_fc." in name or name.endswith(".temporal_embed"):
+            std = TEMPORAL_NOISE
+        else:
+            continue
+        p.add_(std * torch.randn(p.shape, generator=g).to(p.device))
     return model
 
 
 def flagship(**kwargs):
     from vtc_tpu_torch.models import create_model
 
-    return perturb_cam(create_model("PretrainedCLIP_finaltf",
-                                    model_type="ViT-B/32", seed=0, **kwargs))
+    return perturb(create_model("PretrainedCLIP_finaltf",
+                                model_type="ViT-B/32", seed=0, **kwargs))
+
+
+def video_model(**kwargs):
+    """The video CAM model from the ``arch`` block of the repo's config."""
+    from vtc_tpu_torch.models import create_model
+    from vtc_tpu_torch.utils import jsonc
+
+    arch = jsonc.read_json(Path(__file__).resolve().parent / VIDEO_CONFIG)["arch"]
+    return perturb(create_model(arch["type"], seed=0, nframes=NFRAMES,
+                                **arch["args"], **kwargs))
 
 
 def profile_forward(model, inputs, n: int) -> dict:
     """``n`` forwards under ``torch.profiler``: device time per kernel family
-    (the port's three kernels, GEMMs, the rest) and the device's idle share,
+    (the port's kernels, GEMMs, the rest) and the device's idle share,
     1 - (union of device intervals) / (the host's window from the first
     launch to the synchronize after the last forward)."""
     from torch.autograd import DeviceType
@@ -352,6 +529,112 @@ def profile_forward(model, inputs, n: int) -> dict:
             "launches": len(device) / n}
 
 
+def throughput(what, model, inputs, batch, warmup, windows, per_window, unit,
+               smi) -> None:
+    """All the work of ``windows`` windows of ``per_window`` forwards over all
+    their time, after ``warmup`` forwards, with the windows' spread."""
+    for _ in range(warmup):
+        model(*inputs)
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(windows):
+        tic = time.perf_counter()
+        for _ in range(per_window):
+            model(*inputs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - tic)
+    rates = sorted(batch * per_window / s for s in seconds)
+    log(f"throughput {what}: {batch * per_window * windows / sum(seconds):.1f} {unit}, all "
+        f"{windows * per_window} forwards over {sum(seconds):.4f} s after "
+        f"{warmup} warm-up forwards; windows of {per_window}: min "
+        f"{rates[0]:.1f} median {statistics.median(rates):.1f} max "
+        f"{rates[-1]:.1f} {unit}; on {smi}")
+
+
+def log_profile(prof, what: str) -> None:
+    log(f"profile {what}, {PROFILED} forwards under torch.profiler: window "
+        f"{prof['window_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, idle "
+        f"share {prof['idle_share']:.4f}, {prof['launches']:.0f} device events "
+        f"per forward")
+    total = sum(prof["family_ms"].values())
+    for family, ms in sorted(prof["family_ms"].items(), key=lambda kv: -kv[1]):
+        log(f"profile device ms per forward: {family} {ms:.4f} "
+            f"({ms / total:.4f} of device time)")
+    for kname, us in prof["other_top"]:
+        log(f"profile other: {us / 1e3 / PROFILED:.4f} ms per forward: {kname[:120]}")
+
+
+def compare_with_cpu(what, outs, cpu_outs, scale) -> None:
+    for name, a, c, atol in zip(("feats_vis", "feats_text", "sim"), outs, cpu_outs,
+                                (FEAT_ATOL, FEAT_ATOL, scale * FEAT_ATOL)):
+        require(a.shape == c.shape and bool(torch.isfinite(a).all()),
+                f"{what} {name}: shape {tuple(a.shape)} or non-finite values")
+        err = (a.cpu() - c).abs().max().item()
+        log(f"{what} fp32 {name} {tuple(a.shape)}: max_abs_err vs CPU "
+            f"{err:.3g} (atol {atol:.3g})")
+        require(err <= atol, f"{what} {name} differs from the CPU run by {err}")
+
+
+def run_video(ops, smi) -> dict:
+    """Phase 8: the video model. Returns the launch counts of one forward."""
+    from vtc_tpu_torch.models import convert_weights
+
+    tic = time.perf_counter()
+    model = video_model()
+    cpu_model = video_model(device="cpu")
+    log(f"video models built in {time.perf_counter() - tic:.1f} s")
+    inputs = bench_inputs(VIDEO_FWD_BATCH, 32, seed=3, frames=NFRAMES)
+    with torch.inference_mode():
+        model(*[t.cuda() for t in inputs])  # warm up
+        torch.cuda.synchronize()
+        # the video path's run: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        outs = model(*[t.cuda() for t in inputs])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        tic = time.perf_counter()
+        cpu_outs = cpu_model(*inputs)
+        log(f"video CPU forward, batch {VIDEO_FWD_BATCH}: "
+            f"{time.perf_counter() - tic:.1f} s")
+    log(f"kernel use (video forward): {json.dumps(launches)}")
+    require(launches == EXPECTED_VIDEO_LAUNCHES,
+            f"video launches {launches} != expected {EXPECTED_VIDEO_LAUNCHES}")
+    compare_with_cpu("video", outs, cpu_outs, cpu_model.model.logit_scale.exp().item())
+    del cpu_model
+
+    bf16 = convert_weights(video_model(dtype="bf16"))
+    with torch.inference_mode():
+        fv16, ft16, _ = bf16(*[t.cuda() for t in inputs])
+        for name, a, b in (("feats_vis", fv16, outs[0]), ("feats_text", ft16, outs[1])):
+            cos = cosines(a, b).min().item()
+            log(f"video bf16 {name}: min cosine vs fp32 {cos:.6f} (> {COS_MIN})")
+            require(cos > COS_MIN, f"video bf16 {name} cosine {cos} <= {COS_MIN}")
+        del model
+        torch.cuda.empty_cache()
+        batch = 50  # the configuration's batch_size
+        big = [t.cuda() for t in bench_inputs(batch, 32, seed=4, frames=NFRAMES)]
+        throughput(f"video bf16 batch {batch} ({NFRAMES} frames, 16-token title "
+                   f"+ 5 comments)", bf16, big, batch, VIDEO_WARMUP, VIDEO_WINDOWS,
+                   VIDEO_PER_WINDOW, "videos/s", smi)
+        prof = profile_forward(bf16, big, PROFILED)
+    log_profile(prof, f"video bf16 batch {batch}")
+    return launches
+
+
+def run_ln_sweep(ops) -> dict:
+    """Phase 9: the LN sweep's entry point. Returns its launch counts."""
+    from vtc_tpu_torch.scripts import bench_ln_kernel
+
+    ops.reset_launch_counts()
+    bench_ln_kernel.main(*LN_SWEEP)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"kernel use (LN sweep): {json.dumps(launches)}")
+    for name in ("layernorm", "ln_mxu", "ln_mxu_bf16"):
+        require(launches[name] > 0, f"the LN sweep launched no {name}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -387,10 +670,12 @@ def main() -> int:
     tic = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         for d in (512, 768):
-            x = torch.randn(8, d, device="cuda").to(dtype)
+            x = torch.randn(32, d, device="cuda").to(dtype)
             w, b = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
             ops.layernorm(x, w, b)
             ops.add_layernorm(x, x, w, b)
+            ops.ln_mxu(x, w, b)
+        ops.ln_mxu_bf16(x.to(torch.bfloat16), w, b)
     torch.cuda.synchronize()
     log(f"build: nvcc {nvcc_s:.1f} s ({', '.join(libs)}), triton first "
         f"compiles {time.perf_counter() - tic:.1f} s")
@@ -416,16 +701,8 @@ def main() -> int:
     log(f"kernel use (flagship forward): {json.dumps(launches)}")
     require(launches == EXPECTED_LAUNCHES,
             f"launches {launches} != expected {EXPECTED_LAUNCHES}")
-    scale = cpu_model.model.logit_scale.exp().item()
-    for name, a, c, atol in (("feats_vis", fv, fv_c, FEAT_ATOL),
-                             ("feats_text", ft, ft_c, FEAT_ATOL),
-                             ("sim", sim, sim_c, scale * FEAT_ATOL)):
-        require(a.shape == c.shape and bool(torch.isfinite(a).all()),
-                f"{name}: shape {tuple(a.shape)} or non-finite values")
-        err = (a.cpu() - c).abs().max().item()
-        log(f"flagship fp32 {name} {tuple(a.shape)}: max_abs_err vs CPU "
-            f"{err:.3g} (atol {atol:.3g})")
-        require(err <= atol, f"flagship {name} differs from the CPU run by {err}")
+    compare_with_cpu("flagship", (fv, ft, sim), (fv_c, ft_c, sim_c),
+                     cpu_model.model.logit_scale.exp().item())
 
     # 6. serving
     rng = np.random.default_rng(1)
@@ -451,7 +728,8 @@ def main() -> int:
             serve_launches = ops.launch_counts()
     # per text batch 13 LN (12 ln_1 + ln_final), per image batch 14
     # (ln_pre + 12 ln_1 + ln_post); 12 add+LN and 12 attention per batch
-    want = {"layernorm": 2 * 13 + 2 * 14, "add_layernorm": 4 * 12, "fused_mha": 4 * 12}
+    want = dict(EXPECTED_LAUNCHES, layernorm=2 * 13 + 2 * 14, add_layernorm=4 * 12,
+                fused_mha=4 * 12)
     log(f"kernel use (serving, 2 text + 2 image batches): {json.dumps(serve_launches)}")
     require(serve_launches == want, f"serving launches {serve_launches} != {want}")
     for (kind, lo, hi), (ids, scores), (ids_c, scores_c) in zip(
@@ -476,43 +754,30 @@ def main() -> int:
             log(f"flagship bf16 {name}: min cosine vs fp32 {cos:.6f} (> {COS_MIN})")
             require(cos > COS_MIN, f"bf16 {name} cosine {cos} <= {COS_MIN}")
         big = [t.cuda() for t in bench_inputs(BENCH_BATCH, 32, seed=2)]
-        for _ in range(WARMUP):
-            bf16(*big)
-        torch.cuda.synchronize()
-        seconds = []
-        for _ in range(WINDOWS):
-            tic = time.perf_counter()
-            for _ in range(PER_WINDOW):
-                bf16(*big)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - tic)
-        rates = sorted(BENCH_BATCH * PER_WINDOW / s for s in seconds)
-        log(f"throughput bf16 batch {BENCH_BATCH} (16-token title + 5 comments): "
-            f"{BENCH_BATCH * PER_WINDOW * WINDOWS / sum(seconds):.1f} pairs/s, all "
-            f"{WINDOWS * PER_WINDOW} forwards over {sum(seconds):.4f} s after "
-            f"{WARMUP} warm-up forwards; windows of {PER_WINDOW}: min "
-            f"{rates[0]:.1f} median {statistics.median(rates):.1f} max "
-            f"{rates[-1]:.1f} pairs/s; on {smi}")
-
+        throughput(f"bf16 batch {BENCH_BATCH} (16-token title + 5 comments)", bf16,
+                   big, BENCH_BATCH, WARMUP, WINDOWS, PER_WINDOW, "pairs/s", smi)
         prof = profile_forward(bf16, big, PROFILED)
-    log(f"profile bf16 batch {BENCH_BATCH}, {PROFILED} forwards under "
-        f"torch.profiler: window {prof['window_ms']:.3f} ms, device busy "
-        f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.4f}, "
-        f"{prof['launches']:.0f} device events per forward")
-    total = sum(prof["family_ms"].values())
-    for family, ms in sorted(prof["family_ms"].items(), key=lambda kv: -kv[1]):
-        log(f"profile device ms per forward: {family} {ms:.4f} "
-            f"({ms / total:.4f} of device time)")
-    for kname, us in prof["other_top"]:
-        log(f"profile other: {us / 1e3 / PROFILED:.4f} ms per forward: {kname[:120]}")
+    log_profile(prof, f"bf16 batch {BENCH_BATCH}")
+    del model, bf16, big
+    torch.cuda.empty_cache()
 
-    # 8. results
+    # 8. video
+    video_launches = run_video(ops, smi)
+    torch.cuda.empty_cache()
+
+    # 9. the LN sweep
+    sweep_launches = run_ln_sweep(ops)
+
+    # 10. results: each kernel's launches from the path that runs it
+    path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
+                         ln_mxu=sweep_launches["ln_mxu"],
+                         ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         head = results[name]["headline"]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": path_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in results[name]["cases"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

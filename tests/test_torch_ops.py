@@ -180,7 +180,8 @@ def test_launch_counters_reset():
     ops.layernorm.launches = 3
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
-        "layernorm": 0, "add_layernorm": 0, "fused_mha": 0,
+        "layernorm": 0, "add_layernorm": 0, "fused_mha": 0, "fused_attention": 0,
+        "ln_mxu": 0, "ln_mxu_bf16": 0,
     }
 
 

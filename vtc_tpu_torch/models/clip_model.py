@@ -14,6 +14,7 @@ the weight, and its bias into the positional embedding (``embed_patches``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -166,11 +167,18 @@ class TextTransformer(nn.Module):
 
 
 class ClipModel(TextTransformer):
-    """Dual encoder with the learned ``logit_scale``."""
+    """Dual encoder with the learned ``logit_scale``. ``visual_module``
+    swaps the visual tower (the TimeSformer models pass
+    ``timesformer.TimeSformer`` with ``visual_kwargs={"nframes": ...}``), as
+    ``vtc_tpu.models.clip_model.ClipModel`` does."""
 
-    def __init__(self, variant: ClipVariant, dtype=torch.float32):
+    def __init__(self, variant: ClipVariant, dtype=torch.float32,
+                 visual_module: Optional[type] = None,
+                 visual_kwargs: Optional[dict] = None):
         super().__init__(variant, dtype)
-        self.visual = VisionTransformer(variant, dtype)
+        self.visual = (visual_module or VisionTransformer)(
+            variant, dtype=dtype, **(visual_kwargs or {})
+        )
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07))))
 
     def encode_image(self, images):

@@ -1,13 +1,16 @@
 """Model factory: build a retrieval model with the reference's init on the
 card (or, when asked, the CPU).
 
-Port of ``vtc_tpu/models/factory.py`` for ``PretrainedCLIP`` and
-``PretrainedCLIP_finaltf``. Weights come from a seeded ``torch.Generator``
+Port of ``vtc_tpu/models/factory.py`` for ``PretrainedCLIP``,
+``PretrainedCLIP_finaltf`` and the TimeSformer video models
+``PretrainedCLIP_TimeSformer(_finaltf)``. Weights come from a seeded ``torch.Generator``
 on the CPU, so one seed gives the same weights on every device; the
 distributions follow the JAX package's initializers, the numbers do not (a
 test that compares the two carries the JAX weights across with
 ``from_jax.state_dict_from_jax``). Loading real CLIP weights waits for the
-checkpoint files (ROADMAP).
+checkpoint files (ROADMAP); with them, the TimeSformer models take the CLIP
+visual tower through ``timesformer.timesformer_params_from_clip_visual``, as
+the JAX factory does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from .cam import zero_init_cam_params
 ARCHS = {
     "PretrainedCLIP": retrieval.PretrainedCLIP,
     "PretrainedCLIP_finaltf": retrieval.PretrainedCLIP_finaltf,
+    "PretrainedCLIP_TimeSformer": retrieval.PretrainedCLIP_TimeSformer,
+    "PretrainedCLIP_TimeSformer_finaltf": retrieval.PretrainedCLIP_TimeSformer_finaltf,
 }
 
 DTYPES = {
@@ -32,14 +37,23 @@ DTYPES = {
 }
 
 
+def _is_zero_init(name: str) -> bool:
+    """Biases, ``final_linear`` (``cam.py``), and the TimeSformer's
+    ``temporal_fc`` and ``temporal_embed`` (``timesformer.py:69-72,151-154``:
+    the divided block starts as a no-op)."""
+    return (name.endswith("bias") or name == "final_linear.weight"
+            or ".temporal_fc." in name or name.endswith(".temporal_embed"))
+
+
 def _init_std(name: str, p: torch.Tensor, widths: dict) -> Optional[float]:
     """Std of the normal init of one parameter; None for the constant ones
-    (LayerNorm ones, biases zeros, logit_scale, final_linear zeros)."""
+    (LayerNorm ones, the zero-init ones, logit_scale)."""
     leaf = name.rsplit(".", 1)[-1]
-    if name.endswith("bias") or ".ln_" in f".{name}" or leaf == "logit_scale":
+    if _is_zero_init(name) or ".ln_" in f".{name}" or leaf == "logit_scale":
         return None
     if name.endswith(("in_proj_weight", "out_proj.weight")):
-        return 0.02  # torch trunc_normal_(std=.02): bounds at ±100σ
+        # attn and timeattn: torch trunc_normal_(std=.02), bounds at ±100σ
+        return 0.02
     if name.endswith(("c_fc.weight", "c_proj.weight")):
         return p.shape[1] ** -0.5  # flax lecun_normal
     if name.startswith("model.visual."):  # conv1, class/pos embedding, proj
@@ -52,8 +66,6 @@ def _init_std(name: str, p: torch.Tensor, widths: dict) -> Optional[float]:
         return widths["text"] ** -0.5
     if name == "mask_embedding":
         return 1.0
-    if name == "final_linear.weight":
-        return None
     raise KeyError(f"no init rule for parameter {name}")
 
 
@@ -69,9 +81,9 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
             p.normal_(0.0, std, generator=g)
         elif name.endswith("logit_scale"):
             p.fill_(math.log(1 / 0.07))
-        elif name.endswith("bias") or name == "final_linear.weight":
+        elif _is_zero_init(name):
             p.zero_()
-        else:  # LayerNorm scale
+        else:  # LayerNorm scale (ln_time too)
             p.fill_(1.0)
 
 
@@ -97,13 +109,15 @@ def create_model(arch: str, model_type: str = "ViT-B/32", seed: int = 0,
 def convert_weights(model: torch.nn.Module, dtype=torch.bfloat16):
     """Cast the matmul/projection weights to ``dtype`` in place (the analogue
     of ``vtc_tpu.models.factory.convert_weights``): LayerNorm parameters,
-    biases, embeddings and ``logit_scale`` stay fp32."""
+    biases, embeddings (``temporal_embed`` too, ``factory.py:223``) and
+    ``logit_scale`` stay fp32."""
     for name, p in model.named_parameters():
         keep_fp32 = (
             ".ln_" in f".{name}"
             or name.endswith("bias")
             or "logit_scale" in name
             or "embedding" in name
+            or "temporal_embed" in name
         )
         if not keep_fp32 and p.dtype == torch.float32:
             p.data = p.data.to(dtype)

@@ -9,10 +9,16 @@ reference (torch) state-dict names that the port's modules carry:
 * the ``[3, E, E]``/``[3, E]`` qkv storage becomes ``[3E, E]``/``[3E]``;
 * ``conv1 [width, 3·p·p]`` becomes the OIHW conv weight;
 * the CAM goes under ``final_transformer.*``, ``final_linear.weight``,
-  ``mask_embedding`` and ``mean_center_bn.*``.
+  ``mask_embedding`` and ``mean_center_bn.*``;
+* a TimeSformer tower's blocks, hoisted flat as
+  ``visual/transformer_resblocks_{i}`` with ``timeattn``, ``ln_time`` and
+  ``temporal_fc`` beside the ViT block's leaves, go under
+  ``model.visual.transformer.resblocks.{i}``, and ``visual/temporal_embed``
+  under ``model.visual.temporal_embed`` (the names of
+  ``vtc_tpu.models.torch_export.export_vtc_state_dict``).
 
 Every leaf must be consumed: a leaf with no place in the port (an audio head,
-a MoE adapter, a TimeSformer tower) raises instead of being dropped.
+a MoE adapter) raises instead of being dropped.
 """
 
 from __future__ import annotations
@@ -73,12 +79,23 @@ def _block(r: _Reader, src: str, sd: Dict, dst: str) -> None:
     for fc in ("c_fc", "c_proj"):
         sd[f"{dst}.mlp.{fc}.weight"] = r.get(f"{src}/mlp/{fc}/kernel").T
         sd[f"{dst}.mlp.{fc}.bias"] = r.get(f"{src}/mlp/{fc}/bias")
+    if r.has(f"{src}/timeattn"):  # a TimeSformer block
+        sd[f"{dst}.timeattn.in_proj_weight"] = qkv(r.get(f"{src}/timeattn/in_proj_weight"))
+        sd[f"{dst}.timeattn.in_proj_bias"] = qkv(r.get(f"{src}/timeattn/in_proj_bias"))
+        sd[f"{dst}.timeattn.out_proj.weight"] = r.get(f"{src}/timeattn/out_proj/kernel").T
+        sd[f"{dst}.timeattn.out_proj.bias"] = r.get(f"{src}/timeattn/out_proj/bias")
+        sd[f"{dst}.ln_time.weight"] = r.get(f"{src}/ln_time/scale")
+        sd[f"{dst}.ln_time.bias"] = r.get(f"{src}/ln_time/bias")
+        sd[f"{dst}.temporal_fc.weight"] = r.get(f"{src}/temporal_fc/kernel").T
+        sd[f"{dst}.temporal_fc.bias"] = r.get(f"{src}/temporal_fc/bias")
 
 
-def _blocks(r: _Reader, src: str, sd: Dict, dst: str) -> int:
+def _blocks(r: _Reader, src: str, sd: Dict, dst: str, sep: str = "/") -> int:
+    """Blocks ``{src}{sep}resblocks_{i}`` -> ``{dst}.resblocks.{i}``; the
+    TimeSformer hoists them flat (``sep="_"``)."""
     i = 0
-    while r.has(f"{src}/resblocks_{i}"):
-        _block(r, f"{src}/resblocks_{i}", sd, f"{dst}.resblocks.{i}")
+    while r.has(f"{src}{sep}resblocks_{i}"):
+        _block(r, f"{src}{sep}resblocks_{i}", sd, f"{dst}.resblocks.{i}")
         i += 1
     return i
 
@@ -98,7 +115,13 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
     for ln in ("ln_pre", "ln_post"):
         sd[f"model.visual.{ln}.weight"] = rc.get(f"visual/{ln}/scale")
         sd[f"model.visual.{ln}.bias"] = rc.get(f"visual/{ln}/bias")
-    if _blocks(rc, "visual/transformer", sd, "model.visual.transformer") == 0:
+    if rc.has("visual/temporal_embed"):  # a TimeSformer tower
+        sd["model.visual.temporal_embed"] = rc.get("visual/temporal_embed")
+        n_blocks = _blocks(rc, "visual/transformer", sd, "model.visual.transformer",
+                           sep="_")
+    else:
+        n_blocks = _blocks(rc, "visual/transformer", sd, "model.visual.transformer")
+    if n_blocks == 0:
         raise ValueError("no visual transformer blocks found")
     sd["model.token_embedding.weight"] = rc.get("text/token_embedding")
     sd["model.positional_embedding"] = rc.get("text/positional_embedding")

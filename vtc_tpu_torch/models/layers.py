@@ -2,7 +2,8 @@
 
 Port of ``vtc_tpu/models/layers.py``. Names follow the reference (openai
 CLIP) state dict: ``ln_1``, ``attn.in_proj_weight`` ``[3E, E]``,
-``attn.out_proj``, ``mlp.c_fc``, ``mlp.c_proj``, ``resblocks.{i}``.
+``attn.out_proj``, ``mlp.c_fc``, ``mlp.c_proj``, ``resblocks.{i}``; the
+TimeSformer's ``timeattn`` has the same names.
 
 Mixed precision follows flax: a ``dtype`` module computes its dense layers in
 ``dtype`` (input and weight cast, as ``nn.Dense(dtype=...)``), while the qkv
@@ -11,7 +12,11 @@ input is the fp32 tower features, qkv and the residual stream stay fp32.
 LayerNorm statistics are always fp32.
 
 TPU-era means are left out: ``seq_fold``, the fused LN->Dense path, the
-tensor-parallel qkv form, MoE, remat and stack parallelism (ROADMAP).
+tensor-parallel qkv form, MoE, remat and stack parallelism (ROADMAP). Where
+the JAX package folds short sequences into one masked attention call
+(``seq_fold=0``, the TimeSformer's temporal attention), the port attends
+each sequence on its own: the masked cross-sequence entries are exactly 0
+after the softmax, so the two agree.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import add_layernorm, fused_mha, layernorm
+from ..ops import add_layernorm, fused_attention, fused_mha, layernorm
 from ..ops.attention import causal_mask  # noqa: F401  (re-exported, as in vtc_tpu)
 
 
@@ -63,11 +68,33 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, x, causal: bool = False):
+    def qkv(self, x):
         w = self.in_proj_weight.to(self.dtype).to(x.dtype)
         b = self.in_proj_bias.to(self.dtype).to(x.dtype)
-        q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
+        return F.linear(x, w, b).chunk(3, dim=-1)
+
+    def forward(self, x, causal: bool = False):
+        q, k, v = self.qkv(x)
         out = fused_mha(q, k, v, self.num_heads, causal)
+        return dense(out, self.out_proj, self.dtype)
+
+
+class HeadsAttention(MultiHeadAttention):
+    """``MultiHeadAttention``'s parameters and math through the
+    ``ops.fused_attention`` kernel: the q/k/v column slices of the merged
+    qkv GEMM, viewed as ``[B, H, L, Dh]`` (heads split into the batch, no
+    copy), with an optional additive ``[L, L]`` mask. The kernel writes its
+    output in ``[B, L, H, Dh]`` order, so ``out_proj`` reads it without a
+    copy. At Dh = 64 the scale 1/8 is a power of two, so scaling the fp32
+    scores (``fused_attention``) equals scaling q in its dtype, as
+    ``MultiHeadAttention`` does, bit for bit. The TimeSformer's
+    ``timeattn``."""
+
+    def forward(self, x, mask=None):
+        b, l, e = x.shape
+        q, k, v = (t.unflatten(-1, (self.num_heads, -1)).transpose(1, 2)
+                   for t in self.qkv(x))
+        out = fused_attention(q, k, v, mask).transpose(1, 2).reshape(b, l, e)
         return dense(out, self.out_proj, self.dtype)
 
 

@@ -1,7 +1,9 @@
 """CLIP-backed retrieval models, eval path.
 
-Port of ``vtc_tpu/models/retrieval.py``: ``PretrainedCLIP`` and
-``PretrainedCLIP_finaltf`` (CLIP + CAM). Each keeps the reference's forward
+Port of ``vtc_tpu/models/retrieval.py``: ``PretrainedCLIP``,
+``PretrainedCLIP_finaltf`` (CLIP + CAM), and the video models
+``PretrainedCLIP_TimeSformer`` and ``PretrainedCLIP_TimeSformer_finaltf``
+(the TimeSformer tower, without and with the CAM). Each keeps the reference's forward
 contract ``forward(vis, title[, comments]) -> (feats_vis, feats_text, sim)``
 with L2-normalized features and ``sim = exp(logit_scale) · v @ tᵀ``.
 
@@ -13,8 +15,7 @@ reference checkpoint's keys.
 
 Not yet ported (ROADMAP): the training paths (``train=True``: random
 adapter skip, random comment masking, BN stat updates), the audio MLP
-(``init_audio_model``), the baselines ``MLP``/``JointEmbedding``/``CLIP`` and
-the TimeSformer models.
+(``init_audio_model``) and the baselines ``MLP``/``JointEmbedding``/``CLIP``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from torch import nn
 from .cam import ContextAdapter
 from .clip_model import CLIP_VARIANTS, ClipModel, patch_input_dim
 from .layers import l2_normalize
+from .timesformer import TimeSformer
 
 
 class _ClipRetrievalBase:
@@ -114,18 +116,19 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
     ``model/model.py:207-266``); the model is its own ``ContextAdapter``."""
 
     def __init__(self, model_type: str = "ViT-B/32", dtype=torch.float32,
-                 branch_to_adapt_val: str = "text",
+                 branch_to_adapt: str = "text", branch_to_adapt_val: str = "text",
                  residual_activation: Optional[str] = None,
                  n_layers: int = 2, n_heads: int = 8,
-                 init_from_avg: bool = True):
+                 init_from_avg: bool = True, clip_kwargs: Optional[dict] = None):
         variant = CLIP_VARIANTS[model_type]
         super().__init__(
             feature_dim=variant.embed_dim, n_layers=n_layers, n_heads=n_heads,
             init_from_avg=init_from_avg, residual_activation=residual_activation,
             dtype=dtype,
         )
+        self.branch_to_adapt = branch_to_adapt  # the training branch (ROADMAP)
         self.branch_to_adapt_val = branch_to_adapt_val  # the eval branch
-        self.model = ClipModel(variant, dtype)
+        self.model = ClipModel(variant, dtype, **(clip_kwargs or {}))
 
     def _encode_title_and_comments(self, title, comments):
         """One joint text-tower pass over [title; comments] when their token
@@ -188,6 +191,51 @@ class PretrainedCLIP_finaltf(_CamRetrievalBase):
             raise NotImplementedError(
                 "audio features need the audio MLP, not ported yet (ROADMAP)"
             )
+        feats_vis = self._encode_vis(vis)
+        feats_title, feats_comm = self._encode_title_and_comments(title, comments)
+        feats_vis, feats_text = self._encode_with_comments(
+            feats_vis, feats_title, feats_comm, branch_override
+        )
+        return feats_vis, feats_text, self._sim(feats_vis, feats_text)
+
+
+class _VideoTower:
+    """The TimeSformer models' visual path: ``vis`` goes straight to the
+    video tower (``[b, t, 3, h, w]`` or ``[b, t, n, p·p·3]`` patch frames)."""
+
+    def _encode_vis(self, vis):
+        return self.model.encode_image(vis).float()
+
+
+def _video_kwargs(nframes: int) -> dict:
+    return {"visual_module": TimeSformer, "visual_kwargs": {"nframes": nframes}}
+
+
+class PretrainedCLIP_TimeSformer(_VideoTower, _ClipRetrievalBase, nn.Module):
+    """CLIP with the TimeSformer video tower, no CAM (reference
+    ``model/model.py:483-506``); comments, if given, are not used."""
+
+    def __init__(self, model_type: str = "ViT-B/32", dtype=torch.float32,
+                 nframes: int = 8):
+        super().__init__()
+        self.model = ClipModel(CLIP_VARIANTS[model_type], dtype, **_video_kwargs(nframes))
+
+    def forward(self, vis, title, comments=None):
+        feats_vis = l2_normalize(self._encode_vis(vis))
+        feats_text = l2_normalize(self.model.encode_text(title).float())
+        return feats_vis, feats_text, self._sim(feats_vis, feats_text)
+
+
+class PretrainedCLIP_TimeSformer_finaltf(_VideoTower, _CamRetrievalBase):
+    """TimeSformer video tower + CAM (reference ``model/model.py:539-623``).
+    ``visual_device``, the reference's manual two-card split, is accepted
+    for the configs' sake and ignored: the model runs on one card."""
+
+    def __init__(self, *args, nframes: int = 8, visual_device: Optional[str] = None,
+                 **kwargs):
+        super().__init__(*args, clip_kwargs=_video_kwargs(nframes), **kwargs)
+
+    def forward(self, vis, title, comments, branch_override: Optional[str] = None):
         feats_vis = self._encode_vis(vis)
         feats_title, feats_comm = self._encode_title_and_comments(title, comments)
         feats_vis, feats_text = self._encode_with_comments(

@@ -1,16 +1,24 @@
 """The port's kernels, each beside its plain PyTorch version.
 
-``layernorm`` and ``add_layernorm`` are Triton kernels; ``fused_mha`` is CUDA
-C++ (``csrc/fused_mha.cu``). Each wrapper runs its plain version on a CPU
+``layernorm``, ``add_layernorm`` and the LN sweep's designs ``ln_mxu`` and
+``ln_mxu_bf16`` are Triton kernels; ``fused_mha`` and ``fused_attention`` are
+CUDA C++ (``csrc/*.cu``). Each wrapper runs its plain version on a CPU
 tensor and its kernel on a CUDA tensor, and counts its kernel launches in
 ``<wrapper>.launches``.
 """
 
 from .addln import add_layernorm, add_layernorm_plain
-from .attention import fused_mha, fused_mha_plain
+from .attention import (
+    causal_mask,
+    fused_attention,
+    fused_attention_plain,
+    fused_mha,
+    fused_mha_plain,
+)
 from .layernorm import layernorm, layernorm_plain
+from .ln_designs import ln_mxu, ln_mxu_bf16, ln_mxu_bf16_plain, ln_mxu_plain
 
-KERNELS = (layernorm, add_layernorm, fused_mha)
+KERNELS = (layernorm, add_layernorm, fused_mha, fused_attention, ln_mxu, ln_mxu_bf16)
 
 
 def reset_launch_counts() -> None:
@@ -26,10 +34,17 @@ __all__ = [
     "KERNELS",
     "add_layernorm",
     "add_layernorm_plain",
+    "causal_mask",
+    "fused_attention",
+    "fused_attention_plain",
     "fused_mha",
     "fused_mha_plain",
     "launch_counts",
     "layernorm",
     "layernorm_plain",
+    "ln_mxu",
+    "ln_mxu_bf16",
+    "ln_mxu_bf16_plain",
+    "ln_mxu_plain",
     "reset_launch_counts",
 ]
