@@ -21,10 +21,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    inputs larger than the L2 cache, median of 5), the time of one PyTorch
    library call for the same function where there is one, and the least
    time the card could take (bytes over 3.35 TB/s or operations over the
-   type's peak, the larger). In bf16 ``fused_mha`` is held to one ulp of its
-   typical output, and ``fused_attention`` to at most 1e-4 of its outputs
-   beyond that and none beyond one ulp of its largest; each limit is shown
-   to catch a P left unrounded;
+   type's peak, the larger) and the kernel's share of it. ``fused_mha`` also
+   runs at the video model's spatial shape (batch 400 frames, L = 50). In
+   bf16 both attention kernels are held to at most 1e-4 of their outputs
+   beyond one ulp of the typical output and none beyond one ulp of the
+   largest, a limit shown to catch a P left unrounded;
 4. flagship: ``PretrainedCLIP_finaltf`` ViT-B/32 forward, fp32, batch 32,
    bench.py's inputs (uint8 patches, 16-token title and 5 comments, one
    empty), on the card against the same seeded weights on the CPU (plain
@@ -59,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -77,11 +79,11 @@ FEAT_ATOL = 1e-4  # card vs CPU at full depth: GEMM sums in another order
 COS_MIN = 0.995  # bf16 vs fp32 (tests/test_clip_parity.py::test_bf16_close_to_fp32)
 CAM_NOISE = 0.05  # tests/test_torch_models.py's ``tiny`` fixture
 TEMPORAL_NOISE = 0.02  # the std of the attention projections' init
-# fused_attention in bf16: the share of outputs allowed beyond one ulp at the
-# median |output|. Where the plain version's cuBLAS sums the fp32 scores in
-# another order than the kernel, P's rounding to bf16 flips at a few entries
-# (at L = 8, a share of about 1e-5 on the H100); a P left unrounded moves a
-# share of about 0.06.
+# fused_mha and fused_attention in bf16: the share of outputs allowed beyond
+# one ulp at the median |output|. Where the plain version's cuBLAS sums the
+# fp32 scores and P·V in another order than the kernel's tensor cores, the
+# roundings of P and of the output to bf16 flip at a few entries (a share of
+# about 1e-5 on the H100); a P left unrounded moves a share of about 0.04.
 ATTN_BF16_SHARE = 1e-4
 WARMUP, WINDOWS, PER_WINDOW = 20, 20, 10  # flagship bf16 throughput: forwards
 VIDEO_WARMUP, VIDEO_WINDOWS, VIDEO_PER_WINDOW = 5, 10, 4  # video: forwards
@@ -169,6 +171,25 @@ def share_beyond(out, ref, tol: float) -> float:
     return ((out.float() - ref.float()).abs() > tol).float().mean().item()
 
 
+def bf16_share_check(kernel: str, name: str, out, ref, fault) -> float:
+    """The attention kernels' bf16 rule: at most ``ATTN_BF16_SHARE`` of the
+    outputs beyond one ulp at the median |output|, and ``fault`` (the plain
+    version with P left unrounded) beyond it. Returns the max-abs tolerance
+    that goes with it, one ulp at the largest |output|."""
+    median_ulp = bf16_ulp_at_median(ref)
+    share = share_beyond(out, ref, median_ulp)
+    fault_share = share_beyond(fault, ref, median_ulp)
+    log(f"kernel {kernel} {name} bfloat16: {share:.3g} of outputs beyond one ulp "
+        f"at the median ({median_ulp:.3g}), limit {ATTN_BF16_SHARE:g}; P left "
+        f"unrounded: {fault_share:.3g} of them, max diff "
+        f"{(fault.float() - ref.float()).abs().max().item():.3g}")
+    require(share <= ATTN_BF16_SHARE,
+            f"{kernel} {name}: {share} of outputs beyond {median_ulp}")
+    require(fault_share > ATTN_BF16_SHARE,
+            f"{kernel} {name}: the bf16 check cannot see P's rounding ({fault_share})")
+    return bf16_tol(ref, 1)
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -191,7 +212,9 @@ def check_kernels(ops) -> dict:
     b = BENCH_BATCH
     ln_shapes = {"vit": (b * 50, 768), "text": (6 * b * 16, 512), "cam": (b * 6, 512)}
     mha_shapes = {"vit": (b, 50, 768, 12, False), "text": (6 * b, 16, 512, 8, True),
-                  "cam": (b, 6, 512, 8, False)}
+                  "cam": (b, 6, 512, 8, False),
+                  # the video model's spatial attention: 50 videos x 8 frames
+                  "video": (400, 50, 768, 12, False)}
     out = {k: {"cases": []} for k in SOURCES}
 
     def record(kernel, shape_name, dtype, err, tol, ms, plain_ms, library_ms,
@@ -207,6 +230,7 @@ def check_kernels(ops) -> dict:
         log(f"kernel {kernel} {shape_name} {case['dtype']} {desc}: "
             f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib} "
             f"bound_us={bound_ms * 1e3:.2f} ({bound_by}) "
+            f"share_of_bound={bound_ms / ms:.4f} "
             f"max_abs_err={err:.3g} tol={tol:.3g}")
         require(err <= tol, f"{kernel} {shape_name} {case['dtype']}: "
                 f"max_abs_err {err} > tol {tol}")
@@ -269,13 +293,8 @@ def check_kernels(ops) -> dict:
             if dtype == torch.float32:
                 tol = FP32_ATOL
             else:
-                tol = bf16_ulp_at_median(ref)
-                fault = (mha_p_unrounded(q, k, v, h, causal).float()
-                         - ref.float()).abs().max().item()
-                log(f"kernel fused_mha {name} bfloat16: P left unrounded would "
-                    f"differ by {fault:.3g} (tol {tol:.3g})")
-                require(fault > tol, f"fused_mha {name}: the bf16 tolerance "
-                        f"{tol} cannot see P's rounding ({fault})")
+                tol = bf16_share_check("fused_mha", name, o, ref,
+                                       mha_p_unrounded(q, k, v, h, causal))
             dh = e // h
             pairs = l * (l + 1) // 2 if causal else l * l  # (query, key) pairs run
             bms, by = bound(per, 4 * bsz * h * pairs * dh, dtype)
@@ -348,20 +367,8 @@ def check_fused_attention(ops, dtype, g, record) -> None:
         if dtype == torch.float32:
             tol = FP32_ATOL
         else:
-            tol = bf16_tol(ref, 1)
-            median_ulp = bf16_ulp_at_median(ref)
-            share = share_beyond(o, ref, median_ulp)
-            fault = attention_p_unrounded(q, k, v, mask)
-            fault_share = share_beyond(fault, ref, median_ulp)
-            log(f"kernel fused_attention {name} bfloat16: {share:.3g} of outputs "
-                f"beyond one ulp at the median ({median_ulp:.3g}), limit "
-                f"{ATTN_BF16_SHARE:g}; P left unrounded: {fault_share:.3g} of them, "
-                f"max diff {(fault.float() - ref.float()).abs().max().item():.3g}")
-            require(share <= ATTN_BF16_SHARE,
-                    f"fused_attention {name}: {share} of outputs beyond {median_ulp}")
-            require(fault_share > ATTN_BF16_SHARE,
-                    f"fused_attention {name}: the bf16 check cannot see P's "
-                    f"rounding ({fault_share})")
+            tol = bf16_share_check("fused_attention", name, o, ref,
+                                   attention_p_unrounded(q, k, v, mask))
         mask_bytes = 0 if mask is None else length * length * 4
         bms, by = bound(per + mask_bytes, 4 * nbh * length * length * dh, dtype)
 
@@ -664,9 +671,16 @@ def main() -> int:
     for stem, path in libs.items():
         ptxas = path.with_suffix(".so.log").read_text() if path.with_suffix(
             ".so.log").exists() else ""
+        entry = ""
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {stem}: {line.strip()}")
+            # a template instance's arguments, e.g. <bf16, 8, 4>
+            m = re.search(r"Compiling entry function '_Z\w*?_kernelI(\w+?)EEvNS", line)
+            if m:
+                entry = "<" + ", ".join(re.findall(
+                    r"13__nv_bfloat16|f(?=Li)|(?<=Li)\d+", m.group(1))) + ">"
+                entry = entry.replace("13__nv_bfloat16", "bf16").replace("<f", "<fp32")
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {stem}{entry}: {line.split(':', 1)[-1].strip()}")
     tic = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         for d in (512, 768):

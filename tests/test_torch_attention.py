@@ -139,12 +139,22 @@ def test_fused_attention_backward_raises():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
 @pytest.mark.parametrize("mask_kind", ["none", "causal", "additive"])
-@pytest.mark.parametrize("b,l,dh", [(96, 8, 64), (64, 16, 64), (8, 77, 32),
-                                    (4, 128, 128)])
-def test_fused_attention_kernel_on_card(cuda, b, l, dh, mask_kind, dtype_name):
+@pytest.mark.parametrize("b,h,l,dh", [
+    # h = 0: contiguous [B, L, Dh]; h > 0: [B, H, L, Dh] head views of the
+    # column slices of one [B, L, 3·H·Dh] buffer, as the TimeSformer's
+    (96, 0, 8, 64), (64, 0, 16, 64), (8, 0, 77, 32), (4, 0, 128, 128),
+    (16, 0, 1, 64),
+    # head views at L = 8 with an odd B·H = 35, and at L = 128
+    (7, 5, 8, 64), (3, 2, 128, 64),
+])
+def test_fused_attention_kernel_on_card(cuda, b, h, l, dh, mask_kind, dtype_name):
     tdt = DTYPES[dtype_name]
     g = torch.Generator().manual_seed(l)
-    q, k, v = (torch.randn(b, l, dh, generator=g).to(cuda, tdt) for _ in range(3))
+    if h:
+        qkv = torch.randn(b, l, 3 * h * dh, generator=g).to(cuda, tdt)
+        q, k, v = (t.unflatten(-1, (h, dh)).transpose(1, 2) for t in qkv.chunk(3, -1))
+    else:
+        q, k, v = (torch.randn(b, l, dh, generator=g).to(cuda, tdt) for _ in range(3))
     mask = _mask(mask_kind, l, seed=l)
     mask = None if mask is None else torch.from_numpy(mask).to(cuda)
     n = ops.fused_attention.launches

@@ -14,6 +14,8 @@ card's tests there with
 ``python -m pytest tests/test_torch_ops.py -m cuda --noconftest``.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -176,6 +178,30 @@ def test_backward_through_a_kernel_raises():
         assert not _build.forward_only("layernorm", lambda t: t * 2, x).requires_grad
 
 
+def test_header_edit_renames_both_libraries(tmp_path):
+    """Both CUDA sources include ``csrc/short_attention.cuh``. A library's
+    name hashes every header beside its source, so an edit to the header
+    alone renames (and so rebuilds) both libraries, and a stale build is
+    never loaded. No GPU or nvcc needed: only the names are computed."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    sources = sorted(csrc.glob("*.cu"))
+    assert [src.stem for src in sources] == ["fused_attention", "fused_mha"]
+    for src in sources:
+        assert '#include "short_attention.cuh"' in src.read_text()
+        # the same files give the same name wherever they lie
+        assert _build._lib_path(src, csrc) == _build._lib_path(
+            _build.CSRC_DIR / src.name)
+    before = [_build._lib_path(src, csrc) for src in sources]
+    header = csrc / "short_attention.cuh"
+    text = bytearray(header.read_bytes())
+    text[text.index(b"Hopper")] = ord("h")  # one byte of a comment
+    header.write_bytes(bytes(text))
+    after = [_build._lib_path(src, csrc) for src in sources]
+    assert all(a != b and a.stem.split("-")[0] == b.stem.split("-")[0]
+               for a, b in zip(after, before))
+
+
 def test_launch_counters_reset():
     ops.layernorm.launches = 3
     ops.reset_launch_counts()
@@ -211,6 +237,12 @@ def test_layernorm_kernels_on_card(cuda, rows, d, dtype_name):
 @pytest.mark.parametrize("b,l,e,h,causal", [
     (160, 50, 768, 12, False), (960, 16, 512, 8, True), (160, 6, 512, 8, False),
     (4, 128, 256, 2, True),
+    # the tile's edges: one key, a ragged 16-row tile, 77 and 128 keys
+    (32, 1, 128, 2, False), (32, 7, 128, 2, True), (24, 77, 512, 8, True),
+    (4, 128, 256, 2, False),
+    # Dh = 40: padded to 48 columns; Dh = 20: rows of 40 bytes in bf16, not
+    # 16-byte aligned, so the kernel takes its element-load path
+    (12, 50, 80, 2, False), (12, 50, 40, 2, True),
 ])
 def test_fused_mha_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
     tdt = DTYPES[dtype_name]

@@ -5,168 +5,111 @@
 // _reference_attention (:118): scores = the fp32 product q·kᵀ times the scale
 // in fp32 (q is not scaled in its own type, unlike fused_mha), plus the fp32
 // mask broadcast over batch and heads, softmax in fp32 (max subtracted,
-// e / Σe), P rounded to q's type, P@V with an fp32 accumulator, output
-// rounded to q's type. The Pallas form's L and D padding, its key-pad -inf
-// columns and its padded rows that attend column 0 change no real row and
-// are not carried over: nothing is padded here.
+// e / Σe; a row the mask covers whole gives NaN), P rounded to q's type,
+// P@V with an fp32 accumulator, output rounded to q's type. The Pallas
+// form's padding to (8, 128) tiles changes no real row and is not carried
+// over.
 //
 // Bound on the H100: bytes. q, k, v are read once and o written once
 // (4·B·H·L·D elements); the work, 4·B·H·L²·D flops, is far below the card's
 // ops-per-byte balance at L <= 128 (at the TimeSformer's temporal shape,
-// L = 8, it is 16 flops per element moved). So the design keeps the scores
-// and P out of device memory: one block per (sequence, head) stages that
-// head's K and V in shared memory, and each warp walks its query rows with
-// the whole score row in registers (4 keys per lane). Every tensor comes
-// with its (batch, head, row) strides, so the TimeSformer hands over the 4-D
-// head views of its merged qkv GEMM's column slices with no transpose copy,
-// and the output is written in the [B, L, H, D] order that out_proj reads.
-// Tensor cores, and several short sequences per warp at L = 8, are later
-// work.
+// L = 8, it is 16 flops per element moved). Design (short_attention.cuh,
+// shared with fused_mha.cu): every tensor comes with its (batch, head, row)
+// strides, so the TimeSformer hands over the 4-D head views of its merged
+// qkv GEMM's column slices with no transpose copy, and the output is
+// written in the [B, L, H, D] order that out_proj reads. A block stages one
+// (sequence, head)'s q, k, v in shared memory with 16-byte cp.async; one
+// warp per 16-row query tile runs S = QKᵀ and P·V on mma.sync (bf16) or
+// CUDA-core FMAs (fp32), scores and P in registers, the scale and the mask
+// applied to the fp32 S fragment. At L = 8 a (sequence, head) is an 8 × 64
+// tile of 1 KB per tensor, one warp's block: one m16n8k16 tile for S with 8
+// real rows, P·V at k = 16 with keys 8-15 zero. 32 such blocks share an SM,
+// so it has about 96 KB of copies in flight.
+//
+// Registers (ptxas -v, sm_90a), per instance <T, key tiles, Dh chunks>:
+// the temporal attention's <bf16, 2, 4> 48 (fp32: 68); the largest,
+// <fp32, 16, 8>, 168. No instance spills.
 //
 // Plain C interface, loaded with ctypes (vtc_tpu_torch/ops/attention.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "short_attention.cuh"
 
 namespace {
-
-constexpr int kWarps = 4;
-constexpr int kMaxL = 128;  // keys per row: 4 per lane
-constexpr int kMaxD = 128;  // output columns per row: 4 per lane
 
 struct Strides {
   long long b, h, l;  // in elements; the last dim is contiguous
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// the fp32 scores times the scale, plus the mask (real rows only: padded
+// query rows are never stored)
+struct MaskScore {
+  static constexpr bool kScaleQ = false;
+  float scale;
+  const float* mask;
+  int L;
+  __device__ int key_end(int, int L_) const { return L_; }
+  __device__ float operator()(float acc, int row, int key) const {
+    const float x = acc * scale;
+    return (mask != nullptr && row < L) ? x + __ldg(mask + row * L + key) : x;
+  }
+};
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bfloat16)
-}
-
-// the value x takes once stored in T
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Shared memory: K [L][D+1] (the +1 pad puts lane j's key row on its own
-// bank), V [L][D], and per warp one q row [D] and one P row [L].
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ mask,
-                       T* __restrict__ o, Strides sq, Strides sk, Strides sv,
-                       Strides so, int H, int L, int D, float scale) {
-  extern __shared__ float smem[];
-  const int ks = D + 1;
-  float* Ks = smem;
-  float* Vs = Ks + L * ks;
-  float* Qs = Vs + L * D;
-  float* Ps = Qs + kWarps * D;
+struct Args {
+  const T *q, *k, *v;
+  const float* mask;
+  T* o;
+  Strides sq, sk, sv, so;
+  int B, H, L, D, vec_in, vec_out;
+  float scale;
+};
 
-  const long long b = blockIdx.x / H;
-  const long long h = blockIdx.x % H;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+// block i = b·H + h
+template <typename T>
+__device__ __forceinline__ sa::HeadPtrs<T> head(const Args<T>& a, int i) {
+  const int b = i / a.H, h = i - b * a.H;
+  return {a.q + b * a.sq.b + h * a.sq.h, a.k + b * a.sk.b + h * a.sk.h,
+          a.v + b * a.sv.b + h * a.sv.h, a.o + b * a.so.b + h * a.so.h,
+          a.sq.l, a.sk.l, a.sv.l, a.so.l};
+}
 
-  // neighbouring threads read neighbouring columns of one key row
-  for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
-    const int j = i / D, d = i % D;
-    Ks[j * ks + d] = to_f32(kb[j * sk.l + d]);
-    Vs[j * D + d] = to_f32(vb[j * sv.l + d]);
+template <typename T, int NKT, int DC>
+__global__ void __launch_bounds__(sa::max_threads(NKT), sa::min_blocks(NKT))
+fused_attention_kernel(const Args<T> a) {
+  const MaskScore score{a.scale, a.mask, a.L};
+  sa::attend_block<T, NKT, DC>(head(a, blockIdx.x), a.L, a.D, a.vec_in, a.vec_out,
+                               score);
+}
+
+template <typename T>
+struct Launch {
+  const Args<T>& a;
+  cudaStream_t stream;
+  template <int NKT, int DC> cudaError_t run() const {
+    return sa::launch_heads<T>(fused_attention_kernel<T, NKT, DC>, a,
+                               (long long)a.B * a.H, a.L, a.D, stream);
   }
-  __syncthreads();
+};
 
-  float* qrow = Qs + warp * D;
-  float* prow = Ps + warp * L;
-
-  for (int r = warp; r < L; r += kWarps) {
-    for (int d = lane; d < D; d += 32) qrow[d] = to_f32(qb[r * sq.l + d]);
-    __syncwarp();
-
-    const float* mrow = mask != nullptr ? mask + (long long)r * L : nullptr;
-    float sc[kMaxL / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kMaxL / 32; ++t) {
-      const int j = lane + 32 * t;
-      float s = -INFINITY;
-      if (j < L) {
-        float acc = 0.f;
-        const float* krow = Ks + j * ks;
-        for (int d = 0; d < D; ++d) acc = fmaf(qrow[d], krow[d], acc);
-        s = acc * scale;
-        if (mrow != nullptr) s += mrow[j];
-      }
-      sc[t] = s;
-      m = fmaxf(m, s);
-    }
-    // a row the mask covers whole has m = -inf and gives NaN, as the
-    // reference's softmax does
-    m = warp_max(m);
-
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxL / 32; ++t) {
-      const int j = lane + 32 * t;
-      sc[t] = j < L ? expf(sc[t] - m) : 0.f;
-      sum += sc[t];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < kMaxL / 32; ++t) {
-      const int j = lane + 32 * t;
-      if (j < L) prow[j] = round_to<T>(sc[t] / sum);
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int t = 0; t < kMaxD / 32; ++t) {
-      const int d = lane + 32 * t;
-      if (d < D) {
-        float acc = 0.f;
-        for (int j = 0; j < L; ++j) acc = fmaf(prow[j], Vs[j * D + d], acc);
-        ob[r * so.l + d] = from_f32<T>(acc);
-      }
-    }
-    __syncwarp();  // qrow and prow are rewritten by the next row
-  }
+bool strides16(const void* p, const Strides& s, int es, int B, int H, int L) {
+  return sa::aligned16(p) && sa::stride16(s.b, es, B) && sa::stride16(s.h, es, H) &&
+         sa::stride16(s.l, es, L);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* mask,
                    void* o, Strides sq, Strides sk, Strides sv, Strides so, int B,
                    int H, int L, int D, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)L * (D + 1) + (size_t)L * D + kWarps * (D + L));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  fused_attention_kernel<T><<<B * H, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<T*>(o), sq, sk, sv, so, H, L, D, scale);
-  return cudaGetLastError();
+  const int es = sizeof(T);
+  const bool d16 = (D * es) % 16 == 0;
+  const bool vec_in = d16 && strides16(q, sq, es, B, H, L) &&
+                      strides16(k, sk, es, B, H, L) && strides16(v, sv, es, B, H, L);
+  const bool vec_out = d16 && strides16(o, so, es, B, H, L);
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), mask, static_cast<T*>(o), sq, sk, sv, so,
+                  B, H, L, D, vec_in, vec_out, scale};
+  Launch<T> f{a, stream};
+  return sa::with_bucket(L, D, f);
 }
 
 }  // namespace
@@ -182,8 +125,7 @@ extern "C" int vtc_fused_attention(
     long long k_sl, long long v_sb, long long v_sh, long long v_sl, long long o_sb,
     long long o_sh, long long o_sl, int B, int H, int L, int D, float scale,
     int dtype, void* stream) {
-  if (L < 1 || L > kMaxL || D < 1 || D > kMaxD || B < 1 || H < 1 ||
-      (long long)B * H > 0x7fffffffLL)
+  if (L < 1 || L > sa::kMaxL || D < 1 || D > sa::kMaxDh || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sl}, sk{k_sb, k_sh, k_sl}, sv{v_sb, v_sh, v_sl},
       so{o_sb, o_sh, o_sl};
@@ -192,7 +134,6 @@ extern "C" int vtc_fused_attention(
   if (dtype == 0)
     return (int)launch<float>(q, k, v, m, o, sq, sk, sv, so, B, H, L, D, scale, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, m, o, sq, sk, sv, so, B, H, L, D,
-                                      scale, st);
+    return (int)launch<sa::bf16>(q, k, v, m, o, sq, sk, sv, so, B, H, L, D, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,161 +2,113 @@
 //
 // Replaces the Pallas kernel vtc_tpu/ops/pallas_attention.py:fused_mha
 // (_fused_mha_fwd_impl :223, _mha_kernel :182). Contract, that of
-// _mha_reference (:268): q is scaled by Dh^-0.5 in q's type, QK^T in fp32,
-// optional causal mask, softmax in fp32, P rounded to q's type, P@V with an
-// fp32 accumulator, output rounded to q's type. The TPU kernel's 128-row
+// _mha_reference (:268): q is scaled by Dh^-0.5 in q's type (the scale
+// rounded to T, the product rounded to T), QK^T in fp32, optional causal
+// mask, softmax in fp32, P rounded to q's type, P@V with an fp32
+// accumulator, output rounded to q's type. The TPU kernel's 128-row
 // supertile packing and block-diagonal mask are means of the TPU, not part
 // of the contract, and are not carried over.
 //
 // Bound on the H100: bytes. q, k, v are read once and o written once
-// (4·B·L·E elements); the work is 4·B·H·L²·Dh flops, far below the card's
-// ops-per-byte balance at L <= 128. So the design keeps the scores and P out
-// of device memory: one block per (sequence, head) stages that head's Dh
-// slice of K and V in shared memory straight from the [B, L, E] layout (no
-// head transpose, no copy of the strided q/k/v views of the merged qkv GEMM),
-// and each warp walks its query rows with the whole score row in registers.
-// Tensor cores (wgmma) and TMA are later work.
+// (4·B·L·E elements); the work, 4·B·H·L²·Dh flops, is far below the card's
+// ops-per-byte balance at L <= 128 (ViT-B/32, L = 50: 1.2 GFLOP, 1.2 µs on
+// the bf16 tensor cores, against 14.7 µs of bytes). Design
+// (short_attention.cuh, shared with fused_attention.cu): one block per
+// (sequence, head) stages its q, k, v tiles in shared memory as T with
+// 16-byte cp.async straight from the strided [B, L, E] column slices of the
+// merged qkv GEMM (no head transpose, no copy), v in a second group that
+// lands while the scores run; one warp per 16-row query tile runs S = QKᵀ
+// and P·V on mma.sync (bf16) or CUDA-core FMAs (fp32), the scores and P in
+// registers. q is scaled before the first product: bf16 in registers after
+// ldmatrix, fp32 in the warp's own shared rows. Causal key tiles wholly
+// above a query tile's diagonal are skipped; the diagonal tile is masked in
+// the softmax. At L = 50 a block is 4 warps and 27.6 KB of bf16 tiles, so
+// several blocks share an SM and one block's copies overlap another's
+// products. wgmma would buy nothing here: the products are far below the
+// bytes.
+//
+// Registers (ptxas -v, sm_90a), per instance <T, key tiles, Dh chunks>:
+// the path's <bf16, 8, 4> (L <= 64) 77, <bf16, 2, 4> (L <= 16) 52 and
+// <fp32, 2, 4> (the CAM) 72; the largest, <fp32, 16, 8>, 168. No instance
+// spills (the launch bounds of short_attention.cuh see to that).
 //
 // Plain C interface, loaded with ctypes (vtc_tpu_torch/ops/attention.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "short_attention.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxL = 128;   // keys per row: 4 per lane
-constexpr int kMaxDh = 128;  // output columns per row: 4 per lane
+// the fp32 scores of q·scale (already in T) and k, with the causal mask
+struct CausalScore {
+  static constexpr bool kScaleQ = true;
+  float q_scale;
+  int causal;
+  __device__ int key_end(int q0, int L) const { return causal ? min(L, q0 + 16) : L; }
+  __device__ float operator()(float acc, int row, int key) const {
+    return (causal && key > row) ? -INFINITY : acc;
+  }
+};
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bfloat16)
-}
-
-// the value x takes once stored in T
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Shared memory: K [L][Dh+1] (the +1 pad puts lane j's key row on its own
-// bank), V [L][Dh], and per warp one scaled q row [Dh] and one P row [L].
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 long long q_sb, long long q_sl, long long k_sb, long long k_sl,
-                 long long v_sb, long long v_sl, int L, int H, int Dh,
-                 int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ks = Dh + 1;
-  float* Ks = smem;
-  float* Vs = Ks + L * ks;
-  float* Qs = Vs + L * Dh;
-  float* Ps = Qs + kWarps * Dh;
+struct Args {
+  const T *q, *k, *v;
+  T* o;
+  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
+  int B, L, H, Dh, causal, vec_in, vec_out;
+  float scale;
+};
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int E = H * Dh;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const T* qb = q + b * q_sb + h * Dh;
-  const T* kb = k + b * k_sb + h * Dh;
-  const T* vb = v + b * v_sb + h * Dh;
-  T* ob = o + (long long)b * L * E + h * Dh;
+// block i = b·H + h; head h is columns [h·Dh, (h+1)·Dh) of E
+template <typename T>
+__device__ __forceinline__ sa::HeadPtrs<T> head(const Args<T>& a, int i) {
+  const int b = i / a.H, col = (i - b * a.H) * a.Dh, e = a.H * a.Dh;
+  return {a.q + b * a.q_sb + col, a.k + b * a.k_sb + col, a.v + b * a.v_sb + col,
+          a.o + (long long)b * a.L * e + col, a.q_sl, a.k_sl, a.v_sl, e};
+}
 
-  // neighbouring threads read neighbouring columns of one key row
-  for (int i = threadIdx.x; i < L * Dh; i += blockDim.x) {
-    const int j = i / Dh, d = i % Dh;
-    Ks[j * ks + d] = to_f32(kb[j * k_sl + d]);
-    Vs[j * Dh + d] = to_f32(vb[j * v_sl + d]);
-  }
-  __syncthreads();
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<sa::bf16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
-  // the scale rounded to T, then the product rounded to T: q * asarray(s, T)
-  const float s = round_to<T>(scale);
-  float* qrow = Qs + warp * Dh;
-  float* prow = Ps + warp * L;
-
-  for (int r = warp; r < L; r += kWarps) {
-    for (int d = lane; d < Dh; d += 32) qrow[d] = round_to<T>(to_f32(qb[r * q_sl + d]) * s);
-    __syncwarp();
-
-    const int n_keys = causal ? r + 1 : L;
-    float sc[kMaxL / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kMaxL / 32; ++t) {
-      const int j = lane + 32 * t;
-      float acc = -INFINITY;
-      if (j < n_keys) {
-        acc = 0.f;
-        const float* krow = Ks + j * ks;
-        for (int d = 0; d < Dh; ++d) acc = fmaf(qrow[d], krow[d], acc);
-      }
-      sc[t] = acc;
-      m = fmaxf(m, acc);
-    }
-    m = warp_max(m);  // key 0 is always visible, so m is finite
-
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxL / 32; ++t) {
-      const int j = lane + 32 * t;
-      sc[t] = j < n_keys ? expf(sc[t] - m) : 0.f;
-      sum += sc[t];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < kMaxL / 32; ++t) {
-      const int j = lane + 32 * t;
-      if (j < n_keys) prow[j] = round_to<T>(sc[t] / sum);
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int t = 0; t < kMaxDh / 32; ++t) {
-      const int d = lane + 32 * t;
-      if (d < Dh) {
-        float acc = 0.f;
-        for (int j = 0; j < n_keys; ++j) acc = fmaf(prow[j], Vs[j * Dh + d], acc);
-        ob[r * E + d] = from_f32<T>(acc);
-      }
-    }
-    __syncwarp();  // qrow and prow are rewritten by the next row
-  }
+template <typename T, int NKT, int DC>
+__global__ void __launch_bounds__(sa::max_threads(NKT), sa::min_blocks(NKT))
+fused_mha_kernel(const Args<T> a) {
+  const CausalScore score{round_to<T>(a.scale), a.causal};
+  sa::attend_block<T, NKT, DC>(head(a, blockIdx.x), a.L, a.Dh, a.vec_in, a.vec_out,
+                               score);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   long long q_sb, long long q_sl, long long k_sb, long long k_sl,
-                   long long v_sb, long long v_sl, int B, int L, int H, int Dh,
-                   int causal, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)L * (Dh + 1) + (size_t)L * Dh + kWarps * (Dh + L));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mha_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+struct Launch {
+  const Args<T>& a;
+  cudaStream_t stream;
+  template <int NKT, int DC> cudaError_t run() const {
+    return sa::launch_heads<T>(fused_mha_kernel<T, NKT, DC>, a, (long long)a.B * a.H,
+                               a.L, a.Dh, stream);
   }
-  fused_mha_kernel<T><<<B * H, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, L, H, Dh, causal, scale);
-  return cudaGetLastError();
+};
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, long long q_sb,
+                   long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+                   long long v_sl, int B, int L, int H, int Dh, int causal, float scale,
+                   cudaStream_t stream) {
+  const int es = sizeof(T);
+  // 16-byte copies need every base, the head offset h·Dh and every row and
+  // batch stride at 16-byte multiples
+  const bool dh16 = (Dh * es) % 16 == 0;
+  const bool vec_in = dh16 && sa::aligned16(q) && sa::aligned16(k) && sa::aligned16(v) &&
+                      sa::stride16(q_sb, es, B) && sa::stride16(k_sb, es, B) &&
+                      sa::stride16(v_sb, es, B) && sa::stride16(q_sl, es, L) &&
+                      sa::stride16(k_sl, es, L) && sa::stride16(v_sl, es, L);
+  const bool vec_out = dh16 && sa::aligned16(o);
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<T*>(o), q_sb, q_sl, k_sb, k_sl,
+                  v_sb, v_sl, B, L, H, Dh, causal, vec_in, vec_out, scale};
+  Launch<T> f{a, stream};
+  return sa::with_bucket(L, Dh, f);
 }
 
 }  // namespace
@@ -170,14 +122,14 @@ extern "C" int vtc_fused_mha(const void* q, const void* k, const void* v, void* 
                              long long k_sl, long long v_sb, long long v_sl, int B,
                              int L, int H, int Dh, int causal, float scale, int dtype,
                              void* stream) {
-  if (L < 1 || L > kMaxL || Dh < 1 || Dh > kMaxDh || B < 1 || H < 1)
+  if (L < 1 || L > sa::kMaxL || Dh < 1 || Dh > sa::kMaxDh || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B, L, H,
                               Dh, causal, scale, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
-                                      B, L, H, Dh, causal, scale, st);
+    return (int)launch<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B, L, H,
+                                 Dh, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

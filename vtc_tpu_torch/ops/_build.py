@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc`` into a shared library for ``sm_90a``; all sources are compiled
 in parallel, at first use, into ``vtc_tpu_torch/_build/`` (listed in
-``.gitignore``). A library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded. The library
+``.gitignore``). A library's file name carries a hash of its source and of
+the shared headers ``csrc/*.cuh``, so an edited source or header is rebuilt
+and a stale library is never loaded. The library
 is then opened with ``ctypes``: no PyTorch headers, so a build takes seconds.
 """
 
@@ -44,8 +45,13 @@ def nvcc_path() -> str:
     return nvcc
 
 
-def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def _lib_path(src: Path, csrc_dir: Path = CSRC_DIR) -> Path:
+    """The library of ``src``, named by a hash of the source, every header
+    of ``csrc_dir`` (``*.cuh``, which the sources include) and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

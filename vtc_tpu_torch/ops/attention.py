@@ -13,9 +13,10 @@ with any (batch, head, row) strides, with an optional additive fp32
 ``:118``), not q in its own dtype as in ``fused_mha``.
 
 On a CUDA tensor each launches its hand-written CUDA kernel
-(``csrc/fused_mha.cu``, ``csrc/fused_attention.cu``, whose source notes give
-the bound and the design); on a CPU tensor it runs its plain version, the
-math of the JAX reference. There is no fallback from one to the other. L is
+(``csrc/fused_mha.cu``, ``csrc/fused_attention.cu``, both built on the
+tensor-core tile of ``csrc/short_attention.cuh``; the source notes give the
+bound and the design); on a CPU tensor it runs its plain version, the math
+of the JAX reference. There is no fallback from one to the other. L is
 at most 128 in both, as in the TPU kernels.
 """
 
@@ -29,7 +30,7 @@ import torch
 from ._build import check_launch, forward_only, load_library
 
 MAX_LEN = 128
-MAX_HEAD_DIM = 128  # csrc/fused_mha.cu: kMaxL, kMaxDh; fused_attention.cu: kMaxL, kMaxD
+MAX_HEAD_DIM = 128  # csrc/short_attention.cuh: sa::kMaxL, sa::kMaxDh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
