@@ -114,7 +114,7 @@ SOURCES = {
                   "vtc_tpu/ops/pallas_attention.py:288"),
     "fused_attention": ("cuda", "vtc_tpu_torch/csrc/fused_attention.cu",
                         "vtc_tpu/ops/pallas_attention.py:131"),
-    "ln_mxu": ("triton", "vtc_tpu_torch/ops/ln_designs.py",
+    "ln_mxu": ("cuda", "vtc_tpu_torch/csrc/ln_mxu.cu",
                "scripts/bench_ln_kernel.py:39"),
     "ln_mxu_bf16": ("triton", "vtc_tpu_torch/ops/ln_designs.py",
                     "scripts/bench_ln_kernel.py:61"),
@@ -673,11 +673,11 @@ def main() -> int:
             ".so.log").exists() else ""
         entry = ""
         for line in ptxas.splitlines():
-            # a template instance's arguments, e.g. <bf16, 8, 4>
+            # a template instance's arguments, e.g. <bf16, 8, 4> or <fp32>
             m = re.search(r"Compiling entry function '_Z\w*?_kernelI(\w+?)EEvNS", line)
             if m:
                 entry = "<" + ", ".join(re.findall(
-                    r"13__nv_bfloat16|f(?=Li)|(?<=Li)\d+", m.group(1))) + ">"
+                    r"13__nv_bfloat16|f(?=Li|$)|(?<=Li)\d+", m.group(1))) + ">"
                 entry = entry.replace("13__nv_bfloat16", "bf16").replace("<f", "<fp32")
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {stem}{entry}: {line.split(':', 1)[-1].strip()}")

@@ -15,8 +15,13 @@ Tolerances, each with its reason:
   by an fp32 ulp, which can move a rounding to bf16 (of the output, or in
   ``ln_mxu_bf16`` of the mean and rstd) by one bf16 step.
 
-The ``cuda``-marked tests hold the Triton kernels against the plain versions
-on the card and skip without one; run them there with
+The CPU also checks what the CUDA kernel of ``ln_mxu`` (``csrc/ln_mxu.cu``)
+rests on: the exact split of x and x·x into bf16 parts, a PyTorch twin of
+its chunked sums against ``ln_mxu_plain``, its shared-memory size and the
+wrapper's refusals. The ``cuda``-marked tests hold both kernels against the
+plain versions on the card (``ln_mxu`` also on row views, misaligned bases
+and parameters, and small d, which take its element path) and skip without
+one; run them there with
 ``python -m pytest tests/test_torch_ln_designs.py -m cuda --noconftest``.
 """
 
@@ -29,6 +34,7 @@ import pytest
 import torch
 
 from vtc_tpu_torch import ops
+from vtc_tpu_torch.ops.ln_designs import LN_MXU_MAX_SMEM, ln_mxu_smem_bytes
 
 FP32_ATOL = 2e-5
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -153,23 +159,173 @@ def test_sweep_needs_a_card(monkeypatch):
     assert names == {"vpu", "mxu", "mxu_bf16"}
 
 
+# ---- ln_mxu's CUDA kernel, as far as the CPU can check it ------------------
+
+def _bf16_parts(v, n):
+    """fp32 ``v`` as ``n`` bf16 parts, largest first: each part is ``v``
+    less the parts before it, rounded to bf16 (the kernel's split2/split3)."""
+    parts = []
+    for _ in range(n):
+        parts.append(v.to(torch.bfloat16))
+        v = v - parts[-1].float()
+    return parts
+
+
+def _near_zero_and_extremes(d, seed):
+    """Seeded fp32 rows [16, d] with 0, values near 0, ±1e±30 and values
+    that need all 24 bits of fp32 in the first row."""
+    x, _, _ = _rows(16, d, seed=seed)
+    x[0, :10] = [0.0, 1e-30, -1e-30, 1e30, -1e30, 1e-12, -3e-8,
+                 1 + 2.0**-23, -(2 - 2.0**-22), 0.1]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("d", [100, 768])
+def test_ln_mxu_split_of_fp32_rows_is_exact(d):
+    x = _near_zero_and_extremes(d, seed=d)
+    h, m, l = _bf16_parts(x, 3)
+    assert torch.equal(h.double() + m.double() + l.double(), x.double())
+    # x·x as the kernel takes it: the fp32 product, where it is finite
+    q = x * x
+    q = torch.where(torch.isfinite(q), q, torch.zeros(()))
+    h, m, l = _bf16_parts(q, 3)
+    assert torch.equal(h.double() + m.double() + l.double(), q.double())
+
+
+@pytest.mark.parametrize("d", [100, 768])
+def test_ln_mxu_split_of_bf16_squares_is_exact(d):
+    x = _near_zero_and_extremes(d, seed=d + 2)
+    x[0, 3:5] = torch.tensor([3e15, -3e15])  # squares finite in fp32
+    q = x.to(torch.bfloat16).float() ** 2  # exact: 16 significant bits
+    hi, lo = _bf16_parts(q, 2)
+    assert torch.equal(hi.double() + lo.double(), q.double())
+
+
+def _kernel_sums_twin(x, scale, bias, eps=1e-5):
+    """``ln_mxu``'s arithmetic as the CUDA kernel runs it: per 16-column
+    chunk, the bf16 parts (x and x·x in three for fp32 rows; x, and x² in
+    two, for bf16 rows) each summed against ones in fp32, smallest first;
+    the chunk sums added into the row's fp32 sums in order."""
+    x32 = x.float()
+    rows, d = x32.shape
+    xp = torch.nn.functional.pad(x32, (0, -d % 16)).view(rows, -1, 16)
+    n = 3 if x.dtype == torch.float32 else 1
+    ones = torch.ones(16, 1)
+
+    def sums(parts):
+        chunk = torch.zeros(rows, xp.shape[1])
+        for p in reversed(parts):
+            chunk = chunk + (p.float() @ ones)[..., 0]
+        total = torch.zeros(rows)
+        for c in range(xp.shape[1]):
+            total = total + chunk[:, c]
+        return total[:, None]
+
+    mean = sums(_bf16_parts(xp, n)) / d
+    var = sums(_bf16_parts(xp * xp, max(n, 2))) / d - mean * mean
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", [100, 768])
+def test_ln_mxu_kernel_sums_match_plain(d, dtype_name):
+    x, scale, bias = _rows(64, d, seed=d + 3)
+    xt = torch.from_numpy(x).to(DTYPES[dtype_name])
+    st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
+    twin = _kernel_sums_twin(xt, st, bt)
+    assert twin.dtype == xt.dtype
+    _close(twin, ops.ln_mxu_plain(xt, st, bt).float().numpy(), dtype_name)
+
+
+@pytest.mark.parametrize("rows,warps,d,dtype,want", [
+    (16, 4, 768, torch.float32, 16 * 772 * 4 + 8 * (64 + 16)),
+    (16, 1, 768, torch.bfloat16, 16 * 776 * 2 + 8 * (16 + 16)),
+    (64, 8, 768, torch.bfloat16, 64 * 776 * 2 + 8 * (128 + 64)),
+    (16, 4, 100, torch.float32, 16 * 116 * 4 + 8 * (64 + 16)),
+])
+def test_ln_mxu_smem_bytes(rows, warps, d, dtype, want):
+    assert ln_mxu_smem_bytes(rows, warps, d, dtype) == want
+    if (d, dtype) == (768, torch.float32):  # one fp32 tile is past the default 48 KB
+        assert 16 * 772 * 4 == 49408 > 48 * 1024
+
+
+@pytest.mark.parametrize("rows,warps,d,dtype,match", [
+    (8, 1, 64, torch.float32, "power of two >= 16"),
+    (32, 1, 64, torch.float32, "multiple of rows_per_program / 16 = 2"),
+    (128, 4, 64, torch.bfloat16, "multiple of rows_per_program / 16 = 8"),
+    (16, 16, 64, torch.float32, "at most 8"),
+    (16, 4, 3700, torch.float32, "shared memory"),
+    (64, 4, 1024, torch.float32, "shared memory"),
+    (128, 8, 768, torch.float32, "shared memory"),
+])
+def test_ln_mxu_refuses_configurations_the_kernel_does_not_take(rows, warps, d, dtype,
+                                                               match):
+    x = torch.zeros(2, d, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        ops.ln_mxu(x, torch.ones(d), torch.zeros(d), rows_per_program=rows,
+                   num_warps=warps)
+
+
+def test_ln_mxu_takes_rows_up_to_its_shared_memory():
+    d = 3600  # 16 fp32 rows at 4 warps: 231,296 bytes of 232,448
+    assert ln_mxu_smem_bytes(16, 4, d, torch.float32) <= LN_MXU_MAX_SMEM
+    x, scale, bias = _rows(2, d)
+    args = [torch.from_numpy(a) for a in (x, scale, bias)]
+    y = ops.ln_mxu(*args, rows_per_program=16, num_warps=4)
+    torch.testing.assert_close(y, ops.ln_mxu_plain(*args), rtol=0, atol=0)
+
+
 # ---- on the card: each kernel against its plain version -------------------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows_per_program,num_warps", [(16, 4), (64, 4), (128, 8)])
 @pytest.mark.parametrize("rows,d", [(8000, 768), (960, 512), (37, 100)])
-def test_ln_designs_on_card(cuda, rows, d, rows_per_program, num_warps):
+def test_ln_mxu_bf16_on_card(cuda, rows, d, rows_per_program, num_warps):
     x, scale, bias = _rows(rows, d, seed=rows)
     scale, bias = torch.from_numpy(scale).to(cuda), torch.from_numpy(bias).to(cuda)
-    x32 = torch.from_numpy(x).to(cuda)
-    x16 = x32.to(torch.bfloat16)
-    kw = dict(rows_per_program=rows_per_program, num_warps=num_warps)
-    n = ops.ln_mxu.launches, ops.ln_mxu_bf16.launches
-    outs = (ops.ln_mxu(x32, scale, bias, **kw), ops.ln_mxu(x16, scale, bias, **kw),
-            ops.ln_mxu_bf16(x16, scale, bias, **kw))
+    x16 = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    n = ops.ln_mxu_bf16.launches
+    out = ops.ln_mxu_bf16(x16, scale, bias, rows_per_program=rows_per_program,
+                          num_warps=num_warps)
     torch.cuda.synchronize()
-    assert (ops.ln_mxu.launches, ops.ln_mxu_bf16.launches) == (n[0] + 2, n[1] + 1)
-    refs = (ops.ln_mxu_plain(x32, scale, bias), ops.ln_mxu_plain(x16, scale, bias),
-            ops.ln_mxu_bf16_plain(x16, scale, bias))
-    for out, ref, dtype_name in zip(outs, refs, ("fp32", "bf16", "bf16")):
-        _close(out, ref.float().cpu().numpy(), dtype_name)
+    assert ops.ln_mxu_bf16.launches == n + 1
+    _close(out, ops.ln_mxu_bf16_plain(x16, scale, bias).float().cpu().numpy(), "bf16")
+
+
+# rows, d, row stride, x's offset and the parameters' offset in elements
+LN_MXU_CARD_CASES = {
+    "8000x768": (8000, 768, 768, 0, 0),
+    "960x512": (960, 512, 512, 0, 0),
+    "37x100": (37, 100, 100, 0, 0),  # bf16: 200-byte rows, the element path
+    "50x16": (50, 16, 16, 0, 0),
+    "row stride 800": (300, 768, 800, 0, 0),  # a row view, 16-byte copies
+    "row stride 770": (300, 768, 770, 0, 0),  # a row view, element loads
+    "base off 16 bytes": (300, 768, 768, 1, 0),  # element loads in
+    "params off 16 bytes": (300, 768, 768, 0, 1),  # element stores out
+}
+
+
+def _card_case(case, dtype, dev):
+    rows, d, width, offset, p_offset = LN_MXU_CARD_CASES[case]
+    rng = np.random.default_rng(rows + width + offset + p_offset)
+    flat = (rng.normal(size=rows * width + offset) * 2 + 0.5).astype(np.float32)
+    x = torch.from_numpy(flat).to(dev).to(dtype)[offset:].view(rows, width)[:, :d]
+    scale, bias = (torch.from_numpy(rng.normal(mu, 0.2, d + p_offset).astype(np.float32))
+                   .to(dev)[p_offset:] for mu in (1.0, 0.0))
+    return x, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_program,num_warps", [(16, 1), (16, 4), (32, 2), (64, 8)])
+@pytest.mark.parametrize("case", list(LN_MXU_CARD_CASES))
+def test_ln_mxu_on_card(cuda, case, rows_per_program, num_warps):
+    for dtype_name, dtype in DTYPES.items():
+        x, scale, bias = _card_case(case, dtype, cuda)
+        n = ops.ln_mxu.launches
+        out = ops.ln_mxu(x, scale, bias, rows_per_program=rows_per_program,
+                         num_warps=num_warps)
+        torch.cuda.synchronize()
+        assert ops.ln_mxu.launches == n + 1
+        assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+        _close(out, ops.ln_mxu_plain(x, scale, bias).float().cpu().numpy(), dtype_name)

@@ -179,14 +179,15 @@ def test_backward_through_a_kernel_raises():
 
 
 def test_header_edit_renames_both_libraries(tmp_path):
-    """Both CUDA sources include ``csrc/short_attention.cuh``. A library's
-    name hashes every header beside its source, so an edit to the header
-    alone renames (and so rebuilds) both libraries, and a stale build is
-    never loaded. No GPU or nvcc needed: only the names are computed."""
+    """Every CUDA source (the two attention kernels and ``ln_mxu``) includes
+    ``csrc/short_attention.cuh``. A library's name hashes every header
+    beside its source, so an edit to the header alone renames (and so
+    rebuilds) every library, and a stale build is never loaded. No GPU or
+    nvcc needed: only the names are computed."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     sources = sorted(csrc.glob("*.cu"))
-    assert [src.stem for src in sources] == ["fused_attention", "fused_mha"]
+    assert [src.stem for src in sources] == ["fused_attention", "fused_mha", "ln_mxu"]
     for src in sources:
         assert '#include "short_attention.cuh"' in src.read_text()
         # the same files give the same name wherever they lie

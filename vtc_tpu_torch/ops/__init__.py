@@ -1,10 +1,10 @@
 """The port's kernels, each beside its plain PyTorch version.
 
-``layernorm``, ``add_layernorm`` and the LN sweep's designs ``ln_mxu`` and
-``ln_mxu_bf16`` are Triton kernels; ``fused_mha`` and ``fused_attention`` are
-CUDA C++ (``csrc/*.cu``). Each wrapper runs its plain version on a CPU
-tensor and its kernel on a CUDA tensor, and counts its kernel launches in
-``<wrapper>.launches``.
+``layernorm``, ``add_layernorm`` and the LN sweep's ``ln_mxu_bf16`` are
+Triton kernels; ``fused_mha``, ``fused_attention`` and the sweep's
+``ln_mxu`` are CUDA C++ (``csrc/*.cu``). Each wrapper runs its plain
+version on a CPU tensor and its kernel on a CUDA tensor, and counts its
+kernel launches in ``<wrapper>.launches``.
 """
 
 from .addln import add_layernorm, add_layernorm_plain
