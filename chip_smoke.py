@@ -50,7 +50,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the configuration's batch of 50 and a profiler window are printed;
 9. LN sweep: ``vtc_tpu_torch.scripts.bench_ln_kernel`` at its defaults, the
    counts of its designs' launches read around it;
-10. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+10. backward: each model kernel's gradient on the card (``fused_mha`` at
+    ``vit``, ``text`` causal and ``cam``; ``fused_attention`` at the
+    temporal strided views and at L 16 with a causal and a seeded additive
+    mask; ``layernorm`` and ``add_layernorm`` at ``[160·50, 768]`` and
+    ``[960·16, 512]``), fp32 and bf16, against ``torch.autograd.grad``
+    through the plain version, tolerances beside the errors (fp32: 2e-5 of
+    the largest |gradient|; bf16: two bf16 ulps at it), with the
+    backward's time beside the kernel's forward time;
+11. train-step parity: the flagship from the ``arch`` block of
+    ``configs/pretrained_clip_comments_attention.jsonc`` (random adapter
+    skip on), ViT-B/32, fp32, batch 8, the CAM moved off its zero-init; 3
+    ``train_step``s with the config's optimizer on the card and on the CPU
+    from the same weights and the same skip draws (drawn once, handed to
+    both): each step's loss within 1e-4, each parameter's gradient after
+    step 1 within 1e-3 of its largest |gradient|, every parameter within
+    Adam's bound of 2·lr per step; the unused ``final_linear`` takes no
+    gradient and stays put; and one step of the frozen config
+    (``pretrained_clip_comments_attn_frozen.jsonc``, ``freeze: all``)
+    leaves the towers bit for bit and moves the CAM. The three steps'
+    kernel launches are counted from 0 and must be 3 × (29, 26, 26);
+12. train throughput: ``vtc_tpu_torch.scripts.bench_train_step`` (batch
+    128, bf16 over fp32 weights, Adam amsgrad, StepLR): samples/s over 3
+    windows of 8 steps after 3 warm-up steps, the peak memory, a loss that
+    is finite and falls over the 27 steps on the one repeated batch, the
+    kernels' forward launches of one step, and ``torch.profiler`` windows:
+    the device's idle share over 5 plain steps, and device time per step
+    by family and by phase over 5 steps with a synchronize after each
+    phase (forward, backward, optimizer);
+13. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -92,6 +120,22 @@ VIDEO_CONFIG = "configs/pretrained_clip_timesformer_comments_attention.jsonc"
 VIDEO_FWD_BATCH = 4
 NFRAMES = 8
 LN_SWEEP = (8000, 768)  # scripts/bench_ln_kernel.py's default rows
+TRAIN_CONFIG = "configs/pretrained_clip_comments_attention.jsonc"
+FROZEN_CONFIG = "configs/pretrained_clip_comments_attn_frozen.jsonc"
+PARITY_BATCH, PARITY_STEPS = 8, 3
+# card vs CPU, full depth fp32, loss ~2.1: the measured spread was 2.38e-7,
+# one ulp (PERF.md, PR 6 run 1); 2e-6 leaves eight
+LOSS_ATOL = 2e-6
+# after the parity steps, the share of the entries that moved on the CPU that
+# may lie farther than PARAM_ATOL_LR·lr from the CPU's (tests/test_torch_
+# training.py's bound against JAX): Adam turns a gradient near 0 into a step of
+# about ±lr, so a few entries may differ by up to 2 lr per step in a right run
+PARAM_ATOL_LR, PARAM_FAR_SHARE = 1e-2, 1e-2
+# the median entry that moved on the CPU moved by at least this many lr, so
+# the check above is not met by an optimizer that does nothing
+MOVED_MIN_LR = 0.5
+GRAD_RTOL = 1e-3  # of each parameter's largest |gradient|, card vs CPU
+PORT_KERNELS = ("layernorm", "add_layernorm", "fused_mha", "fused_attention")
 EXPECTED_LAUNCHES = {"layernorm": 29, "add_layernorm": 26, "fused_mha": 26,
                      "fused_attention": 0, "ln_mxu": 0, "ln_mxu_bf16": 0}
 # video: 26 LN in the tower (ln_pre, 12 × (ln_time + ln_1), ln_post), 13 in
@@ -493,18 +537,19 @@ def video_model(**kwargs):
                                 **arch["args"], **kwargs))
 
 
-def profile_forward(model, inputs, n: int) -> dict:
-    """``n`` forwards under ``torch.profiler``: device time per kernel family
-    (the port's kernels, GEMMs, the rest) and the device's idle share,
-    1 - (union of device intervals) / (the host's window from the first
-    launch to the synchronize after the last forward)."""
+def profile_calls(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` (forwards, train steps) under
+    ``torch.profiler``: device time per kernel family (the port's kernels,
+    GEMMs, the rest) and the device's idle share, 1 - (union of device
+    intervals) / (the host's window from the first launch to the
+    synchronize after the last call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("forwards"):
             for _ in range(n):
-                model(*inputs)
+                fn()
             torch.cuda.synchronize()
     events = prof.events()
     window = next(e for e in events
@@ -623,7 +668,7 @@ def run_video(ops, smi) -> dict:
         throughput(f"video bf16 batch {batch} ({NFRAMES} frames, 16-token title "
                    f"+ 5 comments)", bf16, big, batch, VIDEO_WARMUP, VIDEO_WINDOWS,
                    VIDEO_PER_WINDOW, "videos/s", smi)
-        prof = profile_forward(bf16, big, PROFILED)
+        prof = profile_calls(lambda: bf16(*big), PROFILED)
     log_profile(prof, f"video bf16 batch {batch}")
     return launches
 
@@ -639,6 +684,383 @@ def run_ln_sweep(ops) -> dict:
     log(f"kernel use (LN sweep): {json.dumps(launches)}")
     for name in ("layernorm", "ln_mxu", "ln_mxu_bf16"):
         require(launches[name] > 0, f"the LN sweep launched no {name}")
+    return launches
+
+
+# ---- phases 10-12: training ---------------------------------------------------
+
+def grad_tol(ref: torch.Tensor) -> float:
+    """fp32: 2e-5 of the largest |gradient| (at least 2e-5); bf16: two bf16
+    ulps at it."""
+    if ref.dtype == torch.bfloat16:
+        return bf16_tol(ref.float(), 2)
+    return FP32_ATOL * max(1.0, ref.abs().max().item())
+
+
+def check_backward(ops) -> dict:
+    """Phase 10: each model kernel's gradient against autograd through its
+    plain version, on the card. Returns {kernel: [case, ...]}."""
+    from vtc_tpu_torch.utils.timing import n_sets, time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {k: [] for k in PORT_KERNELS}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
+
+    def held(kernel, shape, dtype, inputs, cots, fn, plain, bwd, fwd, desc):
+        """Gradients of ``fn`` and ``plain`` w.r.t. ``inputs``; times of
+        ``bwd(*detached inputs, *cots)`` and of ``fwd`` (the kernel's
+        forward) over rotating copies."""
+        outs = fn(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        refs = plain(*inputs)
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        ours = torch.autograd.grad(outs, inputs, cots)
+        ref = torch.autograd.grad(refs, inputs, cots)
+        errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(ours, ref)]
+        tols = [grad_tol(r) for r in ref]
+        detached = [t.detach() for t in inputs]
+        nbytes = sum(t.numel() * t.element_size() for t in detached + list(cots))
+        sets = [tuple(detached) + tuple(cots)] + [
+            tuple(t.clone() for t in detached + list(cots))
+            for _ in range(n_sets(nbytes) - 1)]
+        with torch.no_grad():
+            bwd_ms = time_ms(bwd, sets)
+            fwd_ms = time_ms(fwd, [c[:len(detached)] for c in sets])
+        case = dict(shape=shape, dtype=str(dtype).split(".")[-1], bwd_ms=bwd_ms,
+                    fwd_ms=fwd_ms, max_abs_err=max(errs))
+        out[kernel].append(case)
+        log(f"backward {kernel} {shape} {case['dtype']} {desc}: backward_ms="
+            f"{bwd_ms:.5f} kernel_forward_ms={fwd_ms:.5f} ({bwd_ms / fwd_ms:.1f}x); "
+            f"max_abs_err per input {['%.3g' % e for e in errs]} tol "
+            f"{['%.3g' % t for t in tols]}")
+        for e, t, r in zip(errs, tols, ref):
+            require(e <= t, f"backward {kernel} {shape} {case['dtype']}: "
+                    f"max_abs_err {e} > tol {t}")
+            require(bool(torch.isfinite(r).all()), f"backward {kernel}: non-finite")
+
+    b = BENCH_BATCH
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, (rows, d) in {"vit": (b * 50, 768), "text": (6 * b * 16, 512)}.items():
+            w = (1 + 0.2 * randn(d)).requires_grad_()
+            bias = (0.2 * randn(d)).requires_grad_()
+            x = (2 * randn(rows, d) + 0.5).to(dtype).requires_grad_()
+            gy = randn(rows, d, dtype=dtype)
+            held("layernorm", shape, dtype, (x, w, bias), (gy,),
+                 lambda x_, w_, b_: ops.layernorm(x_, w_, b_),
+                 lambda x_, w_, b_: ops.layernorm_plain(x_, w_, b_),
+                 lambda x_, w_, b_, g_: ops.layernorm_backward(x_, w_, g_),
+                 lambda x_, w_, b_: ops.layernorm(x_, w_, b_), f"rows={rows} d={d}")
+            a = (2 * randn(rows, d) + 0.5).to(dtype).requires_grad_()
+            gs = randn(rows, d, dtype=dtype)
+            held("add_layernorm", shape, dtype, (a, x, w, bias), (gs, gy),
+                 lambda a_, b_, w_, bi_: ops.add_layernorm(a_, b_, w_, bi_),
+                 lambda a_, b_, w_, bi_: ops.add_layernorm_plain(a_, b_, w_, bi_),
+                 lambda a_, b_, w_, bi_, gs_, gy_: ops.add_layernorm_backward(
+                     a_, b_, w_, gs_, gy_),
+                 lambda a_, b_, w_, bi_: ops.add_layernorm(a_, b_, w_, bi_),
+                 f"rows={rows} d={d}, cotangents of s and y")
+        for shape, (bsz, l, e, h, causal) in {
+                "vit": (b, 50, 768, 12, False), "text": (6 * b, 16, 512, 8, True),
+                "cam": (b, 6, 512, 8, False)}.items():
+            qkv = randn(bsz, l, 3 * e, dtype=dtype).requires_grad_()
+            go = randn(bsz, l, e, dtype=dtype)
+            dh = e // h
+            held("fused_mha", shape, dtype, (qkv,), (go,),
+                 lambda t: ops.fused_mha(*t.chunk(3, -1), h, causal),
+                 lambda t: ops.fused_mha_plain(*t.chunk(3, -1), h, causal),
+                 lambda t, g_: ops.mha_backward(*t.chunk(3, -1), g_, h, causal, dh**-0.5),
+                 lambda t: ops.fused_mha(*t.chunk(3, -1), h, causal),
+                 f"B={bsz} L={l} E={e} H={h} causal={causal}, q/k/v views of one qkv")
+        seqs, t, e, h = 50 * 49, NFRAMES, 768, 12
+        dh = e // h
+
+        def heads(buf):
+            return [x.unflatten(-1, (h, dh)).transpose(1, 2) for x in buf.chunk(3, -1)]
+
+        buf = randn(seqs, t, 3 * e, dtype=dtype).requires_grad_()
+        go = randn(seqs, h, t, dh, dtype=dtype)
+        held("fused_attention", "temporal", dtype, (buf,), (go,),
+             lambda x: ops.fused_attention(*heads(x)),
+             lambda x: ops.fused_attention_plain(*heads(x)),
+             lambda x, g_: ops.attention_backward(*heads(x), None, g_, dh**-0.5),
+             lambda x: ops.fused_attention(*heads(x)),
+             f"B·H={seqs}·{h} L={t} D={dh} strided head views, no mask")
+        seeded = randn(16, 16).masked_fill(
+            torch.rand(16, 16, device=dev, generator=g) < 0.3, float("-inf")
+        ).fill_diagonal_(0.0)
+        for shape, mask in (("causal", ops.causal_mask(16, dev)), ("additive", seeded)):
+            q, k, v = (randn(960 * 8, 16, dh, dtype=dtype).requires_grad_()
+                       for _ in range(3))
+            go = randn(960 * 8, 16, dh, dtype=dtype)
+            held("fused_attention", shape, dtype, (q, k, v), (go,),
+                 lambda q_, k_, v_: ops.fused_attention(q_, k_, v_, mask),
+                 lambda q_, k_, v_: ops.fused_attention_plain(q_, k_, v_, mask),
+                 lambda q_, k_, v_, g_: ops.attention_backward(q_, k_, v_, mask, g_,
+                                                               dh**-0.5),
+                 lambda q_, k_, v_: ops.fused_attention(q_, k_, v_, mask),
+                 f"B·H={960 * 8} L=16 D={dh} {shape} mask")
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_from_config(config: str, **kwargs):
+    """A model from the ``arch`` block of one of the repo's configs, with
+    its CAM moved off its zero-init (``perturb``)."""
+    from vtc_tpu_torch.models import create_model
+    from vtc_tpu_torch.utils import jsonc
+
+    arch = jsonc.read_json(Path(__file__).resolve().parent / config)["arch"]
+    return perturb(create_model(arch["type"], seed=0, **arch["args"], **kwargs))
+
+
+def config_optimizer(model, config: str):
+    from vtc_tpu_torch.training import build_optimizer
+    from vtc_tpu_torch.utils import jsonc
+
+    cfg = jsonc.read_json(Path(__file__).resolve().parent / config)
+    return build_optimizer(
+        model, cfg["optimizer"], cfg.get("lr_scheduler"), steps_per_epoch=100,
+        fc_lr=cfg.get("fc_lr"), time_lr=cfg.get("time_lr"),
+        adapter_lr=cfg.get("adapter_lr"),
+    )
+
+
+def run_train_parity(ops) -> dict:
+    """Phase 11. Returns the launch counts of the card's three steps."""
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.training import train_step
+
+    tic = time.perf_counter()
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+    gen = torch.Generator().manual_seed(6)
+    draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
+             for _ in range(PARITY_STEPS)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = model_from_config(TRAIN_CONFIG, **({} if dev == "cuda" else
+                                                   {"device": "cpu"}))
+        require(model.random_skip_adapter, "the config's random_skip_adapter is off")
+        optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        grads = {}
+
+        def keep_first_grads(opt, args, kwargs, model=model, grads=grads):
+            if not grads:
+                grads.update({n: None if p.grad is None else p.grad.detach().cpu()
+                              for n, p in model.named_parameters()})
+
+        hook = optimizer.register_step_pre_hook(keep_first_grads)
+        data = [x.to(dev) for x in inputs]
+        # the train path's run: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        losses = [train_step(model, clip_loss, optimizer, scheduler, data, {},
+                             draws=draws[k])[0].item() for k in range(PARITY_STEPS)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        hook.remove()
+        lr = {n: g["initial_lr"] for g in optimizer.param_groups
+              for n, p in model.named_parameters() if any(p is q for q in g["params"])}
+        runs[dev] = dict(losses=losses, grads=grads, before=before, lr=lr, params={
+            n: p.detach().cpu() for n, p in model.named_parameters()})
+        del model, optimizer
+        torch.cuda.empty_cache()
+    log(f"train parity: built and stepped in {time.perf_counter() - tic:.1f} s; "
+        f"adapter skip draws per step {[int(d['adapter_skip'].sum()) for d in draws]} "
+        f"of {PARITY_BATCH}")
+    card, cpu = runs["cuda"], runs["cpu"]
+    for k, (a, c) in enumerate(zip(card["losses"], cpu["losses"])):
+        log(f"train parity step {k + 1}: loss card {a:.7f} CPU {c:.7f} "
+            f"(|diff| {abs(a - c):.3g}, atol {LOSS_ATOL:g})")
+        require(math.isfinite(a) and abs(a - c) <= LOSS_ATOL,
+                f"train step {k + 1} loss {a} vs CPU {c}")
+    worst, n_grads = (0.0, ""), 0
+    for name, ref in cpu["grads"].items():
+        ours = card["grads"][name]
+        if ref is None or ours is None:
+            require(ref is None and ours is None, f"{name}: a gradient on one device only")
+            continue
+        n_grads += 1
+        scale = ref.abs().max().item()
+        err = (ours - ref).abs().max().item()
+        require(err <= GRAD_RTOL * scale if scale > 0 else err == 0.0,
+                f"{name}: gradient differs from the CPU's by {err} (largest {scale})")
+        worst = max(worst, (err / scale if scale else 0.0, name))
+    log(f"train parity: {n_grads} parameter gradients after step 1 agree; worst "
+        f"max|diff| / max|grad| {worst[0]:.3g} at {worst[1]} (limit {GRAD_RTOL:g})")
+    require(card["grads"]["final_linear.weight"] is None,
+            "final_linear (unused with init_from_avg) took a gradient")
+    worst, far, moved, n_moved = (0.0, ""), 0, 0, 0
+    for name, p in card["params"].items():
+        lr = card["lr"][name]
+        d = (p - cpu["params"][name]).abs() / lr
+        step = (cpu["params"][name] - cpu["before"][name]).abs() / lr
+        require(d.max().item() <= 2 * PARITY_STEPS, f"{name}: {d.max().item()} lr "
+                f"from the CPU's after {PARITY_STEPS} steps")
+        worst = max(worst, (d.max().item(), name))
+        far += int((d[step > 0] > PARAM_ATOL_LR).sum())
+        moved += int((step >= MOVED_MIN_LR).sum())
+        n_moved += int((step > 0).sum())
+    require(not (card["params"]["final_linear.weight"]
+                 - card["before"]["final_linear.weight"]).any(),
+            "final_linear moved without a gradient")
+    require(n_moved > 0, "no parameter moved on the CPU")
+    log(f"train parity: after {PARITY_STEPS} steps {n_moved} parameter entries "
+        f"moved on the CPU, {moved / n_moved:.4f} of them by >= {MOVED_MIN_LR} lr "
+        f"(need > 0.5); {far / n_moved:.3g} lie farther than {PARAM_ATOL_LR:g} lr "
+        f"from the CPU's (limit {PARAM_FAR_SHARE:g}); the largest {worst[0]:.3g} lr "
+        f"at {worst[1]} (limit {2 * PARITY_STEPS}); final_linear (no gradient) "
+        f"unchanged")
+    require(moved > n_moved / 2,
+            f"the optimizer moved the median entry by less than {MOVED_MIN_LR} lr")
+    require(far <= PARAM_FAR_SHARE * n_moved,
+            f"{far / n_moved:.3g} of the entries lie farther than {PARAM_ATOL_LR:g} lr "
+            f"from the CPU's")
+    del runs, card, cpu
+
+    # the frozen config: freeze "all" trains the CAM alone
+    model = model_from_config(FROZEN_CONFIG)
+    optimizer, scheduler = config_optimizer(model, FROZEN_CONFIG)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    train_step(model, clip_loss, optimizer, scheduler,
+               [x.cuda() for x in inputs], {}, draws=draws[0])
+    towers = [n for n in before if n.startswith("model.")]
+    for n, p in model.named_parameters():
+        require(p.grad is None, f"{n}: a gradient left after the step")
+        if n.startswith("model."):
+            require(not p.requires_grad and torch.equal(p, before[n]),
+                    f"frozen {n} moved or takes a gradient")
+    cam_moved = [n for n, p in model.named_parameters()
+                 if not n.startswith("model.") and not torch.equal(p, before[n])]
+    require(len(cam_moved) > 0, "the frozen config's CAM did not train")
+    log(f"train parity, {FROZEN_CONFIG}: {len(towers)} tower parameters frozen "
+        f"and unchanged bit for bit, {len(cam_moved)} CAM parameters moved")
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_phases(model, optimizer, scheduler, data, generator, n: int) -> dict:
+    """``n`` train steps (``train_step``'s calls) with a synchronize after
+    each phase, under ``torch.profiler``: each device kernel is charged to
+    the phase in whose host window it starts. -> {"family_ms", "phase_ms",
+    "backward_top"} per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vtc_tpu_torch.ops.losses import clip_loss
+
+    model.train()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            with record_function("phase:forward"):
+                loss = clip_loss(model(*data, generator=generator), {})
+                torch.cuda.synchronize()
+            with record_function("phase:backward"):
+                loss.backward()
+                torch.cuda.synchronize()
+            with record_function("phase:optimizer"):
+                optimizer.step()
+                scheduler.step()
+                optimizer.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+    events = prof.events()
+    windows = [(e.name.split(":", 1)[1], e.time_range.start, e.time_range.end)
+               for e in events
+               if e.name.startswith("phase:") and e.device_type == DeviceType.CPU]
+    require(len(windows) == 3 * n, f"profiler phase windows: {len(windows)}")
+    family_ms, phase_ms, backward_top = {}, {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        phase = next((p for p, t0, t1 in windows if t0 <= e.time_range.start <= t1),
+                     "unplaced")
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / n
+        name = next((f for f, keys in KERNEL_FAMILIES if any(k in e.name for k in keys)),
+                    "other")
+        if name in PORT_KERNELS:
+            family = "forward kernels (the port's)"
+        elif name == "gemm":
+            family = f"GEMMs ({phase})"
+        else:
+            family = {"backward": "backward ops (non-GEMM)",
+                      "optimizer": "optimizer"}.get(phase, f"elementwise ({phase})")
+            if phase == "backward":
+                backward_top[e.name] = backward_top.get(e.name, 0.0) + ms
+        family_ms[family] = family_ms.get(family, 0.0) + ms
+        phase_ms[phase] = phase_ms.get(phase, 0.0) + ms
+    require(sum(phase_ms.values()) > 0, "the profiler recorded no device events")
+    # the kernels' backwards: the device time of the kernels launched inside
+    # each ``<kernel>.backward`` range (the profiler links a kernel to the op
+    # that launched it), and the calls per step
+    kernel_bwd = {}
+    for e in events:
+        kernel = e.name[: -len(".backward")]
+        if e.device_type == DeviceType.CPU and e.name.endswith(".backward") and (
+                kernel in PORT_KERNELS):
+            ms, calls = kernel_bwd.get(kernel, (0.0, 0))
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            kernel_bwd[kernel] = (ms + us / 1e3 / n, calls + 1 / n)
+    return {"family_ms": family_ms, "phase_ms": phase_ms, "kernel_backward": kernel_bwd,
+            "backward_top": sorted(backward_top.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def run_train_bench(ops, smi) -> dict:
+    """Phase 12. Returns the launch counts of one train step."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.scripts import bench_train_step
+    from vtc_tpu_torch.training import train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    res = bench_train_step.main()  # batch 128, 3 windows of 8 steps after 3
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    log(f"train throughput bf16: {res['samples_per_s']:.1f} samples/s, windows "
+        f"{['%.1f' % r for r in res['window_rates']]}; peak memory allocated "
+        f"{peak / 2**30:.3f} GiB (reserved {torch.cuda.max_memory_reserved() / 2**30:.3f} "
+        f"GiB); on {smi}")
+    log(f"train losses over {len(losses)} steps on one batch: "
+        f"{['%.4f' % x for x in losses]}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    require(all(math.isfinite(x) for x in losses), "a non-finite train loss")
+    require(len(losses) >= 20 and last < first,
+            f"the loss did not fall: mean of the first 5 {first}, last 5 {last}")
+    model, optimizer, scheduler, data = res["setup"]
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    # the train benchmark's path: counts from 0 just before one step, read after
+    ops.reset_launch_counts()
+    train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"kernel use (one bf16 train step): {json.dumps(launches)}")
+    require(launches == EXPECTED_LAUNCHES,
+            f"train step launches {launches} != {EXPECTED_LAUNCHES}")
+    prof = profile_calls(lambda: train_step(model, clip_loss, optimizer, scheduler,
+                                            data, {}, generator), PROFILED)
+    log(f"profile train bf16, {PROFILED} steps: window "
+        f"{prof['window_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, idle "
+        f"share {prof['idle_share']:.4f}, {prof['launches']:.0f} device events per step, "
+        f"device ms per step {sum(prof['family_ms'].values()):.4f}")
+    phases = profile_train_phases(model, optimizer, scheduler, data, generator, PROFILED)
+    total = sum(phases["phase_ms"].values())
+    for phase, ms in sorted(phases["phase_ms"].items(), key=lambda kv: -kv[1]):
+        log(f"profile train device ms per step by phase: {phase} {ms:.4f} "
+            f"({ms / total:.4f} of device time)")
+    for family, ms in sorted(phases["family_ms"].items(), key=lambda kv: -kv[1]):
+        log(f"profile train device ms per step by family: {family} {ms:.4f} "
+            f"({ms / total:.4f})")
+    for kernel, (ms, calls) in sorted(phases["kernel_backward"].items()):
+        log(f"profile train backward of {kernel}: {calls:.0f} calls per step, device "
+            f"ms per step {ms:.4f} ({ms / total:.4f} of device time)")
+    for kname, ms in phases["backward_top"]:
+        log(f"profile train backward op: {ms:.4f} ms per step: {kname[:120]}")
+    del res, model, optimizer
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -770,7 +1192,7 @@ def main() -> int:
         big = [t.cuda() for t in bench_inputs(BENCH_BATCH, 32, seed=2)]
         throughput(f"bf16 batch {BENCH_BATCH} (16-token title + 5 comments)", bf16,
                    big, BENCH_BATCH, WARMUP, WINDOWS, PER_WINDOW, "pairs/s", smi)
-        prof = profile_forward(bf16, big, PROFILED)
+        prof = profile_calls(lambda: bf16(*big), PROFILED)
     log_profile(prof, f"bf16 batch {BENCH_BATCH}")
     del model, bf16, big
     torch.cuda.empty_cache()
@@ -782,7 +1204,19 @@ def main() -> int:
     # 9. the LN sweep
     sweep_launches = run_ln_sweep(ops)
 
-    # 10. results: each kernel's launches from the path that runs it
+    # 10. each model kernel's backward
+    check_backward(ops)
+
+    # 11. train-step parity, card vs CPU, and the frozen config
+    parity_launches = run_train_parity(ops)
+    want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    log(f"kernel use ({PARITY_STEPS} fp32 train steps): {json.dumps(parity_launches)}")
+    require(parity_launches == want, f"train launches {parity_launches} != {want}")
+
+    # 12. train throughput
+    run_train_bench(ops, smi)
+
+    # 13. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])

@@ -125,13 +125,16 @@ def test_fused_attention_rejects_what_the_kernel_does_not_take(shape, match):
 
 
 def test_fused_attention_backward_raises():
-    """The card's launch is wrapped so that a gradient through it fails
-    loudly until the training slice brings a backward kernel."""
+    """A launch wrapped as forward-only (the LN sweep's designs) refuses a
+    gradient loudly; ``fused_attention`` itself now takes one, through its
+    own backward (tests/test_torch_training.py holds it against JAX)."""
     q = torch.randn(2, 8, 16, requires_grad=True)
     y = _build.forward_only(
-        "fused_attention", lambda a: ops.fused_attention_plain(a, a, a), q)
-    with pytest.raises(NotImplementedError, match="fused_attention has no backward"):
+        "ln_mxu_bf16", lambda a: ops.fused_attention_plain(a, a, a), q)
+    with pytest.raises(NotImplementedError, match="ln_mxu_bf16 has no backward"):
         y.sum().backward()
+    (grad,) = torch.autograd.grad(ops.fused_attention(q, q, q).sum(), q)
+    assert grad.shape == q.shape and bool(torch.isfinite(grad).all())
 
 
 # ---- on the card: the kernel against its plain version ---------------------
@@ -181,8 +184,12 @@ def test_fused_attention_head_views_on_card(cuda):
 
 @pytest.mark.cuda
 def test_fused_attention_backward_raises_on_card(cuda):
+    """On the card the gradient runs the backward of the plain version (it
+    raised before the port had one); shapes the kernel refuses still
+    raise."""
     q = torch.randn(4, 8, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="fused_attention has no backward"):
-        ops.fused_attention(q, q, q).sum().backward()
+    (grad,) = torch.autograd.grad(ops.fused_attention(q, q, q).sum(), q)
+    (ref,) = torch.autograd.grad(ops.fused_attention_plain(q, q, q).sum(), q)
+    _close(grad, ref.cpu().numpy(), "fp32")
     with pytest.raises(ValueError, match="L <= 128"):
         ops.fused_attention(*(torch.zeros(2, 129, 16, device=cuda),) * 3)

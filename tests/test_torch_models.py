@@ -180,8 +180,8 @@ def test_context_adapter_adapt_matches_flax(tiny, act, init_from_avg):
     if act not in ("sub_mean", "bn"):
         cam_sd = {k: v for k, v in cam_sd.items() if "mean_center_bn" not in k}
     port.load_state_dict(cam_sd, strict=True)
-    with torch.no_grad():
-        _close(port.adapt(torch.from_numpy(main), torch.from_numpy(aux)), ref)
+    with torch.no_grad():  # eval: the running stats, no random adapter skip
+        _close(port.eval().adapt(torch.from_numpy(main), torch.from_numpy(aux)), ref)
 
 
 # ---- the slice as a whole --------------------------------------------------

@@ -168,14 +168,15 @@ def test_fused_mha_rejects_long_sequences():
 
 
 def test_backward_through_a_kernel_raises():
-    """Until the training slice brings backward kernels, a gradient through
-    a kernel launch fails loudly instead of being recomputed elsewhere."""
+    """The LN sweep's designs take no gradient: a gradient through their
+    launch fails loudly instead of being recomputed elsewhere. (The model
+    path's kernels have their backward: tests/test_torch_training.py.)"""
     x = torch.ones(3, requires_grad=True)
-    y = _build.forward_only("layernorm", lambda t: t * 2, x)
-    with pytest.raises(NotImplementedError, match="layernorm has no backward"):
+    y = _build.forward_only("ln_mxu", lambda t: t * 2, x)
+    with pytest.raises(NotImplementedError, match="ln_mxu has no backward: .*LN sweep"):
         y.sum().backward()
     with torch.no_grad():  # inference takes the launch as it is
-        assert not _build.forward_only("layernorm", lambda t: t * 2, x).requires_grad
+        assert not _build.forward_only("ln_mxu", lambda t: t * 2, x).requires_grad
 
 
 def test_header_edit_renames_both_libraries(tmp_path):
@@ -258,7 +259,44 @@ def test_fused_mha_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
 
 @pytest.mark.cuda
 def test_backward_through_cuda_kernel_raises(cuda):
+    """On the card the sweep's designs refuse a backward; the model path's
+    ``layernorm`` takes one, the backward of ``layernorm_plain``."""
     x = torch.randn(4, 64, device=cuda, requires_grad=True)
     w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
-    with pytest.raises(NotImplementedError):
-        ops.layernorm(x, w, b).sum().backward()
+    for fn in (ops.ln_mxu, ops.ln_mxu_bf16):
+        with pytest.raises(NotImplementedError, match="LN sweep"):
+            fn(x.to(torch.bfloat16), w, b).float().sum().backward()
+    w.requires_grad_()
+    g = torch.randn(4, 64, device=cuda)
+    ours = torch.autograd.grad(ops.layernorm(x, w, b), (x, w), g)
+    ref = torch.autograd.grad(ops.layernorm_plain(x, w, b), (x, w), g)
+    for o, r in zip(ours, ref):
+        assert_close(o, r, "fp32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+def test_attention_backward_on_card(cuda, dtype_name):
+    """``fused_mha`` (strided qkv views, causal) and ``fused_attention``
+    (4-D head views, additive mask) take a gradient on the card: their
+    backward against autograd of the plain version, two ulps in bf16."""
+    tdt = DTYPES[dtype_name]
+    gen = torch.Generator().manual_seed(0)
+    qkv = torch.randn(8, 16, 3 * 512, generator=gen).to(cuda, tdt).requires_grad_()
+    g = torch.randn(8, 16, 512, generator=gen).to(cuda, tdt)
+    for fn, plain in (
+        (lambda t: ops.fused_mha(*t.chunk(3, -1), 8, True),
+         lambda t: ops.fused_mha_plain(*t.chunk(3, -1), 8, True, 64**-0.5)),
+        (lambda t: _heads_attention(ops.fused_attention, t),
+         lambda t: _heads_attention(ops.fused_attention_plain, t)),
+    ):
+        (ours,) = torch.autograd.grad(fn(qkv), qkv, g)
+        (ref,) = torch.autograd.grad(plain(qkv), qkv, g)
+        assert_close(ours, ref, dtype_name, ulps=2)
+
+
+def _heads_attention(fn, qkv):
+    b, l, e3 = qkv.shape
+    mask = torch.randn(l, l, generator=torch.Generator().manual_seed(1)).to(qkv.device)
+    q, k, v = (t.unflatten(-1, (8, -1)).transpose(1, 2) for t in qkv.chunk(3, -1))
+    return fn(q, k, v, mask).transpose(1, 2).reshape(b, l, e3 // 3)

@@ -1,4 +1,4 @@
-"""Context Adapter Module (CAM), eval path.
+"""Context Adapter Module (CAM).
 
 Port of ``vtc_tpu/models/cam.py``. A small transformer attends over the stack
 ``[main, comment_1..N]`` of L2-normalized embeddings and its output
@@ -10,9 +10,20 @@ The parameters carry the reference names (``final_transformer``,
 models inherit this module, so in their state dict these names sit at the top
 level, as in the reference checkpoints.
 
-The training-only stochastic paths (random adapter skip, random comment
-masking) and the running-stat updates of ``sub_mean``/``bn`` wait for the
-training slice (ROADMAP); here ``sub_mean``/``bn`` read the running stats.
+In training (``module.train()``, ``cam.py:110-214`` of the JAX package):
+
+* ``sub_mean``/``bn`` use the batch's statistics and update the running
+  stats of ``mean_center_bn`` in fp32, at momentum 0.2 with the unbiased
+  batch variance (torch ``BatchNorm1d``); a batch of 1 is refused. With the
+  adapter frozen (``finaltf_frozen``) they read the running stats;
+* random adapter skip zeroes the residual of each sample with ``u > 0.5``;
+* random comment masking swaps each (comment, sample) for the mask embedding
+  with probability 1/2 (``random_mask_comments``, called by the retrieval
+  models when configured).
+
+The random draws come from the ``torch.Generator`` the caller passes (on the
+model's device), or are handed in as tensors: ``torch.Generator`` cannot
+reproduce ``jax.random``, so a test feeds the port the JAX draw.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ class ContextAdapter(nn.Module):
     def __init__(self, feature_dim: int = 512, n_layers: int = 2,
                  n_heads: int = 8, init_from_avg: bool = True,
                  residual_activation: Optional[str] = None,
-                 dtype=torch.float32):
+                 random_skip_adapter: bool = True, dtype=torch.float32):
         super().__init__()
         if residual_activation not in RESIDUAL_ACTIVATIONS and (
             residual_activation not in NEEDS_STATE
@@ -63,6 +74,7 @@ class ContextAdapter(nn.Module):
             raise ValueError(f"unknown residual activation {residual_activation!r}")
         self.init_from_avg = init_from_avg
         self.residual_activation = residual_activation
+        self.random_skip_adapter = random_skip_adapter
         self.final_transformer = Transformer(
             feature_dim, int(n_layers), int(n_heads), dtype
         )
@@ -70,24 +82,54 @@ class ContextAdapter(nn.Module):
         self.mask_embedding = nn.Parameter(torch.empty(1, feature_dim))
         if residual_activation in NEEDS_STATE:
             # torch BatchNorm1d(affine=False, momentum=0.2): only its running
-            # buffers are read here
+            # buffers are used, read in eval and updated in training
             self.mean_center_bn = nn.BatchNorm1d(
                 feature_dim, eps=BN_EPS, momentum=0.2, affine=False
             )
 
-    def _residual_activation(self, s):
+    def _update_bn_stats(self, s):
+        """running = 0.8·running + 0.2·batch, in fp32, with the unbiased
+        batch variance (``cam.py:110-127``)."""
+        n = s.shape[0]
+        if n < 2:
+            raise ValueError(
+                f"{self.residual_activation!r} residual activation needs "
+                f"batch >= 2 in training (got {n}); drop 1-element batches "
+                f"(drop_last) or freeze the adapter"
+            )
+        bn = self.mean_center_bn
+        with torch.no_grad():
+            s32 = s.detach().float()
+            batch_var = s32.var(dim=0, unbiased=False) * (n / (n - 1))
+            bn.running_mean.copy_(0.8 * bn.running_mean + 0.2 * s32.mean(dim=0))
+            bn.running_var.copy_(0.8 * bn.running_var + 0.2 * batch_var)
+            bn.num_batches_tracked += 1
+
+    def _residual_activation(self, s, finaltf_frozen: bool = False):
         act = self.residual_activation
+        batch_stats = self.training and not finaltf_frozen
         if act == "sub_mean":
+            if batch_stats:
+                self._update_bn_stats(s)
+                return s - s.mean(dim=0)
             return s - self.mean_center_bn.running_mean.to(s.dtype)
         if act == "bn":
-            mean = self.mean_center_bn.running_mean.to(s.dtype)
-            var = self.mean_center_bn.running_var.to(s.dtype)
+            if batch_stats:
+                mean, var = s.mean(dim=0), s.var(dim=0, unbiased=False)
+                self._update_bn_stats(s)
+            else:
+                mean = self.mean_center_bn.running_mean.to(s.dtype)
+                var = self.mean_center_bn.running_var.to(s.dtype)
             return (s - mean) * torch.rsqrt(var + BN_EPS)
         return RESIDUAL_ACTIVATIONS[act](s)
 
-    def adapt(self, feature_main, features_aux):
+    def adapt(self, feature_main, features_aux, finaltf_frozen: bool = False,
+              skip: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None):
         """``feature_main`` [b, d], ``features_aux`` [n_aux, b, d] -> the
-        adapted, L2-normalized [b, d]."""
+        adapted, L2-normalized [b, d]. In training with
+        ``random_skip_adapter``, ``skip`` ([b, 1] bool, True zeroes the
+        residual) is drawn from ``generator`` unless given."""
         # batch-major stack [b, 1+n_aux, d], built contiguous for the kernels
         concat = torch.cat([feature_main[:, None], features_aux.transpose(0, 1)], 1)
         out = self.final_transformer(l2_normalize(concat))
@@ -96,8 +138,25 @@ class ContextAdapter(nn.Module):
         else:
             w = self.final_linear.weight.to(out.dtype)
             res = torch.matmul(out[:, 0], w.T)
-        res = self._residual_activation(res)
+        res = self._residual_activation(res, finaltf_frozen)
+        if self.training and self.random_skip_adapter:
+            if skip is None:
+                skip = draw_adapter_skip(res.shape[0], generator, res.device)
+            res = torch.where(skip.to(res.device), 0.0, res)
         return l2_normalize(l2_normalize(feature_main) + res)
+
+    def random_mask_comments(self, feats_comm, keep: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None):
+        """Train-time random comment masking (``cam.py:200-210``):
+        ``feats_comm`` [n_aux, b, d]; ``keep`` [n_aux, b, 1] of 0/1 (1 keeps
+        the comment, 0 swaps in the mask embedding), drawn from
+        ``generator`` unless given."""
+        n_aux, b, _ = feats_comm.shape
+        if keep is None:
+            keep = draw_comment_keep(n_aux, b, generator, feats_comm.device)
+        keep = keep.to(device=feats_comm.device, dtype=feats_comm.dtype)
+        mask = self.mask_embedding[0].to(feats_comm.dtype)
+        return feats_comm * keep + mask * (1 - keep)
 
     def substitute_empty(self, feats_comm, comment_tokens):
         """Embeddings of empty comments (EOT at token position 1) become the
@@ -107,6 +166,23 @@ class ContextAdapter(nn.Module):
             empty[..., None], self.mask_embedding[0].to(feats_comm.dtype),
             feats_comm,
         )
+
+
+def _draw_device(generator, device):
+    return generator.device if generator is not None else device
+
+
+def draw_adapter_skip(batch: int, generator=None, device=None) -> torch.Tensor:
+    """[batch, 1] bool, True with probability 1/2: the JAX draw
+    ``uniform(b, 1) > 0.5``."""
+    device = _draw_device(generator, device)
+    return torch.rand((batch, 1), generator=generator, device=device) > 0.5
+
+
+def draw_comment_keep(n_aux: int, batch: int, generator=None, device=None):
+    """[n_aux, batch, 1] of 0/1: the JAX draw ``randint(0, 2)``."""
+    device = _draw_device(generator, device)
+    return torch.randint(0, 2, (n_aux, batch, 1), generator=generator, device=device)
 
 
 @torch.no_grad()

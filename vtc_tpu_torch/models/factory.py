@@ -16,7 +16,7 @@ the JAX factory does.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -35,6 +35,35 @@ DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 }
+
+# the CAM's parameters: what ``freeze: "finaltf"`` freezes
+ADAPTER_PREFIXES = ("final_transformer.", "final_linear.", "mask_embedding",
+                    "mean_center_bn.")
+
+
+def frozen_predicate(freeze) -> Callable[[str], bool]:
+    """Which parameters ``freeze`` freezes (reference
+    ``model/model.py:268-305``). The reference's 'text' freezes only the
+    text *transformer* (not the embeddings, ``ln_final`` or
+    ``text_projection``); an unknown spec raises rather than train a
+    "frozen" branch at full lr."""
+    if freeze in (False, None, "none"):
+        return lambda name: False
+    spec = str(freeze)
+    known = ("all", "visual", "text", "finaltf")
+    if not any(k in spec for k in known):
+        raise ValueError(
+            f"Unknown branch_to_freeze {freeze!r}; expected "
+            f"False/'none' or a string containing one of {known}"
+        )
+
+    def frozen(name: str) -> bool:
+        return (("all" in spec and name.startswith("model."))
+                or ("visual" in spec and name.startswith("model.visual."))
+                or ("text" in spec and name.startswith("model.transformer."))
+                or ("finaltf" in spec and name.startswith(ADAPTER_PREFIXES)))
+
+    return frozen
 
 
 def _is_zero_init(name: str) -> bool:
@@ -92,7 +121,10 @@ def create_model(arch: str, model_type: str = "ViT-B/32", seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None, **kwargs):
     """Build ``arch`` in eval mode on ``device`` (default: the card; raises
     without one). ``dtype`` is the activation dtype; weights stay fp32 until
-    ``convert_weights``. The CAM starts from the reference's zero-init."""
+    ``convert_weights``. The CAM starts from the reference's zero-init. The
+    parameters of the branches that ``freeze`` names get
+    ``requires_grad=False`` (``frozen_predicate``), so the optimizer leaves
+    them out."""
     if arch not in ARCHS:
         raise KeyError(f"Unknown arch {arch!r}; available: {sorted(ARCHS)}")
     device = resolve_device(device)
@@ -102,6 +134,9 @@ def create_model(arch: str, model_type: str = "ViT-B/32", seed: int = 0,
     init_weights(model, seed)
     if isinstance(model, retrieval._CamRetrievalBase):
         zero_init_cam_params(model)
+    frozen = frozen_predicate(model.freeze)
+    for name, p in model.named_parameters():
+        p.requires_grad_(not frozen(name))
     return model.to(device).eval()
 
 

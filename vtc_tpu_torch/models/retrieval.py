@@ -1,4 +1,4 @@
-"""CLIP-backed retrieval models, eval path.
+"""CLIP-backed retrieval models.
 
 Port of ``vtc_tpu/models/retrieval.py``: ``PretrainedCLIP``,
 ``PretrainedCLIP_finaltf`` (CLIP + CAM), and the video models
@@ -13,9 +13,18 @@ State-dict names are the reference's: the CLIP towers under ``model.*``
 ``mean_center_bn.*``), so ``load_state_dict(strict=True)`` takes a
 reference checkpoint's keys.
 
-Not yet ported (ROADMAP): the training paths (``train=True``: random
-adapter skip, random comment masking, BN stat updates), the audio MLP
-(``init_audio_model``) and the baselines ``MLP``/``JointEmbedding``/``CLIP``.
+In training (``module.train()``, ``vtc_tpu/models/retrieval.py:287-349``)
+the CAM models adapt ``branch_to_adapt`` (not ``branch_to_adapt_val``), mask
+comments at random when ``random_comment_masking`` is set, skip the adapter
+at random when ``random_skip_adapter`` is set, and refuse the eval-only
+shared-comment broadcast. The random draws come from the ``generator`` the
+caller passes, or are handed in as ``draws`` (``{"comment_mask": [n, b, 1]
+0/1, "adapter_skip": [b, 1] bool}``, the JAX rng streams' names). ``freeze``
+is kept as the configs give it; ``create_model`` turns off the gradients of
+the frozen parameters (``factory.frozen_predicate``).
+
+Not yet ported (ROADMAP): the audio MLP (``init_audio_model``), the MoE
+adapter (``moe_experts``) and the baselines ``MLP``/``JointEmbedding``/``CLIP``.
 """
 
 from __future__ import annotations
@@ -83,14 +92,20 @@ class PretrainedCLIP(_ClipRetrievalBase, nn.Module):
     """CLIP dual encoder, with optional "averaging" comment fusion."""
 
     def __init__(self, model_type: str = "ViT-B/32", dtype=torch.float32,
-                 comment_fusion: Optional[str] = None):
+                 comment_fusion: Optional[str] = None, freeze=False,
+                 residual_activation: Optional[str] = None):
         super().__init__()
         if comment_fusion not in (None, "None", "averaging"):
             raise ValueError(f"unknown comment_fusion {comment_fusion!r}")
         self.comment_fusion = comment_fusion
+        self.freeze = freeze
+        self.residual_activation = residual_activation  # unused, as in vtc_tpu
         self.model = ClipModel(CLIP_VARIANTS[model_type], dtype)
 
-    def forward(self, vis, title, comments=None):
+    def forward(self, vis, title, comments=None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
+        # no random draws: ``generator``/``draws`` are the train step's call
         feats_vis = self._encode_vis(vis)
         if comments is None or self.comment_fusion in (None, "None"):
             feats_text = self.model.encode_text(title).float()
@@ -119,16 +134,30 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
                  branch_to_adapt: str = "text", branch_to_adapt_val: str = "text",
                  residual_activation: Optional[str] = None,
                  n_layers: int = 2, n_heads: int = 8,
-                 init_from_avg: bool = True, clip_kwargs: Optional[dict] = None):
+                 init_from_avg: bool = True, freeze=False,
+                 random_comment_masking: bool = False,
+                 random_skip_adapter: bool = True, moe_experts: int = 0,
+                 moe_top_k: int = 1, clip_kwargs: Optional[dict] = None):
+        if moe_experts:
+            raise NotImplementedError(
+                f"the MoE adapter (moe_experts={moe_experts}) is not ported yet "
+                f"(ROADMAP: Queue 1, distribution on torch.distributed)"
+            )
         variant = CLIP_VARIANTS[model_type]
         super().__init__(
             feature_dim=variant.embed_dim, n_layers=n_layers, n_heads=n_heads,
             init_from_avg=init_from_avg, residual_activation=residual_activation,
-            dtype=dtype,
+            random_skip_adapter=random_skip_adapter, dtype=dtype,
         )
-        self.branch_to_adapt = branch_to_adapt  # the training branch (ROADMAP)
+        self.freeze = freeze
+        self.random_comment_masking = random_comment_masking
+        self.branch_to_adapt = branch_to_adapt  # the training branch
         self.branch_to_adapt_val = branch_to_adapt_val  # the eval branch
         self.model = ClipModel(variant, dtype, **(clip_kwargs or {}))
+
+    @property
+    def finaltf_frozen(self) -> bool:
+        return isinstance(self.freeze, str) and "finaltf" in self.freeze
 
     def _encode_title_and_comments(self, title, comments):
         """One joint text-tower pass over [title; comments] when their token
@@ -148,23 +177,41 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
         return feats_title, feats_comm.transpose(0, 1)
 
     def _encode_with_comments(self, feats_vis, feats_title, feats_comm,
-                              branch_override: Optional[str] = None):
-        branch = branch_override if branch_override is not None else (
-            self.branch_to_adapt_val
-        )
+                              branch_override: Optional[str] = None,
+                              generator: Optional[torch.Generator] = None,
+                              draws: Optional[dict] = None):
+        draws = draws or {}
+        if self.training:
+            if self.random_comment_masking:
+                feats_comm = self.random_mask_comments(
+                    feats_comm, draws.get("comment_mask"), generator
+                )
+            branch = self.branch_to_adapt
+        else:
+            branch = branch_override if branch_override is not None else (
+                self.branch_to_adapt_val
+            )
 
         def bcast(fc, target_b):
             # a comment batch of 1 is shared by every row (transfer eval)
             if fc.shape[1] == 1 and target_b != 1:
+                if self.training:
+                    raise ValueError(
+                        f"comment batch 1 vs feature batch {target_b} in "
+                        f"training: the shared-comment broadcast is an "
+                        f"eval-only optimization"
+                    )
                 return fc.expand(fc.shape[0], target_b, fc.shape[2])
             return fc
 
+        def adapt(main, fc):
+            return self.adapt(main, bcast(fc, main.shape[0]), self.finaltf_frozen,
+                              draws.get("adapter_skip"), generator)
+
         if branch == "text":
-            feats_text = self.adapt(
-                feats_title, bcast(feats_comm, feats_title.shape[0])
-            )
+            feats_text = adapt(feats_title, feats_comm)
         elif branch == "image":
-            feats_vis = self.adapt(feats_vis, bcast(feats_comm, feats_vis.shape[0]))
+            feats_vis = adapt(feats_vis, feats_comm)
             feats_text = feats_title
         elif branch == "skip":
             feats_text = feats_title
@@ -186,7 +233,9 @@ class PretrainedCLIP_finaltf(_CamRetrievalBase):
         super().__init__(*args, **kwargs)
 
     def forward(self, vis, title, comments, audio_feats=None,
-                branch_override: Optional[str] = None):
+                branch_override: Optional[str] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
         if audio_feats is not None:
             raise NotImplementedError(
                 "audio features need the audio MLP, not ported yet (ROADMAP)"
@@ -194,7 +243,7 @@ class PretrainedCLIP_finaltf(_CamRetrievalBase):
         feats_vis = self._encode_vis(vis)
         feats_title, feats_comm = self._encode_title_and_comments(title, comments)
         feats_vis, feats_text = self._encode_with_comments(
-            feats_vis, feats_title, feats_comm, branch_override
+            feats_vis, feats_title, feats_comm, branch_override, generator, draws
         )
         return feats_vis, feats_text, self._sim(feats_vis, feats_text)
 
@@ -216,11 +265,17 @@ class PretrainedCLIP_TimeSformer(_VideoTower, _ClipRetrievalBase, nn.Module):
     ``model/model.py:483-506``); comments, if given, are not used."""
 
     def __init__(self, model_type: str = "ViT-B/32", dtype=torch.float32,
-                 nframes: int = 8):
+                 nframes: int = 8, freeze=False,
+                 residual_activation: Optional[str] = None):
         super().__init__()
+        self.freeze = freeze
+        self.residual_activation = residual_activation  # unused, as in vtc_tpu
         self.model = ClipModel(CLIP_VARIANTS[model_type], dtype, **_video_kwargs(nframes))
 
-    def forward(self, vis, title, comments=None):
+    def forward(self, vis, title, comments=None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
+        # no random draws: ``generator``/``draws`` are the train step's call
         feats_vis = l2_normalize(self._encode_vis(vis))
         feats_text = l2_normalize(self.model.encode_text(title).float())
         return feats_vis, feats_text, self._sim(feats_vis, feats_text)
@@ -235,10 +290,12 @@ class PretrainedCLIP_TimeSformer_finaltf(_VideoTower, _CamRetrievalBase):
                  **kwargs):
         super().__init__(*args, clip_kwargs=_video_kwargs(nframes), **kwargs)
 
-    def forward(self, vis, title, comments, branch_override: Optional[str] = None):
+    def forward(self, vis, title, comments, branch_override: Optional[str] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
         feats_vis = self._encode_vis(vis)
         feats_title, feats_comm = self._encode_title_and_comments(title, comments)
         feats_vis, feats_text = self._encode_with_comments(
-            feats_vis, feats_title, feats_comm, branch_override
+            feats_vis, feats_title, feats_comm, branch_override, generator, draws
         )
         return feats_vis, feats_text, self._sim(feats_vis, feats_text)

@@ -4,18 +4,22 @@
 Triton kernels; ``fused_mha``, ``fused_attention`` and the sweep's
 ``ln_mxu`` are CUDA C++ (``csrc/*.cu``). Each wrapper runs its plain
 version on a CPU tensor and its kernel on a CUDA tensor, and counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches`` (forward launches only). The four
+model kernels take a gradient: each has its backward in PyTorch ops
+(``*_backward``), the math of the JAX kernel's own ``custom_vjp`` backward.
 """
 
-from .addln import add_layernorm, add_layernorm_plain
+from .addln import add_layernorm, add_layernorm_backward, add_layernorm_plain
 from .attention import (
+    attention_backward,
     causal_mask,
     fused_attention,
     fused_attention_plain,
     fused_mha,
     fused_mha_plain,
+    mha_backward,
 )
-from .layernorm import layernorm, layernorm_plain
+from .layernorm import layernorm, layernorm_backward, layernorm_plain
 from .ln_designs import ln_mxu, ln_mxu_bf16, ln_mxu_bf16_plain, ln_mxu_plain
 
 KERNELS = (layernorm, add_layernorm, fused_mha, fused_attention, ln_mxu, ln_mxu_bf16)
@@ -33,7 +37,9 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS",
     "add_layernorm",
+    "add_layernorm_backward",
     "add_layernorm_plain",
+    "attention_backward",
     "causal_mask",
     "fused_attention",
     "fused_attention_plain",
@@ -41,10 +47,12 @@ __all__ = [
     "fused_mha_plain",
     "launch_counts",
     "layernorm",
+    "layernorm_backward",
     "layernorm_plain",
     "ln_mxu",
     "ln_mxu_bf16",
     "ln_mxu_bf16_plain",
     "ln_mxu_plain",
+    "mha_backward",
     "reset_launch_counts",
 ]

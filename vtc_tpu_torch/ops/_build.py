@@ -115,10 +115,26 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions and the backwards compute in: fp32 for
+    fp32 and bf16 tensors, as the TPU kernels do, and fp64 for fp64 tensors,
+    so that ``torch.autograd.gradcheck`` can hold a backward in fp64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether a call must go on the autograd tape: only then does a
+    wrapper pay for its ``torch.autograd.Function``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
 class _ForwardOnly(torch.autograd.Function):
-    """Runs a kernel launch and refuses a backward pass through it: the
-    backward kernels come with the training slice, and until then a gradient
-    must not be recomputed silently through another path."""
+    """Runs a kernel launch and refuses a backward pass through it. The LN
+    sweep's designs (``ln_mxu``, ``ln_mxu_bf16``) measure a forward and take
+    no gradient; a gradient must not be recomputed silently through another
+    path."""
 
     @staticmethod
     def forward(ctx, name: str, launch: Callable, *tensors):
@@ -128,13 +144,15 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            f"{ctx.name} has no backward kernel yet (ROADMAP: training slice)"
+            f"{ctx.name} has no backward: it is a design of the LN sweep, "
+            f"which measures forwards only; the model path's LayerNorm is "
+            f"ops.layernorm"
         )
 
 
 def forward_only(name: str, launch: Callable, *tensors):
     """``launch(*tensors)``, recorded on the autograd tape only when a
     gradient is wanted, so inference pays nothing for the guard."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         return _ForwardOnly.apply(name, launch, *tensors)
     return launch(*tensors)

@@ -15,22 +15,69 @@ reduction). Design: one program holds a block of whole rows of ``s`` in fp32
 registers, writes ``s`` and computes the statistics from the same registers,
 so ``s`` is never read back from device memory; four passes over the rows in
 all, the least the two outputs allow.
+
+Backward: ``AddLayerNormFn.backward``, the math of ``jax.vjp`` of
+``_xla_add_layernorm`` (the JAX kernel's ``_bwd``, ``:132-140``). It takes
+the cotangents of both outputs: ``ds = gs + dLN(s)/ds``, in fp32, then cast
+to ``a.dtype`` for ``a`` and to ``b.dtype`` for ``b``. Either cotangent may be
+absent when only one output is used.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from ._build import forward_only, import_triton
-from .layernorm import check_cuda_rows, layernorm_plain, row_blocks, rows_view
+from ._build import acc_dtype, import_triton, needs_grad
+from .layernorm import (
+    check_cuda_rows,
+    layernorm_backward,
+    layernorm_plain,
+    row_blocks,
+    rows_view,
+)
 
 tl = None  # triton.language, bound by _kernel() at first launch
 _KERNEL = None
 
 
 def add_layernorm_plain(a, b, scale, bias, eps: float = 1e-5):
-    s32 = a.float() + b.float()
+    acc = acc_dtype(a.dtype)
+    s32 = a.to(acc) + b.to(acc)
     return s32.to(a.dtype), layernorm_plain(s32, scale, bias, eps).to(a.dtype)
+
+
+def add_layernorm_backward(a, b, scale, gs, gy, eps: float = 1e-5):
+    """``(da, db, dscale, dbias)`` of ``add_layernorm_plain`` for the
+    cotangents ``gs`` of s and ``gy`` of y, either of which may be None."""
+    acc = acc_dtype(a.dtype)
+    ds = None if gs is None else gs.to(acc)
+    dscale = dbias = None
+    if gy is not None:
+        s32 = a.to(acc) + b.to(acc)
+        dx32, dscale, dbias = layernorm_backward(s32, scale, gy, eps)
+        ds = dx32 if ds is None else ds + dx32
+    if ds is None:
+        return None, None, None, None
+    return ds.to(a.dtype), ds.to(b.dtype), dscale, dbias
+
+
+class AddLayerNormFn(torch.autograd.Function):
+    """The kernel's forward (``launch``: the Triton kernel on the card,
+    ``add_layernorm_plain`` on the CPU) and the backward of both outputs."""
+
+    @staticmethod
+    def forward(ctx, a, b, scale, bias, eps, launch):
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, scale)
+        return launch(a, b, scale, bias)
+
+    @staticmethod
+    def backward(ctx, gs, gy):
+        a, b, scale = ctx.saved_tensors
+        with record_function("add_layernorm.backward"):
+            return (*add_layernorm_backward(a, b, scale, gs, gy, ctx.eps), None, None)
 
 
 def _addln_kernel(a_ptr, b_ptr, w_ptr, bias_ptr, s_ptr, y_ptr, rows, d,
@@ -81,16 +128,19 @@ def add_layernorm(a, b, scale, bias, eps: float = 1e-5):
     if a.shape != b.shape:
         raise ValueError(f"a and b shapes differ: {a.shape} {b.shape}")
     if a.device.type == "cpu":
-        return add_layernorm_plain(a, b, scale, bias, eps)
-    if a.device.type != "cuda":
+        def launch(a_, b_, s_, bi_):
+            return add_layernorm_plain(a_, b_, s_, bi_, eps)
+    elif a.device.type == "cuda":
+        check_cuda_rows("add_layernorm", a, scale, bias)
+        check_cuda_rows("add_layernorm", b, scale, bias)
+
+        def launch(a_, b_, s_, bi_):
+            return _launch(a_, b_, s_, bi_, eps)
+    else:
         raise ValueError(f"add_layernorm runs on cpu or cuda, not {a.device}")
-    check_cuda_rows("add_layernorm", a, scale, bias)
-    check_cuda_rows("add_layernorm", b, scale, bias)
-    return forward_only(
-        "add_layernorm",
-        lambda a_, b_, s_, bi_: _launch(a_, b_, s_, bi_, eps),
-        a, b, scale, bias,
-    )
+    if needs_grad(a, b, scale, bias):
+        return AddLayerNormFn.apply(a, b, scale, bias, eps, launch)
+    return launch(a, b, scale, bias)
 
 
 add_layernorm.launches = 0

@@ -18,6 +18,16 @@ tensor-core tile of ``csrc/short_attention.cuh``; the source notes give the
 bound and the design); on a CPU tensor it runs its plain version, the math
 of the JAX reference. There is no fallback from one to the other. L is
 at most 128 in both, as in the TPU kernels.
+
+Backward: ``mha_backward`` and ``attention_backward``, PyTorch ops on the
+saved ``(q, k, v[, mask])``, the math of ``jax.vjp`` of the JAX reference
+that each kernel's ``custom_vjp`` differentiates (``_mha_bwd``, ``:307-317``;
+``_bwd``, ``:148-159``). P is recomputed in fp32 and rounded to q's dtype
+where the forward rounds it, so ``dV`` sees the rounded P and ``dP`` is
+rounded to q's dtype on its way back, as the vjp of that cast; then
+``dS = P ⊙ (dP − rowsum(dP ⊙ P))`` and ``dQ``/``dK`` with the scale. The
+mask gets no gradient. The gradients take the inputs' shapes whatever their
+strides (the q/k/v column views of one qkv GEMM output).
 """
 
 from __future__ import annotations
@@ -26,8 +36,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
-from ._build import check_launch, forward_only, load_library
+from ._build import acc_dtype, check_launch, load_library, needs_grad
 
 MAX_LEN = 128
 MAX_HEAD_DIM = 128  # csrc/short_attention.cuh: sa::kMaxL, sa::kMaxDh
@@ -48,15 +59,62 @@ def fused_mha_plain(q, k, v, heads: int, causal: bool = False,
     b, l, e = q.shape
     d = e // heads
     s = scale if scale is not None else d**-0.5
+    acc = acc_dtype(q.dtype)
     qh = (q * torch.tensor(s, dtype=q.dtype)).reshape(b, l, heads, d)
     kh = k.reshape(b, l, heads, d)
     vh = v.reshape(b, l, heads, d)
-    scores = torch.einsum("blhd,bmhd->bhlm", qh.float(), kh.float())
+    scores = torch.einsum("blhd,bmhd->bhlm", qh.to(acc), kh.to(acc))
     if causal:
-        scores = scores + causal_mask(l, q.device)
+        scores = scores + causal_mask(l, q.device).to(acc)
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhlm,bmhd->blhd", attn.float(), vh.float())
+    out = torch.einsum("bhlm,bmhd->blhd", attn.to(acc), vh.to(acc))
     return out.reshape(b, l, e).to(q.dtype)
+
+
+def _softmax_backward(p, dp_rounded):
+    """dS from the fp32 P and the cotangent of P after its rounding."""
+    return p * (dp_rounded - (dp_rounded * p).sum(dim=-1, keepdim=True))
+
+
+def mha_backward(q, k, v, g, heads: int, causal: bool, scale: float):
+    """``(dq, dk, dv)`` of ``fused_mha_plain`` for the output cotangent
+    ``g``, each in its input's dtype and shape."""
+    b, l, e = q.shape
+    d = e // heads
+    acc = acc_dtype(q.dtype)
+    s = torch.tensor(scale, dtype=q.dtype)
+    qh = (q * s).reshape(b, l, heads, d).to(acc)
+    kh = k.reshape(b, l, heads, d).to(acc)
+    vh = v.reshape(b, l, heads, d).to(acc)
+    g32 = g.reshape(b, l, heads, d).to(acc)
+    scores = torch.einsum("blhd,bmhd->bhlm", qh, kh)
+    if causal:
+        scores = scores + causal_mask(l, q.device).to(acc)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.einsum("bhlm,blhd->bmhd", p.to(q.dtype).to(acc), g32)
+    dp = torch.einsum("blhd,bmhd->bhlm", g32, vh).to(q.dtype).to(acc)
+    ds = _softmax_backward(p, dp)
+    dqh = torch.einsum("bhlm,bmhd->blhd", ds, kh).to(q.dtype)
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, qh)
+    return ((dqh * s).reshape(b, l, e), dk.reshape(b, l, e).to(k.dtype),
+            dv.reshape(b, l, e).to(v.dtype))
+
+
+class FusedMhaFn(torch.autograd.Function):
+    """The kernel's forward (``launch``: ``csrc/fused_mha.cu`` on the card,
+    ``fused_mha_plain`` on the CPU) and ``mha_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, causal, scale, launch):
+        ctx.args = (heads, causal, scale)
+        ctx.save_for_backward(q, k, v)
+        return launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with record_function("fused_mha.backward"):
+            return (*mha_backward(q, k, v, g, *ctx.args), None, None, None, None)
 
 
 def _kernel():
@@ -85,6 +143,20 @@ def _launch(q, k, v, heads, causal, scale):
     return o
 
 
+def _check_cuda_qkv(name, q, k, v):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{name} takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"{q.dtype} {k.dtype} {v.dtype}"
+        )
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(
+                f"{arg} must be on {q.device} with a contiguous last dim "
+                f"(got {t.device}, strides {t.stride()})"
+            )
+
+
 def fused_mha(q, k, v, heads: int, causal: bool = False,
               scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention over ``[B, L, E]``, E = heads·Dh, L <= 128."""
@@ -100,24 +172,20 @@ def fused_mha(q, k, v, heads: int, causal: bool = False,
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
     s = scale if scale is not None else (e // heads) ** -0.5
     if q.device.type == "cpu":
-        return fused_mha_plain(q, k, v, heads, causal, s)
-    if q.device.type != "cuda":
+        def launch(q_, k_, v_):
+            return fused_mha_plain(q_, k_, v_, heads, causal, s)
+    elif q.device.type == "cuda":
+        _check_cuda_qkv("fused_mha", q, k, v)
+        if e // heads > MAX_HEAD_DIM:
+            raise ValueError(f"head dim {e // heads} > {MAX_HEAD_DIM}")
+
+        def launch(q_, k_, v_):
+            return _launch(q_, k_, v_, heads, causal, s)
+    else:
         raise ValueError(f"fused_mha runs on cpu or cuda, not {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"fused_mha takes float32 or bfloat16 q, k, v of one dtype, got "
-            f"{q.dtype} {k.dtype} {v.dtype}"
-        )
-    if e // heads > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {e // heads} > {MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.stride(2) != 1:
-            raise ValueError(
-                f"{name} must be on {q.device} with a contiguous last dim "
-                f"(got {t.device}, strides {t.stride()})"
-            )
-    return forward_only("fused_mha", lambda q_, k_, v_: _launch(
-        q_, k_, v_, heads, causal, s), q, k, v)
+    if needs_grad(q, k, v):
+        return FusedMhaFn.apply(q, k, v, heads, causal, s, launch)
+    return launch(q, k, v)
 
 
 fused_mha.launches = 0
@@ -130,12 +198,48 @@ def fused_attention_plain(q, k, v, mask=None, scale: Optional[float] = None):
     in fp32, plus the mask, fp32 softmax, P rounded to q's dtype, P@V
     accumulated in fp32, output in q's dtype. Any leading dims."""
     s = scale if scale is not None else q.shape[-1] ** -0.5
-    scores = torch.einsum("...id,...jd->...ij", q.float(), k.float()) * s
+    acc = acc_dtype(q.dtype)
+    scores = torch.einsum("...id,...jd->...ij", q.to(acc), k.to(acc)) * s
     if mask is not None:
-        scores = scores + mask.float()
+        scores = scores + mask.to(acc)
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("...ij,...jd->...id", attn.float(), v.float())
+    out = torch.einsum("...ij,...jd->...id", attn.to(acc), v.to(acc))
     return out.to(q.dtype)
+
+
+def attention_backward(q, k, v, mask, g, scale: float):
+    """``(dq, dk, dv)`` of ``fused_attention_plain`` for the output
+    cotangent ``g``, each in its input's dtype and shape."""
+    acc = acc_dtype(q.dtype)
+    q32, k32, v32, g32 = q.to(acc), k.to(acc), v.to(acc), g.to(acc)
+    scores = torch.einsum("...id,...jd->...ij", q32, k32) * scale
+    if mask is not None:
+        scores = scores + mask.to(acc)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.einsum("...ij,...id->...jd", p.to(q.dtype).to(acc), g32)
+    dp = torch.einsum("...id,...jd->...ij", g32, v32).to(q.dtype).to(acc)
+    ds = _softmax_backward(p, dp) * scale
+    dq = torch.einsum("...ij,...jd->...id", ds, k32)
+    dk = torch.einsum("...ij,...id->...jd", ds, q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """The kernel's forward (``launch``: ``csrc/fused_attention.cu`` on the
+    card, ``fused_attention_plain`` on the CPU) and ``attention_backward``;
+    the mask is saved, not differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, launch):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, mask)
+        return launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        with record_function("fused_attention.backward"):
+            return (*attention_backward(q, k, v, mask, g, ctx.scale), None, None, None)
 
 
 def _attention_kernel():
@@ -187,28 +291,23 @@ def fused_attention(q, k, v, mask=None, scale: Optional[float] = None):
         raise ValueError(f"mask must be [L, L] = [{l}, {l}], got {tuple(mask.shape)}")
     s = scale if scale is not None else d**-0.5
     if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, mask, s)
-    if q.device.type != "cuda":
+        def launch(q_, k_, v_):
+            return fused_attention_plain(q_, k_, v_, mask, s)
+    elif q.device.type == "cuda":
+        _check_cuda_qkv("fused_attention", q, k, v)
+        if mask is not None:
+            mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
+
+        def launch(q_, k_, v_):
+            if q_.dim() == 3:
+                return _attention_launch(q_[:, None], k_[:, None], v_[:, None],
+                                         mask, s)[:, 0]
+            return _attention_launch(q_, k_, v_, mask, s)
+    else:
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"fused_attention takes float32 or bfloat16 q, k, v of one dtype, "
-            f"got {q.dtype} {k.dtype} {v.dtype}"
-        )
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.stride(-1) != 1:
-            raise ValueError(
-                f"{name} must be on {q.device} with a contiguous last dim "
-                f"(got {t.device}, strides {t.stride()})"
-            )
-    if mask is not None:
-        mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
-    squeeze = q.dim() == 3
-    if squeeze:
-        q, k, v = q[:, None], k[:, None], v[:, None]
-    o = forward_only("fused_attention", lambda q_, k_, v_: _attention_launch(
-        q_, k_, v_, mask, s), q, k, v)
-    return o[:, 0] if squeeze else o
+    if needs_grad(q, k, v):
+        return FusedAttentionFn.apply(q, k, v, mask, s, launch)
+    return launch(q, k, v)
 
 
 fused_attention.launches = 0

@@ -12,13 +12,21 @@ registers (``BLOCK = next_pow2(d)``, masked tail), with the mean and the
 centered variance in fp32 from that one read, so device memory sees one read
 and one write per element. The TPU's ``d % 128`` and ``rows % block``
 constraints do not apply: any d, any number of rows.
+
+Backward: ``LayerNormFn.backward``, PyTorch ops on the saved ``(x, scale,
+bias)``: the math of ``jax.vjp`` of ``_xla_layernorm``, which is the JAX
+kernel's own backward (``_bwd``, ``:111-117``). Mean and rstd are recomputed
+in fp32; ``dx`` is cast to ``x.dtype``, ``dscale``/``dbias`` summed over the
+rows in fp32. It is its own function, not autograd of ``layernorm_plain``, so
+no plain forward runs on the card's training path.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from ._build import forward_only, import_triton
+from ._build import acc_dtype, import_triton, needs_grad
 
 tl = None  # triton.language, bound by _kernel() at first launch
 _KERNEL = None
@@ -26,11 +34,48 @@ _ELEMS_PER_PROGRAM = 4096
 
 
 def layernorm_plain(x, scale, bias, eps: float = 1e-5):
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x.dtype))
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, unbiased=False, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+def layernorm_backward(x, scale, g, eps: float = 1e-5):
+    """``(dx32, dscale, dbias)`` of ``y = LN(x)·scale + bias`` for the
+    cotangent ``g`` of y; ``dx32`` stays in the compute type (add+LN adds
+    the cotangent of its sum to it before casting)."""
+    acc = acc_dtype(x.dtype)
+    x32, g32 = x.to(acc), g.to(acc)
+    mean = x32.mean(dim=-1, keepdim=True)
+    xc = x32 - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    d = x.shape[-1]
+    dscale = (g32 * xhat).reshape(-1, d).sum(dim=0)
+    dbias = g32.reshape(-1, d).sum(dim=0)
+    dxhat = g32 * scale.to(acc)
+    dx32 = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                   - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx32, dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """The kernel's forward (``launch``: the Triton kernel on the card,
+    ``layernorm_plain`` on the CPU) and the backward above."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, launch):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale)
+        return launch(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with record_function("layernorm.backward"):
+            dx32, dscale, dbias = layernorm_backward(x, scale, g, ctx.eps)
+            return dx32.to(x.dtype), dscale, dbias, None, None
 
 
 def _ln_kernel(x_ptr, w_ptr, b_ptr, y_ptr, rows, d, stride_x, eps,
@@ -106,13 +151,18 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the last axis with fp32 statistics and affine, cast
     back to ``x.dtype``. ``scale``/``bias``: ``[d]``, fp32 in the model."""
     if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
+        def launch(x_, s_, b_):
+            return layernorm_plain(x_, s_, b_, eps)
+    elif x.device.type == "cuda":
+        check_cuda_rows("layernorm", x, scale, bias)
+
+        def launch(x_, s_, b_):
+            return _launch(x_, s_, b_, eps)
+    else:
         raise ValueError(f"layernorm runs on cpu or cuda, not {x.device}")
-    check_cuda_rows("layernorm", x, scale, bias)
-    return forward_only(
-        "layernorm", lambda x_, s_, b_: _launch(x_, s_, b_, eps), x, scale, bias
-    )
+    if needs_grad(x, scale, bias):
+        return LayerNormFn.apply(x, scale, bias, eps, launch)
+    return launch(x, scale, bias)
 
 
 layernorm.launches = 0
