@@ -15,13 +15,14 @@ Tolerances, each with its reason:
   by an fp32 ulp, which can move a rounding to bf16 (of the output, or in
   ``ln_mxu_bf16`` of the mean and rstd) by one bf16 step.
 
-The CPU also checks what the CUDA kernel of ``ln_mxu`` (``csrc/ln_mxu.cu``)
-rests on: the exact split of x and x·x into bf16 parts, a PyTorch twin of
-its chunked sums against ``ln_mxu_plain``, its shared-memory size and the
-wrapper's refusals. The ``cuda``-marked tests hold both kernels against the
-plain versions on the card (``ln_mxu`` also on row views, misaligned bases
-and parameters, and small d, which take its element path) and skip without
-one; run them there with
+The CPU also checks what the two CUDA kernels (``csrc/ln_mxu.cu``) rest on:
+for ``ln_mxu`` the exact split of x and x·x into bf16 parts, for both a
+PyTorch twin of their chunked sums against the plain version, their
+shared-memory sizes and the wrappers' refusals, and ``ln_mxu_bf16``'s grid.
+The ``cuda``-marked tests hold both kernels against the plain versions on
+the card, also on row views, misaligned bases and parameters, small d
+(their element paths) and ragged tiles, and ``ln_mxu_bf16`` also with one
+block walking every tile; they skip without a card. Run them there with
 ``python -m pytest tests/test_torch_ln_designs.py -m cuda --noconftest``.
 """
 
@@ -34,7 +35,15 @@ import pytest
 import torch
 
 from vtc_tpu_torch import ops
-from vtc_tpu_torch.ops.ln_designs import LN_MXU_MAX_SMEM, ln_mxu_smem_bytes
+from vtc_tpu_torch.ops import ln_designs
+from vtc_tpu_torch.ops.ln_designs import (
+    LN_MXU_BF16_CONFIG,
+    LN_MXU_MAX_SMEM,
+    ln_mxu_bf16_grid,
+    ln_mxu_bf16_smem_bytes,
+    ln_mxu_smem_bytes,
+)
+from vtc_tpu_torch.scripts.bench_ln_kernel import CONFIGS as SWEEP_CONFIGS
 
 FP32_ATOL = 2e-5
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -276,22 +285,116 @@ def test_ln_mxu_takes_rows_up_to_its_shared_memory():
     torch.testing.assert_close(y, ops.ln_mxu_plain(*args), rtol=0, atol=0)
 
 
+# ---- ln_mxu_bf16's CUDA kernel, as far as the CPU can check it -------------
+
+def _bf16_kernel_twin(x, scale, bias, eps=1e-5):
+    """``ln_mxu_bf16``'s arithmetic as the CUDA kernel runs it: per 16-column
+    chunk, Σx and Σ bf16(x²) each from zero (one part each), the chunk sums
+    added into the row's fp32 sums in order; mean, var and rstd in fp32;
+    then the five roundings to bf16 (mean, rstd, x − mean, ·rstd, ·scale,
+    + bias, with scale and bias rounded to bf16)."""
+    rows, d = x.shape
+    xp = torch.nn.functional.pad(x, (0, -d % 16)).view(rows, -1, 16)
+    ones = torch.ones(16, 1)
+
+    def sums(part):
+        chunk = (part.float() @ ones)[..., 0]
+        total = torch.zeros(rows)
+        for c in range(chunk.shape[1]):
+            total = total + chunk[:, c]
+        return total[:, None]
+
+    mean = sums(xp) / d
+    var = sums(xp * xp) / d - mean * mean  # xp * xp: the bf16 product
+    rstd = torch.rsqrt(var + eps)
+    bf16 = torch.bfloat16
+    y = (x - mean.to(bf16)) * rstd.to(bf16)
+    return y * scale.to(bf16) + bias.to(bf16)
+
+
+@pytest.mark.parametrize("d", [100, 768])
+def test_ln_mxu_bf16_kernel_sums_match_plain(d):
+    x, scale, bias = _rows(64, d, seed=d + 5)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
+    twin = _bf16_kernel_twin(xt, st, bt)
+    assert twin.dtype == torch.bfloat16
+    _close(twin, ops.ln_mxu_bf16_plain(xt, st, bt).float().numpy(), "bf16")
+
+
+@pytest.mark.parametrize("rows,warps,d,want", [
+    (16, 4, 768, 2 * 16 * 776 * 2 + 2 * 768 * 2 + 8 * (64 + 16)),
+    (16, 1, 100, 2 * 16 * 120 * 2 + 2 * 112 * 2 + 8 * (16 + 16)),
+    (64, 8, 768, 2 * 64 * 776 * 2 + 2 * 768 * 2 + 8 * (128 + 64)),
+    (32, 2, 16, 2 * 32 * 24 * 2 + 2 * 16 * 2 + 8 * (32 + 32)),
+])
+def test_ln_mxu_bf16_smem_bytes(rows, warps, d, want):
+    assert ln_mxu_bf16_smem_bytes(rows, warps, d) == want
+    # both stages: twice ln_mxu's rows
+    rows_bytes = ln_mxu_smem_bytes(rows, warps, d, torch.bfloat16) - 8 * (16 * warps + rows)
+    assert want == 2 * rows_bytes + 2 * -(-d // 16) * 16 * 2 + 8 * (16 * warps + rows)
+
+
+@pytest.mark.parametrize("rows,warps,d,match", [
+    (8, 1, 64, "power of two >= 16"),
+    (48, 3, 64, "power of two >= 16"),
+    (32, 1, 64, "multiple of rows_per_program / 16 = 2"),
+    (128, 4, 64, "multiple of rows_per_program / 16 = 8"),
+    (16, 16, 64, "at most 8"),
+    (128, 8, 768, "shared memory"),  # two stages of 128 rows: 397,312 bytes
+    (16, 4, 3393, "shared memory"),  # 232,896 bytes
+])
+def test_ln_mxu_bf16_refuses_configurations_the_kernel_does_not_take(rows, warps, d, match):
+    x = torch.zeros(2, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        ops.ln_mxu_bf16(x, torch.ones(d), torch.zeros(d), rows_per_program=rows,
+                        num_warps=warps)
+
+
+def test_ln_mxu_bf16_takes_rows_up_to_its_shared_memory():
+    d = 3392  # two stages of 16 rows at 4 warps: 231,808 bytes of 232,448
+    assert ln_mxu_bf16_smem_bytes(16, 4, d) <= LN_MXU_MAX_SMEM
+    x, scale, bias = _rows(2, d)
+    args = [torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(scale),
+            torch.from_numpy(bias)]
+    y = ops.ln_mxu_bf16(*args, rows_per_program=16, num_warps=4)
+    torch.testing.assert_close(y, ops.ln_mxu_bf16_plain(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows_per_program,num_warps", SWEEP_CONFIGS)
+@pytest.mark.parametrize("rows,d", [(8000, 768), (15360, 512), (37, 100), (1, 16)])
+def test_ln_mxu_bf16_grid(rows, d, rows_per_program, num_warps):
+    """Blocks of one launch on 132 SMs: at least one, no more than the tiles,
+    and no more than the SMs hold by shared memory and threads."""
+    sms = 132
+    tiles = -(-rows // rows_per_program)
+    blocks = ln_mxu_bf16_grid(rows, rows_per_program, num_warps, d, sms)
+    assert 1 <= blocks <= tiles
+    smem = ln_mxu_bf16_smem_bytes(rows_per_program, num_warps, d) + 1024
+    assert blocks <= sms * (233472 // smem)
+    assert blocks * 32 * num_warps <= sms * 2048
+
+
+@pytest.mark.parametrize("rows,walk,more", [(8000, 1, 236), (64000, 15, 40)])
+def test_ln_mxu_bf16_blocks_walk_the_tiles(rows, walk, more):
+    """At the default configuration each SM keeps ``LN_MXU_BF16_IN_FLIGHT``
+    bytes of tile loads in flight, one tile per block, rounded up to whole
+    blocks; the blocks walk the tiles a grid apart, so the next tile's copy
+    overlaps the current one: of the 264 blocks at the sweep's [8000, 768]
+    236 walk two tiles and 28 one; at [64000, 768] 40 walk 16 and the rest
+    15."""
+    rows_per_program, num_warps = LN_MXU_BF16_CONFIG
+    tiles = rows // rows_per_program
+    blocks = ln_mxu_bf16_grid(rows, rows_per_program, num_warps, 768, 132)
+    per_sm, tile_bytes = blocks // 132, rows_per_program * 768 * 2
+    assert blocks == 132 * per_sm
+    assert per_sm * tile_bytes >= ln_designs.LN_MXU_BF16_IN_FLIGHT
+    assert (per_sm - 1) * tile_bytes < ln_designs.LN_MXU_BF16_IN_FLIGHT
+    assert blocks == 264
+    assert tiles // blocks == walk and tiles - walk * blocks == more
+
+
 # ---- on the card: each kernel against its plain version -------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows_per_program,num_warps", [(16, 4), (64, 4), (128, 8)])
-@pytest.mark.parametrize("rows,d", [(8000, 768), (960, 512), (37, 100)])
-def test_ln_mxu_bf16_on_card(cuda, rows, d, rows_per_program, num_warps):
-    x, scale, bias = _rows(rows, d, seed=rows)
-    scale, bias = torch.from_numpy(scale).to(cuda), torch.from_numpy(bias).to(cuda)
-    x16 = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
-    n = ops.ln_mxu_bf16.launches
-    out = ops.ln_mxu_bf16(x16, scale, bias, rows_per_program=rows_per_program,
-                          num_warps=num_warps)
-    torch.cuda.synchronize()
-    assert ops.ln_mxu_bf16.launches == n + 1
-    _close(out, ops.ln_mxu_bf16_plain(x16, scale, bias).float().cpu().numpy(), "bf16")
-
 
 # rows, d, row stride, x's offset and the parameters' offset in elements
 LN_MXU_CARD_CASES = {
@@ -329,3 +432,23 @@ def test_ln_mxu_on_card(cuda, case, rows_per_program, num_warps):
         assert ops.ln_mxu.launches == n + 1
         assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
         _close(out, ops.ln_mxu_plain(x, scale, bias).float().cpu().numpy(), dtype_name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_sm", [False, True], ids=["grid", "one SM"])
+@pytest.mark.parametrize("rows_per_program,num_warps", [(16, 1), (16, 4), (32, 2), (64, 8)])
+@pytest.mark.parametrize("case", list(LN_MXU_CARD_CASES))
+def test_ln_mxu_bf16_on_card(cuda, case, rows_per_program, num_warps, one_sm, monkeypatch):
+    """With ``one_sm`` the grid is sized for one SM: its blocks walk every
+    tile, so both stages, the ragged last tile and the element path's
+    copies are taken in one walk."""
+    if one_sm:
+        monkeypatch.setattr(ln_designs, "_sm_count", lambda device: 1)
+    x, scale, bias = _card_case(case, torch.bfloat16, cuda)
+    n = ops.ln_mxu_bf16.launches
+    out = ops.ln_mxu_bf16(x, scale, bias, rows_per_program=rows_per_program,
+                          num_warps=num_warps)
+    torch.cuda.synchronize()
+    assert ops.ln_mxu_bf16.launches == n + 1
+    assert out.shape == x.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    _close(out, ops.ln_mxu_bf16_plain(x, scale, bias).float().cpu().numpy(), "bf16")

@@ -1,8 +1,8 @@
 """The port's kernels, each beside its plain PyTorch version.
 
-``layernorm``, ``add_layernorm`` and the LN sweep's ``ln_mxu_bf16`` are
-Triton kernels; ``fused_mha``, ``fused_attention`` and the sweep's
-``ln_mxu`` are CUDA C++ (``csrc/*.cu``). Each wrapper runs its plain
+``layernorm`` and ``add_layernorm`` are Triton kernels; ``fused_mha``,
+``fused_attention`` and the LN sweep's ``ln_mxu`` and ``ln_mxu_bf16`` are
+CUDA C++ (``csrc/*.cu``). Each wrapper runs its plain
 version on a CPU tensor and its kernel on a CUDA tensor, and counts its
 kernel launches in ``<wrapper>.launches`` (forward launches only). The four
 model kernels take a gradient: each has its backward in PyTorch ops

@@ -1,5 +1,5 @@
-"""LayerNorm designs of the sweep: ``ln_mxu`` (CUDA C++, ``csrc/ln_mxu.cu``)
-and ``ln_mxu_bf16`` (Triton), each beside a plain version of its exact math.
+"""LayerNorm designs of the sweep, ``ln_mxu`` and ``ln_mxu_bf16``, CUDA C++
+kernels (``csrc/ln_mxu.cu``), each beside a plain version of its exact math.
 
 Port of the designs of ``scripts/bench_ln_kernel.py`` (``make_pallas``,
 ``:88``), whose twin is ``vtc_tpu_torch/scripts/bench_ln_kernel.py``:
@@ -19,45 +19,53 @@ On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain version. There is no fallback from one to the other.
 
 Bound on the H100: bytes, as ``layernorm`` (one read and one write of the
-rows). Both designs put the row sums on the tensor cores, as a product with
-ones:
+rows). Both designs stage each row tile once in shared memory and put the
+row sums on the tensor cores, ``mma.sync`` against an all-ones B fragment
+(the source notes of ``csrc/ln_mxu.cu`` give the designs):
 
-* ``ln_mxu``, CUDA C++ (the source note of ``csrc/ln_mxu.cu`` gives the
-  design): a block stages ``rows_per_program`` rows in shared memory, one
-  read, and ``num_warps`` warps take its 16-row tiles, ``num_warps /
-  (rows_per_program / 16)`` warps to a tile, each with its share of the
-  16-column chunks. ``mma.sync`` against an all-ones B fragment sums each
-  chunk. fp32 x and x·x enter as three exact bf16 parts, bf16 x² as two.
-  Every warp then normalizes whole rows from shared memory.
-* ``ln_mxu_bf16``, Triton: a program takes ``ROWS`` rows and walks them in
-  chunks of 128 columns, accumulating Σx and Σx² with ``tl.dot`` against a
-  ``[128, 16]`` matrix whose column 0 is ones and the rest zeros
-  (``tl.dot``'s least N is 16); a second walk over the same rows, which the
-  first left in L2, normalizes and stores. ``tl.dot`` needs at least 16
-  rows, so ``ROWS`` is 16 or more. d need not be a multiple of 128: the
-  padded columns load as zeros and add nothing.
+* ``ln_mxu``: a block stages ``rows_per_program`` rows, and ``num_warps``
+  warps take its 16-row tiles, ``num_warps / (rows_per_program / 16)`` warps
+  to a tile, each with its share of the 16-column chunks. fp32 x and x·x
+  enter as three exact bf16 parts, bf16 x² as two. Every warp then
+  normalizes whole rows from shared memory. One block per row tile.
+* ``ln_mxu_bf16``: the same tiles and warps, with x and bf16(x²) one part
+  each, and the body's bf16 steps as bf16 pair instructions. Its blocks are
+  persistent: ``ln_mxu_bf16_grid`` launches a few per SM, and each walks
+  tiles a grid apart over two shared-memory stages, the next tile's copy in
+  flight while this one is summed, normalized and stored.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ._build import check_launch, forward_only, import_triton, load_library
+from ._build import check_launch, forward_only, load_library
 from .layernorm import check_cuda_rows, rows_view
 
-tl = None  # triton.language, bound by _bf16_kernel() at first launch
-_BF16_KERNEL = None
 # (rows per program, warps): the fastest of the sweep's configurations on
-# the H100 at [8000, 768] bf16 (scripts/bench_ln_kernel.py)
+# the H100 at [8000, 768] bf16 (scripts/bench_ln_kernel.py; the runs are
+# in PERF.md, rows 5a and 5b)
 LN_MXU_CONFIG = (16, 8)
-LN_MXU_BF16_CONFIG = (64, 8)
-_CHUNK = 128  # columns per product: the sums' depth per tl.dot
-_SUM_COLS = 16  # tl.dot's least N
+LN_MXU_BF16_CONFIG = (16, 8)
 LN_MXU_MAX_WARPS = 8  # csrc/ln_mxu.cu: kMaxWarps
 LN_MXU_MAX_SMEM = 232448  # shared memory a block can use on the H100
+# the H100's SM: shared memory (1 KB of it reserved for each block), threads
+# and blocks it holds
+SM_SMEM, BLOCK_SMEM_RESERVED, SM_THREADS, SM_BLOCKS = 233472, 1024, 2048, 32
+# ln_mxu_bf16's tile loads in flight per SM that its grid aims at: twice
+# the 25 KB that 3.35 TB/s × about 1 µs of latency / 132 SMs gives by
+# arithmetic (two blocks of 16-row tiles at d = 768; chip_smoke.py times
+# the grids of one, two and four blocks per SM)
+LN_MXU_BF16_IN_FLIGHT = 48 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _row_stride(d: int, esize: int) -> int:
+    """``sa::row_stride``: d padded to 16, plus 16 bytes."""
+    return -(-d // 16) * 16 + 16 // esize
 
 
 def ln_mxu_smem_bytes(rows_per_program: int, num_warps: int, d: int, dtype) -> int:
@@ -66,8 +74,30 @@ def ln_mxu_smem_bytes(rows_per_program: int, num_warps: int, d: int, dtype) -> i
     plus 16 bytes), a ``(Σx, Σx²)`` pair per warp and fragment row, and a
     ``(mean, rstd)`` pair per row."""
     esize = torch.empty(0, dtype=dtype).element_size()
-    row_stride = -(-d // 16) * 16 + 16 // esize
-    return rows_per_program * row_stride * esize + 8 * (16 * num_warps + rows_per_program)
+    return (rows_per_program * _row_stride(d, esize) * esize
+            + 8 * (16 * num_warps + rows_per_program))
+
+
+def ln_mxu_bf16_smem_bytes(rows_per_program: int, num_warps: int, d: int) -> int:
+    """Shared memory of one ``ln_mxu_bf16`` block (``bf16_smem_bytes`` of
+    ``csrc/ln_mxu.cu``): two stages of rows at ``sa::row_stride``, scale and
+    bias in bf16 (d padded to 16), a ``(Σx, Σx²)`` pair per warp and
+    fragment row, and a ``(mean, rstd)`` pair of bf16 pairs per row."""
+    return (2 * rows_per_program * _row_stride(d, 2) * 2 + 2 * -(-d // 16) * 16 * 2
+            + 8 * (16 * num_warps + rows_per_program))
+
+
+def ln_mxu_bf16_grid(rows: int, rows_per_program: int, num_warps: int, d: int,
+                     sms: int) -> int:
+    """Blocks of one ``ln_mxu_bf16`` launch: per SM, as many as keep
+    ``LN_MXU_BF16_IN_FLIGHT`` bytes of tile loads in flight (each block has
+    one tile in flight), at most as many as the SM holds (shared memory,
+    threads), and never more blocks than tiles."""
+    tiles = -(-rows // rows_per_program)
+    smem = ln_mxu_bf16_smem_bytes(rows_per_program, num_warps, d) + BLOCK_SMEM_RESERVED
+    fit = min(SM_SMEM // smem, SM_THREADS // (32 * num_warps), SM_BLOCKS)
+    want = -(-LN_MXU_BF16_IN_FLIGHT // (rows_per_program * d * 2))
+    return max(1, min(tiles, sms * min(fit, want)))
 
 
 def ln_mxu_plain(x, scale, bias, eps: float = 1e-5):
@@ -92,68 +122,22 @@ def ln_mxu_bf16_plain(x, scale, bias, eps: float = 1e-5):
     return y * scale.to(torch.bfloat16) + bias.to(torch.bfloat16)
 
 
-def _ln_mxu_bf16_kernel(x_ptr, w_ptr, b_ptr, y_ptr, rows, d, stride_x, eps,
-                        ROWS: tl.constexpr, CHUNK: tl.constexpr,
-                        COLS: tl.constexpr):
-    bf16 = tl.bfloat16
-    f32 = tl.float32
-    r = tl.program_id(0) * ROWS + tl.arange(0, ROWS)[:, None]
-    k = tl.arange(0, CHUNK)[None, :]
-    col0 = (tl.arange(0, COLS) == 0).to(bf16)
-    ones = tl.zeros((CHUNK, COLS), bf16) + col0[None, :]
-    acc = tl.zeros((ROWS, COLS), f32)
-    acc2 = tl.zeros((ROWS, COLS), f32)
-    for k0 in range(0, d, CHUNK):
-        c = k0 + k
-        x = tl.load(x_ptr + r * stride_x + c, mask=(r < rows) & (c < d), other=0.0)
-        x32 = x.to(f32)
-        acc = tl.dot(x, ones, acc)
-        acc2 = tl.dot((x32 * x32).to(bf16), ones, acc2)  # x² rounded to bf16
-    mean = tl.sum(acc, axis=1)[:, None] / d
-    rstd = 1.0 / tl.sqrt(tl.sum(acc2, axis=1)[:, None] / d - mean * mean + eps)
-    # every bf16 operation of the JAX body: computed in fp32, rounded
-    mean_b = mean.to(bf16).to(f32)
-    rstd_b = rstd.to(bf16).to(f32)
-    for k0 in range(0, d, CHUNK):
-        c = k0 + k
-        m = (r < rows) & (c < d)
-        x32 = tl.load(x_ptr + r * stride_x + c, mask=m, other=0.0).to(f32)
-        w = tl.load(w_ptr + c, mask=c < d, other=0.0).to(bf16).to(f32)
-        b = tl.load(b_ptr + c, mask=c < d, other=0.0).to(bf16).to(f32)
-        xc = (x32 - mean_b).to(bf16).to(f32)
-        y = (xc * rstd_b).to(bf16).to(f32)
-        y = (y * w).to(bf16).to(f32)
-        tl.store(y_ptr + r * d + c, (y + b).to(bf16), mask=m)
+# the C entries of csrc/ln_mxu.cu: x, w, b, y, the row stride, the ints
+# (rows, d, rows per tile, warps; vtc_ln_mxu_bf16: blocks), eps,
+# (vtc_ln_mxu: the dtype,) the stream
+_ARGTYPES = {
+    "vtc_ln_mxu": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "vtc_ln_mxu_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
+}
 
 
-def _bf16_kernel():
-    global tl, _BF16_KERNEL
-    if _BF16_KERNEL is None:
-        triton, tl = import_triton()
-        _BF16_KERNEL = triton.jit(_ln_mxu_bf16_kernel)
-    return _BF16_KERNEL
-
-
-def _launch_bf16(x, scale, bias, eps, rows_per_program, num_warps):
-    x2, stride = rows_view(x)
-    rows, d = x2.shape
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    _bf16_kernel()[(-(-rows // rows_per_program),)](
-        x2, scale, bias, y, rows, d, stride, eps,
-        ROWS=rows_per_program, CHUNK=_CHUNK, COLS=_SUM_COLS, num_warps=num_warps,
-    )
-    ln_mxu_bf16.launches += 1
-    return y
-
-
-def _ln_mxu_kernel():
-    fn = load_library("ln_mxu").vtc_ln_mxu
+def _entry(symbol: str):
+    fn = getattr(load_library("ln_mxu"), symbol)
     if fn.argtypes is None:  # ctypes hands back the same object every time
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
+        fn.argtypes = _ARGTYPES[symbol]
     return fn
 
 
@@ -161,7 +145,7 @@ def _launch(x, scale, bias, eps, rows_per_program, num_warps):
     x2, stride = rows_view(x)
     rows, d = x2.shape
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    err = _ln_mxu_kernel()(
+    err = _entry("vtc_ln_mxu")(
         x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), stride,
         rows, d, rows_per_program, num_warps, eps, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -171,26 +155,49 @@ def _launch(x, scale, bias, eps, rows_per_program, num_warps):
     return y
 
 
-def _check_rows_per_program(rows_per_program: int) -> None:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_bf16(x, scale, bias, eps, rows_per_program, num_warps, blocks=None):
+    """``blocks``: the grid, ``ln_mxu_bf16_grid``'s unless given (a grid
+    study in ``chip_smoke.py`` times others; the kernel takes at most one
+    block per tile)."""
+    x2, stride = rows_view(x)
+    rows, d = x2.shape
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if blocks is None:
+        blocks = ln_mxu_bf16_grid(rows, rows_per_program, num_warps, d,
+                                  _sm_count(x.device))
+    err = _entry("vtc_ln_mxu_bf16")(
+        x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), stride,
+        rows, d, rows_per_program, num_warps, blocks, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(err, "ln_mxu_bf16")
+    ln_mxu_bf16.launches += 1
+    return y
+
+
+def _check_config(name: str, rows_per_program: int, num_warps: int, d: int,
+                  smem: int) -> None:
+    """The (rows, warps) pairs the kernels take, and ``smem`` bytes of
+    shared memory a block at most."""
     if rows_per_program < 16 or rows_per_program & (rows_per_program - 1):
         raise ValueError(
             f"rows_per_program must be a power of two >= 16 (a product's least "
             f"M), got {rows_per_program}"
         )
-
-
-def _check_ln_mxu_config(rows_per_program: int, num_warps: int, d: int, dtype) -> None:
-    _check_rows_per_program(rows_per_program)
     tiles = rows_per_program // 16
     if not 1 <= num_warps <= LN_MXU_MAX_WARPS or num_warps % tiles:
         raise ValueError(
-            f"ln_mxu: num_warps must be a multiple of rows_per_program / 16 = "
+            f"{name}: num_warps must be a multiple of rows_per_program / 16 = "
             f"{tiles} and at most {LN_MXU_MAX_WARPS}, got {num_warps}"
         )
-    smem = ln_mxu_smem_bytes(rows_per_program, num_warps, d, dtype)
     if smem > LN_MXU_MAX_SMEM:
         raise ValueError(
-            f"ln_mxu: {rows_per_program} rows of d = {d} need {smem} bytes of "
+            f"{name}: {rows_per_program} rows of d = {d} need {smem} bytes of "
             f"shared memory, more than the {LN_MXU_MAX_SMEM} a block has"
         )
 
@@ -207,7 +214,9 @@ def ln_mxu(x, scale, bias, eps: float = 1e-5,
     16-row tile), at most 8. A configuration outside that, or rows too wide
     for one block's shared memory (``ln_mxu_smem_bytes``), raises, on the
     CPU too. ``scale`` and ``bias`` enter the kernel in fp32."""
-    _check_ln_mxu_config(rows_per_program, num_warps, x.shape[-1], x.dtype)
+    d = x.shape[-1]
+    _check_config("ln_mxu", rows_per_program, num_warps, d,
+                  ln_mxu_smem_bytes(rows_per_program, num_warps, d, x.dtype))
     if x.device.type == "cpu":
         return ln_mxu_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
@@ -221,8 +230,16 @@ def ln_mxu_bf16(x, scale, bias, eps: float = 1e-5,
                 rows_per_program: int = LN_MXU_BF16_CONFIG[0],
                 num_warps: int = LN_MXU_BF16_CONFIG[1]):
     """The bf16 design: bf16 product sums with fp32 accumulation, bf16
-    normalization with per-row fp32 coefficients. bf16 in, bf16 out."""
-    _check_rows_per_program(rows_per_program)
+    normalization with per-row fp32 coefficients. bf16 in, bf16 out.
+
+    ``rows_per_program`` rows make one tile of the CUDA kernel and
+    ``num_warps`` warps one block, under ``ln_mxu``'s rules; a block holds
+    two tiles (``ln_mxu_bf16_smem_bytes``), and the grid is
+    ``ln_mxu_bf16_grid``'s. A configuration or width outside that raises, on
+    the CPU too. ``scale`` and ``bias`` enter the kernel in fp32."""
+    d = x.shape[-1]
+    _check_config("ln_mxu_bf16", rows_per_program, num_warps, d,
+                  ln_mxu_bf16_smem_bytes(rows_per_program, num_warps, d))
     if x.dtype != torch.bfloat16:
         raise TypeError(f"ln_mxu_bf16 takes bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
@@ -231,7 +248,7 @@ def ln_mxu_bf16(x, scale, bias, eps: float = 1e-5,
         raise ValueError(f"ln_mxu_bf16 runs on cpu or cuda, not {x.device}")
     check_cuda_rows("ln_mxu_bf16", x, scale, bias)
     return forward_only("ln_mxu_bf16", lambda x_, s_, b_: _launch_bf16(
-        x_, s_, b_, eps, rows_per_program, num_warps), x, scale, bias)
+        x_, s_, b_, eps, rows_per_program, num_warps), x, scale.float(), bias.float())
 
 
 ln_mxu.launches = 0

@@ -10,7 +10,9 @@ rows per program:
 * ``vpu``: ``ops.layernorm``, whose kernel is ``vpu_kernel``'s math
   (two-pass fp32 statistics from one read of the row);
 * ``mxu``: ``ops.ln_mxu``, the row sums as a product with ones, fp32;
-* ``mxu_bf16``: ``ops.ln_mxu_bf16``, the same product fed bf16.
+* ``mxu_bf16``: ``ops.ln_mxu_bf16``, the same product fed bf16 (x and
+  bf16(x²)), the normalization in bf16 steps, its blocks persistent over
+  two stages of row tiles (``csrc/ln_mxu.cu``).
 
 Each line gives µs per LN (device time, CUDA-graph replays over rotating
 inputs larger than the L2 cache), GB/s at ``rows·d·2·2`` bytes (bf16 in and
@@ -20,11 +22,12 @@ printed as the yardstick; no design calls it.
 
 Rows per program: the TPU script's blocks of 160, 400 and 1600 rows give
 50, 20 and 5 programs at 8000 rows, fewer than the H100's 132 SMs, so here
-each design sweeps its own: ``mxu`` (CUDA) blocks of 16, 32 and 64 rows,
-with one to eight warps per 16-row tile (500 to 125 blocks); ``mxu_bf16``
-(Triton) powers of two from 16 (``tl.dot``'s least M) to 128, which give 500
-to 63 programs, and two warp counts at 64 rows. ``vpu`` runs at
-``ops.layernorm``'s own choice (about 4096 elements per program).
+both CUDA designs sweep ``CONFIGS``, the configurations their kernels take
+at d = 768: tiles of 16, 32 and 64 rows with one to eight warps per 16-row
+tile. ``mxu`` launches one block per tile (500 to 125 blocks);
+``mxu_bf16``'s blocks walk the tiles (``ops.ln_designs.ln_mxu_bf16_grid``).
+``vpu`` runs at ``ops.layernorm``'s own choice (about 4096 elements per
+program).
 
 It needs a card and raises without one.
 """
@@ -42,18 +45,16 @@ from ..device import resolve_device
 from ..ops.layernorm import row_blocks
 from ..utils.timing import n_sets, time_ms
 
-# (rows per program, warps): ln_mxu's, then ln_mxu_bf16's
-MXU_CONFIGS = ((16, 1), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4), (32, 8),
-               (64, 4), (64, 8))
-CONFIGS = ((16, 4), (32, 4), (64, 4), (64, 8), (128, 8))
+# (rows per program, warps) of ln_mxu and ln_mxu_bf16
+CONFIGS = ((16, 1), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4), (32, 8), (64, 4),
+           (64, 8))
 
 
 def designs(d: int):
     """[(design, rows per program, warps, fn(x, scale, bias))]."""
     out = [("vpu", row_blocks(d)[1], 4, ops.layernorm)]
-    for name, fn, configs in (("mxu", ops.ln_mxu, MXU_CONFIGS),
-                              ("mxu_bf16", ops.ln_mxu_bf16, CONFIGS)):
-        for rows, warps in configs:
+    for name, fn in (("mxu", ops.ln_mxu), ("mxu_bf16", ops.ln_mxu_bf16)):
+        for rows, warps in CONFIGS:
             out.append((name, rows, warps, lambda x, s, b, fn=fn, r=rows, w=warps:
                         fn(x, s, b, rows_per_program=r, num_warps=w)))
     return out
