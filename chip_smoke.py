@@ -82,8 +82,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     kernels' forward launches of one step, and ``torch.profiler`` windows:
     the device's idle share over 5 plain steps, and device time per step
     by family and by phase over 5 steps with a synchronize after each
-    phase (forward, backward, optimizer);
-13. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+    phase (forward, backward, optimizer); then the same benchmark with
+    ``--accum_steps 4`` and with ``--moments_dtype bfloat16``, each with its
+    samples/s, peak memory and falling loss, and the optimizer phase's
+    device ms with bf16 moments beside fp32's;
+13. accumulating step: the flagship's config as in phase 11 at
+    ``accum_steps`` 2 (GradCache), 2 steps card vs CPU with the same
+    per-microbatch draws, held to phase 11's limits, with 2 × 2k × (29, 26,
+    26) launches; and on the card against the plain step on the same batch
+    with the draws off (loss within 2e-6, gradients within 1e-3 of each
+    parameter's largest);
+14. Trainer: the flagship config's arch, optimizer, loss, ``RecallAtK``
+    [1, 10], schedule, monitor and batch of 50, fp32 at ViT-B/32, 2 epochs
+    at ``accum_steps`` 2 over 400 seeded items (uint8 patches, 77-token
+    title, 5 comments) through ``prefetch_to_device``, validating on 100;
+    every epoch's loss finite, the monitor's key in the log, the last R@K
+    equal to ``recall_at_k`` on the CPU from the same features, launches
+    of ``steps × 2k × (29, 26, 26) + validation batches × (29, 26, 26)``,
+    and a fresh Trainer resumed from the checkpoint holding the epoch
+    pointer, ``monitor_best``, every parameter, every optimizer moment and
+    the schedule's step bit for bit; steps/s, seconds per epoch, the
+    checkpoint's size and save seconds are printed;
+15. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -91,6 +111,7 @@ no result, where CUDA is missing or the package is not beside it.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -128,6 +149,9 @@ LN_SWEEP = (8000, 768)  # scripts/bench_ln_kernel.py's default rows
 TRAIN_CONFIG = "configs/pretrained_clip_comments_attention.jsonc"
 FROZEN_CONFIG = "configs/pretrained_clip_comments_attn_frozen.jsonc"
 PARITY_BATCH, PARITY_STEPS = 8, 3
+ACCUM_K, ACCUM_RUN_STEPS = 2, 2  # the accumulating step's microbatches and steps
+BENCH_ACCUM_K = 4  # bench_train_step's accumulating run at batch 128
+TRAINER_EPOCHS, TRAINER_ITEMS = 2, (400, 100)  # the Trainer phase: train, val items
 # card vs CPU, full depth fp32, loss ~2.1: the measured spread was 2.38e-7,
 # one ulp (PERF.md, PR 6 run 1); 2e-6 leaves eight
 LOSS_ATOL = 2e-6
@@ -896,6 +920,112 @@ def config_optimizer(model, config: str):
     )
 
 
+def train_run(ops, dev: str, inputs, draws, accum_steps: int = 1) -> dict:
+    """``len(draws)`` ``train_step``s of ``TRAIN_CONFIG``'s model (random
+    adapter skip on, the CAM moved off its zero-init) with the config's
+    optimizer on ``dev``, each step with its draws (with ``accum_steps``
+    > 1, one dict per microbatch). Returns each step's loss, the gradients
+    of step 1, the parameters before and after, each parameter's lr, and on
+    the card the kernel launches of the steps, counted from 0 just before
+    them."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.training import train_step
+
+    model = model_from_config(TRAIN_CONFIG, **({} if dev == "cuda" else {"device": "cpu"}))
+    require(model.random_skip_adapter, "the config's random_skip_adapter is off")
+    optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    grads = {}
+
+    def keep_first_grads(opt, args, kwargs):
+        if not grads:
+            grads.update({n: None if p.grad is None else p.grad.detach().cpu()
+                          for n, p in model.named_parameters()})
+
+    hook = optimizer.register_step_pre_hook(keep_first_grads)
+    data = [x.to(dev) for x in inputs]
+    ops.reset_launch_counts()
+    losses = [train_step(model, clip_loss, optimizer, scheduler, data, {}, draws=d,
+                         accum_steps=accum_steps)[0].item() for d in draws]
+    launches = None
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    hook.remove()
+    lr = {n: g["initial_lr"] for g in optimizer.param_groups
+          for n, p in model.named_parameters() if any(p is q for q in g["params"])}
+    run = dict(losses=losses, grads=grads, before=before, lr=lr, launches=launches,
+               params={n: p.detach().cpu() for n, p in model.named_parameters()})
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return run
+
+
+def compare_losses(what: str, ours, ref, names=("card", "CPU")) -> None:
+    for k, (a, c) in enumerate(zip(ours, ref)):
+        log(f"{what} step {k + 1}: loss {names[0]} {a:.7f} {names[1]} {c:.7f} "
+            f"(|diff| {abs(a - c):.3g}, atol {LOSS_ATOL:g})")
+        require(math.isfinite(a) and abs(a - c) <= LOSS_ATOL,
+                f"{what} step {k + 1} loss {a} vs {c}")
+
+
+def compare_grads(what: str, ours: dict, ref: dict) -> None:
+    """Each parameter's gradient within ``GRAD_RTOL`` of its largest
+    |gradient| in ``ref``; a gradient on one side only fails."""
+    worst, n_grads = (0.0, ""), 0
+    for name, r in ref.items():
+        o = ours[name]
+        if r is None or o is None:
+            require(r is None and o is None, f"{what} {name}: a gradient on one side only")
+            continue
+        n_grads += 1
+        scale = r.abs().max().item()
+        err = (o - r).abs().max().item()
+        require(err <= GRAD_RTOL * scale if scale > 0 else err == 0.0,
+                f"{what} {name}: gradient differs by {err} (largest {scale})")
+        worst = max(worst, (err / scale if scale else 0.0, name))
+    log(f"{what}: {n_grads} parameter gradients after step 1 agree; worst "
+        f"max|diff| / max|grad| {worst[0]:.3g} at {worst[1]} (limit {GRAD_RTOL:g})")
+
+
+def compare_with_cpu_run(what: str, card: dict, cpu: dict) -> None:
+    """Card against CPU after the same steps: losses, step-1 gradients, and
+    the parameters: of the entries that moved on the CPU, at most
+    ``PARAM_FAR_SHARE`` farther than ``PARAM_ATOL_LR``·lr from the CPU's and
+    the median moved by at least ``MOVED_MIN_LR``·lr, none farther than 2 lr
+    per step; the unused ``final_linear`` takes no gradient and stays put."""
+    steps = len(cpu["losses"])
+    compare_losses(what, card["losses"], cpu["losses"])
+    compare_grads(what, card["grads"], cpu["grads"])
+    require(card["grads"]["final_linear.weight"] is None,
+            f"{what}: final_linear (unused with init_from_avg) took a gradient")
+    worst, far, moved, n_moved = (0.0, ""), 0, 0, 0
+    for name, p in card["params"].items():
+        lr = card["lr"][name]
+        d = (p - cpu["params"][name]).abs() / lr
+        step = (cpu["params"][name] - cpu["before"][name]).abs() / lr
+        require(d.max().item() <= 2 * steps, f"{what} {name}: {d.max().item()} lr "
+                f"from the CPU's after {steps} steps")
+        worst = max(worst, (d.max().item(), name))
+        far += int((d[step > 0] > PARAM_ATOL_LR).sum())
+        moved += int((step >= MOVED_MIN_LR).sum())
+        n_moved += int((step > 0).sum())
+    require(not (card["params"]["final_linear.weight"]
+                 - card["before"]["final_linear.weight"]).any(),
+            f"{what}: final_linear moved without a gradient")
+    require(n_moved > 0, f"{what}: no parameter moved on the CPU")
+    log(f"{what}: after {steps} steps {n_moved} parameter entries "
+        f"moved on the CPU, {moved / n_moved:.4f} of them by >= {MOVED_MIN_LR} lr "
+        f"(need > 0.5); {far / n_moved:.3g} lie farther than {PARAM_ATOL_LR:g} lr "
+        f"from the CPU's (limit {PARAM_FAR_SHARE:g}); the largest {worst[0]:.3g} lr "
+        f"at {worst[1]} (limit {2 * steps}); final_linear (no gradient) unchanged")
+    require(moved > n_moved / 2,
+            f"{what}: the optimizer moved the median entry by less than {MOVED_MIN_LR} lr")
+    require(far <= PARAM_FAR_SHARE * n_moved,
+            f"{what}: {far / n_moved:.3g} of the entries lie farther than "
+            f"{PARAM_ATOL_LR:g} lr from the CPU's")
+
+
 def run_train_parity(ops) -> dict:
     """Phase 11. Returns the launch counts of the card's three steps."""
     from vtc_tpu_torch.models.cam import draw_adapter_skip
@@ -907,88 +1037,13 @@ def run_train_parity(ops) -> dict:
     gen = torch.Generator().manual_seed(6)
     draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
              for _ in range(PARITY_STEPS)]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        model = model_from_config(TRAIN_CONFIG, **({} if dev == "cuda" else
-                                                   {"device": "cpu"}))
-        require(model.random_skip_adapter, "the config's random_skip_adapter is off")
-        optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
-        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-        grads = {}
-
-        def keep_first_grads(opt, args, kwargs, model=model, grads=grads):
-            if not grads:
-                grads.update({n: None if p.grad is None else p.grad.detach().cpu()
-                              for n, p in model.named_parameters()})
-
-        hook = optimizer.register_step_pre_hook(keep_first_grads)
-        data = [x.to(dev) for x in inputs]
-        # the train path's run: counts from 0 just before, read just after
-        ops.reset_launch_counts()
-        losses = [train_step(model, clip_loss, optimizer, scheduler, data, {},
-                             draws=draws[k])[0].item() for k in range(PARITY_STEPS)]
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = ops.launch_counts()
-        hook.remove()
-        lr = {n: g["initial_lr"] for g in optimizer.param_groups
-              for n, p in model.named_parameters() if any(p is q for q in g["params"])}
-        runs[dev] = dict(losses=losses, grads=grads, before=before, lr=lr, params={
-            n: p.detach().cpu() for n, p in model.named_parameters()})
-        del model, optimizer
-        torch.cuda.empty_cache()
+    card, cpu = (train_run(ops, dev, inputs, draws) for dev in ("cuda", "cpu"))
     log(f"train parity: built and stepped in {time.perf_counter() - tic:.1f} s; "
         f"adapter skip draws per step {[int(d['adapter_skip'].sum()) for d in draws]} "
         f"of {PARITY_BATCH}")
-    card, cpu = runs["cuda"], runs["cpu"]
-    for k, (a, c) in enumerate(zip(card["losses"], cpu["losses"])):
-        log(f"train parity step {k + 1}: loss card {a:.7f} CPU {c:.7f} "
-            f"(|diff| {abs(a - c):.3g}, atol {LOSS_ATOL:g})")
-        require(math.isfinite(a) and abs(a - c) <= LOSS_ATOL,
-                f"train step {k + 1} loss {a} vs CPU {c}")
-    worst, n_grads = (0.0, ""), 0
-    for name, ref in cpu["grads"].items():
-        ours = card["grads"][name]
-        if ref is None or ours is None:
-            require(ref is None and ours is None, f"{name}: a gradient on one device only")
-            continue
-        n_grads += 1
-        scale = ref.abs().max().item()
-        err = (ours - ref).abs().max().item()
-        require(err <= GRAD_RTOL * scale if scale > 0 else err == 0.0,
-                f"{name}: gradient differs from the CPU's by {err} (largest {scale})")
-        worst = max(worst, (err / scale if scale else 0.0, name))
-    log(f"train parity: {n_grads} parameter gradients after step 1 agree; worst "
-        f"max|diff| / max|grad| {worst[0]:.3g} at {worst[1]} (limit {GRAD_RTOL:g})")
-    require(card["grads"]["final_linear.weight"] is None,
-            "final_linear (unused with init_from_avg) took a gradient")
-    worst, far, moved, n_moved = (0.0, ""), 0, 0, 0
-    for name, p in card["params"].items():
-        lr = card["lr"][name]
-        d = (p - cpu["params"][name]).abs() / lr
-        step = (cpu["params"][name] - cpu["before"][name]).abs() / lr
-        require(d.max().item() <= 2 * PARITY_STEPS, f"{name}: {d.max().item()} lr "
-                f"from the CPU's after {PARITY_STEPS} steps")
-        worst = max(worst, (d.max().item(), name))
-        far += int((d[step > 0] > PARAM_ATOL_LR).sum())
-        moved += int((step >= MOVED_MIN_LR).sum())
-        n_moved += int((step > 0).sum())
-    require(not (card["params"]["final_linear.weight"]
-                 - card["before"]["final_linear.weight"]).any(),
-            "final_linear moved without a gradient")
-    require(n_moved > 0, "no parameter moved on the CPU")
-    log(f"train parity: after {PARITY_STEPS} steps {n_moved} parameter entries "
-        f"moved on the CPU, {moved / n_moved:.4f} of them by >= {MOVED_MIN_LR} lr "
-        f"(need > 0.5); {far / n_moved:.3g} lie farther than {PARAM_ATOL_LR:g} lr "
-        f"from the CPU's (limit {PARAM_FAR_SHARE:g}); the largest {worst[0]:.3g} lr "
-        f"at {worst[1]} (limit {2 * PARITY_STEPS}); final_linear (no gradient) "
-        f"unchanged")
-    require(moved > n_moved / 2,
-            f"the optimizer moved the median entry by less than {MOVED_MIN_LR} lr")
-    require(far <= PARAM_FAR_SHARE * n_moved,
-            f"{far / n_moved:.3g} of the entries lie farther than {PARAM_ATOL_LR:g} lr "
-            f"from the CPU's")
-    del runs, card, cpu
+    compare_with_cpu_run("train parity", card, cpu)
+    launches = card["launches"]
+    del card, cpu
 
     # the frozen config: freeze "all" trains the CAM alone
     model = model_from_config(FROZEN_CONFIG)
@@ -1010,6 +1065,42 @@ def run_train_parity(ops) -> dict:
     del model, optimizer
     torch.cuda.empty_cache()
     return launches
+
+
+def run_accum_parity(ops) -> None:
+    """Phase 13: the accumulating step (GradCache, ``ACCUM_K`` microbatches)
+    of the flagship's config, card against CPU over ``ACCUM_RUN_STEPS`` steps
+    with the same draws, and against the plain step on the card on one batch
+    with the draws off."""
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+
+    tic = time.perf_counter()
+    k, mb = ACCUM_K, PARITY_BATCH // ACCUM_K
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=7)
+    gen = torch.Generator().manual_seed(7)
+    draws = [[{"adapter_skip": draw_adapter_skip(mb, gen)} for _ in range(k)]
+             for _ in range(ACCUM_RUN_STEPS)]
+    card, cpu = (train_run(ops, dev, inputs, draws, accum_steps=k)
+                 for dev in ("cuda", "cpu"))
+    log(f"accumulating step (accum_steps {k}, batch {PARITY_BATCH}): built and "
+        f"stepped in {time.perf_counter() - tic:.1f} s; adapter skip draws per step "
+        f"{[sum(int(d['adapter_skip'].sum()) for d in s) for s in draws]} of {PARITY_BATCH}")
+    compare_with_cpu_run("accumulating step", card, cpu)
+    want = {n: ACCUM_RUN_STEPS * 2 * k * c for n, c in EXPECTED_LAUNCHES.items()}
+    log(f"kernel use ({ACCUM_RUN_STEPS} fp32 accumulating steps, {2 * k} forwards "
+        f"each): {json.dumps(card['launches'])}")
+    require(card["launches"] == want,
+            f"accumulating launches {card['launches']} != {want}")
+    del card, cpu
+
+    off = torch.zeros(PARITY_BATCH, 1, dtype=torch.bool)
+    plain = train_run(ops, "cuda", inputs, [{"adapter_skip": off}])
+    accum = train_run(ops, "cuda", inputs, [[{"adapter_skip": off[i::k]}
+                                             for i in range(k)]], accum_steps=k)
+    compare_losses("accumulating vs plain step (card, draws off)", accum["losses"],
+                   plain["losses"], names=("accumulating", "plain"))
+    compare_grads("accumulating vs plain step (card, draws off)", accum["grads"],
+                  plain["grads"])
 
 
 def profile_train_phases(model, optimizer, scheduler, data, generator, n: int) -> dict:
@@ -1127,9 +1218,223 @@ def run_train_bench(ops, smi) -> dict:
             f"ms per step {ms:.4f} ({ms / total:.4f} of device time)")
     for kname, ms in phases["backward_top"]:
         log(f"profile train backward op: {ms:.4f} ms per step: {kname[:120]}")
-    del res, model, optimizer
+    optimizer_ms = {"float32": phases["phase_ms"]["optimizer"]}
+    del res, model, optimizer, scheduler, data, generator, phases
     torch.cuda.empty_cache()
+
+    # the accumulating step and bf16 moments, one after the other at the same
+    # batch: samples/s and peak memory beside the plain step's above
+    for what, kwargs in ((f"accum_steps {BENCH_ACCUM_K}", {"accum_steps": BENCH_ACCUM_K}),
+                         ("bf16 moments", {"moments_dtype": "bfloat16"})):
+        torch.cuda.reset_peak_memory_stats()
+        res = bench_train_step.main(**kwargs)
+        peak_k = torch.cuda.max_memory_allocated()
+        losses = res["losses"]
+        log(f"train throughput bf16, {what}: {res['samples_per_s']:.1f} samples/s, "
+            f"windows {['%.1f' % r for r in res['window_rates']]}; peak memory "
+            f"allocated {peak_k / 2**30:.3f} GiB (plain step {peak / 2**30:.3f}); on {smi}")
+        require(all(math.isfinite(x) for x in losses), f"{what}: a non-finite train loss")
+        require(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+                f"{what}: the loss did not fall")
+        if "moments_dtype" in kwargs:
+            model, optimizer, scheduler, data = res["setup"]
+            generator = torch.Generator(device="cuda").manual_seed(1)
+            optimizer_ms["bfloat16"] = profile_train_phases(
+                model, optimizer, scheduler, data, generator, PROFILED)["phase_ms"]["optimizer"]
+            del model, optimizer, scheduler, data, generator
+        del res
+        torch.cuda.empty_cache()
+    log(f"profile train optimizer phase, device ms per step: fp32 moments "
+        f"{optimizer_ms['float32']:.4f} (torch.optim.Adam), bf16 moments "
+        f"{optimizer_ms['bfloat16']:.4f} (Bf16MomentAdam); on {smi}")
     return launches
+
+
+class PatchTextDataset:
+    """A map-style dataset made with numpy from a seed: uint8 ViT-B/32
+    patches ``[49, 3072]`` of random 224² images, a 77-token
+    ``synthetic_tokens`` title (14 real tokens), 5 such comments and
+    ``{"id": i}``: ``tests/test_trainer.py``'s ``_FeatureCommentDataset``
+    with the patch input."""
+
+    def __init__(self, n: int, seed: int):
+        from vtc_tpu_torch.data import extract_patches, synthetic_tokens
+
+        rng = np.random.default_rng(seed)
+        self.vis = extract_patches(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8), 32)
+        self.title = synthetic_tokens((n,), 77, 14, rng)
+        self.comments = synthetic_tokens((n, 5), 77, 14, rng)
+
+    def __len__(self):
+        return len(self.vis)
+
+    def __getitem__(self, i):
+        return self.vis[i], self.title[i], self.comments[i], {"id": i}
+
+
+def trainer_parts(cfg: dict, model_seed: int, train_loader, resume=None):
+    """(model, loss, metrics, optimizer, scheduler, config) from ``cfg`` as
+    a training entry point builds them: ``create_model`` from its ``arch``
+    block on the card, ``build_optimizer`` from its optimizer and
+    scheduler, ``METRICS`` and ``LOSSES`` by name."""
+    from vtc_tpu_torch.config import ConfigParser
+    from vtc_tpu_torch.models import create_model
+    from vtc_tpu_torch.ops.losses import LOSSES
+    from vtc_tpu_torch.training import METRICS, build_optimizer
+
+    config = ConfigParser(copy.deepcopy(cfg), resume=resume)
+    model = create_model(cfg["arch"]["type"], seed=model_seed, **cfg["arch"]["args"])
+    optimizer, scheduler = build_optimizer(
+        model, cfg["optimizer"], cfg.get("lr_scheduler"),
+        steps_per_epoch=len(train_loader), fc_lr=cfg.get("fc_lr"),
+        time_lr=cfg.get("time_lr"), adapter_lr=cfg.get("adapter_lr"))
+    metrics = [METRICS[m["type"]](**m["args"]) for m in cfg["metrics"]]
+    return model, LOSSES[cfg["loss"]], metrics, optimizer, scheduler, config
+
+
+def run_trainer(ops, smi) -> None:
+    """Phase 14: ``Trainer`` on the card with the flagship config (arch,
+    optimizer, loss, metrics, schedule, monitor, batch), fp32, over
+    ``TRAINER_EPOCHS`` epochs of ``TRAINER_ITEMS[0]`` seeded items at
+    ``trainer.accum_steps`` = ``ACCUM_K``, validating on
+    ``TRAINER_ITEMS[1]``; then a fresh Trainer resumed from the last
+    checkpoint. Checkpoints go to a temporary directory that the phase
+    removes."""
+    import shutil
+    import tempfile
+
+    from vtc_tpu_torch.data import DataLoader
+    from vtc_tpu_torch.ops.retrieval import recall_at_k
+    from vtc_tpu_torch.training import RecallAtK, Trainer
+    from vtc_tpu_torch.utils import jsonc
+
+    class TimedTrainer(Trainer):
+        """Keeps each epoch's log and times each epoch, validation and save."""
+
+        def __init__(self, *args, **kwargs):
+            self.logs, self.seconds = [], {"epoch": [], "valid": [], "save": []}
+            super().__init__(*args, **kwargs)
+
+        def _timed(self, key, fn, *args, **kwargs):
+            tic = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[key].append(time.perf_counter() - tic)
+            return out
+
+        def _train_epoch(self, epoch):
+            self.logs.append(self._timed("epoch", super()._train_epoch, epoch))
+            return self.logs[-1]
+
+        def _valid_epoch(self, epoch):
+            return self._timed("valid", super()._valid_epoch, epoch)
+
+        def _save_checkpoint(self, epoch, save_best=False):
+            return self._timed("save", super()._save_checkpoint, epoch, save_best)
+
+    root = Path(__file__).resolve().parent
+    cfg = jsonc.read_json(root / TRAIN_CONFIG)
+    (root / "saved").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=root / "saved")
+    try:
+        # tensorboard off: per-parameter histograms of 151 M weights are not
+        # this phase's subject; save_period = epochs keeps it to <= 2 files
+        cfg["trainer"].update(epochs=TRAINER_EPOCHS, save_period=TRAINER_EPOCHS,
+                              accum_steps=ACCUM_K, save_dir=tmp, tensorboard=False)
+        tic = time.perf_counter()
+        batch = cfg["batch_size"]
+        train_loader = DataLoader(PatchTextDataset(TRAINER_ITEMS[0], 10), batch,
+                                  shuffle=True, drop_last=True, num_workers=4, seed=0)
+        val_loader = DataLoader(PatchTextDataset(TRAINER_ITEMS[1], 11), batch,
+                                num_workers=4)
+        parts = trainer_parts(cfg, 0, train_loader)
+        trainer = TimedTrainer(*parts, train_loader, val_loader,
+                               arch_name=cfg["arch"]["type"])
+        log(f"trainer: data and model built in {time.perf_counter() - tic:.1f} s; "
+            f"{cfg['arch']['type']} {cfg['arch']['args']['model_type']} fp32, batch "
+            f"{batch}, accum_steps {ACCUM_K}, {TRAINER_EPOCHS} epochs of "
+            f"{len(train_loader)} steps, {len(val_loader)} validation batches, "
+            f"monitor '{trainer.monitor}'")
+        # the Trainer's path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        tic = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - tic
+        launches = ops.launch_counts()
+
+        steps = TRAINER_EPOCHS * len(train_loader)
+        forwards = steps * 2 * ACCUM_K + TRAINER_EPOCHS * len(val_loader)
+        want = {n: forwards * c for n, c in EXPECTED_LAUNCHES.items()}
+        log(f"kernel use (Trainer, {steps} accumulating steps x {2 * ACCUM_K} "
+            f"forwards + {TRAINER_EPOCHS * len(val_loader)} validation forwards): "
+            f"{json.dumps(launches)}")
+        require(launches == want, f"Trainer launches {launches} != {want}")
+        for epoch, (elog, ep_s, val_s) in enumerate(zip(
+                trainer.logs, trainer.seconds["epoch"], trainer.seconds["valid"]), 1):
+            train_s = ep_s - val_s
+            recalls = {k: v for k, v in elog.items() if "recall" in k}
+            log(f"trainer epoch {epoch}: loss {elog['loss']:.6f} val_loss "
+                f"{elog['val_loss']:.6f} {json.dumps(recalls)}; {train_s:.3f} s of "
+                f"steps ({len(train_loader) / train_s:.3f} steps/s, "
+                f"{len(train_loader) * batch / train_s:.1f} samples/s), validation "
+                f"{val_s:.3f} s, epoch {ep_s:.3f} s; on {smi}")
+            require(math.isfinite(elog["loss"]) and math.isfinite(elog["val_loss"]),
+                    f"epoch {epoch}: a non-finite loss")
+            require(trainer.mnt_metric in elog,
+                    f"epoch {epoch}: the monitor's {trainer.mnt_metric} is not in the log")
+        log(f"trainer: {TRAINER_EPOCHS} epochs in {total:.3f} s, saves "
+            f"{['%.3f' % s for s in trainer.seconds['save']]} s; best "
+            f"{trainer.mnt_metric} {trainer.mnt_best}")
+
+        # the last validation's R@K against the port's recall_at_k on the CPU
+        metric = next(m for m in trainer.metrics if isinstance(m, RecallAtK))
+        feats_a, feats_b = (f.cpu() for f in metric.features())
+        require(feats_a.shape == (TRAINER_ITEMS[1], 512), f"features {feats_a.shape}")
+        for gallery, query, ga, qb in ((feats_a, feats_b, metric.name_a, metric.name_b),
+                                       (feats_b, feats_a, metric.name_b, metric.name_a)):
+            for k, r in recall_at_k(gallery, query, metric.k_vals):
+                key = f"val_{qb}_from_{ga}-recall_at_{k}"
+                require(trainer.logs[-1][key] == r,
+                        f"{key}: card {trainer.logs[-1][key]} vs CPU {r}")
+        log(f"trainer: the last validation's {2 * len(metric.k_vals)} R@K values equal "
+            f"recall_at_k on the CPU from the same features")
+
+        # resume: a fresh Trainer (other weights) from the last checkpoint
+        path = trainer.checkpoint_dir / f"checkpoint-epoch{TRAINER_EPOCHS}.pth"
+        files = sorted(trainer.checkpoint_dir.glob("*.pth"))
+        log(f"trainer checkpoints: {[(f.name, f.stat().st_size) for f in files]} bytes")
+        require(path.exists() and len(files) <= 2, f"checkpoints written: {files}")
+        tic = time.perf_counter()
+        resumed = Trainer(*trainer_parts(cfg, 1, train_loader, resume=path),
+                          train_loader, val_loader, arch_name=cfg["arch"]["type"])
+        load_s = time.perf_counter() - tic
+        require(resumed.start_epoch == TRAINER_EPOCHS + 1
+                and resumed.mnt_best == trainer.mnt_best,
+                f"resumed at epoch {resumed.start_epoch}, best {resumed.mnt_best}")
+        n_params = n_moments = 0
+        for (name, a), b in zip(trainer.model.named_parameters(),
+                                resumed.model.parameters()):
+            require(torch.equal(a, b), f"resumed {name} differs")
+            n_params += 1
+            sa, sb = trainer.optimizer.state[a], resumed.optimizer.state[b]
+            require(sorted(sa) == sorted(sb), f"{name}: optimizer state keys differ")
+            for key in sa:
+                require(torch.equal(sa[key], sb[key]),
+                        f"{name}: optimizer {key} differs after resume")
+                n_moments += key != "step"
+        require(n_moments > 0, "no optimizer moment was saved")
+        require(resumed.scheduler.last_epoch == trainer.scheduler.last_epoch == steps,
+                f"schedule step {resumed.scheduler.last_epoch} vs "
+                f"{trainer.scheduler.last_epoch}")
+        log(f"trainer resume from {path.name} ({load_s:.1f} s, model build included): "
+            f"start epoch {resumed.start_epoch}, monitor_best {resumed.mnt_best}, "
+            f"{n_params} parameters, {n_moments} optimizer moments and the schedule's "
+            f"step {resumed.scheduler.last_epoch} equal bit for bit")
+        del trainer, resumed, parts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1275,10 +1580,16 @@ def main() -> int:
     log(f"kernel use ({PARITY_STEPS} fp32 train steps): {json.dumps(parity_launches)}")
     require(parity_launches == want, f"train launches {parity_launches} != {want}")
 
-    # 12. train throughput
+    # 12. train throughput: plain, accumulating, bf16 moments
     run_train_bench(ops, smi)
 
-    # 13. results: each kernel's launches from the path that runs it
+    # 13. the accumulating step, card vs CPU and against the plain step
+    run_accum_parity(ops)
+
+    # 14. the Trainer: epochs, validation, checkpoints, resume
+    run_trainer(ops, smi)
+
+    # 15. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])

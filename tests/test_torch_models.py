@@ -331,11 +331,11 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """No module of vtc_tpu_torch, nor chip_smoke.py, imports jax, flax or
-    the JAX package."""
+    """No module of vtc_tpu_torch, nor chip_smoke.py, imports jax, flax,
+    optax, orbax or the JAX package."""
     root = Path(__file__).resolve().parent.parent
     files = sorted((root / "vtc_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
-    banned = ("jax", "jaxlib", "flax", "vtc_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu")
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):

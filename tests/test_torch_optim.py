@@ -12,6 +12,9 @@ JAX package's.
   against JAX's ``branch_to_freeze``); fp32 rounding apart
   (atol 1e-6, rtol 1e-6, as tests/test_optim_parity.py holds the fused
   optimizer to the optax chain).
+* The refusals: unknown options, the accumulating step's divisibility and
+  BatchNorm refusals, the loader's ``shard_by_process`` and multihost
+  token truncation.
 * Every ``configs/*.jsonc`` ``arch`` block builds at ``test-tiny`` on the
   CPU but the two not ported (the audio MLP, the MoE adapter), which raise
   a named ``NotImplementedError``; the frozen branches have
@@ -22,12 +25,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
 
 from vtc_tpu.models import create_model as jax_create_model
 from vtc_tpu.training import optim as jax_optim
+from vtc_tpu_torch.data import DataLoader
 from vtc_tpu_torch.models import create_model, frozen_predicate, state_dict_from_jax
 from vtc_tpu_torch.training import (
     build_optimizer,
@@ -180,11 +185,19 @@ def test_unknown_or_unported_options_raise():
         build_optimizer(model, {"type": "SGD"})
     with pytest.raises(ValueError, match="Unknown lr_scheduler"):
         make_lr_schedule(0.1, {"type": "OneCycleLR"}, 1)
-    with pytest.raises(NotImplementedError, match="moments_dtype"):
-        build_optimizer(model, {"type": "Adam", "args": {"moments_dtype": "bfloat16"}})
+    with pytest.raises(ValueError, match="moments_dtype"):
+        build_optimizer(model, {"type": "Adam", "args": {"moments_dtype": "int8"}})
     optimizer, scheduler = build_optimizer(model, {"type": "Adam"})
-    with pytest.raises(NotImplementedError, match="accum_steps"):
-        train_step(model, None, optimizer, scheduler, [], accum_steps=2)
+    data = [torch.zeros(6, 32), torch.zeros(6, 77, dtype=torch.int32)]
+    with pytest.raises(ValueError, match="accum_steps=4 must divide the batch"):
+        train_step(model, None, optimizer, scheduler, data, accum_steps=4)
+    bn = create_model("PretrainedCLIP_finaltf", model_type=TINY, device="cpu",
+                      residual_activation="bn")
+    optimizer, scheduler = build_optimizer(bn, {"type": "Adam"})
+    with pytest.raises(ValueError, match="BatchNorm running stats"):
+        train_step(bn, None, optimizer, scheduler, data, accum_steps=2)
+    with pytest.raises(NotImplementedError, match="shard_by_process"):
+        DataLoader([0, 1], batch_size=1, shard_by_process=True)
     with pytest.raises(NotImplementedError, match="multihost"):
         global_truncate_tokens([np.zeros((2, 77), np.int32)], multihost=True)
 

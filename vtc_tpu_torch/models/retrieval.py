@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .cam import ContextAdapter
+from .cam import ContextAdapter, draw_adapter_skip, draw_comment_keep
 from .clip_model import CLIP_VARIANTS, ClipModel, patch_input_dim
 from .layers import l2_normalize
 from .timesformer import TimeSformer
@@ -158,6 +158,21 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
     @property
     def finaltf_frozen(self) -> bool:
         return isinstance(self.freeze, str) and "finaltf" in self.freeze
+
+    def training_draws(self, vis, title, comments, *rest,
+                       generator: Optional[torch.Generator] = None) -> dict:
+        """The random draws a training forward on these inputs makes, drawn
+        from ``generator`` (on the model's device) to hand over as
+        ``draws``: the accumulating train step draws each microbatch's once
+        for its two passes."""
+        b, n = comments.shape[:2]
+        device = comments.device
+        draws = {}
+        if self.random_comment_masking:
+            draws["comment_mask"] = draw_comment_keep(n, b, generator, device)
+        if self.random_skip_adapter:
+            draws["adapter_skip"] = draw_adapter_skip(b, generator, device)
+        return draws
 
     def _encode_title_and_comments(self, title, comments):
         """One joint text-tower pass over [title; comments] when their token

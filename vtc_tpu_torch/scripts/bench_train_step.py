@@ -1,6 +1,7 @@
 """Throughput of the flagship's full train step on the card.
 
     python -m vtc_tpu_torch.scripts.bench_train_step [batch] [ntoks] [arch] [frames] [iters]
+        [--accum_steps K] [--moments_dtype bfloat16]
 
 The port's twin of ``scripts/bench_train_step.py`` (``:22-80``) with its
 uint8 patch input (``VTC_BENCH_PATCHES=1``): ``PretrainedCLIP_finaltf`` at
@@ -11,6 +12,10 @@ per epoch. Each step is ``training.train_step``: forward, ``clip_loss``,
 backward, optimizer, scheduler. The CAM's random adapter skip draws from one
 seeded generator, fresh masks every step, as in training.
 
+``--accum_steps K`` takes each step as the GradCache accumulation over K
+microbatches (``trainer.accum_steps``); ``--moments_dtype bfloat16`` stores
+Adam's moments in bf16 (``optimizer.args.moments_dtype``).
+
 After ``warmup`` steps it times ``windows`` windows of ``iters`` steps, with
 ``torch.cuda.synchronize()`` around each, and prints samples/s over all of
 them with each window's rate. It needs a card and raises without one.
@@ -18,7 +23,7 @@ them with each window's rate. It needs a card and raises without one.
 
 from __future__ import annotations
 
-import sys
+import argparse
 import time
 
 import numpy as np
@@ -37,15 +42,16 @@ SEED = 0
 
 
 def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
-          frames: int = 0):
+          frames: int = 0, moments_dtype=None):
     """``(model, optimizer, scheduler, data)`` on the card, the JAX script's
     configuration; ``data`` is (uint8 patches, title, comments)."""
     device = resolve_device()
     kwargs = {"nframes": frames} if frames else {}
     model = create_model(arch, model_type="ViT-B/32", seed=SEED, dtype="bf16",
                          device=device, **kwargs)
+    optimizer_cfg = dict(OPTIMIZER, args=dict(OPTIMIZER["args"], moments_dtype=moments_dtype))
     optimizer, scheduler = build_optimizer(
-        model, OPTIMIZER, SCHEDULER, steps_per_epoch=STEPS_PER_EPOCH,
+        model, optimizer_cfg, SCHEDULER, steps_per_epoch=STEPS_PER_EPOCH,
         adapter_lr=1e-4, time_lr=1e-5,
     )
     rng = np.random.default_rng(SEED)
@@ -58,17 +64,20 @@ def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf
 
 
 def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
-         frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3) -> dict:
+         frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3,
+         accum_steps: int = 1, moments_dtype=None) -> dict:
     """Runs the benchmark; returns ``{"samples_per_s", "window_rates",
     "losses", "setup"}``: ``losses`` has every step's loss, warm-up
     included, and ``setup`` is what ``setup`` built, for a caller that
     goes on stepping (the profiler windows of ``chip_smoke.py``)."""
-    model, optimizer, scheduler, data = built = setup(batch, ntoks, arch, frames)
+    model, optimizer, scheduler, data = built = setup(batch, ntoks, arch, frames,
+                                                      moments_dtype)
     generator = torch.Generator(device=data[0].device).manual_seed(SEED)
     losses = []
 
     def step():
-        loss, _ = train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
+        loss, _ = train_step(model, clip_loss, optimizer, scheduler, data, {}, generator,
+                             accum_steps=accum_steps)
         losses.append(loss)
 
     for _ in range(warmup):
@@ -86,15 +95,21 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
     print(f"train step: {rate:.1f} samples/s over {windows * iters} steps "
           f"({1e3 * sum(seconds) / (windows * iters):.3f} ms/step, windows "
           f"{[round(r, 1) for r in rates]}), batch {batch}, {ntoks}-token texts, "
-          f"arch {arch}", flush=True)
+          f"arch {arch}, accum_steps {accum_steps}, moments {moments_dtype or 'float32'}",
+          flush=True)
     return {"samples_per_s": rate, "window_rates": rates,
             "losses": [float(x) for x in losses], "setup": built}
 
 
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    main(int(args[0]) if len(args) > 0 else 128,
-         int(args[1]) if len(args) > 1 else 16,
-         args[2] if len(args) > 2 else "PretrainedCLIP_finaltf",
-         int(args[3]) if len(args) > 3 else 0,
-         int(args[4]) if len(args) > 4 else 8)
+    parser = argparse.ArgumentParser(description="train samples/s of the flagship")
+    parser.add_argument("batch", nargs="?", type=int, default=128)
+    parser.add_argument("ntoks", nargs="?", type=int, default=16)
+    parser.add_argument("arch", nargs="?", default="PretrainedCLIP_finaltf")
+    parser.add_argument("frames", nargs="?", type=int, default=0)
+    parser.add_argument("iters", nargs="?", type=int, default=8)
+    parser.add_argument("--accum_steps", type=int, default=1)
+    parser.add_argument("--moments_dtype", default=None, choices=("bfloat16", "float32"))
+    a = parser.parse_args()
+    main(a.batch, a.ntoks, a.arch, a.frames, a.iters, accum_steps=a.accum_steps,
+         moments_dtype=a.moments_dtype)

@@ -12,9 +12,12 @@ The JAX package's ``FusedOptimizer`` defines its semantics as torch's
 (``optim.py:277-280``): L2 decay added to the gradient for Adam, decoupled
 for AdamW, and amsgrad's running max over the uncorrected second moment. So
 ``torch.optim.Adam``/``AdamW`` are the counterpart, and the tests hold them
-to ``FusedOptimizer`` number for number. The per-step schedule
-(``make_lr_schedule``) is a ``LambdaLR`` indexed by the step before the
-update, as ``FusedOptimizer`` indexes it by its pre-increment count.
+to ``FusedOptimizer`` number for number. With ``moments_dtype="bfloat16"``
+(``optim.py:298``) the moments are stored in bf16 and the update is
+``Bf16MomentAdam``, ``FusedOptimizer._leaf``'s arithmetic in fp32. The
+per-step schedule (``make_lr_schedule``) is a ``LambdaLR`` indexed by the
+step before the update, as ``FusedOptimizer`` indexes it by its
+pre-increment count.
 
 Names are the port's (the reference state dict's): ``model.visual.*``,
 ``model.transformer.*`` (the text transformer), ``model.text_projection``;
@@ -36,6 +39,10 @@ TIME_MATCHES = ("time", "temporal")
 # bias, LayerNorm (".ln_1.weight", ".ln_final.weight", ...), embeddings
 NODECAY_MATCHES = ("bias", ".ln", "embedding", "temporal_embed")
 GROUPS = ("rest", "adapter", "fc", "time")
+# optimizer.args.moments_dtype: the moments' storage
+MOMENT_DTYPES = {None: torch.float32, "float32": torch.float32,
+                 "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+MOMENTS = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")
 
 
 def classify_param(name: str) -> str:
@@ -103,18 +110,18 @@ def build_optimizer(
     adapter_lr: Optional[float] = None,
 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """``(optimizer, scheduler)``: ``torch.optim.Adam`` or ``AdamW`` over the
-    4 groups × decay/no-decay (param groups named by ``"name"``), and a
+    4 groups × decay/no-decay (param groups named by ``"name"``), or
+    ``Bf16MomentAdam`` where ``args.moments_dtype`` is bf16, and a
     ``LambdaLR`` to step once per optimizer step. Parameters with
     ``requires_grad=False`` (the frozen ones) join no group."""
     opt_type = optimizer_cfg.get("type", "Adam")
     if opt_type not in ("Adam", "AdamW"):
         raise ValueError(f"Unsupported optimizer type {opt_type!r}")
     args = dict(optimizer_cfg.get("args", {}))
-    if args.pop("moments_dtype", None):
-        raise NotImplementedError(
-            "moments_dtype (narrow optimizer-moment storage) needs its own "
-            "multi-tensor update, not ported yet (ROADMAP: Queue 1)"
-        )
+    moments_dtype = args.pop("moments_dtype", None)
+    if moments_dtype not in MOMENT_DTYPES:
+        raise ValueError(f"Unsupported moments_dtype {moments_dtype!r}; expected "
+                         f"one of {sorted(k for k in MOMENT_DTYPES if k)}")
     base_lr = float(args.get("lr", 1e-3))  # torch.optim.Adam's default
     wd = float(args.get("weight_decay", 0.0) or 0.0)
     group_lr = {
@@ -144,11 +151,113 @@ def build_optimizer(
         "eps": float(args.get("eps", 1e-8)),
         "amsgrad": bool(args.get("amsgrad", False)),
     }
-    cls = torch.optim.AdamW if opt_type == "AdamW" else torch.optim.Adam
-    optimizer = cls(groups, lr=base_lr, **kwargs)
+    if MOMENT_DTYPES[moments_dtype] == torch.bfloat16:
+        optimizer = Bf16MomentAdam(groups, lr=base_lr, decoupled=opt_type == "AdamW",
+                                   **kwargs)
+    else:
+        cls = torch.optim.AdamW if opt_type == "AdamW" else torch.optim.Adam
+        optimizer = cls(groups, lr=base_lr, **kwargs)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
 
 
 def _factor(schedule: Callable[[int], float], lr: float) -> Callable[[int], float]:
     """``LambdaLR`` multiplies a group's initial lr by the factor."""
     return lambda step: schedule(step) / lr if lr else 0.0
+
+
+class Bf16MomentAdam(torch.optim.Optimizer):
+    """Adam/AdamW with the moments stored in bf16: the counterpart of
+    ``FusedOptimizer(moments_dtype="bfloat16")`` (``_leaf``,
+    ``vtc_tpu/training/optim.py:340-366``). Per group, in fp32 over its
+    tensors (``torch._foreach_*``): load and cast the moments up, update
+    them, take this step's update from the unrounded fp32 moments, and cast
+    them down to bf16 (round to nearest even) at the store. Decay is added
+    to the gradient (Adam) or to the update as ``upd + wd·p`` (AdamW);
+    amsgrad keeps the running max of the uncorrected second moment. The
+    state's names are ``torch.optim.Adam``'s."""
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=0.0, amsgrad=False, decoupled=False):
+        defaults = dict(lr=lr, betas=tuple(betas), eps=eps,
+                        weight_decay=weight_decay, amsgrad=amsgrad,
+                        decoupled=decoupled)
+        super().__init__(params, defaults)
+
+    def load_state_dict(self, state_dict):
+        """``Optimizer.load_state_dict`` casts the state to the parameters'
+        dtype; the moments go back to bf16 (exact for bf16 values)."""
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            for key in MOMENTS:
+                if key in state:
+                    state[key] = state[key].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                self._update(group, params)
+        return loss
+
+    def _update(self, group, params):
+        b1, b2 = group["betas"]
+        lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+        amsgrad = group["amsgrad"]
+        states = []
+        for p in params:
+            state = self.state[p]
+            if not state:
+                state["step"] = torch.tensor(0.0)
+                for key in MOMENTS[: 3 if amsgrad else 2]:
+                    state[key] = torch.zeros_like(p, dtype=torch.bfloat16)
+            states.append(state)
+        # each tensor's count, as torch.optim.Adam's; the bias corrections
+        # in fp32, as FusedOptimizer computes them
+        counts = []
+        for state in states:
+            state["step"] += 1
+            counts.append(state["step"])
+        counts = torch.stack(counts).float()
+        bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** counts).tolist()
+        sqrt_bc2 = torch.sqrt(1 - torch.tensor(b2, dtype=torch.float32) ** counts).tolist()
+
+        g = [p.grad.float() for p in params]
+        p32 = [p.float() for p in params]
+        if wd and not group["decoupled"]:
+            g = torch._foreach_add(g, torch._foreach_mul(p32, wd))
+        m = _fp32([s["exp_avg"] for s in states])
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        v = _fp32([s["exp_avg_sq"] for s in states])
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
+        if amsgrad:
+            vm = _fp32([s["max_exp_avg_sq"] for s in states])
+            torch._foreach_maximum_(vm, v)
+            denom = torch._foreach_sqrt(vm)
+        else:
+            denom = torch._foreach_sqrt(v)
+        torch._foreach_div_(denom, sqrt_bc2)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+        if wd and group["decoupled"]:
+            torch._foreach_add_(upd, torch._foreach_mul(p32, wd))
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, [u.to(p.dtype) for u, p in zip(upd, params)])
+        # the stores round to bf16 (nearest even), one multi-tensor copy each
+        torch._foreach_copy_([s["exp_avg"] for s in states], m)
+        torch._foreach_copy_([s["exp_avg_sq"] for s in states], v)
+        if amsgrad:
+            torch._foreach_copy_([s["max_exp_avg_sq"] for s in states], vm)
+
+
+def _fp32(tensors):
+    """fp32 copies of a list of tensors, in one multi-tensor copy."""
+    out = [torch.empty_like(t, dtype=torch.float32) for t in tensors]
+    torch._foreach_copy_(out, tensors)
+    return out
