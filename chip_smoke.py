@@ -103,7 +103,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     pointer, ``monitor_best``, every parameter, every optimizer moment and
     the schedule's step bit for bit; steps/s, seconds per epoch, the
     checkpoint's size and save seconds are printed;
-15. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+15. data and ``train.py``: each JPEG fixture of ``tests/data/jpeg``
+    decoded by nvJPEG on the card (``data.read_rgb``) against the committed
+    PIL decode (max |d|, mean |d| per channel and of the luma, the share
+    beyond 2 levels), held to a mean |d| of 1.5 levels per channel where
+    the chroma is not subsampled and of the luma where it is
+    (``DECODE_MEAN_MAX``), and through ``clip_preprocess`` and the fp32
+    flagship's image tower (cosine > 0.999), with the decode's and the 224
+    resize's ms per image; a corpus of 408 rows written with ``csv`` (the
+    fixtures as thumbnails, base-36 ids per split, one title over 77
+    tokens, bot comments) through ``ImTextDataset`` and ``DataLoader`` at
+    the config's 30 workers and batch 50 (items/s, two epochs); a seeded
+    openai-layout ViT-B/32 CLIP file (605 MB) that ``create_model`` imports
+    from ``VTC_CLIP_WEIGHTS`` bit for bit; and ``vtc_tpu_torch.train``
+    through its CLI on the flagship config (``--csv_file``, ``--root``,
+    ``--epochs 2``, a temporary ``--save_dir``; fp32, batch 50, the
+    imported weights), with a finite loss each epoch, the monitor's key
+    logged, ``checkpoint-epoch1/2.pth``, launches of ``(steps + validation
+    batches) × (29, 26, 26)``, no call to a plain version, and steps/s
+    beside phase 14's. Everything goes to a temporary directory under
+    ``saved/`` that the phase removes;
+16. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -114,6 +134,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1292,14 +1313,14 @@ def trainer_parts(cfg: dict, model_seed: int, train_loader, resume=None):
     return model, LOSSES[cfg["loss"]], metrics, optimizer, scheduler, config
 
 
-def run_trainer(ops, smi) -> None:
+def run_trainer(ops, smi) -> list:
     """Phase 14: ``Trainer`` on the card with the flagship config (arch,
     optimizer, loss, metrics, schedule, monitor, batch), fp32, over
     ``TRAINER_EPOCHS`` epochs of ``TRAINER_ITEMS[0]`` seeded items at
     ``trainer.accum_steps`` = ``ACCUM_K``, validating on
     ``TRAINER_ITEMS[1]``; then a fresh Trainer resumed from the last
     checkpoint. Checkpoints go to a temporary directory that the phase
-    removes."""
+    removes. Returns each epoch's (steps/s, seconds)."""
     import shutil
     import tempfile
 
@@ -1336,6 +1357,7 @@ def run_trainer(ops, smi) -> None:
     cfg = jsonc.read_json(root / TRAIN_CONFIG)
     (root / "saved").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=root / "saved")
+    rates = []
     try:
         # tensorboard off: per-parameter histograms of 151 M weights are not
         # this phase's subject; save_period = epochs keeps it to <= 2 files
@@ -1373,6 +1395,7 @@ def run_trainer(ops, smi) -> None:
         for epoch, (elog, ep_s, val_s) in enumerate(zip(
                 trainer.logs, trainer.seconds["epoch"], trainer.seconds["valid"]), 1):
             train_s = ep_s - val_s
+            rates.append((len(train_loader) / train_s, ep_s))
             recalls = {k: v for k, v in elog.items() if "recall" in k}
             log(f"trainer epoch {epoch}: loss {elog['loss']:.6f} val_loss "
                 f"{elog['val_loss']:.6f} {json.dumps(recalls)}; {train_s:.3f} s of "
@@ -1435,9 +1458,316 @@ def run_trainer(ops, smi) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    return rates
+
+
+# ---- phase 15: the data path and the train.py twin ---------------------------
+
+JPEG_DIR = "tests/data/jpeg"
+# nvJPEG against PIL's decode of the same file, in levels: the mean |Δ| of each
+# channel where the chroma is not subsampled (4:4:4, grayscale: only the IDCTs
+# differ), and of the luma 0.299 R + 0.587 G + 0.114 B where it is (4:2:0:
+# nvJPEG upsamples the chroma otherwise than libjpeg-turbo's "fancy"
+# upsampling, which moves R and B at colour edges but leaves the luma;
+# PERF.md §6, ROADMAP Queue 3). The luma cannot see the chroma, so each channel
+# of a subsampled image is held too, to a ceiling above nvJPEG's readings
+# (1.28-4.88) that a lost, swapped or misplaced chroma plane exceeds (18-136;
+# moved by 3 pixels, 7.85 and more: tests/test_torch_data.py)
+DECODE_MEAN_MAX = 1.5
+SUBSAMPLED_CHANNEL_MEAN_MAX = 6.0
+FEATURE_COS_MIN = 0.999  # image-tower features of the two decodes
+CORPUS_ROWS = {"train": 300, "val": 100, "test": 8}
+LOADER_WORKERS = 30  # the flagship config's num_workers
+DECODE_REPS = 20
+LONG_TITLE = ("the cat sat on the mat and then the dog ran over the hill while the "
+              "bird sang in the old oak tree near the river bank ") * 4
+
+
+def luma(rgb: np.ndarray) -> np.ndarray:
+    return rgb.astype(np.float64) @ np.array([0.299, 0.587, 0.114])
+
+
+def check_decode(model, smi) -> None:
+    """Part 1: each committed JPEG fixture through ``read_rgb`` on the card,
+    against the committed PIL decode; features of the image tower from
+    both; decode and resize times."""
+    from vtc_tpu_torch.data import clip_preprocess, image_io, read_rgb
+    from vtc_tpu_torch.data.preprocess import _resize_short_side
+
+    root = Path(__file__).resolve().parent / JPEG_DIR
+    ref = np.load(root / "pil_decodes.npz")
+    for i, name in enumerate(ref.files):
+        path = root / f"{name}.jpg"
+        header = image_io.jpeg_header(path.read_bytes())
+        tic = time.perf_counter()
+        ours = read_rgb(path)
+        if i == 0:
+            log(f"first decode, nvJPEG binding built: {time.perf_counter() - tic:.1f} s")
+        pil = ref[name]
+        require(ours.shape == pil.shape and ours.dtype == np.uint8,
+                f"{name}: decoded {ours.shape} {ours.dtype}, PIL {pil.shape}")
+        d = np.abs(ours.astype(np.int16) - pil.astype(np.int16))
+        per_channel = d.reshape(-1, 3).mean(0)
+        d_luma = float(np.abs(luma(ours) - luma(pil)).mean())
+        subsampled = header["subsampled"]
+        held = d_luma if subsampled else float(per_channel.max())
+        with torch.inference_mode():
+            x = torch.from_numpy(np.stack([clip_preprocess(ours), clip_preprocess(pil)]))
+            f = model.model.encode_image(x.cuda()).float()
+            f = f / f.norm(dim=-1, keepdim=True)
+            cos = float((f[0] * f[1]).sum())
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            read_rgb(path)
+        decode_ms = (time.perf_counter() - tic) / DECODE_REPS * 1e3
+        tic = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            _resize_short_side(pil, 224)
+        resize_ms = (time.perf_counter() - tic) / DECODE_REPS * 1e3
+        log(f"decode {name} ({pil.shape[1]}x{pil.shape[0]}, {header['components']} "
+            f"components{', progressive' if header['progressive'] else ''}): nvJPEG vs PIL "
+            f"max |d| {int(d.max())}, mean |d| per channel "
+            f"{[round(float(c), 4) for c in per_channel]}, luma {d_luma:.4f}, share "
+            f"beyond 2 levels {float((d > 2).mean()):.5f}; held: "
+            f"{'luma' if subsampled else 'each channel'} {held:.4f} <= {DECODE_MEAN_MAX}"
+            f"{f', each channel <= {SUBSAMPLED_CHANNEL_MEAN_MAX}' if subsampled else ''}; "
+            f"image-tower cosine {cos:.6f} (> {FEATURE_COS_MIN}); decode {decode_ms:.4f} ms, "
+            f"resize to 224 {resize_ms:.4f} ms per image; on {smi}")
+        require(held <= DECODE_MEAN_MAX, f"{name}: mean |d| {held} > {DECODE_MEAN_MAX}")
+        require(not subsampled or float(per_channel.max()) <= SUBSAMPLED_CHANNEL_MEAN_MAX,
+                f"{name}: mean |d| per channel {per_channel} > {SUBSAMPLED_CHANNEL_MEAN_MAX}")
+        require(cos > FEATURE_COS_MIN, f"{name}: feature cosine {cos} <= {FEATURE_COS_MIN}")
+
+
+def write_corpus(tmp: Path):
+    """Part 2's corpus: ``CORPUS_ROWS`` rows written with ``csv``, base-36 ids
+    whose last digit puts each row in its split, the fixtures copied as each
+    row's thumbnail; one title over 77 tokens, bot comments among the
+    others. -> (csv path, media root)."""
+    import csv
+    import shutil
+
+    from vtc_tpu_torch.data.partition import DIGIT_SPLIT
+
+    fixtures = sorted((Path(__file__).resolve().parent / JPEG_DIR).glob("*.jpg"))
+    root = tmp / "media"
+    root.mkdir(parents=True)
+    rows, i = [], 0
+    for split, n in CORPUS_ROWS.items():
+        digits = sorted(DIGIT_SPLIT[split])
+        for j in range(n):
+            rid = np.base_repr(46656 + i, 36).lower() + digits[j % len(digits)]
+            shutil.copyfile(fixtures[i % len(fixtures)], root / f"{rid}.jpg")
+            comments = [f"great thumbnail number {i}", "i am a bot, this action was automatic",
+                        f"what a view from spot {i % 17}", "[deleted]",
+                        f"reminds me of trip {i % 5}", "thank you for your submission",
+                        f"love the colours in {i}"]
+            title = LONG_TITLE if i == 0 else f"a picture of scene {i} at dusk"
+            rows.append([int(rid, 36), f"results/{rid}.mp4", title, 10 + i % 50,
+                         str(comments)])
+            i += 1
+    path = tmp / "posts.csv"
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["reddit_id", "video_path", "title", "video_length", "comments"])
+        w.writerows(rows)
+    return path, root
+
+
+def measure_loader(csv_path, root, cfg, smi) -> None:
+    """Part 2: items/s of ``ImTextDataset`` on the card's decode through
+    ``DataLoader`` at the config's workers and batch, two epochs."""
+    from vtc_tpu_torch.data import DataLoader, ImTextDataset
+
+    args = dict(cfg["dataset"]["args"], csv_file=str(csv_path), root=str(root))
+    ds = ImTextDataset(**args)
+    loader = DataLoader(ds, cfg["batch_size"], shuffle=True, drop_last=True,
+                        num_workers=cfg["num_workers"], seed=0)
+    vis, title, comments, meta = ds[0]
+    require(vis.shape == (3, 224, 224) and title.shape == (77,) and comments.shape == (5, 77),
+            f"item shapes {vis.shape} {title.shape} {comments.shape}")
+    for epoch in (1, 2):
+        tic = time.perf_counter()
+        n = 0
+        for batch in loader:
+            if n == 0:
+                first = time.perf_counter() - tic
+            n += len(batch[0])
+        s = time.perf_counter() - tic
+        log(f"loader epoch {epoch}: {n} items of {len(ds)} in {s:.3f} s, {n / s:.1f} items/s "
+            f"(first batch {first:.3f} s) at {cfg['num_workers']} workers, batch "
+            f"{cfg['batch_size']}, nvJPEG decode + resize + normalize + BPE; on {smi}")
+
+
+def synthesize_clip_weights(path: Path) -> dict:
+    """Part 3: a seeded openai-layout ViT-B/32 CLIP state dict (the names of
+    the port's ``model.*`` without the prefix, and the archive's
+    ``input_resolution``, ``context_length``, ``vocab_size``), saved to
+    ``path``."""
+    from vtc_tpu_torch.models.retrieval import PretrainedCLIP_finaltf
+
+    g = torch.Generator().manual_seed(5)
+    with torch.device("meta"):
+        shapes = {k[len("model."):]: v.shape for k, v in
+                  PretrainedCLIP_finaltf(model_type="ViT-B/32").state_dict().items()
+                  if k.startswith("model.")}
+    sd = {}
+    for k, shape in shapes.items():
+        t = torch.randn(shape, generator=g) * 0.02
+        if ".ln_" in f".{k}" and k.endswith("weight"):
+            t += 1.0
+        sd[k] = t
+    sd["logit_scale"] = torch.tensor(math.log(100.0))
+    sd.update(input_resolution=torch.tensor(224), context_length=torch.tensor(77),
+              vocab_size=torch.tensor(49408))
+    torch.save(sd, path)
+    return sd
+
+
+def run_data_and_train(ops, smi, trainer_rates) -> None:
+    """Phase 15: decode, the loader's rate, CLIP weight import and the
+    ``train.py`` twin through its CLI, in a temporary directory under
+    ``saved/`` that the phase removes."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from vtc_tpu_torch import train
+    from vtc_tpu_torch.models import create_model
+    from vtc_tpu_torch.training import Trainer
+    from vtc_tpu_torch.utils import jsonc
+
+    phase_tic = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    cfg = jsonc.read_json(root / TRAIN_CONFIG)
+    (root / "saved").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=root / "saved"))
+    saved_env = os.environ.get("VTC_CLIP_WEIGHTS")
+    try:
+        # 1. decode, against PIL's
+        model = create_model("PretrainedCLIP_finaltf", model_type="ViT-B/32", seed=0)
+        check_decode(model, smi)
+        del model
+
+        # 2. the loader's rate
+        csv_path, media = write_corpus(tmp)
+        measure_loader(csv_path, media, cfg, smi)
+
+        # 3. CLIP weight import, bit for bit
+        weights = tmp / "ViT-B-32-seeded.pt"
+        tic = time.perf_counter()
+        sd = synthesize_clip_weights(weights)
+        os.environ["VTC_CLIP_WEIGHTS"] = str(weights)
+        made_s = time.perf_counter() - tic
+        tic = time.perf_counter()
+        model = create_model("PretrainedCLIP_finaltf", model_type="ViT-B/32", seed=0)
+        load_s = time.perf_counter() - tic
+        own = {k[len("model."):]: v for k, v in model.state_dict().items()
+               if k.startswith("model.")}
+        require(sorted(own) == sorted(k for k in sd if k not in (
+            "input_resolution", "context_length", "vocab_size")),
+            "the model's CLIP names differ from the file's")
+        for k, v in own.items():
+            require(torch.equal(v.cpu(), sd[k]), f"imported {k} differs from the file")
+        require(all(not p.detach().any() for n, p in model.named_parameters()
+                    if n.startswith("final_linear")), "the CAM lost its zero-init")
+        log(f"weights: {len(own)} CLIP tensors ({sum(v.numel() for v in own.values()):,} "
+            f"values, {weights.stat().st_size:,} bytes) from VTC_CLIP_WEIGHTS equal the "
+            f"file bit for bit; file made in {made_s:.1f} s, model built with it in "
+            f"{load_s:.1f} s")
+        del model, sd, own
+
+        # 4. the train.py twin, through its CLI, on the flagship config
+        argv = ["-c", str(root / TRAIN_CONFIG), "--csv_file", str(csv_path),
+                "--root", str(media), "--epochs", "2", "--save_dir", str(tmp / "run")]
+        plain_calls = {}
+        # the kernels' modules (``ops`` exports functions of the same names)
+        plain = [("layernorm", "layernorm_plain"), ("addln", "add_layernorm_plain"),
+                 ("attention", "fused_mha_plain"), ("attention", "fused_attention_plain")]
+        originals = {}
+        for module, name in plain:
+            m = importlib.import_module(f"vtc_tpu_torch.ops.{module}")
+            originals[m, name] = getattr(m, name)
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                plain_calls[name] = plain_calls.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return call
+
+        logs, seconds = [], {"epoch": [], "valid": []}
+        run_epoch, run_valid = Trainer._train_epoch, Trainer._valid_epoch
+
+        def timed(key, fn):
+            def call(self, epoch):
+                tic = time.perf_counter()
+                out = fn(self, epoch)
+                torch.cuda.synchronize()
+                seconds[key].append(time.perf_counter() - tic)
+                if key == "epoch":
+                    logs.append(out)
+                return out
+            return call
+
+        for (m, n), fn in originals.items():
+            setattr(m, n, counted(n, fn))
+        Trainer._train_epoch, Trainer._valid_epoch = (timed("epoch", run_epoch),
+                                                      timed("valid", run_valid))
+        try:
+            # the twin's path: counts from 0 just before, read just after
+            ops.reset_launch_counts()
+            tic = time.perf_counter()
+            # wandb, where installed, runs disabled (WANDB_MODE, set in main)
+            trainer = train.cli(argv)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - tic
+            launches = ops.launch_counts()
+        finally:
+            for (m, n), fn in originals.items():
+                setattr(m, n, fn)
+            Trainer._train_epoch, Trainer._valid_epoch = run_epoch, run_valid
+        steps = len(logs) * len(trainer.data_loader)
+        val_batches = len(logs) * len(trainer.valid_data_loader)
+        want = {k: (steps + val_batches) * v for k, v in EXPECTED_LAUNCHES.items()}
+        log(f"kernel use (train.py twin: {steps} steps + {val_batches} validation "
+            f"batches): {json.dumps(launches)}; plain-version calls {plain_calls}")
+        require(len(logs) == 2, f"{len(logs)} epochs ran")
+        require(launches == want, f"twin launches {launches} != {want}")
+        require(not plain_calls, f"the twin called plain versions: {plain_calls}")
+        for epoch, (elog, ep_s, val_s) in enumerate(
+                zip(logs, seconds["epoch"], seconds["valid"]), 1):
+            train_s = ep_s - val_s
+            p14 = trainer_rates[epoch - 1] if epoch <= len(trainer_rates) else (math.nan,) * 2
+            log(f"twin epoch {epoch}: loss {elog['loss']:.6f} val_loss "
+                f"{elog['val_loss']:.6f} {trainer.mnt_metric} {elog.get(trainer.mnt_metric)}; "
+                f"{len(trainer.data_loader)} steps in {train_s:.3f} s "
+                f"({len(trainer.data_loader) / train_s:.3f} steps/s; phase 14 "
+                f"{p14[0]:.3f}), epoch {ep_s:.3f} s (phase 14 {p14[1]:.3f}); on {smi}")
+            require(math.isfinite(elog["loss"]) and math.isfinite(elog["val_loss"]),
+                    f"twin epoch {epoch}: a non-finite loss")
+            require(trainer.mnt_metric in elog,
+                    f"twin epoch {epoch}: the monitor's {trainer.mnt_metric} is not logged")
+        files = {f.name: f.stat().st_size for f in trainer.checkpoint_dir.glob("*.pth")}
+        require({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(files),
+                f"twin checkpoints: {files}")
+        log(f"twin: 2 epochs in {total:.3f} s (datasets, model with the imported weights, "
+            f"saves included); checkpoints {files} bytes; phase 15 took "
+            f"{time.perf_counter() - phase_tic:.1f} s")
+        del trainer
+    finally:
+        if saved_env is None:
+            os.environ.pop("VTC_CLIP_WEIGHTS", None)
+        else:
+            os.environ["VTC_CLIP_WEIGHTS"] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
+    # wandb, where installed, stays off: nothing here may reach the network
+    os.environ["WANDB_MODE"] = "disabled"
+    os.environ["WANDB_ERROR_REPORTING"] = "false"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -1587,9 +1917,12 @@ def main() -> int:
     run_accum_parity(ops)
 
     # 14. the Trainer: epochs, validation, checkpoints, resume
-    run_trainer(ops, smi)
+    trainer_rates = run_trainer(ops, smi)
 
-    # 15. results: each kernel's launches from the path that runs it
+    # 15. the data path and the train.py twin
+    run_data_and_train(ops, smi, trainer_rates)
+
+    # 16. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])

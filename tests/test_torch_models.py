@@ -332,12 +332,19 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 def test_port_imports_no_jax():
     """No module of vtc_tpu_torch, nor chip_smoke.py, imports jax, flax,
-    optax, orbax or the JAX package."""
+    optax, orbax or the JAX package, nor pandas or regex (the machine with
+    the card has neither); PIL only inside the CPU route of
+    ``data/image_io.py:read_rgb``."""
     root = Path(__file__).resolve().parent.parent
     files = sorted((root / "vtc_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu", "pandas", "regex")
+    pil_imports = []
     for f in files:
-        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+        tree = ast.parse(f.read_text(), str(f))
+        # the innermost function around each node (inner ones come later)
+        functions = {id(n): fn.name for fn in ast.walk(tree)
+                     if isinstance(fn, ast.FunctionDef) for n in ast.walk(fn)}
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
@@ -346,6 +353,10 @@ def test_port_imports_no_jax():
                 continue
             for n in names:
                 assert n.split(".")[0] not in banned, f"{f}: imports {n}"
+                if n.split(".")[0] == "PIL":
+                    pil_imports.append((f.relative_to(root).as_posix(),
+                                        functions.get(id(node))))
+    assert pil_imports == [("vtc_tpu_torch/data/image_io.py", "read_rgb")]
 
 
 @pytest.mark.slow

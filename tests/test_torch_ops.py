@@ -180,17 +180,20 @@ def test_backward_through_a_kernel_raises():
 
 
 def test_header_edit_renames_both_libraries(tmp_path):
-    """Every CUDA source (the two attention kernels and ``ln_mxu``) includes
-    ``csrc/short_attention.cuh``. A library's name hashes every header
-    beside its source, so an edit to the header alone renames (and so
-    rebuilds) every library, and a stale build is never loaded. No GPU or
-    nvcc needed: only the names are computed."""
+    """Every kernel source (the two attention kernels and ``ln_mxu``) includes
+    ``csrc/short_attention.cuh``; ``jpeg_decode.cu`` (the nvJPEG binding)
+    includes none. A library's name hashes every header beside its source,
+    so an edit to the header alone renames (and so rebuilds) every library,
+    and a stale build is never loaded. No GPU or nvcc needed: only the names
+    are computed."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     sources = sorted(csrc.glob("*.cu"))
-    assert [src.stem for src in sources] == ["fused_attention", "fused_mha", "ln_mxu"]
+    assert [src.stem for src in sources] == ["fused_attention", "fused_mha",
+                                             "jpeg_decode", "ln_mxu"]
     for src in sources:
-        assert '#include "short_attention.cuh"' in src.read_text()
+        includes = '#include "short_attention.cuh"' in src.read_text()
+        assert includes == (src.stem != "jpeg_decode"), src.name
         # the same files give the same name wherever they lie
         assert _build._lib_path(src, csrc) == _build._lib_path(
             _build.CSRC_DIR / src.name)

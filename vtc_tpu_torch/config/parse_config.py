@@ -19,9 +19,10 @@ Behavior-compatible with the reference's ``utils/parse_config.py:13-187``
 * Reflective construction ``init_obj`` (``utils/parse_config.py:97-112``).
 
 A ``multihost`` config, whose run directory rank 0 picks and broadcasts,
-waits for the port of distribution and raises. The JAX package's
-``-d/--device`` (a count of mesh devices) has no counterpart: the port runs
-on one card.
+waits for the port of distribution and raises. ``-d/--device`` is the JAX
+package's: a count of mesh devices (or the reference's id list, "0,1"),
+written to ``n_devices`` unless ``--n_devices`` is given; the training CLI
+then refuses or warns, as a one-card program must.
 """
 
 from __future__ import annotations
@@ -97,11 +98,12 @@ class ConfigParser:
         setup_logging(run_dir)
 
     @classmethod
-    def from_args(cls, args, options=()):
-        """Build from an argparse parser (the train/eval entry points)."""
+    def from_args(cls, args, options=(), argv=None):
+        """Build from an argparse parser (the train/eval entry points) and
+        ``argv`` (default: the process's arguments)."""
         for opt in options:
             args.add_argument(*opt.flags, default=None, type=opt.type)
-        parsed = args if isinstance(args, tuple) else args.parse_args()
+        parsed = args if isinstance(args, tuple) else args.parse_args(argv)
 
         resume = getattr(parsed, "resume", None)
         explicit_cfg = getattr(parsed, "config", None)
@@ -127,6 +129,10 @@ class ConfigParser:
             long_flags = [f for f in opt.flags if f.startswith("--")]
             dest = (long_flags[0] if long_flags else opt.flags[0]).lstrip("-").replace("-", "_")
             modification[opt.target] = parsed_vars[dest]
+        device = parsed_vars.get("device")
+        if device is not None and modification.get("n_devices") is None:
+            n = len(device.split(",")) if "," in str(device) else int(device)
+            modification["n_devices"] = n
         return cls(config, resume, modification)
 
     # -- reflective construction ------------------------------------------

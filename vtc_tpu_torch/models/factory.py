@@ -7,14 +7,16 @@ Port of ``vtc_tpu/models/factory.py`` for ``PretrainedCLIP``,
 on the CPU, so one seed gives the same weights on every device; the
 distributions follow the JAX package's initializers, the numbers do not (a
 test that compares the two carries the JAX weights across with
-``from_jax.state_dict_from_jax``). Loading real CLIP weights waits for the
-checkpoint files (ROADMAP); with them, the TimeSformer models take the CLIP
-visual tower through ``timesformer.timesformer_params_from_clip_visual``, as
-the JAX factory does.
+``from_jax.state_dict_from_jax``). CLIP weights, where ``clip_weights`` or
+``$VTC_CLIP_WEIGHTS`` names them, replace the seeded CLIP towers
+(``clip_import``); the TimeSformer models take the CLIP visual tower through
+``timesformer.timesformer_params_from_clip_visual``, as the JAX factory
+does, and the CAM keeps its zero-init.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Callable, Optional, Union
 
@@ -23,6 +25,9 @@ import torch
 from ..device import resolve_device
 from . import retrieval
 from .cam import zero_init_cam_params
+from .clip_import import find_clip_weights, import_clip_weights
+
+logger = logging.getLogger(__name__)
 
 ARCHS = {
     "PretrainedCLIP": retrieval.PretrainedCLIP,
@@ -118,11 +123,14 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
 
 def create_model(arch: str, model_type: str = "ViT-B/32", seed: int = 0,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 device: Optional[Union[str, torch.device]] = None, **kwargs):
+                 device: Optional[Union[str, torch.device]] = None,
+                 clip_weights: Optional[str] = None, **kwargs):
     """Build ``arch`` in eval mode on ``device`` (default: the card; raises
     without one). ``dtype`` is the activation dtype; weights stay fp32 until
-    ``convert_weights``. The CAM starts from the reference's zero-init. The
-    parameters of the branches that ``freeze`` names get
+    ``convert_weights``. The CLIP towers come from ``clip_weights`` (a file
+    or a HuggingFace directory), else ``$VTC_CLIP_WEIGHTS``, else ``seed``
+    (``find_clip_weights``). The CAM starts from the reference's zero-init.
+    The parameters of the branches that ``freeze`` names get
     ``requires_grad=False`` (``frozen_predicate``), so the optimizer leaves
     them out."""
     if arch not in ARCHS:
@@ -130,8 +138,25 @@ def create_model(arch: str, model_type: str = "ViT-B/32", seed: int = 0,
     device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = DTYPES[dtype]
+    # torch-only arguments of the reference's configs, as the JAX factory takes them
+    kwargs.pop("audio_model_ckpt", None)
+    clip_audio_ckpt = kwargs.pop("clip_audio_ckpt", None)
     model = ARCHS[arch](model_type=model_type, dtype=dtype, **kwargs)
     init_weights(model, seed)
+    # the audio checkpoint supplies the CLIP towers only where the audio
+    # branch is built, as in the JAX factory
+    use_audio_ckpt = clip_audio_ckpt and getattr(model, "init_audio_model", True)
+    weights = find_clip_weights(clip_audio_ckpt if use_audio_ckpt else clip_weights)
+    if weights is not None:
+        from ..data.tokenizer import get_tokenizer
+
+        if not get_tokenizer().is_exact:
+            logger.warning(
+                "Real CLIP weights (%s) combined with the FALLBACK byte-level BPE "
+                "vocabulary: token ids will not match the checkpoint's training "
+                "vocabulary and text embeddings will be wrong. Provision the merges "
+                "file via VTC_BPE_VOCAB.", weights)
+        import_clip_weights(model, weights, seed)
     if isinstance(model, retrieval._CamRetrievalBase):
         zero_init_cam_params(model)
     frozen = frozen_predicate(model.freeze)
