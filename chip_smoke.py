@@ -104,13 +104,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     the schedule's step bit for bit; steps/s, seconds per epoch, the
     checkpoint's size and save seconds are printed;
 15. data and ``train.py``: each JPEG fixture of ``tests/data/jpeg``
-    decoded by nvJPEG on the card (``data.read_rgb``) against the committed
-    PIL decode (max |d|, mean |d| per channel and of the luma, the share
-    beyond 2 levels), held to a mean |d| of 1.5 levels per channel where
-    the chroma is not subsampled and of the luma where it is
+    decoded on the card (``data.read_rgb``: nvJPEG's planes and the
+    ``ycc_to_rgb`` kernel) against the committed PIL decode (max |d|, mean
+    |d| per channel and of the luma, the share beyond 2 levels), held to a
+    mean |d| of 1.5 levels per channel and of the luma
     (``DECODE_MEAN_MAX``), and through ``clip_preprocess`` and the fp32
     flagship's image tower (cosine > 0.999), with the decode's and the 224
-    resize's ms per image; a corpus of 408 rows written with ``csv`` (the
+    resize's ms per image; a corpus of 500 rows written with ``csv`` (the
     fixtures as thumbnails, base-36 ids per split, one title over 77
     tokens, bot comments) through ``ImTextDataset`` and ``DataLoader`` at
     the config's 30 workers and batch 50 (items/s, two epochs); a seeded
@@ -121,9 +121,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     imported weights), with a finite loss each epoch, the monitor's key
     logged, ``checkpoint-epoch1/2.pth``, launches of ``(steps + validation
     batches) × (29, 26, 26)``, no call to a plain version, and steps/s
-    beside phase 14's. Everything goes to a temporary directory under
-    ``saved/`` that the phase removes;
-16. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+    beside phase 14's. Phases 15-18 work in a temporary directory under
+    ``saved/`` that the script removes;
+16. decode repair: each fixture through the card's route against PIL's
+    decode, per channel, beside the readings of nvJPEG's own RGB output; the
+    ``ycc_to_rgb`` kernel (libjpeg-turbo's fancy upsampling and ``jdcolor.c``
+    tables, ``csrc/jpeg_decode.cu``) bit-exact against
+    ``ycc_to_rgb_reference`` on nvJPEG's own planes, one launch per colour
+    image, with its ms, the plain version's on the card and its bytes
+    bound;
+17. evaluation: ``python -m vtc_tpu_torch.evaluation.eval``'s ``cli`` on
+    the flagship config over the corpus's 100-row test split (imported
+    weights), on the card and with ``-d cpu`` (whose images the card
+    decodes: its machine has no PIL): features within 1e-4, the six
+    recalls equal (a rank that differs must come from scores within 1e-4),
+    2 × (29, 26, 26) launches and one ``ycc_to_rgb`` per colour thumbnail;
+    then ``retrieval_evaluation`` of the video CAM model (phase 8's) on 8
+    seeded videos of 64 uint8 frames at 240x320, 2 captions and 3 comments
+    each, ``frame_stride`` 16, card against CPU in the same way, with 8 ×
+    (41, 26, 26, 12) launches;
+18. serving: ``vtc_tpu_torch.scripts.get_clip_vit_embeddings`` writes the
+    corpus's gallery (bf16, imported weights), ``scripts.serve.build_server``
+    serves it on a free local port with the flagship config's model;
+    ``/healthz``, ``/search/text``, ``/search/image`` with floats, base64
+    JPEGs (nvJPEG, one ``ycc_to_rgb`` each) and the committed base64 PNGs
+    (``data/png.py``: decodes equal the committed PIL decodes) give the ids
+    of the in-process ``ClipRetrievalService`` and scores within 1e-5, with
+    exact launch counts; the 400s hold; then
+    ``vtc_tpu_torch.scripts.bench_serving`` at its defaults (encode + rank
+    ms per batch of 16, HTTP p50/p99 of ``/search/text`` at 1 and 16
+    queries and of ``/search/image`` with one base64 JPEG);
+19. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -1464,19 +1492,19 @@ def run_trainer(ops, smi) -> list:
 # ---- phase 15: the data path and the train.py twin ---------------------------
 
 JPEG_DIR = "tests/data/jpeg"
-# nvJPEG against PIL's decode of the same file, in levels: the mean |Δ| of each
-# channel where the chroma is not subsampled (4:4:4, grayscale: only the IDCTs
-# differ), and of the luma 0.299 R + 0.587 G + 0.114 B where it is (4:2:0:
-# nvJPEG upsamples the chroma otherwise than libjpeg-turbo's "fancy"
-# upsampling, which moves R and B at colour edges but leaves the luma;
-# PERF.md §6, ROADMAP Queue 3). The luma cannot see the chroma, so each channel
-# of a subsampled image is held too, to a ceiling above nvJPEG's readings
-# (1.28-4.88) that a lost, swapped or misplaced chroma plane exceeds (18-136;
-# moved by 3 pixels, 7.85 and more: tests/test_torch_data.py)
+# the card's decode (nvJPEG's planes, then libjpeg-turbo's chroma upsampling
+# and colour conversion in the ycc_to_rgb kernel) against PIL's decode of the
+# same file, in levels: the mean |Δ| of each channel, and of the luma 0.299 R
+# + 0.587 G + 0.114 B too where the chroma is subsampled; each channel of a
+# subsampled image also under a ceiling that a lost, swapped or misplaced
+# chroma plane exceeds (18-136; moved by 3 pixels, 7.85 and more:
+# tests/test_torch_data.py). nvJPEG's own RGB output read 1.28-4.88 per
+# channel on the 4:2:0 fixtures (PERF.md §6)
 DECODE_MEAN_MAX = 1.5
 SUBSAMPLED_CHANNEL_MEAN_MAX = 6.0
 FEATURE_COS_MIN = 0.999  # image-tower features of the two decodes
-CORPUS_ROWS = {"train": 300, "val": 100, "test": 8}
+# the test split is phase 17's evaluation set
+CORPUS_ROWS = {"train": 300, "val": 100, "test": 100}
 LOADER_WORKERS = 30  # the flagship config's num_workers
 DECODE_REPS = 20
 LONG_TITLE = ("the cat sat on the mat and then the dog ran over the hill while the "
@@ -1488,9 +1516,10 @@ def luma(rgb: np.ndarray) -> np.ndarray:
 
 
 def check_decode(model, smi) -> None:
-    """Part 1: each committed JPEG fixture through ``read_rgb`` on the card,
-    against the committed PIL decode; features of the image tower from
-    both; decode and resize times."""
+    """Part 1: each committed JPEG fixture through ``read_rgb`` on the card
+    (nvJPEG and the ``ycc_to_rgb`` kernel), against the committed PIL
+    decode; features of the image tower from both; decode and resize
+    times."""
     from vtc_tpu_torch.data import clip_preprocess, image_io, read_rgb
     from vtc_tpu_torch.data.preprocess import _resize_short_side
 
@@ -1510,7 +1539,7 @@ def check_decode(model, smi) -> None:
         per_channel = d.reshape(-1, 3).mean(0)
         d_luma = float(np.abs(luma(ours) - luma(pil)).mean())
         subsampled = header["subsampled"]
-        held = d_luma if subsampled else float(per_channel.max())
+        held = max(float(per_channel.max()), d_luma)
         with torch.inference_mode():
             x = torch.from_numpy(np.stack([clip_preprocess(ours), clip_preprocess(pil)]))
             f = model.model.encode_image(x.cuda()).float()
@@ -1529,8 +1558,8 @@ def check_decode(model, smi) -> None:
             f"components{', progressive' if header['progressive'] else ''}): nvJPEG vs PIL "
             f"max |d| {int(d.max())}, mean |d| per channel "
             f"{[round(float(c), 4) for c in per_channel]}, luma {d_luma:.4f}, share "
-            f"beyond 2 levels {float((d > 2).mean()):.5f}; held: "
-            f"{'luma' if subsampled else 'each channel'} {held:.4f} <= {DECODE_MEAN_MAX}"
+            f"beyond 2 levels {float((d > 2).mean()):.5f}; held: each channel and the "
+            f"luma {held:.4f} <= {DECODE_MEAN_MAX}"
             f"{f', each channel <= {SUBSAMPLED_CHANNEL_MEAN_MAX}' if subsampled else ''}; "
             f"image-tower cosine {cos:.6f} (> {FEATURE_COS_MIN}); decode {decode_ms:.4f} ms, "
             f"resize to 224 {resize_ms:.4f} ms per image; on {smi}")
@@ -1625,13 +1654,13 @@ def synthesize_clip_weights(path: Path) -> dict:
     return sd
 
 
-def run_data_and_train(ops, smi, trainer_rates) -> None:
+def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
     """Phase 15: decode, the loader's rate, CLIP weight import and the
-    ``train.py`` twin through its CLI, in a temporary directory under
-    ``saved/`` that the phase removes."""
+    ``train.py`` twin through its CLI, in ``tmp`` (which ``main`` removes
+    after phase 18). Leaves ``VTC_CLIP_WEIGHTS`` naming the seeded CLIP file
+    (``main`` restores it) and returns ``(csv path, media root)`` for the
+    evaluation and serving phases."""
     import importlib
-    import shutil
-    import tempfile
 
     from vtc_tpu_torch import train
     from vtc_tpu_torch.models import create_model
@@ -1641,126 +1670,520 @@ def run_data_and_train(ops, smi, trainer_rates) -> None:
     phase_tic = time.perf_counter()
     root = Path(__file__).resolve().parent
     cfg = jsonc.read_json(root / TRAIN_CONFIG)
-    (root / "saved").mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=root / "saved"))
-    saved_env = os.environ.get("VTC_CLIP_WEIGHTS")
-    try:
-        # 1. decode, against PIL's
-        model = create_model("PretrainedCLIP_finaltf", model_type="ViT-B/32", seed=0)
-        check_decode(model, smi)
-        del model
+    # 1. decode, against PIL's
+    model = create_model("PretrainedCLIP_finaltf", model_type="ViT-B/32", seed=0)
+    check_decode(model, smi)
+    del model
 
-        # 2. the loader's rate
-        csv_path, media = write_corpus(tmp)
-        measure_loader(csv_path, media, cfg, smi)
+    # 2. the loader's rate
+    csv_path, media = write_corpus(tmp)
+    measure_loader(csv_path, media, cfg, smi)
 
-        # 3. CLIP weight import, bit for bit
-        weights = tmp / "ViT-B-32-seeded.pt"
-        tic = time.perf_counter()
-        sd = synthesize_clip_weights(weights)
-        os.environ["VTC_CLIP_WEIGHTS"] = str(weights)
-        made_s = time.perf_counter() - tic
-        tic = time.perf_counter()
-        model = create_model("PretrainedCLIP_finaltf", model_type="ViT-B/32", seed=0)
-        load_s = time.perf_counter() - tic
-        own = {k[len("model."):]: v for k, v in model.state_dict().items()
-               if k.startswith("model.")}
-        require(sorted(own) == sorted(k for k in sd if k not in (
-            "input_resolution", "context_length", "vocab_size")),
-            "the model's CLIP names differ from the file's")
-        for k, v in own.items():
-            require(torch.equal(v.cpu(), sd[k]), f"imported {k} differs from the file")
-        require(all(not p.detach().any() for n, p in model.named_parameters()
-                    if n.startswith("final_linear")), "the CAM lost its zero-init")
-        log(f"weights: {len(own)} CLIP tensors ({sum(v.numel() for v in own.values()):,} "
-            f"values, {weights.stat().st_size:,} bytes) from VTC_CLIP_WEIGHTS equal the "
-            f"file bit for bit; file made in {made_s:.1f} s, model built with it in "
-            f"{load_s:.1f} s")
-        del model, sd, own
+    # 3. CLIP weight import, bit for bit
+    weights = tmp / "ViT-B-32-seeded.pt"
+    tic = time.perf_counter()
+    sd = synthesize_clip_weights(weights)
+    os.environ["VTC_CLIP_WEIGHTS"] = str(weights)
+    made_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    model = create_model("PretrainedCLIP_finaltf", model_type="ViT-B/32", seed=0)
+    load_s = time.perf_counter() - tic
+    own = {k[len("model."):]: v for k, v in model.state_dict().items()
+           if k.startswith("model.")}
+    require(sorted(own) == sorted(k for k in sd if k not in (
+        "input_resolution", "context_length", "vocab_size")),
+        "the model's CLIP names differ from the file's")
+    for k, v in own.items():
+        require(torch.equal(v.cpu(), sd[k]), f"imported {k} differs from the file")
+    require(all(not p.detach().any() for n, p in model.named_parameters()
+                if n.startswith("final_linear")), "the CAM lost its zero-init")
+    log(f"weights: {len(own)} CLIP tensors ({sum(v.numel() for v in own.values()):,} "
+        f"values, {weights.stat().st_size:,} bytes) from VTC_CLIP_WEIGHTS equal the "
+        f"file bit for bit; file made in {made_s:.1f} s, model built with it in "
+        f"{load_s:.1f} s")
+    del model, sd, own
 
-        # 4. the train.py twin, through its CLI, on the flagship config
-        argv = ["-c", str(root / TRAIN_CONFIG), "--csv_file", str(csv_path),
-                "--root", str(media), "--epochs", "2", "--save_dir", str(tmp / "run")]
-        plain_calls = {}
-        # the kernels' modules (``ops`` exports functions of the same names)
-        plain = [("layernorm", "layernorm_plain"), ("addln", "add_layernorm_plain"),
-                 ("attention", "fused_mha_plain"), ("attention", "fused_attention_plain")]
-        originals = {}
-        for module, name in plain:
-            m = importlib.import_module(f"vtc_tpu_torch.ops.{module}")
-            originals[m, name] = getattr(m, name)
+    # 4. the train.py twin, through its CLI, on the flagship config
+    argv = ["-c", str(root / TRAIN_CONFIG), "--csv_file", str(csv_path),
+            "--root", str(media), "--epochs", "2", "--save_dir", str(tmp / "run")]
+    plain_calls = {}
+    # the kernels' modules (``ops`` exports functions of the same names)
+    plain = [("layernorm", "layernorm_plain"), ("addln", "add_layernorm_plain"),
+             ("attention", "fused_mha_plain"), ("attention", "fused_attention_plain")]
+    originals = {}
+    for module, name in plain:
+        m = importlib.import_module(f"vtc_tpu_torch.ops.{module}")
+        originals[m, name] = getattr(m, name)
 
-        def counted(name, fn):
-            def call(*args, **kwargs):
-                plain_calls[name] = plain_calls.get(name, 0) + 1
-                return fn(*args, **kwargs)
-            return call
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
 
-        logs, seconds = [], {"epoch": [], "valid": []}
-        run_epoch, run_valid = Trainer._train_epoch, Trainer._valid_epoch
+    logs, seconds = [], {"epoch": [], "valid": []}
+    run_epoch, run_valid = Trainer._train_epoch, Trainer._valid_epoch
 
-        def timed(key, fn):
-            def call(self, epoch):
-                tic = time.perf_counter()
-                out = fn(self, epoch)
-                torch.cuda.synchronize()
-                seconds[key].append(time.perf_counter() - tic)
-                if key == "epoch":
-                    logs.append(out)
-                return out
-            return call
-
-        for (m, n), fn in originals.items():
-            setattr(m, n, counted(n, fn))
-        Trainer._train_epoch, Trainer._valid_epoch = (timed("epoch", run_epoch),
-                                                      timed("valid", run_valid))
-        try:
-            # the twin's path: counts from 0 just before, read just after
-            ops.reset_launch_counts()
+    def timed(key, fn):
+        def call(self, epoch):
             tic = time.perf_counter()
-            # wandb, where installed, runs disabled (WANDB_MODE, set in main)
-            trainer = train.cli(argv)
+            out = fn(self, epoch)
             torch.cuda.synchronize()
-            total = time.perf_counter() - tic
-            launches = ops.launch_counts()
-        finally:
-            for (m, n), fn in originals.items():
-                setattr(m, n, fn)
-            Trainer._train_epoch, Trainer._valid_epoch = run_epoch, run_valid
-        steps = len(logs) * len(trainer.data_loader)
-        val_batches = len(logs) * len(trainer.valid_data_loader)
-        want = {k: (steps + val_batches) * v for k, v in EXPECTED_LAUNCHES.items()}
-        log(f"kernel use (train.py twin: {steps} steps + {val_batches} validation "
-            f"batches): {json.dumps(launches)}; plain-version calls {plain_calls}")
-        require(len(logs) == 2, f"{len(logs)} epochs ran")
-        require(launches == want, f"twin launches {launches} != {want}")
-        require(not plain_calls, f"the twin called plain versions: {plain_calls}")
-        for epoch, (elog, ep_s, val_s) in enumerate(
-                zip(logs, seconds["epoch"], seconds["valid"]), 1):
-            train_s = ep_s - val_s
-            p14 = trainer_rates[epoch - 1] if epoch <= len(trainer_rates) else (math.nan,) * 2
-            log(f"twin epoch {epoch}: loss {elog['loss']:.6f} val_loss "
-                f"{elog['val_loss']:.6f} {trainer.mnt_metric} {elog.get(trainer.mnt_metric)}; "
-                f"{len(trainer.data_loader)} steps in {train_s:.3f} s "
-                f"({len(trainer.data_loader) / train_s:.3f} steps/s; phase 14 "
-                f"{p14[0]:.3f}), epoch {ep_s:.3f} s (phase 14 {p14[1]:.3f}); on {smi}")
-            require(math.isfinite(elog["loss"]) and math.isfinite(elog["val_loss"]),
-                    f"twin epoch {epoch}: a non-finite loss")
-            require(trainer.mnt_metric in elog,
-                    f"twin epoch {epoch}: the monitor's {trainer.mnt_metric} is not logged")
-        files = {f.name: f.stat().st_size for f in trainer.checkpoint_dir.glob("*.pth")}
-        require({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(files),
-                f"twin checkpoints: {files}")
-        log(f"twin: 2 epochs in {total:.3f} s (datasets, model with the imported weights, "
-            f"saves included); checkpoints {files} bytes; phase 15 took "
-            f"{time.perf_counter() - phase_tic:.1f} s")
-        del trainer
+            seconds[key].append(time.perf_counter() - tic)
+            if key == "epoch":
+                logs.append(out)
+            return out
+        return call
+
+    for (m, n), fn in originals.items():
+        setattr(m, n, counted(n, fn))
+    Trainer._train_epoch, Trainer._valid_epoch = (timed("epoch", run_epoch),
+                                                  timed("valid", run_valid))
+    try:
+        # the twin's path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        tic = time.perf_counter()
+        # wandb, where installed, runs disabled (WANDB_MODE, set in main)
+        trainer = train.cli(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - tic
+        launches = ops.launch_counts()
     finally:
-        if saved_env is None:
-            os.environ.pop("VTC_CLIP_WEIGHTS", None)
-        else:
-            os.environ["VTC_CLIP_WEIGHTS"] = saved_env
-        shutil.rmtree(tmp, ignore_errors=True)
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+        Trainer._train_epoch, Trainer._valid_epoch = run_epoch, run_valid
+    steps = len(logs) * len(trainer.data_loader)
+    val_batches = len(logs) * len(trainer.valid_data_loader)
+    want = {k: (steps + val_batches) * v for k, v in EXPECTED_LAUNCHES.items()}
+    log(f"kernel use (train.py twin: {steps} steps + {val_batches} validation "
+        f"batches): {json.dumps(launches)}; plain-version calls {plain_calls}")
+    require(len(logs) == 2, f"{len(logs)} epochs ran")
+    require(launches == want, f"twin launches {launches} != {want}")
+    require(not plain_calls, f"the twin called plain versions: {plain_calls}")
+    for epoch, (elog, ep_s, val_s) in enumerate(
+            zip(logs, seconds["epoch"], seconds["valid"]), 1):
+        train_s = ep_s - val_s
+        p14 = trainer_rates[epoch - 1] if epoch <= len(trainer_rates) else (math.nan,) * 2
+        log(f"twin epoch {epoch}: loss {elog['loss']:.6f} val_loss "
+            f"{elog['val_loss']:.6f} {trainer.mnt_metric} {elog.get(trainer.mnt_metric)}; "
+            f"{len(trainer.data_loader)} steps in {train_s:.3f} s "
+            f"({len(trainer.data_loader) / train_s:.3f} steps/s; phase 14 "
+            f"{p14[0]:.3f}), epoch {ep_s:.3f} s (phase 14 {p14[1]:.3f}); on {smi}")
+        require(math.isfinite(elog["loss"]) and math.isfinite(elog["val_loss"]),
+                f"twin epoch {epoch}: a non-finite loss")
+        require(trainer.mnt_metric in elog,
+                f"twin epoch {epoch}: the monitor's {trainer.mnt_metric} is not logged")
+    files = {f.name: f.stat().st_size for f in trainer.checkpoint_dir.glob("*.pth")}
+    require({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(files),
+            f"twin checkpoints: {files}")
+    log(f"twin: 2 epochs in {total:.3f} s (datasets, model with the imported weights, "
+        f"saves included); checkpoints {files} bytes; phase 15 took "
+        f"{time.perf_counter() - phase_tic:.1f} s")
+    del trainer
+    for ckpt in (tmp / "run").rglob("*.pth"):  # 2.5 GB each; no later phase reads them
+        ckpt.unlink()
+    torch.cuda.empty_cache()
+    return csv_path, media
+
+
+# ---- phase 16: libjpeg-turbo's chroma path on the card -------------------------
+
+# nvJPEG's own RGB output (NVJPEG_OUTPUT_RGBI) against PIL, mean |d| per
+# channel (identical in every run; PERF.md §6), beside which phase 16 prints
+# the card's route's
+NVJPEG_RGB_DECODE = {"rgb420_480x360": "1.68/1.28/2.90", "odd_211x97": "3.38/1.89/4.88",
+              "progressive_240x180": "2.50/1.62/3.71", "rgb444_160x120": "0.48-0.51",
+              "gray_200x150": "0.0118"}
+YCC_REPS = 200
+
+
+def stream_ms(fn, stream, reps: int) -> float:
+    """ms per call of ``fn`` on ``stream``: CUDA events around ``reps``
+    calls after 3 warm-up calls."""
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(reps):
+            fn()
+        end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_ycc(smi) -> list:
+    """Phase 16: each committed JPEG through the card's route
+    (``image_io.decode_rgb``: nvJPEG's planes, the ``ycc_to_rgb`` kernel)
+    against PIL's committed decode, beside nvJPEG's own RGB readings;
+    the kernel bit-exact against ``ycc_to_rgb_reference`` on nvJPEG's own
+    planes (on the CPU, and the same torch ops on the card); the kernel's
+    and the plain version's ms on the card and the kernel's bytes bound.
+    Returns one row per colour fixture."""
+    from vtc_tpu_torch.data import image_io
+
+    root = Path(__file__).resolve().parent / JPEG_DIR
+    ref = np.load(root / "pil_decodes.npz")
+    rows = []
+    for name in ref.files:
+        data = (root / f"{name}.jpg").read_bytes()
+        header = image_io.jpeg_header(data)
+        # the card's route for one image: counts from 0 just before, read just after
+        image_io.ycc_to_rgb.launches = 0
+        ours = image_io.decode_rgb(data)
+        launches = image_io.ycc_to_rgb.launches
+        pil = ref[name]
+        require(ours.shape == pil.shape and ours.dtype == np.uint8,
+                f"{name}: decoded {ours.shape} {ours.dtype}, PIL {pil.shape}")
+        d = np.abs(ours.astype(np.int16) - pil.astype(np.int16))
+        per_channel = d.reshape(-1, 3).mean(0)
+        d_luma = float(np.abs(luma(ours) - luma(pil)).mean())
+        planes, factors = image_io.decode_jpeg_planes(data)
+        log(f"decode repair {name} ({header['components']} components, sampling "
+            f"{header['sampling']}): card vs PIL mean |d| per channel "
+            f"{[round(float(c), 4) for c in per_channel]} (nvJPEG's own RGB: "
+            f"{NVJPEG_RGB_DECODE.get(name)}), luma {d_luma:.4f}, max |d| {int(d.max())}, share "
+            f"beyond 2 levels {float((d > 2).mean()):.5f}; ycc_to_rgb launches {launches}; "
+            f"held: each channel and the luma <= {DECODE_MEAN_MAX}; on {smi}")
+        require(float(per_channel.max()) <= DECODE_MEAN_MAX and d_luma <= DECODE_MEAN_MAX,
+                f"{name}: mean |d| per channel {per_channel}, luma {d_luma} > "
+                f"{DECODE_MEAN_MAX}")
+        require(not header["subsampled"]
+                or float(per_channel.max()) <= SUBSAMPLED_CHANNEL_MEAN_MAX,
+                f"{name}: mean |d| per channel {per_channel} > {SUBSAMPLED_CHANNEL_MEAN_MAX}")
+        require(launches == (0 if factors is None else 1),
+                f"{name}: {launches} ycc_to_rgb launches for one image")
+        if factors is None:
+            continue
+        stream = image_io._local.stream
+        with torch.cuda.stream(stream):
+            out = image_io.ycc_to_rgb(*planes, factors)
+            plain_card = image_io.ycc_to_rgb_reference(*planes, factors)
+        stream.synchronize()
+        plain = image_io.ycc_to_rgb_reference(*[p.cpu() for p in planes], factors)
+        err = int((out.cpu().int() - plain.int()).abs().max())
+        require(err == 0 and torch.equal(plain_card.cpu(), plain),
+                f"{name}: ycc_to_rgb differs from its plain version by {err}")
+        h, w = planes[0].shape
+        nbytes = sum(p.numel() for p in planes) + 3 * h * w
+        row = {"name": name, "planes": [tuple(p.shape) for p in planes], "factors": factors,
+               "max_abs_err": err, "launches_per_image": launches,
+               "ms": stream_ms(lambda: image_io.ycc_to_rgb(*planes, factors), stream,
+                               YCC_REPS),
+               "plain_ms": stream_ms(lambda: image_io.ycc_to_rgb_reference(*planes, factors),
+                                     stream, YCC_REPS // 10),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "library_ms": None}
+        rows.append(row)
+        log(f"ycc_to_rgb {name}: planes {row['planes']}, bit-exact vs the plain version "
+            f"(max |d| 0), kernel {row['ms']:.5f} ms, plain version on the card "
+            f"{row['plain_ms']:.5f} ms, bytes bound {row['bound_ms']:.6f} ms "
+            f"({nbytes:,} bytes), share of bound {row['bound_ms'] / row['ms']:.4f}; on {smi}")
+    log("ycc_to_rgb (csrc/jpeg_decode.cu, not a TPU kernel): " + json.dumps(rows))
+    return rows
+
+
+# ---- phase 17: evaluation ---------------------------------------------------------
+
+EVAL_BATCH_SIZE = 50  # the flagship config's
+VIDEO_EVAL = dict(videos=8, frames=64, height=240, width=320, captions=2)
+VIDEO_EVAL_STRIDE = 16
+
+
+def eval_recall_gaps(what, card, cpu) -> None:
+    """Where a query's target ranks otherwise on the card than on the CPU,
+    the two runs' scores of the target and of the item it swapped with
+    must be within FEAT_ATOL of each other (a tie broken otherwise);
+    printed."""
+    from vtc_tpu_torch.ops.retrieval import ranks_of_targets
+
+    for direction, (g, q) in {"gallery a": (card[0], card[1]),
+                              "gallery b": (card[1], card[0])}.items():
+        gc, qc = (cpu[0], cpu[1]) if direction == "gallery a" else (cpu[1], cpu[0])
+        r_card = ranks_of_targets(g, q, device="cpu")
+        r_cpu = ranks_of_targets(gc, qc, device="cpu")
+        for i in np.nonzero(r_card != r_cpu)[0]:
+            s_card = g @ q[i]
+            s_cpu = gc @ qc[i]
+            gap = float(np.abs(np.sort(s_card)[::-1] - np.sort(s_cpu)[::-1]).max())
+            log(f"{what} {direction} query {i}: target rank {r_card[i]} on the card, "
+                f"{r_cpu[i]} on the CPU; scores within {gap:.3g}")
+            require(gap <= FEAT_ATOL, f"{what}: query {i} ranks apart by scores {gap}")
+
+
+class SyntheticVideos:
+    """Seeded decoded videos for the transfer evaluation: uint8 ``[t, h, w,
+    3]`` frames, ``captions`` captions and 3 comments each."""
+
+    def __init__(self, videos, frames, height, width, captions, seed=0):
+        from vtc_tpu_torch.data import tokenize
+
+        rng = np.random.default_rng(seed)
+        self.frames = rng.integers(0, 256, (videos, frames, height, width, 3), dtype=np.uint8)
+        self.captions = [tokenize([f"video {i} shows scene {j} at the beach"
+                                   for j in range(captions)]) for i in range(videos)]
+        self.comments = [tokenize([f"nice video {i}", "where is this", f"love it {i % 3}"])
+                         for i in range(videos)]
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return self.frames[i], self.captions[i], self.comments[i], {"id": i}
+
+
+def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
+    """Phase 17: the ``eval.py`` twin through its CLI on the flagship config
+    over phase 15's corpus (its 100-row test split, the imported weights),
+    on the card and with ``-d cpu``; then ``retrieval_evaluation`` of the
+    video CAM model on seeded videos, card and CPU. Features within
+    FEAT_ATOL, recalls equal (or a differing rank's scores within it),
+    launch counts exact. The CPU run of the twin decodes on the card: the
+    card's machine has no PIL, and the point is the model."""
+    from vtc_tpu_torch.data import datasets, image_io, partition, read_csv
+    from vtc_tpu_torch.evaluation import eval as eval_twin
+    from vtc_tpu_torch.evaluation import retrieval_eval
+    from vtc_tpu_torch.utils import jsonc, write_json
+
+    phase_tic = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    cfg = jsonc.read_json(root / TRAIN_CONFIG)
+    cfg["dataset"]["args"].update(csv_file=str(csv_path), root=str(media))
+    cfg["trainer"]["save_dir"] = str(tmp / "eval_runs")
+    cfg_path = tmp / "eval_config.json"
+    write_json(cfg, cfg_path)
+    test = partition.partition_dataframe(read_csv(csv_path), split="test")
+    n_test = len(test)
+    colour = sum(image_io.jpeg_header((media / (Path(v).stem + ".jpg")).read_bytes())
+                 ["components"] == 3 for v in test.video_path)
+
+    captured = []
+    recall = eval_twin.recall_at_k
+
+    def recording(a, b, k_vals, **kw):
+        captured.append((np.asarray(a), np.asarray(b)))
+        return recall(a, b, k_vals, **kw)
+
+    cwd, read = os.getcwd(), datasets.read_rgb
+    os.chdir(tmp)  # a run without a checkpoint writes its JSON to the working dir
+    eval_twin.recall_at_k = recording
+    try:
+        # the eval twin's path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        image_io.ycc_to_rgb.launches = 0
+        tic = time.perf_counter()
+        out_card = eval_twin.cli(["-c", str(cfg_path)])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - tic
+        launches, ycc = ops.launch_counts(), image_io.ycc_to_rgb.launches
+        feats_card = captured[0]
+        datasets.read_rgb = lambda path, device=None: read(path)  # the card's pixels
+        tic = time.perf_counter()
+        out_cpu = eval_twin.cli(["-c", str(cfg_path), "-d", "cpu"])
+        cpu_s = time.perf_counter() - tic
+        feats_cpu = captured[2]
+    finally:
+        eval_twin.recall_at_k = recall
+        datasets.read_rgb = read
+        os.chdir(cwd)
+    batches = -(-n_test // EVAL_BATCH_SIZE)
+    want = {k: batches * v for k, v in EXPECTED_LAUNCHES.items()}
+    log(f"kernel use (eval.py twin, {n_test} test items in {batches} batches): "
+        f"{json.dumps(launches)}, ycc_to_rgb {ycc} ({colour} colour thumbnails)")
+    require(launches == want, f"eval twin launches {launches} != {want}")
+    require(ycc == colour, f"eval twin: {ycc} ycc_to_rgb launches for {colour} colour JPEGs")
+    for name, a, c in zip(("feats_vis", "feats_text"), feats_card, feats_cpu):
+        require(a.shape == c.shape == (n_test, 512) and np.isfinite(a).all(),
+                f"eval twin {name}: {a.shape} vs {c.shape}")
+        err = float(np.abs(a - c).max())
+        log(f"eval twin fp32 {name} {a.shape}: max_abs_err card vs CPU {err:.3g} "
+            f"(atol {FEAT_ATOL})")
+        require(err <= FEAT_ATOL, f"eval twin {name} differs from the CPU run by {err}")
+    log(f"eval twin: card {json.dumps(out_card)} in {card_s:.2f} s, CPU "
+        f"{json.dumps(out_cpu)} in {cpu_s:.2f} s; on {smi}")
+    if out_card != out_cpu:
+        eval_recall_gaps("eval twin", feats_card, feats_cpu)
+    written = json.loads((tmp / "zero_shot_res_None.json").read_text())
+    require(written == out_cpu, "eval twin: the JSON file is not the last run's recalls")
+
+    # the transfer evaluation of the video model
+    ds = SyntheticVideos(**VIDEO_EVAL)
+    captured.clear()
+    recall = retrieval_eval.recall_at_k
+    retrieval_eval.recall_at_k = recording
+    try:
+        model = video_model()
+        ops.reset_launch_counts()
+        tic = time.perf_counter()
+        table_card = retrieval_eval.retrieval_evaluation(
+            model, "synthetic", "test", dataset=ds, frame_stride=VIDEO_EVAL_STRIDE)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - tic
+        launches = ops.launch_counts()
+        del model
+        cpu_model = video_model(device="cpu")
+        tic = time.perf_counter()
+        table_cpu = retrieval_eval.retrieval_evaluation(
+            cpu_model, "synthetic", "test", dataset=ds, frame_stride=VIDEO_EVAL_STRIDE,
+            device="cpu")
+        cpu_s = time.perf_counter() - tic
+        del cpu_model
+    finally:
+        retrieval_eval.recall_at_k = recall
+    want = {k: VIDEO_EVAL["videos"] * v for k, v in EXPECTED_VIDEO_LAUNCHES.items()}
+    log(f"kernel use (retrieval_evaluation, {VIDEO_EVAL['videos']} videos of "
+        f"{VIDEO_EVAL['frames']} frames at {VIDEO_EVAL['height']}x{VIDEO_EVAL['width']}, "
+        f"one chunk each): {json.dumps(launches)}")
+    require(launches == want, f"transfer eval launches {launches} != {want}")
+    (videos_card, caps_card), (videos_cpu, caps_cpu) = captured
+    for name, a, c in (("videos", videos_card, videos_cpu), ("captions", caps_card, caps_cpu)):
+        err = float(np.abs(a - c).max())
+        log(f"transfer eval fp32 {name} {a.shape}: max_abs_err card vs CPU {err:.3g} "
+            f"(atol {FEAT_ATOL})")
+        require(np.isfinite(a).all() and err <= FEAT_ATOL,
+                f"transfer eval {name} differs from the CPU run by {err}")
+    same = np.array_equal(table_card.to_numpy(), table_cpu.to_numpy())
+    log(f"transfer eval: card {table_card.to_numpy().tolist()} in {card_s:.2f} s, CPU "
+        f"{table_cpu.to_numpy().tolist()} in {cpu_s:.2f} s ({table_card.columns}); equal: "
+        f"{same}; on {smi}")
+    if not same:
+        eval_recall_gaps("transfer eval", (videos_card, caps_card), (videos_cpu, caps_cpu))
+    log(f"phase 17 took {time.perf_counter() - phase_tic:.1f} s")
+    torch.cuda.empty_cache()
+
+
+# ---- phase 18: serving over HTTP --------------------------------------------------
+
+SERVE_QUERIES = ["a picture of scene 7 at dusk", "a picture of scene 431 at dusk",
+                 "the view from a mountain"]
+SERVE_JPEGS = ("rgb420_480x360", "odd_211x97")
+
+
+def _http(port: int, path: str, payload=None, raw=None):
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    if payload is None and raw is None:
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    req = urllib.request.Request(url, data=raw if raw is not None else json.dumps(
+        payload).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_serving(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
+    """Phase 18: the embedding script writes the gallery of phase 15's
+    corpus on the card, ``serve.build_server`` serves it on a free local
+    port with the flagship config's model (imported weights), and each
+    endpoint's answer equals the in-process ``ClipRetrievalService``'s (ids
+    equal, scores within 1e-5): text, floats, base64 JPEG (nvJPEG and
+    ``ycc_to_rgb``) and base64 PNG (``data/png.py``, whose decodes equal the
+    committed PIL decodes); the 400s hold; then ``bench_serving``."""
+    import base64
+
+    from vtc_tpu_torch.data import clip_preprocess, decode_rgb, image_io, tokenize
+    from vtc_tpu_torch.scripts import bench_serving, get_clip_vit_embeddings, serve
+    from vtc_tpu_torch.utils import jsonc
+
+    phase_tic = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = tmp / "clip_vit_embeddings.npz"
+    tic = time.perf_counter()
+    emb = get_clip_vit_embeddings.main(["--csv", str(csv_path), "--root", str(media),
+                                        "--out", str(out), "--num_workers", "8"])
+    emb_s = time.perf_counter() - tic
+    require(emb.shape == (sum(CORPUS_ROWS.values()), 512) and np.isfinite(emb).all(),
+            f"embedding script: {emb.shape}")
+    log(f"embedding script: {emb.shape[0]} thumbnails in {emb_s:.2f} s (bf16, batch 96, "
+        f"8 workers; model built with the imported weights) -> {out.name}; on {smi}")
+
+    server = serve.build_server(jsonc.read_json(root / TRAIN_CONFIG), None, out, port=0)
+    server.warmup()
+    server.start()
+    svc = server.service
+    jpegs = [(root / JPEG_DIR / f"{n}.jpg").read_bytes() for n in SERVE_JPEGS]
+    png_ref = np.load(root / "tests/data/png/pil_decodes.npz")
+    pngs = [(root / f"tests/data/png/{n}.png").read_bytes() for n in png_ref.files]
+    floats = np.stack([clip_preprocess(decode_rgb(j), 224) for j in jpegs])
+    try:
+        health = _http(server.port, "/healthz")
+        require(health == (200, {"status": "ok", "gallery_size": emb.shape[0]}),
+                f"/healthz: {health}")
+        # the serving path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        image_io.ycc_to_rgb.launches = 0
+        tic = time.perf_counter()
+        answers = {
+            "text": _http(server.port, "/search/text", {"queries": SERVE_QUERIES, "k": 10}),
+            "image floats": _http(server.port, "/search/image",
+                                  {"images": floats.tolist(), "k": 10}),
+            "image JPEG": _http(server.port, "/search/image", {
+                "images_b64": [base64.b64encode(j).decode() for j in jpegs], "k": 10}),
+            "image PNG": _http(server.port, "/search/image", {
+                "images_b64": [base64.b64encode(p).decode() for p in pngs], "k": 10}),
+        }
+        torch.cuda.synchronize()
+        http_s = time.perf_counter() - tic
+        launches, ycc = ops.launch_counts(), image_io.ycc_to_rgb.launches
+        # one text batch (13 LN, 12 add+LN and attention), three image batches (14, 12, 12)
+        want = dict(EXPECTED_LAUNCHES, layernorm=13 + 3 * 14, add_layernorm=4 * 12,
+                    fused_mha=4 * 12)
+        log(f"kernel use (HTTP: 1 text + 3 image batches): {json.dumps(launches)}, "
+            f"ycc_to_rgb {ycc}; 4 requests in {http_s:.3f} s")
+        require(launches == want, f"serving launches {launches} != {want}")
+        require(ycc == len(jpegs), f"serving: {ycc} ycc_to_rgb launches for {len(jpegs)} JPEGs")
+
+        png_floats = server.decode_b64_images([base64.b64encode(p).decode() for p in pngs])
+        want_png = np.stack([clip_preprocess(png_ref[n], 224) for n in png_ref.files])
+        require(np.array_equal(png_floats, want_png),
+                "the PNGs' decodes differ from the committed PIL decodes")
+        in_process = {
+            "text": svc.search_text(tokenize(SERVE_QUERIES), k=10),
+            "image floats": svc.search_image(floats, k=10),
+            "image JPEG": svc.search_image(floats, k=10),
+            "image PNG": svc.search_image(want_png, k=10),
+        }
+        for kind, (status, body) in answers.items():
+            ids, scores = in_process[kind]
+            require(status == 200, f"{kind}: HTTP {status} {body}")
+            err = float(np.abs(np.asarray(body["scores"]) - scores).max())
+            require(body["ids"] == ids.tolist() and err <= 1e-5,
+                    f"{kind}: ids or scores (err {err}) differ from the in-process service's")
+            log(f"serving {kind}: {len(ids)} queries, top-10 ids equal the in-process "
+                f"service's, score max_abs_err {err:.3g}")
+        bad = [({"queries": "x"}, "/search/text"), ({"queries": []}, "/search/text"),
+               ({"queries": ["x"], "k": 1000}, "/search/text"), ({}, "/search/image"),
+               ({"images_b64": ["!!!"]}, "/search/image"),
+               ({"images_b64": [base64.b64encode(b"not an image").decode()]}, "/search/image"),
+               ({"images": [1.0]}, "/search/image")]
+        codes = [_http(server.port, path, payload)[0] for payload, path in bad]
+        codes.append(_http(server.port, "/search/text", raw=b"{not json")[0])
+        # a JPEG whose header parses but whose Huffman table is bogus: nvJPEG
+        # refuses the bitstream, the client's 400 (not the server's 500)
+        bogus = bytearray(jpegs[0])
+        dht = bogus.index(b"\xff\xc4")
+        bogus[dht + 5 : dht + 21] = b"\xff" * 16  # code counts past any table's length
+        status, body = _http(server.port, "/search/image",
+                             {"images_b64": [base64.b64encode(bytes(bogus)).decode()]})
+        codes.append(status)
+        log(f"serving refusals: HTTP {codes}; the bogus Huffman table: {body}")
+        require(codes == [400] * len(codes), f"serving refusals: {codes}")
+    finally:
+        server.shutdown()
+    del server, svc
+    torch.cuda.empty_cache()
+
+    log(f"bench_serving at its defaults (batch 16, gallery 10,000, k 10, 64 iterations), "
+        f"{smi}:")
+    bench = bench_serving.main([])
+    for key in ("encode_rank_ms_per_batch", "queries_per_s"):
+        require(bench[key] > 0, f"bench_serving: {key} {bench[key]}")
+    log(f"phase 18 took {time.perf_counter() - phase_tic:.1f} s")
     torch.cuda.empty_cache()
 
 
@@ -1919,10 +2342,34 @@ def main() -> int:
     # 14. the Trainer: epochs, validation, checkpoints, resume
     trainer_rates = run_trainer(ops, smi)
 
-    # 15. the data path and the train.py twin
-    run_data_and_train(ops, smi, trainer_rates)
+    # 15-18 share one temporary directory under saved/, removed at the end
+    import shutil
+    import tempfile
 
-    # 16. results: each kernel's launches from the path that runs it
+    (Path(__file__).resolve().parent / "saved").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_",
+                                dir=Path(__file__).resolve().parent / "saved"))
+    saved_env = os.environ.get("VTC_CLIP_WEIGHTS")
+    try:
+        # 15. the data path and the train.py twin
+        csv_path, media = run_data_and_train(ops, smi, trainer_rates, tmp)
+
+        # 16. libjpeg-turbo's chroma upsampling and colour conversion on the card
+        check_ycc(smi)
+
+        # 17. evaluation: the eval.py twin, the transfer evaluation
+        run_evaluation(ops, smi, tmp, csv_path, media)
+
+        # 18. serving: the embedding script, serve.py over HTTP, bench_serving
+        run_serving(ops, smi, tmp, csv_path, media)
+    finally:
+        if saved_env is None:
+            os.environ.pop("VTC_CLIP_WEIGHTS", None)
+        else:
+            os.environ["VTC_CLIP_WEIGHTS"] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 19. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])

@@ -334,9 +334,15 @@ def test_port_imports_no_jax():
     """No module of vtc_tpu_torch, nor chip_smoke.py, imports jax, flax,
     optax, orbax or the JAX package, nor pandas or regex (the machine with
     the card has neither); PIL only inside the CPU route of
-    ``data/image_io.py:read_rgb``."""
+    ``data/image_io.py:decode_rgb``. The walk takes every module of the
+    package, the evaluation, serving and script modules among them."""
     root = Path(__file__).resolve().parent.parent
     files = sorted((root / "vtc_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    walked = {f.relative_to(root).as_posix() for f in files}
+    assert {f"vtc_tpu_torch/{m}.py" for m in (
+        "evaluation/retrieval_eval", "evaluation/eval", "evaluation/retrieval_evaluation",
+        "serving/server", "scripts/serve", "scripts/get_clip_vit_embeddings",
+        "scripts/bench_serving", "data/png", "data/image_io")} <= walked
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu", "pandas", "regex")
     pil_imports = []
     for f in files:
@@ -356,7 +362,7 @@ def test_port_imports_no_jax():
                 if n.split(".")[0] == "PIL":
                     pil_imports.append((f.relative_to(root).as_posix(),
                                         functions.get(id(node))))
-    assert pil_imports == [("vtc_tpu_torch/data/image_io.py", "read_rgb")]
+    assert pil_imports == [("vtc_tpu_torch/data/image_io.py", "decode_rgb")]
 
 
 @pytest.mark.slow

@@ -359,7 +359,7 @@ def test_twin_refuses_multihost(tmp_path):
 def test_msrvtt_probe_off_without_root_refused_with_it(tmp_path):
     assert twin._make_probe({"msrvtt_root": str(tmp_path / "absent")}) is None
     (tmp_path / "train_val_videodatainfo.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         twin._make_probe({"msrvtt_root": str(tmp_path)})
 
 

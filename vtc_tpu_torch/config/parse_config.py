@@ -80,7 +80,7 @@ class ConfigParser:
         if bool(config.get("multihost")):
             raise NotImplementedError(
                 "multihost runs (rank 0 picks and broadcasts the run dir) wait "
-                "for the port of distribution (ROADMAP: Queue 1, torch.distributed)"
+                "for the port of distribution (ROADMAP: Queue 1 item 9, torch.distributed)"
             )
         self._config = config
         self.resume = resume

@@ -16,7 +16,7 @@ from .datasets import (
     VideoDatasetReddit,
     VideoDatasetSegments,
 )
-from .image_io import JpegDecodeError, read_rgb
+from .image_io import JpegDecodeError, decode_rgb, read_rgb
 from .loader import DataLoader, default_collate, prefetch_to_device
 from .partition import (
     BOT_TEXT_TO_AVOID,
@@ -49,7 +49,8 @@ __all__ = [
     "VideoDatasetActivityNet", "VideoDatasetFirst32", "VideoDatasetFirst1800",
     "VideoDatasetK700Comments", "VideoDatasetLivebot", "VideoDatasetMSRVTT",
     "VideoDatasetMSVD", "VideoDatasetReddit", "VideoDatasetSegments",
-    "clip_preprocess", "clip_resize_uint8", "default_collate", "extract_patches",
+    "clip_preprocess", "clip_resize_uint8", "decode_rgb", "default_collate",
+    "extract_patches",
     "filter_by_k_comments", "get_tokenizer", "load_features", "normalize_uint8_images",
     "partition_dataframe", "prefetch_to_device", "preprocess_comments", "read_csv",
     "read_rgb", "synthetic_tokens", "tokenize", "tokenize_max_len",

@@ -6,6 +6,9 @@ from typing import Optional, Union
 
 import torch
 
+# what a refusal of more than one device names: the port runs on one card
+DISTRIBUTION = "ROADMAP: Queue 1 item 9, distribution on torch.distributed"
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the card: raise when there is none, never drop to the

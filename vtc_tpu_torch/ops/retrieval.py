@@ -13,9 +13,14 @@ counted, not read from ``topk``: the items that score strictly higher, plus
 those that score equal at a lower index. ``ranks_of_targets`` counts only
 the strictly higher ones, as JAX's does.
 
+``recall_at_k_chunked`` streams the gallery in tiles of ``chunk`` rows,
+so the ``[nq, ng]`` score matrix never exists whole; it counts the same
+place from the same tile scores in two passes (the target's score, then the
+items ahead of it), so it keeps ``recall_at_k``'s contract on ties.
+
 Inputs are tensors, computed on their device, or numpy arrays, put on
-``device`` (default: the card; raises without one). The sharded and chunked
-variants wait for the port of distribution and the evaluation scripts.
+``device`` (default: the card; raises without one). The sharded variant
+waits for the port of distribution (ROADMAP: Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -94,3 +99,36 @@ def retrieval_metrics(features_a, features_b, k_vals=(1, 5, 10), targets=None,
     out["median_rank"] = float(np.median(ranks))
     out["mean_rank"] = float(ranks.mean())
     return out
+
+
+def recall_at_k_chunked(features_a, features_b, k_vals: Sequence[int] = (1, 5, 10),
+                        targets=None, chunk: int = 2048, device=None):
+    """``recall_at_k`` over a gallery streamed in tiles of ``chunk`` rows
+    (the port of ``vtc_tpu/ops/retrieval.py:238``, whose ``lax.scan``
+    merges a running ``lax.top_k``, ``:199``). A running top-k cannot keep
+    the lower-index-first order of ties that ``lax.top_k`` gives where
+    ``torch.topk`` promises none, so the target's place is counted as
+    ``recall_at_k`` counts it: a first pass takes each query's target score
+    from the tile that holds the target, a second counts, tile by tile, the
+    items scoring above it and those tying at a lower index. Both passes
+    score each tile with the same ``torch.matmul``, so the comparisons see
+    the same values. The memory is ``[nq, chunk]``; the score work twice the
+    dense version's."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    gallery, queries, targets = _operands(features_a, features_b, targets, device)
+    ng, nq = gallery.shape[0], queries.shape[0]
+    tiles = [(lo, gallery[lo:lo + chunk]) for lo in range(0, ng, chunk)]
+    target_scores = torch.full((nq,), -torch.inf, device=gallery.device)
+    for lo, tile in tiles:
+        scores = l2_scores(tile, queries)
+        inside = (targets >= lo) & (targets < lo + tile.shape[0])
+        pos = (targets - lo).clamp(0, tile.shape[0] - 1)
+        target_scores = torch.where(inside, _target_scores(scores, pos)[:, 0], target_scores)
+    ts = target_scores[:, None]
+    place = torch.zeros(nq, dtype=torch.long, device=gallery.device)
+    for lo, tile in tiles:
+        scores = l2_scores(tile, queries)
+        index = torch.arange(lo, lo + tile.shape[0], device=gallery.device)[None, :]
+        place += torch.sum((scores > ts) | ((scores == ts) & (index < targets[:, None])), -1)
+    return [(int(k), int(torch.sum(place < int(k))) / nq) for k in k_vals]

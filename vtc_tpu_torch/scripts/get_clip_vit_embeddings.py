@@ -1,0 +1,100 @@
+"""CLIP image embeddings of every thumbnail of a CSV, the twin of
+``scripts/get_clip_vit_embeddings.py``:
+
+    python -m vtc_tpu_torch.scripts.get_clip_vit_embeddings --csv posts.csv \\
+        --root thumbnails/ --out clip_vit_embeddings.npz [--fp32] [--device cpu]
+
+CSV (``data.table.read_csv``) -> each row's ``<video_path without
+results/ and .mp4>.jpg`` under ``--root``, decoded by ``read_rgb`` (on the
+card: nvJPEG and the ``ycc_to_rgb`` kernel) and CLIP-preprocessed on the
+host, through the ``DataLoader`` -> batched ``encode_image`` of
+``PretrainedCLIP`` on the card (bf16 activations unless ``--fp32``) ->
+``{"reddit_ids", "embeddings"}`` in ``--out`` (``np.savez``; a ``.pth``
+name also gets ``torch.save``). ``--clip_weights`` names CLIP weights
+(``models/clip_import.py``). A mesh (``--n_devices`` above 1) waits for
+the port of distribution (ROADMAP: Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data.image_io import read_rgb
+from ..data.loader import DataLoader
+from ..data.preprocess import clip_preprocess
+from ..data.table import read_csv
+from ..device import DISTRIBUTION, resolve_device
+from ..models import create_model
+
+
+class Thumbnails:
+    """The CLIP-preprocessed thumbnail of each file, decoded on ``device``."""
+
+    def __init__(self, filenames, image_size: int, device):
+        self.filenames = filenames
+        self.image_size = image_size
+        self.device = device
+
+    def __len__(self):
+        return len(self.filenames)
+
+    def __getitem__(self, i):
+        return clip_preprocess(read_rgb(self.filenames[i], self.device), self.image_size)
+
+
+def main(argv=None) -> np.ndarray:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--csv", required=True)
+    ap.add_argument("--root", default="")
+    ap.add_argument("--out", default="clip_vit_embeddings.npz")
+    ap.add_argument("--batch_size", type=int, default=96)
+    ap.add_argument("--num_workers", type=int, default=13)
+    ap.add_argument("--model_type", default="ViT-B/32")
+    ap.add_argument("--image_size", type=int, default=224)
+    ap.add_argument("--clip_weights", default=None)
+    ap.add_argument("--fp32", action="store_true", help="encode in float32 (default: bfloat16)")
+    ap.add_argument("--n_devices", type=int, default=1)
+    ap.add_argument("--device", default=None, help="cpu, or a card (default: the card)")
+    args = ap.parse_args(argv)
+    if args.n_devices > 1:
+        raise NotImplementedError(f"--n_devices {args.n_devices}: a sharded encode waits "
+                                  f"for the port of distribution ({DISTRIBUTION})")
+    device = resolve_device(args.device)
+
+    table = read_csv(args.csv)
+    files = [x[len("results/"):-4] + ".jpg" for x in table.video_path]
+    filenames = [os.path.join(args.root, x) for x in files]
+
+    model = create_model("PretrainedCLIP", model_type=args.model_type,
+                         clip_weights=args.clip_weights,
+                         dtype=torch.float32 if args.fp32 else torch.bfloat16, device=device)
+    loader = DataLoader(Thumbnails(filenames, args.image_size, device),
+                        batch_size=args.batch_size, num_workers=args.num_workers)
+
+    out = []
+    tic = time.time()
+    with torch.inference_mode():
+        for bi, imgs in enumerate(loader):
+            y = model.encode_image(torch.as_tensor(imgs, device=device)).float().cpu().numpy()
+            out.append(y)
+            toc = time.time() - tic
+            tic = time.time()
+            print(bi, "/", len(loader), "%.1fHz" % (args.batch_size / toc), y.shape)
+
+    stacked = np.vstack(out)
+    reddit_ids = np.asarray(table.reddit_id).astype(np.int64)
+    np.savez(args.out, reddit_ids=reddit_ids, embeddings=stacked)
+    if args.out.endswith(".pth"):
+        torch.save({"reddit_ids": torch.tensor(reddit_ids),
+                    "embeddings": torch.tensor(stacked)}, args.out)
+    print("saved", args.out, stacked.shape)
+    return stacked
+
+
+if __name__ == "__main__":
+    main()

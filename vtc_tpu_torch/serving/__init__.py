@@ -1,5 +1,6 @@
-"""Single-device retrieval serving of the port."""
+"""Single-device retrieval serving of the port, and its HTTP front end."""
 
 from .index import ClipRetrievalService, RetrievalIndex
+from .server import RetrievalHTTPServer
 
-__all__ = ["ClipRetrievalService", "RetrievalIndex"]
+__all__ = ["ClipRetrievalService", "RetrievalHTTPServer", "RetrievalIndex"]

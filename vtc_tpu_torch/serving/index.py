@@ -3,8 +3,9 @@ service that encodes queries with the model towers and ranks them.
 
 Port of ``vtc_tpu/serving/index.py`` for one device. Ranking is
 normalize -> matmul -> isfinite mask -> ``torch.topk``: plain ops, as JAX's
-``_rank`` is XLA and not a Pallas kernel. The mesh-sharded gallery and the
-HTTP server wait for the distribution and server slices (ROADMAP).
+``_rank`` is XLA and not a Pallas kernel. The HTTP front end is
+``serving/server.py``; the mesh-sharded gallery waits for the port of
+distribution (ROADMAP: Queue 1 item 9).
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ import torch
 from . import data as module_data
 from .config import ConfigParser, CustomArgs
 from .data import DataLoader
-from .device import resolve_device
+from .device import DISTRIBUTION, resolve_device
 from .models import create_model
 from .ops.losses import LOSSES
 from .training import METRICS, Trainer, build_optimizer
@@ -43,18 +43,17 @@ try:
 except ImportError:
     _HAS_WANDB = False
 
-_DISTRIBUTION = "ROADMAP: Queue 1 item 9, distribution on torch.distributed"
-
 
 def _make_probe(config):
     """The per-epoch MSRVTT probe stays off while its root is absent; with
-    the root present it needs ``retrieval_evaluation``, not ported yet."""
+    the root present it needs the MSRVTT video dataset, not ported yet
+    (``evaluation.retrieval_eval`` is), so it raises before training."""
     root = config.get("msrvtt_root", "/data/MSRVTT")
     if not os.path.exists(os.path.join(root, "train_val_videodatainfo.json")):
         return None
     raise NotImplementedError(
-        f"the MSRVTT probe (root {root}) needs retrieval_evaluation, not ported yet "
-        "(ROADMAP: Queue 1 item 5, evaluation)")
+        f"the MSRVTT probe (root {root}) needs the MSRVTT video dataset, not ported yet "
+        "(ROADMAP: Queue 1 item 3, the video datasets)")
 
 
 def _check_mesh(config, device: torch.device, logger) -> None:
@@ -68,12 +67,12 @@ def _check_mesh(config, device: torch.device, logger) -> None:
             "workers (ROADMAP: Queue 1 item 10, TPU-era opt-ins)")
     if config.get("multihost"):
         raise NotImplementedError(f"multihost runs wait for the port of distribution "
-                                  f"({_DISTRIBUTION})")
+                                  f"({DISTRIBUTION})")
     for key in ("pp", "sp", "ep", "slices"):
         if int(config.get(key, 1) or 1) > 1:
             raise NotImplementedError(
                 f"--{key} {config[key]}: pipeline, sequence, expert and multi-slice "
-                f"axes wait for the port of distribution ({_DISTRIBUTION})")
+                f"axes wait for the port of distribution ({DISTRIBUTION})")
     n_devices = int(config.get("n_devices", config.get("n_gpu", 1)) or 1)
     n_model = int(config.get("n_model", 1) or 1)
     want = n_devices * n_model
@@ -83,7 +82,7 @@ def _check_mesh(config, device: torch.device, logger) -> None:
     if have >= want:
         raise NotImplementedError(
             f"a {n_devices}x{n_model} (data x model) mesh on {have} devices: "
-            f"sharded training waits for the port of distribution ({_DISTRIBUTION})")
+            f"sharded training waits for the port of distribution ({DISTRIBUTION})")
     logger.warning(
         "Requested a 1x%dx%d (slices x data x second-axis) mesh but only %d "
         "device(s) are available; training UNSHARDED on one device.",

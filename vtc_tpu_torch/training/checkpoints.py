@@ -50,8 +50,15 @@ def save_checkpoint(ckpt_dir, name: str, *, arch: str, epoch: int,
 
 def load_checkpoint(path) -> dict:
     """A ``.pth`` of the reference layout, its tensors on the CPU. Only
-    tensors and plain containers are unpickled (``weights_only``)."""
-    return torch.load(Path(path), map_location="cpu", weights_only=True)
+    tensors and plain containers are unpickled (``weights_only``). A
+    directory (the JAX package's Orbax layout) raises
+    ``NotImplementedError``."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory: the port reads .pth checkpoints; reading the JAX "
+            "package's Orbax checkpoint directories waits (ROADMAP: Queue 1 item 4)")
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def graft_params(init_sd: Dict[str, torch.Tensor], loaded_sd: Dict[str, torch.Tensor],
@@ -74,6 +81,18 @@ def graft_params(init_sd: Dict[str, torch.Tensor], loaded_sd: Dict[str, torch.Te
             )
         merged[k] = loaded_sd[k]
     return merged, missing, unexpected
+
+
+def graft_into(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
+               strict: bool = False):
+    """``graft_params`` of ``state_dict`` into ``model``'s own state, loaded
+    into ``model``; returns ``(missing, unexpected)``. With ``strict`` a key
+    that either side lacks raises ``ValueError`` and nothing is loaded."""
+    merged, missing, unexpected = graft_params(model.state_dict(), state_dict)
+    if strict and (missing or unexpected):
+        raise ValueError(f"checkpoint keys: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    model.load_state_dict(merged)
+    return missing, unexpected
 
 
 def assert_warm_start_keys(missing, unexpected) -> None:
