@@ -121,7 +121,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     imported weights), with a finite loss each epoch, the monitor's key
     logged, ``checkpoint-epoch1/2.pth``, launches of ``(steps + validation
     batches) × (29, 26, 26)``, no call to a plain version, and steps/s
-    beside phase 14's. Phases 15-18 work in a temporary directory under
+    beside phase 14's. Phases 15-22 work in a temporary directory under
     ``saved/`` that the script removes;
 16. decode repair: each fixture through the card's route against PIL's
     decode, per channel, beside the readings of nvJPEG's own RGB output; the
@@ -150,8 +150,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     exact launch counts; the 400s hold; then
     ``vtc_tpu_torch.scripts.bench_serving`` at its defaults (encode + rank
     ms per batch of 16, HTTP p50/p99 of ``/search/text`` at 1 and 16
-    queries and of ``/search/image`` with one base64 JPEG);
-19. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+    queries and of ``/search/image`` with one base64 JPEG); a JPEG whose
+    frame header claims 20000 x 20000 pixels is a 400;
+19. video decode: the committed ``tests/data/video/clip_160x120.mp4``
+    through ``read_video_segment`` (full, a seek to 1.3 s, ``subsample_to``
+    8) and ``video_duration_sec`` on the running machine's OpenCV, against the
+    committed decodes of another OpenCV build: frame counts and frame
+    indices equal, pixels within ``VIDEO_DECODE_MEAN_MAX`` and
+    ``VIDEO_DECODE_MAX``;
+20. the video twin: ``vtc_tpu_torch.train`` through its CLI on
+    ``configs/pretrained_clip_timesformer_comments_attention.jsonc``
+    (ViT-B/32, 8 frames, fp32, the config's batch of 50 and 40 workers,
+    the imported weights) over a reddit corpus written with
+    ``cv2.VideoWriter`` (150 training and 50 validation rows, mp4v 480x360,
+    3 s), 2 epochs, with the per-epoch MSRVTT probe on a written root of
+    one small clip per id of the packaged full-val list (497): steps/s,
+    seconds per epoch, each probe's seconds and R@10, launches exact
+    (steps and validation batches × (41, 26, 26, 12), each probe 497 ×
+    the model's or the CAM-less forward's), no plain-version call, no
+    decode fallback, the peak memory; then
+    ``pretrained_clip_1frame_comments_attention.jsonc`` for one epoch
+    (the flagship on each segment's first frame, (29, 26, 26) a step);
+21. the video loader: ``scripts.bench_video_pipeline`` on that corpus at
+    the config's workers and batch: host videos/s, the video train step's
+    videos/s alone (its demand) and both overlapped, and whether the
+    loader meets the demand;
+22. the repairs: the bomb-sized JPEG raises ``JpegInputError`` with
+    ``torch.cuda.memory_allocated()`` unmoved; ``ycc_to_rgb`` bit-exact on
+    seeded 4:1:1 and 4:1:0 planes (the 4:1:1 fixture runs in phases 15
+    and 16); serving's top-10 on a gallery of duplicated rows equals
+    ``vtc_tpu``'s order (``TIES_EXPECTED``);
+23. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -161,6 +190,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -1654,17 +1684,93 @@ def synthesize_clip_weights(path: Path) -> dict:
     return sd
 
 
-def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
-    """Phase 15: decode, the loader's rate, CLIP weight import and the
-    ``train.py`` twin through its CLI, in ``tmp`` (which ``main`` removes
-    after phase 18). Leaves ``VTC_CLIP_WEIGHTS`` naming the seeded CLIP file
-    (``main`` restores it) and returns ``(csv path, media root)`` for the
-    evaluation and serving phases."""
+def run_twin(ops, argv) -> dict:
+    """``vtc_tpu_torch.train.cli(argv)`` with the kernels' launches counted
+    from 0 just before and read just after, calls of their plain versions
+    counted, each epoch's log, its seconds and its validation's seconds,
+    and each MSRVTT probe's branch, result, seconds and launches
+    (``probes``, launches included in ``launches``)."""
     import importlib
 
     from vtc_tpu_torch import train
-    from vtc_tpu_torch.models import create_model
     from vtc_tpu_torch.training import Trainer
+
+    plain_calls, probes = {}, []
+    # the kernels' modules (``ops`` exports functions of the same names)
+    plain = [("layernorm", "layernorm_plain"), ("addln", "add_layernorm_plain"),
+             ("attention", "fused_mha_plain"), ("attention", "fused_attention_plain")]
+    originals = {}
+    for module, name in plain:
+        m = importlib.import_module(f"vtc_tpu_torch.ops.{module}")
+        originals[m, name] = getattr(m, name)
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    logs, seconds = [], {"epoch": [], "valid": []}
+    run_epoch, run_valid = Trainer._train_epoch, Trainer._valid_epoch
+    make_probe = train._make_probe
+
+    def timed(key, fn):
+        def call(self, epoch):
+            tic = time.perf_counter()
+            out = fn(self, epoch)
+            torch.cuda.synchronize()
+            seconds[key].append(time.perf_counter() - tic)
+            if key == "epoch":
+                logs.append(out)
+            return out
+        return call
+
+    def recorded_probe(config):
+        probe = make_probe(config)
+        if probe is None:
+            return None
+
+        def call(trainer, branch_override=None):
+            torch.cuda.synchronize()
+            before, tic = ops.launch_counts(), time.perf_counter()
+            out = probe(trainer, branch_override)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            probes.append({"branch": branch_override, "result": out,
+                           "s": time.perf_counter() - tic,
+                           "launches": {k: after[k] - before[k] for k in after}})
+            return out
+        return call
+
+    for (m, n), fn in originals.items():
+        setattr(m, n, counted(n, fn))
+    Trainer._train_epoch, Trainer._valid_epoch = (timed("epoch", run_epoch),
+                                                  timed("valid", run_valid))
+    train._make_probe = recorded_probe
+    try:
+        ops.reset_launch_counts()
+        tic = time.perf_counter()
+        # wandb, where installed, runs disabled (WANDB_MODE, set in main)
+        trainer = train.cli(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - tic
+        launches = ops.launch_counts()
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+        Trainer._train_epoch, Trainer._valid_epoch = run_epoch, run_valid
+        train._make_probe = make_probe
+    return {"trainer": trainer, "logs": logs, "seconds": seconds, "launches": launches,
+            "plain_calls": plain_calls, "probes": probes, "total": total}
+
+
+def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
+    """Phase 15: decode, the loader's rate, CLIP weight import and the
+    ``train.py`` twin through its CLI, in ``tmp`` (which ``main`` removes
+    after phase 22). Leaves ``VTC_CLIP_WEIGHTS`` naming the seeded CLIP file
+    (``main`` restores it) and returns ``(csv path, media root)`` for the
+    evaluation and serving phases."""
+    from vtc_tpu_torch.models import create_model
     from vtc_tpu_torch.utils import jsonc
 
     phase_tic = time.perf_counter()
@@ -1706,52 +1812,9 @@ def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
     # 4. the train.py twin, through its CLI, on the flagship config
     argv = ["-c", str(root / TRAIN_CONFIG), "--csv_file", str(csv_path),
             "--root", str(media), "--epochs", "2", "--save_dir", str(tmp / "run")]
-    plain_calls = {}
-    # the kernels' modules (``ops`` exports functions of the same names)
-    plain = [("layernorm", "layernorm_plain"), ("addln", "add_layernorm_plain"),
-             ("attention", "fused_mha_plain"), ("attention", "fused_attention_plain")]
-    originals = {}
-    for module, name in plain:
-        m = importlib.import_module(f"vtc_tpu_torch.ops.{module}")
-        originals[m, name] = getattr(m, name)
-
-    def counted(name, fn):
-        def call(*args, **kwargs):
-            plain_calls[name] = plain_calls.get(name, 0) + 1
-            return fn(*args, **kwargs)
-        return call
-
-    logs, seconds = [], {"epoch": [], "valid": []}
-    run_epoch, run_valid = Trainer._train_epoch, Trainer._valid_epoch
-
-    def timed(key, fn):
-        def call(self, epoch):
-            tic = time.perf_counter()
-            out = fn(self, epoch)
-            torch.cuda.synchronize()
-            seconds[key].append(time.perf_counter() - tic)
-            if key == "epoch":
-                logs.append(out)
-            return out
-        return call
-
-    for (m, n), fn in originals.items():
-        setattr(m, n, counted(n, fn))
-    Trainer._train_epoch, Trainer._valid_epoch = (timed("epoch", run_epoch),
-                                                  timed("valid", run_valid))
-    try:
-        # the twin's path: counts from 0 just before, read just after
-        ops.reset_launch_counts()
-        tic = time.perf_counter()
-        # wandb, where installed, runs disabled (WANDB_MODE, set in main)
-        trainer = train.cli(argv)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - tic
-        launches = ops.launch_counts()
-    finally:
-        for (m, n), fn in originals.items():
-            setattr(m, n, fn)
-        Trainer._train_epoch, Trainer._valid_epoch = run_epoch, run_valid
+    run = run_twin(ops, argv)
+    trainer, logs, seconds = run["trainer"], run["logs"], run["seconds"]
+    launches, plain_calls, total = run["launches"], run["plain_calls"], run["total"]
     steps = len(logs) * len(trainer.data_loader)
     val_batches = len(logs) * len(trainer.valid_data_loader)
     want = {k: (steps + val_batches) * v for k, v in EXPECTED_LAUNCHES.items()}
@@ -2171,8 +2234,16 @@ def run_serving(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
         status, body = _http(server.port, "/search/image",
                              {"images_b64": [base64.b64encode(bytes(bogus)).decode()]})
         codes.append(status)
-        log(f"serving refusals: HTTP {codes}; the bogus Huffman table: {body}")
+        # a JPEG whose frame header claims 20000 x 20000 pixels: refused from
+        # the header, before the binding is asked (PIL's decompression bomb)
+        status, bomb_body = _http(server.port, "/search/image",
+                                  {"images_b64": [base64.b64encode(bomb_jpeg()).decode()]})
+        codes.append(status)
+        log(f"serving refusals: HTTP {codes}; the bogus Huffman table: {body}; the bomb-sized "
+            f"header: {bomb_body}")
         require(codes == [400] * len(codes), f"serving refusals: {codes}")
+        require("decompression bomb" in bomb_body.get("error", ""),
+                f"the bomb-sized JPEG: {bomb_body}")
     finally:
         server.shutdown()
     del server, svc
@@ -2185,6 +2256,396 @@ def run_serving(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
         require(bench[key] > 0, f"bench_serving: {key} {bench[key]}")
     log(f"phase 18 took {time.perf_counter() - phase_tic:.1f} s")
     torch.cuda.empty_cache()
+
+
+# ---- phase 19: the committed video fixture through the card machine's OpenCV -------
+
+VIDEO_DIR = "tests/data/video"
+# another OpenCV and FFmpeg build than the one that made the committed decodes
+# (the card's machine 4.13.0 with avcodec 62.11.100, the repo's 5.0.0 with
+# 62.28.101): frame counts and each frame's index in the full decode must be
+# equal, and the pixels within these bounds, per channel, in levels (written
+# before the first run on the card; PERF.md §6)
+VIDEO_DECODE_MEAN_MAX = 1.0
+VIDEO_DECODE_MAX = 16
+
+
+def nearest_frames(frames: np.ndarray, full: np.ndarray) -> list:
+    """Each frame's index in ``full``: the frame of least mean |d|."""
+    full = full.astype(np.int16)
+    return [int(np.abs(full - f.astype(np.int16)).mean(axis=(1, 2, 3)).argmin())
+            for f in frames]
+
+
+def check_video_fixture(smi) -> None:
+    """Phase 19: ``tests/data/video/clip_160x120.mp4`` through the port's
+    ``read_video_segment`` (full, a segment after a seek, ``subsample_to``)
+    and ``video_duration_sec``, against the decodes committed beside it."""
+    import cv2
+
+    from vtc_tpu_torch.data import read_video_segment, video_duration_sec
+
+    root = Path(__file__).resolve().parent / VIDEO_DIR
+    ref = np.load(root / "cv2_decodes.npz")
+    path = str(root / "clip_160x120.mp4")
+    cases = json.loads(str(ref["cases"]))
+    log(f"OpenCV {cv2.__version__}: " + "; ".join(
+        line.strip() for line in cv2.getBuildInformation().splitlines()
+        if "avcodec" in line or "FFMPEG" in line))
+    full = read_video_segment(path)
+    for name, kw in cases.items():
+        tic = time.perf_counter()
+        ours = read_video_segment(path, **kw)
+        ms = (time.perf_counter() - tic) * 1e3
+        want = ref[name]
+        require(ours.shape == want.shape, f"video fixture {name}: {ours.shape} frames, "
+                f"committed {want.shape}")
+        index = nearest_frames(ours, full)
+        d = np.abs(ours.astype(np.int16) - want.astype(np.int16))
+        per_channel = d.reshape(-1, 3).mean(0)
+        log(f"video fixture {name} {kw}: {len(ours)} frames (committed {len(want)}), "
+            f"indices {index[:3]}...{index[-2:]} (committed "
+            f"{ref[f'{name}_index'][:3].tolist()}...{ref[f'{name}_index'][-2:].tolist()}), "
+            f"max |d| {int(d.max())}, mean |d| per channel "
+            f"{[round(float(c), 4) for c in per_channel]}, share beyond 2 levels "
+            f"{float((d > 2).mean()):.5f}; held: mean <= {VIDEO_DECODE_MEAN_MAX}, max <= "
+            f"{VIDEO_DECODE_MAX}; decode {ms:.2f} ms; on {smi}")
+        require(index == ref[f"{name}_index"].tolist(),
+                f"video fixture {name}: frame indices {index} differ from the committed")
+        require(float(per_channel.max()) <= VIDEO_DECODE_MEAN_MAX
+                and int(d.max()) <= VIDEO_DECODE_MAX,
+                f"video fixture {name}: |d| mean {per_channel}, max {int(d.max())}")
+    duration = video_duration_sec(path)
+    log(f"video fixture duration {duration} s (committed {float(ref['duration'])})")
+    require(duration == float(ref["duration"]), f"video fixture duration {duration}")
+
+
+# ---- phase 20: the video twin at full width -----------------------------------------
+
+ONE_FRAME_CONFIG = "configs/pretrained_clip_1frame_comments_attention.jsonc"
+VIDEO_CORPUS_ROWS = {"train": 150, "val": 50}  # 3 steps, 1 validation batch of 50
+VIDEO_CORPUS_CLIPS = 8  # distinct videos, copied to every row
+VIDEO_CLIP = dict(frames=90, width=480, height=360)  # 3 s at 30 fps
+PROBE_CLIPS = 4  # the MSRVTT root: one per full-val id, copied from these
+PROBE_CLIP = dict(frames=24, width=128, height=96)
+PROBE_CAPTIONS = 2
+PROBE_HOST_SAMPLE = 50  # probe videos whose host work is timed alone
+# the probe's forward of one video: the model's, and with the CAM skipped
+# (2 LN, 2 add+LN and 2 attention fewer: counted on the CPU)
+PROBE_SKIP_LAUNCHES = {"layernorm": 39, "add_layernorm": 24, "fused_mha": 24,
+                       "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0}
+
+
+def write_clip(path: Path, frames: int, width: int, height: int, seed: int) -> None:
+    """A moving scene (a scrolling gradient, two discs) as mp4v at 30 fps."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30, (width, height))
+    yy, xx = np.mgrid[0:height, 0:width]
+    colour = rng.integers(0, 256, (3, 3))
+    for f in range(frames):
+        img = np.stack([(xx + 3 * f + colour[0, 0]) % 256, (yy + colour[0, 1]) % 256,
+                        (xx // 2 + yy // 2 + f + colour[0, 2]) % 256], -1).astype(np.uint8)
+        for k, (cx, cy) in enumerate((((f * 5) % width, height // 3),
+                                      (width - (f * 3) % width, 2 * height // 3))):
+            r = height // 8
+            img[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = colour[1 + k]
+        writer.write(img)
+    writer.release()
+
+
+def write_video_corpus(tmp: Path):
+    """The video twin's reddit corpus: ``VIDEO_CORPUS_ROWS`` rows written with
+    ``csv`` (base-36 ids whose last digit puts each row in its split), each
+    row's mp4 a copy of one of ``VIDEO_CORPUS_CLIPS`` clips written with
+    ``cv2.VideoWriter`` (``VIDEO_CLIP``), 7 comments with bots among them.
+    -> (csv path, media root)."""
+    import csv
+    import shutil
+
+    from vtc_tpu_torch.data.partition import DIGIT_SPLIT
+
+    media = tmp / "video_media"
+    (media / "vids").mkdir(parents=True)
+    clips = []
+    for c in range(VIDEO_CORPUS_CLIPS):
+        clips.append(tmp / f"clip{c}.mp4")
+        write_clip(clips[-1], seed=c, **VIDEO_CLIP)
+    rows, i = [], 0
+    for split, n in VIDEO_CORPUS_ROWS.items():
+        digits = sorted(DIGIT_SPLIT[split])
+        for j in range(n):
+            rid = np.base_repr(46656 * 2 + i, 36).lower() + digits[j % len(digits)]
+            shutil.copyfile(clips[i % len(clips)], media / "vids" / f"{rid}.mp4")
+            comments = [f"great clip number {i}", "i am a bot, this action was automatic",
+                        f"what a move at second {i % 3}", "[deleted]",
+                        f"reminds me of trip {i % 5}", f"the {i % 7} discs again",
+                        f"love the colours in {i}"]
+            rows.append([int(rid, 36), f"results/vids/{rid}.mp4",
+                         f"a clip of scene {i} with two discs",
+                         VIDEO_CLIP["frames"] / 30, str(comments)])
+            i += 1
+    path = tmp / "video_posts.csv"
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["reddit_id", "video_path", "title", "video_length", "comments"])
+        w.writerows(rows)
+    return path, media
+
+
+def write_msrvtt_root(tmp: Path) -> Path:
+    """An MSRVTT root for the probe: a small clip for each id of the packaged
+    ``val_list_full.txt`` (497), ``PROBE_CAPTIONS`` captions each."""
+    import shutil
+
+    from vtc_tpu_torch.data.video_retrieval import META_DIR
+
+    root = tmp / "MSRVTT"
+    (root / "TrainValVideo").mkdir(parents=True)
+    (root / "TestVideo").mkdir()
+    ids = (META_DIR / "msrvtt_meta" / "val_list_full.txt").read_text().split()
+    clips = []
+    for c in range(PROBE_CLIPS):
+        clips.append(tmp / f"probe{c}.mp4")
+        write_clip(clips[-1], seed=100 + c, **PROBE_CLIP)
+    sentences = []
+    for i, vid in enumerate(ids):
+        shutil.copyfile(clips[i % len(clips)], root / "TrainValVideo" / f"{vid}.mp4")
+        sentences += [{"video_id": vid, "caption": f"clip {i} shows {what}"}
+                      for what in ("two discs moving", "a scrolling gradient")[:PROBE_CAPTIONS]]
+    (root / "train_val_videodatainfo.json").write_text(json.dumps({"sentences": sentences}))
+    (root / "test_videodatainfo.json").write_text(json.dumps({"sentences": []}))
+    return root
+
+
+class CountWarnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def twin_launches(what, run, per_step: dict, probe_videos: int = 0) -> None:
+    """The twin's launches: ``per_step`` for each train step and validation
+    batch, and each probe's one forward per video (the model's, or without
+    the CAM for the skip branch), exact; no plain-version call."""
+    trainer, logs = run["trainer"], run["logs"]
+    steps = len(logs) * len(trainer.data_loader)
+    val_batches = len(logs) * len(trainer.valid_data_loader)
+    want = {k: (steps + val_batches) * v for k, v in per_step.items()}
+    for p in run["probes"]:
+        per_video = EXPECTED_VIDEO_LAUNCHES if p["branch"] is None else PROBE_SKIP_LAUNCHES
+        require(p["launches"] == {k: probe_videos * v for k, v in per_video.items()},
+                f"{what}: probe ({p['branch']}) launches {p['launches']}")
+        want = {k: want[k] + p["launches"][k] for k in want}
+    log(f"kernel use ({what}: {steps} steps + {val_batches} validation batches of "
+        f"{trainer.data_loader.batch_size}, {len(run['probes'])} probes of {probe_videos} "
+        f"videos): {json.dumps(run['launches'])}; per step "
+        f"{json.dumps({k: v for k, v in per_step.items() if v})}; plain-version calls "
+        f"{run['plain_calls']}")
+    require(run["launches"] == want, f"{what} launches {run['launches']} != {want}")
+    require(not run["plain_calls"], f"{what} called plain versions: {run['plain_calls']}")
+
+
+def run_video_twin(ops, smi, tmp: Path):
+    """Phase 20: ``vtc_tpu_torch.train`` through its CLI on
+    ``pretrained_clip_timesformer_comments_attention.jsonc`` (ViT-B/32, 8
+    frames, the config's batch of 50 and 40 workers, fp32, phase 15's
+    imported weights) over a written reddit video corpus, 2 epochs, with the
+    MSRVTT probe on a written root of the 497 full-val ids; then the 1-frame
+    config for one epoch. Steps/s, seconds per epoch, each probe's seconds
+    and R@10, exact launches, no decode fallback, peak memory.
+    -> (csv path, media root) of the corpus."""
+    from vtc_tpu_torch.utils import jsonc, write_json
+
+    phase_tic = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    tic = time.perf_counter()
+    csv_path, media = write_video_corpus(tmp)
+    msrvtt = write_msrvtt_root(tmp)
+    n_probe = len(list((msrvtt / "TrainValVideo").iterdir()))
+    log(f"video corpus: {sum(VIDEO_CORPUS_ROWS.values())} rows {VIDEO_CORPUS_ROWS}, "
+        f"{VIDEO_CORPUS_CLIPS} clips of {VIDEO_CLIP}; MSRVTT root of {n_probe} clips of "
+        f"{PROBE_CLIP}; written in {time.perf_counter() - tic:.1f} s")
+    fallbacks = CountWarnings()
+    logging.getLogger("vtc_tpu_torch.data.video").addHandler(fallbacks)
+    try:
+        cfg = jsonc.read_json(root / VIDEO_CONFIG)
+        cfg["msrvtt_root"] = str(msrvtt)  # the probe's root, a key of the config
+        cfg_path = tmp / "video_config.json"
+        write_json(cfg, cfg_path)
+        argv = ["-c", str(cfg_path), "--csv_file", str(csv_path), "--root", str(media),
+                "--epochs", "2", "--save_dir", str(tmp / "video_run")]
+        torch.cuda.reset_peak_memory_stats()
+        run = run_twin(ops, argv)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer = run["trainer"]
+        require(len(run["logs"]) == 2, f"video twin: {len(run['logs'])} epochs ran")
+        twin_launches("video twin", run, EXPECTED_VIDEO_LAUNCHES, n_probe)
+        require(len(run["probes"]) == 4, f"video twin: {len(run['probes'])} probes")
+        for epoch, (elog, ep_s, val_s) in enumerate(
+                zip(run["logs"], run["seconds"]["epoch"], run["seconds"]["valid"]), 1):
+            probe_s = sum(p["s"] for p in run["probes"][2 * epoch - 2 : 2 * epoch])
+            train_s = ep_s - val_s
+            n = len(trainer.data_loader)
+            log(f"video twin epoch {epoch}: loss {elog['loss']:.6f} val_loss "
+                f"{elog['val_loss']:.6f} {trainer.mnt_metric} {elog.get(trainer.mnt_metric)}; "
+                f"{n} steps in {train_s:.3f} s ({n / train_s:.3f} steps/s, "
+                f"{n * trainer.data_loader.batch_size / train_s:.2f} videos/s), validation "
+                f"{val_s - probe_s:.3f} s, probes {probe_s:.3f} s, epoch {ep_s:.3f} s; on {smi}")
+            require(math.isfinite(elog["loss"]) and math.isfinite(elog["val_loss"]),
+                    f"video twin epoch {epoch}: a non-finite loss")
+            require(trainer.mnt_metric in elog, f"video twin epoch {epoch}: no monitor key")
+        for p in run["probes"]:
+            log(f"MSRVTT probe (branch {p['branch']}): {n_probe} videos in {p['s']:.3f} s "
+                f"({n_probe / p['s']:.1f} videos/s), R@10 {p['result']}")
+            require(all(0 <= v <= 100 for v in p["result"].values()),
+                    f"probe: {p['result']}")
+        # the probe's host work alone: items (decode, captions) and preprocessing
+        from vtc_tpu_torch.data import VideoDatasetMSRVTT
+        from vtc_tpu_torch.evaluation.retrieval_eval import _ensure_preprocessed, chunk_frames
+
+        ds = VideoDatasetMSRVTT(root=str(msrvtt), train=False, split="full-val")
+        tic = time.perf_counter()
+        for i in range(PROBE_HOST_SAMPLE):
+            _ensure_preprocessed(chunk_frames(ds[i][0], VIDEO_EVAL_STRIDE), 224)
+        host_ms = (time.perf_counter() - tic) / PROBE_HOST_SAMPLE * 1e3
+        pass_ms = 1e3 * sum(p["s"] for p in run["probes"]) / len(run["probes"]) / n_probe
+        log(f"probe host work: {host_ms:.2f} ms per video (decode, captions, chunks, "
+            f"preprocessing; {PROBE_HOST_SAMPLE} videos on one thread) of a pass's "
+            f"{pass_ms:.2f} ms per video")
+        files = {f.name: f.stat().st_size for f in trainer.checkpoint_dir.glob("*.pth")}
+        require({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(files),
+                f"video twin checkpoints: {files}")
+        log(f"video twin: 2 epochs in {run['total']:.3f} s (datasets, model with the "
+            f"imported weights, probes and saves included); peak memory {peak:.3f} GiB "
+            f"allocated; checkpoints {files} bytes; decode fallbacks "
+            f"{len(fallbacks.records)}; on {smi}")
+        del trainer, run
+        for ckpt in (tmp / "video_run").rglob("*.pth"):  # no later phase reads them
+            ckpt.unlink()
+        torch.cuda.empty_cache()
+
+        # the 1-frame config: the flagship on each segment's first frame
+        argv = ["-c", str(root / ONE_FRAME_CONFIG), "--csv_file", str(csv_path), "--root",
+                str(media), "--epochs", "1", "--save_dir", str(tmp / "frame_run")]
+        torch.cuda.reset_peak_memory_stats()
+        run = run_twin(ops, argv)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(len(run["logs"]) == 1 and not run["probes"], "1-frame twin: one epoch")
+        twin_launches("1-frame twin", run, EXPECTED_LAUNCHES)
+        elog, ep_s, val_s = run["logs"][0], run["seconds"]["epoch"][0], \
+            run["seconds"]["valid"][0]
+        n = len(run["trainer"].data_loader)
+        log(f"1-frame twin: loss {elog['loss']:.6f} val_loss {elog['val_loss']:.6f}; {n} steps "
+            f"in {ep_s - val_s:.3f} s ({n / (ep_s - val_s):.3f} steps/s), epoch {ep_s:.3f} s, "
+            f"peak {peak:.3f} GiB; on {smi}")
+        require(math.isfinite(elog["loss"]), "1-frame twin: a non-finite loss")
+        del run
+        for ckpt in (tmp / "frame_run").rglob("*.pth"):
+            ckpt.unlink()
+    finally:
+        logging.getLogger("vtc_tpu_torch.data.video").removeHandler(fallbacks)
+    require(not fallbacks.records, f"decode fallbacks: {fallbacks.records[:3]}")
+    log(f"phase 20 took {time.perf_counter() - phase_tic:.1f} s")
+    torch.cuda.empty_cache()
+    return csv_path, media
+
+
+# ---- phase 21: the video loader against the video step's demand ----------------------
+
+def run_video_loader(smi, csv_path: Path, media: Path) -> None:
+    """Phase 21: ``scripts.bench_video_pipeline`` on phase 20's corpus at the
+    video config's workers and batch: host videos/s (2 epochs), the train
+    step's videos/s alone (its demand), and both overlapped."""
+    from vtc_tpu_torch.scripts import bench_video_pipeline
+    from vtc_tpu_torch.utils import jsonc
+
+    phase_tic = time.perf_counter()
+    cfg = jsonc.read_json(Path(__file__).resolve().parent / VIDEO_CONFIG)
+    log(f"bench_video_pipeline on phase 20's corpus ({VIDEO_CORPUS_ROWS['train']} train "
+        f"videos), {cfg['num_workers']} workers, batch {cfg['batch_size']}, {smi}:")
+    res = bench_video_pipeline.main(workers=cfg["num_workers"], batch=cfg["batch_size"],
+                                    epochs=2, device_step=True, csv_file=str(csv_path),
+                                    root=str(media), log=log)
+    for key in ("host_videos_per_s", "device_videos_per_s", "overlapped_videos_per_s"):
+        require(res[key] and res[key] > 0, f"bench_video_pipeline: {key} {res[key]}")
+    log(f"video loader: host {res['host_videos_per_s']:.2f} videos/s, device step "
+        f"{res['device_videos_per_s']:.2f}, overlapped {res['overlapped_videos_per_s']:.2f}; "
+        f"the loader {'meets' if res['meets_demand'] else 'does not meet'} the step's demand; "
+        f"phase 21 took {time.perf_counter() - phase_tic:.1f} s")
+    torch.cuda.empty_cache()
+
+
+# ---- phase 22: the repairs on the card -------------------------------------------------
+
+# vtc_tpu's RetrievalIndex.search (lax.top_k: ties lower gallery row first) on
+# 8 rows of default_rng(0).standard_normal((8, 512)), each 4 times (ids
+# 1000-1031), queried by rows 0 and 1, k 10
+TIES_EXPECTED = [[1000, 1001, 1002, 1003, 1016, 1017, 1018, 1019, 1004, 1005],
+                 [1004, 1005, 1006, 1007, 1020, 1021, 1022, 1023, 1000, 1001]]
+SEEDED_PLANES = [(1, 1), (3, 2), (9, 7), (214, 120), (257, 3), (480, 360)]
+
+
+def bomb_jpeg() -> bytes:
+    """``rgb420_480x360.jpg`` with its frame header's size set to 20000 x
+    20000 (400,000,000 pixels): PIL refuses it as a decompression bomb."""
+    data = (Path(__file__).resolve().parent / JPEG_DIR / "rgb420_480x360.jpg").read_bytes()
+    sof = data.index(b"\xff\xc0")
+    out = bytearray(data)
+    out[sof + 5 : sof + 9] = (20000).to_bytes(2, "big") * 2
+    return bytes(out)
+
+
+def check_repairs(smi) -> None:
+    """Phase 22: the bomb-sized JPEG refused before anything is allocated on
+    the card; ``ycc_to_rgb`` bit-exact on seeded 4:1:1 and 4:1:0 planes (no
+    encoder on either machine writes 4:1:0; the 4:1:1 fixture is in phases
+    15-16); serving's top-10 on a gallery of duplicated rows in
+    ``vtc_tpu``'s order."""
+    from vtc_tpu_torch.data import image_io
+    from vtc_tpu_torch.serving import RetrievalIndex
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        image_io.decode_jpeg_planes(bomb_jpeg())
+        refused = None
+    except image_io.JpegInputError as e:
+        refused = str(e)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"bomb-sized JPEG (20000x20000 header): {refused}; memory_allocated {before} -> "
+        f"{after} bytes")
+    require(refused is not None and "decompression bomb" in refused,
+            "the bomb-sized JPEG was not refused")
+    require(after == before, f"the bomb-sized JPEG moved memory_allocated {before} -> {after}")
+
+    rng = np.random.default_rng(11)
+    for factors in ((4, 1), (4, 2)):
+        for w, h in SEEDED_PLANES:
+            cw, ch = -(-w // factors[0]), -(-h // factors[1])
+            planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
+                      for s in ((h, w), (ch, cw), (ch, cw))]
+            before = image_io.ycc_to_rgb.launches
+            out = image_io.ycc_to_rgb(*[p.cuda() for p in planes], factors).cpu()
+            require(image_io.ycc_to_rgb.launches == before + 1, "ycc_to_rgb did not launch")
+            ref = image_io.ycc_to_rgb_reference(*planes, factors)
+            err = int((out.int() - ref.int()).abs().max())
+            require(err == 0, f"ycc_to_rgb {factors} at {w}x{h}: max |d| {err}")
+        log(f"ycc_to_rgb at {factors} (int_upsample): bit-exact against its plain version "
+            f"on seeded planes {SEEDED_PLANES}")
+
+    base = np.random.default_rng(0).standard_normal((8, 512)).astype(np.float32)
+    index = RetrievalIndex(512)
+    index.add(np.repeat(base, 4, axis=0), np.arange(1000, 1032))
+    ids, scores = index.search(base[:2], k=10)
+    log(f"serving ties on the card: top-10 ids {ids.tolist()}, scores "
+        f"{np.round(scores, 6).tolist()}; vtc_tpu's {TIES_EXPECTED}; on {smi}")
+    require(ids.tolist() == TIES_EXPECTED, "serving ties: ids differ from vtc_tpu's order")
 
 
 def main() -> int:
@@ -2342,7 +2803,7 @@ def main() -> int:
     # 14. the Trainer: epochs, validation, checkpoints, resume
     trainer_rates = run_trainer(ops, smi)
 
-    # 15-18 share one temporary directory under saved/, removed at the end
+    # 15-22 share one temporary directory under saved/, removed at the end
     import shutil
     import tempfile
 
@@ -2362,6 +2823,18 @@ def main() -> int:
 
         # 18. serving: the embedding script, serve.py over HTTP, bench_serving
         run_serving(ops, smi, tmp, csv_path, media)
+
+        # 19. the committed video fixture through the running machine's OpenCV
+        check_video_fixture(smi)
+
+        # 20. the video twin: the TimeSformer config with the MSRVTT probe, 1-frame
+        video_csv, video_media = run_video_twin(ops, smi, tmp)
+
+        # 21. the video loader against the video step's demand
+        run_video_loader(smi, video_csv, video_media)
+
+        # 22. the repairs: the JPEG bomb, 4:1:1 and 4:1:0 planes, serving's ties
+        check_repairs(smi)
     finally:
         if saved_env is None:
             os.environ.pop("VTC_CLIP_WEIGHTS", None)
@@ -2369,7 +2842,7 @@ def main() -> int:
             os.environ["VTC_CLIP_WEIGHTS"] = saved_env
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 19. results: each kernel's launches from the path that runs it
+    # 23. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])

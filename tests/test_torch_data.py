@@ -73,14 +73,17 @@ JPEG_FIXTURES = {  # name: (width, height, PIL save options, mode)
     "rgb444_160x120": (160, 120, {"quality": 92, "subsampling": 0}, "RGB"),
     "gray_200x150": (200, 150, {"quality": 90}, "L"),
     "progressive_240x180": (240, 180, {"quality": 88, "progressive": True}, "RGB"),
+    # written by OpenCV: PIL's encoder writes no 4:1:1
+    "rgb411_94x64": (94, 64, {"quality": 90, "opencv_sampling": "411"}, "RGB"),
 }
 
 
 def make_jpeg_fixtures(out_dir, seed=9):
     """The committed fixtures: smooth scenes (a gradient, discs, strokes;
     not noise, on which chroma upsampling alone would set the difference)
-    saved by PIL as JPEG, and PIL's RGB decodes of them in
-    ``pil_decodes.npz``."""
+    saved by PIL as JPEG (the 4:1:1 one by OpenCV), and PIL's RGB decodes
+    of them in ``pil_decodes.npz``."""
+    import cv2
     from PIL import ImageDraw
 
     rng = np.random.default_rng(seed)
@@ -105,7 +108,13 @@ def make_jpeg_fixtures(out_dir, seed=9):
         if mode == "L":
             img = img.convert("L")
         path = out_dir / f"{name}.jpg"
-        img.save(path, "JPEG", **opts)
+        if "opencv_sampling" in opts:
+            sampling = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{opts['opencv_sampling']}")
+            assert cv2.imwrite(str(path), np.asarray(img)[..., ::-1].copy(), [
+                cv2.IMWRITE_JPEG_QUALITY, opts["quality"],
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling])
+        else:
+            img.save(path, "JPEG", **opts)
         with Image.open(path) as f:
             decodes[name] = np.asarray(f.convert("RGB"))
     np.savez_compressed(out_dir / "pil_decodes.npz", **decodes)
@@ -202,7 +211,8 @@ def test_decode_bound_rejects_a_wrong_chroma():
     ref = np.load(JPEG_DIR / "pil_decodes.npz")
     subsampled = [n for n in ref.files
                   if image_io.jpeg_header((JPEG_DIR / f"{n}.jpg").read_bytes())["subsampled"]]
-    assert sorted(subsampled) == ["odd_211x97", "progressive_240x180", "rgb420_480x360"]
+    assert sorted(subsampled) == ["odd_211x97", "progressive_240x180", "rgb411_94x64",
+                                  "rgb420_480x360"]
     for name in subsampled:
         pil = ref[name]
         y, cb, cr = _ycbcr(pil)
@@ -654,11 +664,15 @@ def test_loader_batches_match_jax(corpus):
 
 
 def test_video_dataset_names_wait_for_their_port():
+    """The video datasets are ported (tests/test_torch_video.py) but for the
+    two that feed the R(2+1)D tower, which wait for it by name."""
     from vtc_tpu_torch import data
 
-    for name in ("VideoDatasetSegments", "VideoDatasetReddit", "VideoDatasetMSRVTT"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    for name in ("VideoDatasetFirst32", "VideoDatasetFirst1800"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             getattr(data, name)(csv_file="x.csv", root="")
+    for name in ("VideoDatasetSegments", "VideoDatasetReddit", "VideoDatasetMSRVTT"):
+        assert isinstance(getattr(data, name), type)
 
 
 def test_comments_column_is_read_as_jax_reads_it(corpus):

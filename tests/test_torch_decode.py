@@ -5,16 +5,22 @@ YCbCr -> RGB (``image_io.ycc_to_rgb`` and its plain version
 * ``ycc_to_rgb_reference`` equals, value for value, a scalar transcription
   of libjpeg-turbo's ``h2v2_fancy_upsample``, ``h2v1_fancy_upsample``,
   ``h1v2_fancy_upsample`` (``jdsample.c``; the box ``h2v1_upsample`` and
-  ``h2v2_upsample`` where ``jinit_upsampler`` picks them), the context rows
-  of ``jdmainct.c`` and ``ycc_rgb_convert`` with ``build_ycc_rgb_table``
-  (``jdcolor.c``), on seeded planes at even, odd, 1-row and 1-column sizes;
+  ``h2v2_upsample`` where ``jinit_upsampler`` picks them, and
+  ``int_upsample`` for 4:1:1 and 4:1:0), the context rows of ``jdmainct.c``
+  and ``ycc_rgb_convert`` with ``build_ycc_rgb_table`` (``jdcolor.c``), on
+  seeded planes at even, odd, 1-row and 1-column sizes;
 * on the committed fixtures, PIL's own upsampled YCbCr
   (``draft("YCbCr")``) through the plain colour conversion is PIL's RGB;
-* samplings other than 4:4:4, 4:2:2, 4:2:0 and 4:4:0 are refused by name;
+  on the 4:1:1 fixture (written by OpenCV) its chroma, taken back to one
+  sample in 4, through the plain version at 4 x 1 is PIL's RGB too;
+* samplings other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 are
+  refused by name; a frame header of more pixels than ``MAX_PIXELS`` is
+  refused before the binding is asked for anything;
 * ``decode_png`` against ``PIL.Image.open(...).convert("RGB")``, bit for
-  bit, for every colour type and bit depth it takes and each of the five
-  row filters, on the committed ``tests/data/png`` fixtures too; 16-bit
-  and interlaced PNGs are refused;
+  bit, for every colour type and bit depth it takes (16 bits included) and
+  each of the five row filters, Adam7-interlaced too (written by the test's
+  own encoder: neither PIL nor OpenCV writes interlaced PNGs), on the
+  committed ``tests/data/png`` fixtures too;
 * on the card (``cuda``-marked): the kernel bit-exact against the plain
   version on nvJPEG's own planes of every fixture and on seeded planes.
 """
@@ -39,7 +45,7 @@ except ImportError:
 DATA = Path(__file__).resolve().parent / "data"
 JPEG_DIR = DATA / "jpeg"
 PNG_DIR = DATA / "png"
-FACTORS = [(1, 1), (2, 1), (1, 2), (2, 2)]
+FACTORS = [(1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2)]
 SIZES = [(1, 1), (1, 7), (9, 1), (2, 3), (3, 2), (4, 4), (5, 5), (6, 9), (17, 12), (33, 31)]
 
 
@@ -110,6 +116,20 @@ def _box_upsample(input_data, hf, vf):  # h2v1_upsample, h2v2_upsample
     return [[s for s in row for _ in range(hf)] for row in input_data for _ in range(vf)]
 
 
+def _int_upsample(input_data, h_expand, v_expand):
+    """int_upsample: each input sample repeated h_expand times across, each
+    row so made repeated v_expand times down (jcopy_sample_rows)."""
+    output_data = []
+    for inptr in input_data:
+        outptr = []
+        for invalue in inptr:
+            for _ in range(h_expand):
+                outptr.append(invalue)
+        for _ in range(v_expand):
+            output_data.append(list(outptr))
+    return output_data
+
+
 def _libjpeg_upsample(plane, hf, vf):
     """One component as jinit_upsampler sets it up (do_fancy_upsampling,
     full-scale IDCT), with jdmainct.c's context rows: the first row above
@@ -123,6 +143,8 @@ def _libjpeg_upsample(plane, hf, vf):
         return _h2v1_fancy_upsample(rows, width) if width > 2 else _box_upsample(rows, 2, 1)
     if (hf, vf) == (1, 2):
         return _h1v2_fancy_upsample(context, width)
+    if hf == 4:
+        return _int_upsample(rows, hf, vf)
     return (_h2v2_fancy_upsample(context, width) if width > 2
             else _box_upsample(rows, 2, 2))
 
@@ -226,7 +248,24 @@ def test_colour_conversion_of_pil_upsampled_planes_is_pils_rgb():
         rgb = image_io.ycc_to_rgb_reference(ycc[..., 0], ycc[..., 1], ycc[..., 2], (1, 1))
         np.testing.assert_array_equal(rgb.numpy(), ref[name], err_msg=name)
         n += 1
-    assert n == 4
+    assert n == 5
+
+
+@pytest.mark.skipif(Image is None, reason="PIL is the reference")
+def test_411_fixture_through_the_plain_version_is_pils_rgb():
+    """The 4:1:1 fixture: PIL's luma and its chroma taken back to one sample
+    in four (libjpeg-turbo's ``int_upsample`` replicated each) through the
+    plain version at 4 x 1 give PIL's RGB bit for bit."""
+    data = (JPEG_DIR / "rgb411_94x64.jpg").read_bytes()
+    assert image_io.jpeg_header(data)["sampling"] == [(4, 1), (1, 1), (1, 1)]
+    with Image.open(io.BytesIO(data)) as img:
+        img.draft("YCbCr", img.size)
+        ycc = torch.from_numpy(np.array(img))
+    cb, cr = ycc[:, ::4, 1].contiguous(), ycc[:, ::4, 2].contiguous()
+    assert cb.shape == (64, 24)
+    np.testing.assert_array_equal(
+        image_io.ycc_to_rgb_reference(ycc[..., 0], cb, cr, (4, 1)).numpy(),
+        np.load(JPEG_DIR / "pil_decodes.npz")["rgb411_94x64"])
 
 
 def _with_sampling(data: bytes, sampling) -> bytes:
@@ -245,8 +284,11 @@ def test_other_samplings_are_refused_by_name():
     assert image_io.chroma_factors([(2, 1), (1, 1), (1, 1)]) == (2, 1)
     assert image_io.chroma_factors([(1, 2), (1, 1), (1, 1)]) == (1, 2)
     assert image_io.chroma_factors([(2, 2), (2, 2), (2, 2)]) == (1, 1)
-    for sampling, name in (([(4, 1), (1, 1), (1, 1)], "4:1:1"),
-                           ([(4, 2), (1, 1), (1, 1)], "4:1:0"),
+    # 4:1:1 and 4:1:0 are decoded now, by libjpeg-turbo's int_upsample
+    assert image_io.chroma_factors([(4, 1), (1, 1), (1, 1)]) == (4, 1)
+    assert image_io.chroma_factors([(4, 2), (1, 1), (1, 1)]) == (4, 2)
+    for sampling, name in (([(1, 4), (1, 1), (1, 1)], "unusual"),
+                           ([(3, 1), (1, 1), (1, 1)], "unusual"),
                            ([(2, 2), (1, 1), (2, 1)], "unusual"),
                            ([(1, 1), (2, 2), (2, 2)], "unusual")):
         with pytest.raises(image_io.JpegDecodeError, match=name):
@@ -268,19 +310,59 @@ def test_other_samplings_are_refused_by_name():
             image_io.jpeg_header(bad)
 
 
+def bomb_jpeg(width=20000, height=20000) -> bytes:
+    """``rgb420_480x360.jpg`` with its frame header's size set to ``width``
+    x ``height`` (400,000,000 pixels by default)."""
+    data = (JPEG_DIR / "rgb420_480x360.jpg").read_bytes()
+    sof = data.index(b"\xff\xc0")
+    out = bytearray(data)
+    out[sof + 5 : sof + 9] = struct.pack(">HH", height, width)
+    return bytes(out)
+
+
+def test_bomb_sized_header_is_refused_before_the_binding(monkeypatch):
+    """A frame header of more than ``MAX_PIXELS`` pixels: PIL refuses it as a
+    decompression bomb, and so does the card's route, from the header,
+    before the binding is built or asked and before anything is allocated
+    (both stubbed here to fail the test); a header at the limit gets past
+    the check to the binding."""
+    header = image_io.jpeg_header((JPEG_DIR / "rgb420_480x360.jpg").read_bytes())
+    assert (header["width"], header["height"]) == (480, 360)
+    bomb = bomb_jpeg()
+    assert (image_io.jpeg_header(bomb)["width"], image_io.jpeg_header(bomb)["height"]) == (
+        20000, 20000)
+
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kwargs):
+        raise Reached
+
+    monkeypatch.setattr(image_io, "_lib", reached)
+    monkeypatch.setattr(torch, "empty", reached)
+    with pytest.raises(image_io.JpegInputError, match="decompression bomb"):
+        image_io.decode_jpeg_planes(bomb)
+    with pytest.raises(Reached):  # 65535 x 2730 = 178,910,550 pixels: not a bomb
+        image_io.decode_jpeg_planes(bomb_jpeg(65535, 2730))
+    assert 65535 * 2730 <= image_io.MAX_PIXELS < 65535 * 2731
+    if Image is not None:
+        with pytest.raises(Image.DecompressionBombError):
+            Image.open(io.BytesIO(bomb))
+        with pytest.raises(image_io.ImageInputError):
+            image_io.decode_rgb(bomb, "cpu")
+
+
 # ---- PNG --------------------------------------------------------------------------
 
-def _png(rows: np.ndarray, depth: int, colour: int, palette=None, interlace=0) -> bytes:
-    """A PNG of the packed scanlines ``rows`` ([h, stride] bytes), each
-    row filtered with the type ``row % 5``, so every filter is used."""
-    def chunk(kind, payload):
-        return (struct.pack(">I", len(payload)) + kind + payload
-                + struct.pack(">I", zlib.crc32(kind + payload)))
+def _chunk(kind, payload):
+    return struct.pack(">I", len(payload)) + kind + payload + struct.pack(
+        ">I", zlib.crc32(kind + payload))
 
+
+def _filtered(rows: np.ndarray, bpp: int) -> bytes:
+    """The packed scanlines ``rows`` ([h, stride] bytes), each row filtered
+    with the type ``row % 5``, so every filter is used."""
     h, stride = rows.shape
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
-    bpp = max(1, channels * depth // 8)
-    width = stride * 8 // (channels * depth)
     raw = bytearray()
     prev = np.zeros(stride, np.int32)
     for r in range(h):
@@ -296,17 +378,78 @@ def _png(rows: np.ndarray, depth: int, colour: int, palette=None, interlace=0) -
             pred = [0 * cur, left, prev, (left + prev) >> 1][kind]
         raw += bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
         prev = cur
-    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
-        ">IIBBBBB", width, h, depth, colour, 0, 0, interlace))
+    return bytes(raw)
+
+
+def _file(width, height, depth, colour, raw: bytes, palette=None, interlace=0) -> bytes:
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", width, height, depth, colour, 0, 0, interlace))
     if palette is not None:
-        out += chunk(b"PLTE", palette.tobytes())
-    return out + chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b"")
+        out += _chunk(b"PLTE", palette.tobytes())
+    return out + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
+
+
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _png(rows: np.ndarray, depth: int, colour: int, palette=None, interlace=0) -> bytes:
+    """A PNG of the packed scanlines ``rows`` ([h, stride] bytes), filtered
+    by ``_filtered``; ``interlace`` is only written in the header."""
+    h, stride = rows.shape
+    channels = CHANNELS[colour]
+    width = stride * 8 // (channels * depth)
+    raw = _filtered(rows, max(1, channels * depth // 8))
+    return _file(width, h, depth, colour, raw, palette, interlace)
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """Samples ``[h, w, channels]`` -> packed scanlines ``[h, stride]``:
+    sub-byte samples most significant bits first, the pad bits past the
+    last pixel 0; 16-bit samples big-endian."""
+    h = samples.shape[0]
+    if depth < 8:
+        bits = np.unpackbits(samples.astype(np.uint8).reshape(h, -1, 1), axis=-1)
+        return np.packbits(bits[..., 8 - depth:].reshape(h, -1), axis=1)
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    return samples.reshape(h, -1).astype(np.uint8)
+
+
+def _adam7_png(samples: np.ndarray, depth: int, colour: int, palette=None) -> bytes:
+    """An Adam7-interlaced PNG of ``samples`` ``[h, w, channels]``: each of
+    the 7 passes' pixels packed and filtered on their own, an empty pass
+    left out (PNG specification, section 8.2)."""
+    h, w, channels = samples.shape
+    bpp = max(1, channels * depth // 8)
+    raw = b""
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+                           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            raw += _filtered(_pack(sub, depth), bpp)
+    return _file(w, h, depth, colour, raw, palette, interlace=1)
+
+
+def _seeded_samples(colour, depth, w, h, rng):
+    """Samples of every value a depth takes; 16-bit gray half under 512, so
+    that PIL's clamp to 255 is not all that is seen."""
+    samples = rng.integers(0, 1 << depth, (h, w, CHANNELS[colour]), dtype=np.int64)
+    if depth == 16 and colour == 0:
+        samples[::2] %= 512
+    return samples.astype(np.uint16 if depth == 16 else np.uint8)
+
+
+def _pil_rgb(data: bytes) -> np.ndarray:
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("RGB"))
 
 
 PNG_CASES = {  # name: (colour type, bit depth, samples per pixel)
     "gray1": (0, 1, 1), "gray2": (0, 2, 1), "gray4": (0, 4, 1), "gray8": (0, 8, 1),
     "gray_alpha": (4, 8, 2), "rgb": (2, 8, 3), "rgba": (6, 8, 4),
     "palette1": (3, 1, 1), "palette2": (3, 2, 1), "palette4": (3, 4, 1), "palette8": (3, 8, 1),
+    "gray16": (0, 16, 1), "gray_alpha16": (4, 16, 2), "rgb16": (2, 16, 3),
+    "rgba16": (6, 16, 4),
 }
 
 
@@ -316,27 +459,37 @@ def test_png_matches_pil_with_every_filter(name):
     colour, depth, channels = PNG_CASES[name]
     rng = np.random.default_rng(len(name))
     for w, h in ((1, 1), (3, 7), (37, 11)):
-        stride = -(-w * channels * depth // 8)
-        # pad bits past the last pixel of a row stay 0, as an encoder writes them
-        samples = rng.integers(0, 1 << depth, (h, w * channels), dtype=np.uint8)
-        if depth < 8:
-            bits = np.unpackbits(samples[..., None], axis=-1)[..., 8 - depth:].reshape(h, -1)
-            rows = np.packbits(bits, axis=1)[:, :stride]
-        else:
-            rows = samples
+        samples = _seeded_samples(colour, depth, w, h, rng)
         palette = (rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8)
                    if colour == 3 else None)
-        data = _png(rows, depth, colour, palette)
-        with Image.open(io.BytesIO(data)) as img:
-            ref = np.asarray(img.convert("RGB"))
-        np.testing.assert_array_equal(decode_png(data), ref, err_msg=f"{name} {w}x{h}")
+        data = _png(_pack(samples, depth), depth, colour, palette)
+        np.testing.assert_array_equal(decode_png(data), _pil_rgb(data),
+                                      err_msg=f"{name} {w}x{h}")
+
+
+@pytest.mark.skipif(Image is None, reason="PIL is the reference")
+@pytest.mark.parametrize("name", sorted(PNG_CASES))
+def test_adam7_png_matches_pil(name):
+    """Adam7-interlaced PNGs of each colour type and bit depth, at sizes
+    where some passes are empty (1 x 1, 3 x 7) and none is (37 x 11)."""
+    colour, depth, channels = PNG_CASES[name]
+    rng = np.random.default_rng(100 + len(name))
+    for w, h in ((1, 1), (3, 7), (5, 2), (37, 11)):
+        samples = _seeded_samples(colour, depth, w, h, rng)
+        palette = (rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8)
+                   if colour == 3 else None)
+        data = _adam7_png(samples, depth, colour, palette)
+        np.testing.assert_array_equal(decode_png(data), _pil_rgb(data),
+                                      err_msg=f"{name} {w}x{h} interlaced")
 
 
 def test_png_fixtures_decode_as_pil_did():
     """The committed PNGs (PIL's own encoder: gray, gray+alpha, RGB, RGBA,
-    palette) against the PIL decodes committed beside them."""
+    palette; OpenCV's: 16-bit gray, RGB and RGBA) against the PIL decodes
+    committed beside them."""
     ref = np.load(PNG_DIR / "pil_decodes.npz")
-    assert sorted(ref.files) == ["gray", "gray_alpha", "palette", "rgb", "rgba"]
+    assert sorted(ref.files) == ["gray", "gray16", "gray_alpha", "palette", "rgb", "rgb16",
+                                 "rgba", "rgba16"]
     for name in ref.files:
         ours = decode_png((PNG_DIR / f"{name}.png").read_bytes())
         np.testing.assert_array_equal(ours, ref[name], err_msg=name)
@@ -355,7 +508,11 @@ def test_png_fixture_generator_makes_the_committed_files(tmp_path):
 
 def make_png_fixtures(out_dir, seed=11):
     """The committed PNG fixtures: a smooth 64 x 48 scene saved by PIL in
-    each mode, and PIL's RGB decodes of them in ``pil_decodes.npz``."""
+    each mode, and as 16-bit gray, RGB and RGBA by OpenCV (PIL writes no
+    16-bit colour PNG), and PIL's RGB decodes of them in
+    ``pil_decodes.npz``."""
+    import cv2
+
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -367,9 +524,15 @@ def make_png_fixtures(out_dir, seed=11):
               "rgb": Image.fromarray(rgba[..., :3], "RGB"),
               "rgba": Image.fromarray(rgba, "RGBA"),
               "palette": Image.fromarray(rgba[..., :3], "RGB").quantize(24, dither=0)}
-    decoded = {}
+    deep = (rgba.astype(np.uint16) * 257 + rng.integers(0, 257, rgba.shape)).astype(np.uint16)
+    deep[::2, :, 0] //= 160  # 16-bit gray: values under 256 too, where PIL does not clamp
     for name, img in images.items():
         img.save(out_dir / f"{name}.png", "PNG")
+    for name, arr in (("gray16", deep[..., 0]), ("rgb16", deep[..., 2::-1]),
+                      ("rgba16", deep[..., [2, 1, 0, 3]])):  # OpenCV writes BGR(A)
+        assert cv2.imwrite(str(out_dir / f"{name}.png"), np.ascontiguousarray(arr))
+    decoded = {}
+    for name in [*images, "gray16", "rgb16", "rgba16"]:
         with Image.open(out_dir / f"{name}.png") as back:
             decoded[name] = np.asarray(back.convert("RGB"))
     np.savez_compressed(out_dir / "pil_decodes.npz", **decoded)
@@ -378,10 +541,15 @@ def make_png_fixtures(out_dir, seed=11):
 
 def test_png_refusals():
     rows = np.zeros((2, 8), np.uint8)
-    with pytest.raises(PngDecodeError, match="16-bit"):
-        decode_png(_png(rows, 16, 0))
-    with pytest.raises(PngDecodeError, match="interlaced"):
-        decode_png(_png(rows, 8, 0, interlace=1))
+    # 16-bit samples and Adam7 are decoded now; a 16-bit palette and an
+    # interlace method other than Adam7 are not PNGs
+    np.testing.assert_array_equal(decode_png(_png(rows, 16, 0)), np.zeros((2, 4, 3)))
+    np.testing.assert_array_equal(decode_png(_adam7_png(np.zeros((2, 8, 1)), 8, 0)),
+                                  np.zeros((2, 8, 3)))
+    with pytest.raises(PngDecodeError, match="malformed PNG header"):
+        decode_png(_png(rows, 16, 3, np.zeros((4, 3), np.uint8)))
+    with pytest.raises(PngDecodeError, match="malformed PNG header"):
+        decode_png(_png(rows, 8, 0, interlace=2))
     with pytest.raises(PngDecodeError, match="not a PNG"):
         decode_png(b"GIF89a" + bytes(20))
     good = _png(rows, 8, 0)

@@ -18,7 +18,8 @@ with the JAX weights carried across by ``state_dict_from_jax``.
   and off; the twin of ``evaluation/retrieval_evaluation.py``'s ``main``
   against the JAX one;
 * the refusals: a mesh, several processes, ``--multihost``, a mesh on the
-  CLI, Orbax directories, the named video datasets, a 1-element tail.
+  CLI, Orbax directories, a 1-element tail; a named video dataset whose
+  root is absent raises what the JAX package raises.
 """
 
 import json
@@ -266,9 +267,16 @@ def test_retrieval_evaluation_refusals(cam_pair):
                                      device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         port_re.compute_recall(np.ones((2, 4)), np.ones((2, 4)), mesh=object(), device="cpu")
+    # a named dataset whose root is absent raises what vtc_tpu raises
+    module, variables, _ = cam_pair
+    roots = {"MSRVTT": {"root": "/absent/MSRVTT"}, "K700": {"kinetics_csv": "/absent.csv"}}
     for name in port_re.DATASETS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            port_re.retrieval_evaluation(model, name, "test", device="cpu")
+        split = "full-test" if name == "MSRVTT_videos" else "test"
+        with pytest.raises(Exception) as ref:
+            jax_re.retrieval_evaluation(module, variables, name, split, data_roots=roots)
+        with pytest.raises(type(ref.value)):
+            port_re.retrieval_evaluation(model, name, split, device="cpu", data_roots=roots)
+        assert type(ref.value) in (FileNotFoundError, TypeError), (name, ref.value)
     with pytest.raises(ValueError, match="Unknown dataset"):
         port_re.retrieval_evaluation(model, "nope", "test", device="cpu")
     with pytest.raises(ValueError, match="the model is on cpu"):

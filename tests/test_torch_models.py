@@ -342,7 +342,8 @@ def test_port_imports_no_jax():
     assert {f"vtc_tpu_torch/{m}.py" for m in (
         "evaluation/retrieval_eval", "evaluation/eval", "evaluation/retrieval_evaluation",
         "serving/server", "scripts/serve", "scripts/get_clip_vit_embeddings",
-        "scripts/bench_serving", "data/png", "data/image_io")} <= walked
+        "scripts/bench_serving", "data/png", "data/image_io", "data/video",
+        "data/video_retrieval", "scripts/bench_video_pipeline")} <= walked
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu", "pandas", "regex")
     pil_imports = []
     for f in files:

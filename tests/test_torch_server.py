@@ -272,6 +272,23 @@ def test_card_route_decode_faults_are_the_servers(servers, monkeypatch, caplog, 
         assert got[0] == 400 and said in got[1]["error"], got
 
 
+def test_bomb_sized_jpeg_is_a_400_before_the_binding(servers, monkeypatch):
+    """A JPEG whose frame header claims 20000 x 20000 pixels gets a 400 on
+    the card's route, refused from the header: the binding (stubbed to fail
+    the request with a 500 if asked) is never built or called."""
+    from vtc_tpu_torch.data import image_io
+
+    _, server = servers
+    monkeypatch.setattr(image_io, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(image_io._build, "load_library", _fail_to_load)
+    data = bytearray((REPO / "tests/data/jpeg/rgb420_480x360.jpg").read_bytes())
+    sof = data.index(b"\xff\xc0")
+    data[sof + 5 : sof + 9] = (20000).to_bytes(2, "big") * 2
+    got = _post(server.port, "/search/image",
+                {"images_b64": [base64.b64encode(bytes(data)).decode()]})
+    assert got[0] == 400 and "decompression bomb" in got[1]["error"], got
+
+
 def test_server_on_the_card_route_needs_a_card(monkeypatch):
     """Without a card the service's default device raises; nothing falls
     back to the CPU or to PIL."""

@@ -103,3 +103,23 @@ def test_index_save_load_and_errors(tmp_path):
     loaded = RetrievalIndex.load(tmp_path / "idx.npz", device="cpu")
     # load normalizes the saved (normalized) rows again: within an fp32 ulp
     _same(loaded.search(emb[:3], k=3), index.search(emb[:3], k=3))
+
+
+@pytest.mark.parametrize("k", [1, 4, 6, 10, 32])
+def test_ties_rank_as_lax_top_k(k):
+    """A gallery of duplicated rows (8 seeded rows, each 4 times, ids 1000+):
+    the ids and their order equal ``vtc_tpu``'s, whose ``lax.top_k`` puts
+    ties lower gallery row first, at a k inside and at the edge of a tie
+    group, and over the whole gallery."""
+    base = np.random.default_rng(0).standard_normal((8, 512)).astype(np.float32)
+    gallery = np.repeat(base, 4, axis=0)
+    ids = np.arange(1000, 1032)
+    jindex, index = JaxIndex(512), RetrievalIndex(512, device="cpu")
+    jindex.add(gallery, ids)
+    index.add(gallery, ids)
+    queries = base[:2]
+    _same(index.search(queries, k=k), jindex.search(queries, k=k))
+    if k == 6:  # the case the tie order used to change (ROADMAP, Queue 3 item 4)
+        np.testing.assert_array_equal(index.search(queries, k=6)[0],
+                                      [[1000, 1001, 1002, 1003, 1016, 1017],
+                                       [1004, 1005, 1006, 1007, 1020, 1021]])

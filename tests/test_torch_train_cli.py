@@ -16,11 +16,12 @@
   and validation loss within 1e-5 and the validation R@K equal over 2
   epochs (``test_trainer_matches_jax_trainer``'s tolerance); both write
   their epoch checkpoints.
-* The refusals: ``loader: grain``, ``multihost``, ``pp``, a video dataset
-  name, the MSRVTT probe with its root present, a mesh on a machine with
-  the devices; the unsharded warning on one without them.
+* The refusals: ``loader: grain``, ``multihost``, ``pp``, the R(2+1)D
+  video datasets, a mesh on a machine with the devices; the unsharded
+  warning on one without them; the MSRVTT probe off without its root.
 """
 
+import inspect
 import json
 import logging
 import sys
@@ -341,7 +342,7 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     ({"loader": "grain"}, "grain"),
     ({"pp": 2}, "distribution"),
     ({"sp": 2}, "distribution"),
-    ({"dataset": {"type": "VideoDatasetSegments", "args": {}}}, "Queue 1 item 3"),
+    ({"dataset": {"type": "VideoDatasetFirst32", "args": {}}}, "Queue 1 item 8"),
 ])
 def test_twin_refusals(tmp_path, extra, match):
     config = ConfigParser(_config(tmp_path, "x.csv", "x", **extra))
@@ -357,10 +358,14 @@ def test_twin_refuses_multihost(tmp_path):
 
 
 def test_msrvtt_probe_off_without_root_refused_with_it(tmp_path):
+    """Without the MSRVTT root no probe; with it the probe, a callable of the
+    trainer and the CAM branch (run against train.main in
+    tests/test_torch_video.py)."""
     assert twin._make_probe({"msrvtt_root": str(tmp_path / "absent")}) is None
     (tmp_path / "train_val_videodatainfo.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        twin._make_probe({"msrvtt_root": str(tmp_path)})
+    probe = twin._make_probe({"msrvtt_root": str(tmp_path)})
+    assert callable(probe)
+    assert list(inspect.signature(probe).parameters) == ["trainer", "branch_override"]
 
 
 def test_mesh_warns_without_the_devices_and_refuses_with_them(tmp_path, monkeypatch):

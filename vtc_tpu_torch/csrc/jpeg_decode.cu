@@ -30,14 +30,17 @@
 //   context rows) the edge sample stands in for the missing neighbour, which
 //   gives the edge columns' special cases of jdsample.c. A plane 2 samples
 //   wide or less is box-replicated where it is upsampled horizontally, as
-//   jinit_upsampler chooses (h2v1_upsample, h2v2_upsample);
+//   jinit_upsampler chooses (h2v1_upsample, h2v2_upsample), and so is 4:1:1
+//   and 4:1:0 chroma, upsampled 4 times across and 1 or 2 times down
+//   (int_upsample: each sample repeated over its 4 x vf box);
 // * YCbCr -> RGB with the integer tables of jdcolor.c (build_ycc_rgb_table,
 //   SCALEBITS 16), each result clamped to 0-255.
 //
-// The wrapper refuses other samplings (4:1:1, 4:1:0, a chroma plane sampled
-// above the luma) by name. The kernel computes the planes' padded width and
-// height only where the cropped image needs them: output pixel (x, y) reads
-// chroma column x >> (hf - 1), rows y >> (vf - 1) and its neighbour.
+// The wrapper refuses other samplings (Cb and Cr sampled apart, a chroma plane
+// sampled above the luma, factors such as 1 x 4) by name. The kernel computes
+// the planes' padded width and height only where the cropped image needs
+// them: output pixel (x, y) reads chroma column x / hf, rows y / vf and its
+// neighbour.
 //
 // Bound: it reads w*h + 2*cw*ch bytes and writes 3*w*h; at thumbnail sizes
 // (480 x 360: 0.86 MB) that is 0.26 us at 3.35 TB/s, so the launch and the
@@ -89,11 +92,13 @@ __device__ __forceinline__ int sample(const uint8_t* p, int pitch, int row, int 
 }
 
 // The chroma of output pixels (x0, y) and (x0 + 1, y), x0 even, from a plane
-// of cw x ch samples upsampled by hf x vf (each 1 or 2).
+// of cw x ch samples upsampled by hf x vf (hf 1, 2 or 4, vf 1 or 2).
 __device__ __forceinline__ void upsample_pair(const uint8_t* p, int pitch, int cw, int ch,
                                               int hf, int vf, int x0, int y, int out[2]) {
-  if (hf == 2 && cw <= 2) {  // h2v1_upsample, h2v2_upsample: box replication
-    out[0] = out[1] = sample(p, pitch, vf == 2 ? y >> 1 : y, x0 >> 1);
+  if (hf == 4 || (hf == 2 && cw <= 2)) {
+    // int_upsample, h2v1_upsample, h2v2_upsample: box replication; x0 is
+    // even, so both pixels lie in one box
+    out[0] = out[1] = sample(p, pitch, y / vf, x0 / hf);
     return;
   }
   if (hf == 1) {

@@ -1,20 +1,17 @@
 """The port's data layer: the datasets (found by name by
 ``config.init_obj('dataset', data)``), the CSV table, splits and comment
-sampling, the CLIP BPE, image reading and preprocessing, the loader and its
-copy to the card."""
+sampling, the CLIP BPE, image and video reading and preprocessing, the
+loader and its copy to the card."""
 
 from .datasets import (
     FeaturesDataset,
     ImTextDataset,
-    VideoDatasetActivityNet,
     VideoDatasetFirst32,
     VideoDatasetFirst1800,
-    VideoDatasetK700Comments,
     VideoDatasetLivebot,
-    VideoDatasetMSRVTT,
-    VideoDatasetMSVD,
     VideoDatasetReddit,
     VideoDatasetSegments,
+    clip_preprocess_batch,
 )
 from .image_io import JpegDecodeError, decode_rgb, read_rgb
 from .loader import DataLoader, default_collate, prefetch_to_device
@@ -29,11 +26,25 @@ from .preprocess import (
     CLIP_MEAN,
     CLIP_STD,
     clip_preprocess,
+    clip_preprocess_frames,
     clip_resize_uint8,
     extract_patches,
     normalize_uint8_images,
 )
 from .table import Table, read_csv
+from .video import (
+    linspace_subsample,
+    read_segment_with_fallbacks,
+    read_video_full,
+    read_video_segment,
+    video_duration_sec,
+)
+from .video_retrieval import (
+    VideoDatasetActivityNet,
+    VideoDatasetK700Comments,
+    VideoDatasetMSRVTT,
+    VideoDatasetMSVD,
+)
 from .tokenizer import (
     EOT_ID,
     SOT_ID,
@@ -49,9 +60,11 @@ __all__ = [
     "VideoDatasetActivityNet", "VideoDatasetFirst32", "VideoDatasetFirst1800",
     "VideoDatasetK700Comments", "VideoDatasetLivebot", "VideoDatasetMSRVTT",
     "VideoDatasetMSVD", "VideoDatasetReddit", "VideoDatasetSegments",
-    "clip_preprocess", "clip_resize_uint8", "decode_rgb", "default_collate",
-    "extract_patches",
-    "filter_by_k_comments", "get_tokenizer", "load_features", "normalize_uint8_images",
-    "partition_dataframe", "prefetch_to_device", "preprocess_comments", "read_csv",
-    "read_rgb", "synthetic_tokens", "tokenize", "tokenize_max_len",
+    "clip_preprocess", "clip_preprocess_batch", "clip_preprocess_frames",
+    "clip_resize_uint8", "decode_rgb", "default_collate", "extract_patches",
+    "filter_by_k_comments", "get_tokenizer", "linspace_subsample", "load_features",
+    "normalize_uint8_images", "partition_dataframe", "prefetch_to_device",
+    "preprocess_comments", "read_csv", "read_rgb", "read_segment_with_fallbacks",
+    "read_video_full", "read_video_segment", "synthetic_tokens", "tokenize",
+    "tokenize_max_len", "video_duration_sec",
 ]

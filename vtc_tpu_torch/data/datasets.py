@@ -1,24 +1,29 @@
-"""The image datasets of the VTC corpus: ``ImTextDataset`` (thumbnails,
-titles, comments) and ``FeaturesDataset`` (cached embeddings).
+"""The datasets of the VTC corpus: ``VideoDatasetSegments`` (random
+8-frame segments, titles, comments; the kinetics and howto100m training
+mixes), ``ImTextDataset`` (thumbnails), ``FeaturesDataset`` (cached
+embeddings), and the test sets ``VideoDatasetReddit`` and
+``VideoDatasetLivebot``.
 
-The port's own copy of ``vtc_tpu/data/datasets.py:54-131,446-625``, on
-``table.read_csv`` in place of pandas and ``image_io.read_rgb`` in place of
-PIL: the base's split, tokenization with the RAKE fallback, comment
-preprocessing and reddit loader, then the two datasets with every argument.
-Items are numpy arrays on the host, as in the JAX package; the trainer puts
-batches on the card (``loader.prefetch_to_device``). Randomness is one
-``np.random.Generator`` per dataset, seeded by ``seed``, drawn in the JAX
-package's order.
+The port's own copy of ``vtc_tpu/data/datasets.py``, on ``table.read_csv``
+in place of pandas, ``image_io.read_rgb`` in place of PIL, the port's
+OpenCV route (``video.py``) for video and its PIL-exact resampler
+(``resample.py``) for ``clip_preprocess_batch``. Items are numpy arrays on
+the host, as in the JAX package; the trainer puts batches on the card
+(``loader.prefetch_to_device``). Randomness is one ``np.random.Generator``
+per dataset, seeded by ``seed``, drawn in the JAX package's order.
 
-The video datasets (``VideoDatasetSegments`` and the rest) wait for the
-port of ``video.py``, ``video_retrieval.py`` and the libav decoder: their
-names raise ``NotImplementedError`` (ROADMAP Queue 1 item 3).
+``VideoDatasetFirst32`` and ``VideoDatasetFirst1800`` come with the R(2+1)D
+tower they feed (ROADMAP: Queue 1 item 8); their names raise
+``NotImplementedError``. The transfer-evaluation datasets are in
+``video_retrieval.py``.
 """
 
 from __future__ import annotations
 
 import ast
+import json
 import logging
+import math
 import os
 from typing import List
 
@@ -34,10 +39,20 @@ from .partition import (
     sample_if_list,
     should_add_comments,
 )
-from .preprocess import augment_image, clip_preprocess, clip_resize_uint8, extract_patches
+from .preprocess import (
+    CLIP_MEAN,
+    CLIP_STD,
+    augment_frames,
+    augment_image,
+    clip_preprocess,
+    clip_resize_uint8,
+    extract_patches,
+)
 from .rake import Rake
+from .resample import resize
 from .table import Table, read_csv
-from .tokenizer import get_tokenizer
+from .tokenizer import get_tokenizer, tokenize_max_len
+from .video import FALLBACK_SHAPE, read_segment_with_fallbacks, read_video_full
 
 _logger = logging.getLogger(__name__)
 
@@ -109,6 +124,170 @@ class VisionTitleCommentDatasetBase:
         self.comments.extend(ast.literal_eval(c) for c in df.comments.tolist())
         _logger.info("%d reddit videos", len(self.ids))
         return df
+
+
+    def _append_mix_rows(self, df: Table, root, title_col: str, desc_col: str) -> int:
+        """The kinetics/howto100m training mixes: every row whose video is
+        on disk joins the corpus with id -1 (not reddit), its JSON
+        comments, and its description's sentences over 60 characters as
+        comments too."""
+        kept = 0
+        for row in df.rows():
+            path = os.path.join(root, row["video_path"])
+            if not os.path.exists(path):
+                continue
+            comms = [] if _isna(row["comments"]) else json.loads(row["comments"])
+            desc = row[desc_col]
+            if not _isna(desc):
+                comms += [s.strip() for s in desc.split(".") if len(s) > 60]
+            self.filenames.append(path)
+            self.ids.append(-1)
+            self.titles.append(row[title_col])
+            self.video_lengths.append(row["video_length"])
+            self.comments.append(comms)
+            kept += 1
+        return kept
+
+    def _load_kinetics(self, df: Table):
+        # train rows only: k700-train, k400-train or unknown, a /train/ path
+        in_train = [k700 == "train" and (k400 == "train" or _isna(k400)) and "/train/" in path
+                    for k700, k400, path in zip(df.split_k700.tolist(), df.split_k400.tolist(),
+                                                df.video_path.tolist())]
+        n = self._append_mix_rows(df.filter(in_train), self.kinetics_root, "title_en",
+                                  "description_en")
+        _logger.info("kinetics mix: %d videos", n)
+
+    def _load_howto100m(self, df: Table):
+        n = self._append_mix_rows(df, self.howto100m_root, "title", "description")
+        _logger.info("howto100m mix: %d videos", n)
+
+    def _read_video(self, idx) -> np.ndarray:
+        vid = read_segment_with_fallbacks(
+            self.filenames[idx],
+            video_length=self.video_lengths[idx],
+            nframes=self.nframes,
+            frame_strides=self.frame_strides,
+            reference_fps=self.reference_fps,
+            is_reddit=self.ids[idx] != -1,
+            train=self.train,
+            resize_width=self.video_read_width,
+            resize_height=self.video_read_height,
+            rng=self.rng,
+        )
+        if self.train:
+            vid = augment_frames(vid, self.rng)
+        return vid
+
+
+def _isna(value) -> bool:
+    """A field that pandas reads as missing (``read_csv`` gives it NaN)."""
+    return isinstance(value, float) and math.isnan(value)
+
+
+class VideoDatasetSegments(VisionTitleCommentDatasetBase):
+    """Random augmented 8-frame segments, titles and comments
+    (``dataset_loaders.py:440-566``); ``first_frame_only`` gives the first
+    frame alone. ``device`` is taken for a common signature with
+    ``ImTextDataset`` and not used: video decodes on the host."""
+
+    def __init__(
+        self,
+        csv_file,
+        root,
+        train=True,
+        test=False,
+        add_comments="train_only",
+        num_comms=2,
+        comment_sampling="random",
+        use_kinetics_train=None,
+        kinetics_csv=None,
+        kinetics_root=None,
+        use_howto100m_train=None,
+        howto100m_csv=None,
+        howto100m_root=None,
+        first_frame_only=False,
+        test_on_over_k_comms=None,
+        test_set_limit=None,
+        seed=0,
+        device=None,
+    ):
+        self.train = train
+        self.root = root
+        self.kinetics_root = kinetics_root
+        self.howto100m_root = howto100m_root
+        self.num_comms = num_comms
+        self.comment_sampling = comment_sampling if train else None
+        self.first_frame_only = first_frame_only
+        self.rng = np.random.default_rng(seed)
+        self.rake = Rake()
+
+        self.add_comments = self.should_add_comments(add_comments, train)
+
+        self.video_read_height = 300
+        self.video_read_width = 0
+        self.nframes = 8
+        self.reference_fps = 30
+        self.frame_strides = (4, 8, 16, 32) if train else (16,)
+
+        self.ids: List = []
+        self.filenames: List[str] = []
+        self.titles: List[str] = []
+        self.video_lengths: List[float] = []
+        self.comments: List = []
+
+        use_reddit = (not train) or (
+            use_kinetics_train != "only" and use_howto100m_train != "only")
+        use_kinetics = train and use_kinetics_train in ("combine", "only")
+        use_howto100m = train and use_howto100m_train in ("combine", "only")
+        assert not (use_kinetics_train == "only" and use_howto100m_train == "only")
+
+        if use_reddit:
+            df = self.split_dataset(
+                csv_file, read_csv(csv_file), train, test,
+                test_on_over_k_comms=test_on_over_k_comms, test_set_limit=test_set_limit)
+            self._load_reddit(df)
+        if use_kinetics:
+            self._load_kinetics(read_csv(kinetics_csv))
+        if use_howto100m:
+            self._load_howto100m(read_csv(howto100m_csv))
+
+    def __getitem__(self, idx):
+        title = self.titles[idx]
+        comments = self.comments[idx]
+
+        vid = clip_preprocess_batch(self._read_video(idx))
+        if self.first_frame_only:
+            vid = vid[0]
+
+        title_tok = self._tokenise([title])[0]
+        if self.add_comments:
+            comments = self.preprocess_comments(
+                comments, sampling=self.comment_sampling, num_comms=self.num_comms)
+            comments_tok = self._tokenise(comments)
+        else:
+            comments_tok = self._tokenise([""])
+        return vid, title_tok, comments_tok, {"id": self.ids[idx]}
+
+
+def clip_preprocess_batch(frames: np.ndarray, size: int = 224) -> np.ndarray:
+    """uint8 ``[t, h, w, 3]`` -> float32 ``[t, 3, size, size]``: the frames
+    resized together (PIL's bicubic, bit for bit, one thread per frame up to
+    the cores this process may use), then cropped and normalized as
+    ``clip_preprocess`` does each frame, so equal to
+    ``preprocess.clip_preprocess_frames``. (The JAX package's native stage
+    folds the normalization into one multiply and subtract, within 4.8e-7
+    of this.)"""
+    t, h, w, _ = frames.shape
+    if w <= h:
+        new_w, new_h = size, max(1, int(h * size / w))
+    else:
+        new_w, new_h = max(1, int(w * size / h)), size
+    threads = min(t, len(os.sched_getaffinity(0)) or 1)
+    resized = resize(np.ascontiguousarray(frames), new_w, new_h, "bicubic", threads)
+    top, left = (new_h - size) // 2, (new_w - size) // 2
+    arr = resized[:, top : top + size, left : left + size].astype(np.float32) / 255.0
+    return ((arr - CLIP_MEAN) / CLIP_STD).transpose(0, 3, 1, 2)
+
 
 
 class FeaturesDataset:
@@ -272,22 +451,104 @@ class ImTextDataset(VisionTitleCommentDatasetBase):
         return (*inputs, {"id": self.ids[idx]})
 
 
-def _waits_for_video(name: str):
+class VideoDatasetReddit(VideoDatasetSegments):
+    """The VTC test split: videos with 3 comments or more, at most 5,000
+    (``dataset_loaders.py:1049-1113``). Each item is the video's first 8
+    frames (decoding only those: the frames of a full decode cut to 8),
+    padded with black frames to 8."""
+
+    def __init__(
+        self,
+        root,
+        reddit_csv,
+        train=False,
+        split="test",
+        num_comms=5,
+        test_on_over_k_comms=3,
+        test_set_limit=5000,
+        comment_sampling=None,
+        first_frame_only=False,
+        seed=0,
+        device=None,
+    ):
+        assert train is False and split == "test"
+        super().__init__(
+            csv_file=reddit_csv,
+            root=root,
+            train=train,
+            test=True,
+            add_comments="always" if num_comms != 0 else "train_only",
+            num_comms=num_comms,
+            comment_sampling=comment_sampling,
+            first_frame_only=first_frame_only,
+            test_on_over_k_comms=test_on_over_k_comms,
+            test_set_limit=test_set_limit,
+            seed=seed,
+        )
+
+    def __getitem__(self, index):
+        vid = read_video_full(self.filenames[index], max_frames=8)
+        if vid.shape[0] == 0:
+            _logger.warning("Failed reading: %s", self.filenames[index])
+            vid = np.zeros(FALLBACK_SHAPE, np.uint8)
+
+        frames = clip_preprocess_batch(vid)
+        if frames.shape[0] != 8:
+            pad = np.zeros((8 - frames.shape[0],) + frames.shape[1:], np.float32)
+            frames = np.concatenate([frames, pad], axis=0)
+
+        title_tok = self._tokenise(self.titles[index])
+        pp_comments = self.preprocess_comments(
+            self.comments[index], sampling=self.comment_sampling, num_comms=self.num_comms)
+        comments_tok = self._tokenise(pp_comments)
+        return frames, title_tok, comments_tok, self.ids[index]
+
+
+class VideoDatasetLivebot:
+    """The translated Bilibili danmaku test set
+    (``dataset_loaders.py:1116-1174``): raw frames (None where the video
+    does not decode), which ``retrieval_eval`` preprocesses after its
+    stride, the title and the comments."""
+
+    def __init__(self, root, cvs_file, train=False, split="test", add_comments=True,
+                 device=None):
+        assert train is False and split == "test"
+        df = read_csv(cvs_file)
+        self.video_files = [os.path.join(root, v) for v in df.video_path.tolist()]
+        self.titles = df.title.tolist()
+        self.comments = [ast.literal_eval(c) for c in df.comments.tolist()]
+        self.add_comments = add_comments
+        _logger.info("%d comments test files", len(self.video_files))
+
+    def __len__(self):
+        return len(self.video_files)
+
+    def __getitem__(self, index):
+        vid = read_video_full(self.video_files[index])
+        if vid.shape[0] == 0:
+            _logger.warning("failed video: %s", self.video_files[index])
+            frames = None
+        else:
+            frames = vid
+
+        vid_id = self.video_files[index].split("/")[-1].split(".")[0]
+        title_tok = tokenize_max_len(self.titles[index])
+        if self.add_comments:
+            comments_tok = tokenize_max_len(self.comments[index])
+        else:
+            comments_tok = tokenize_max_len([""])
+        return frames, title_tok, comments_tok, vid_id
+
+
+def _waits_for_r2plus1d(name: str):
     def dataset(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} waits for the port of the video datasets (video.py, "
-            "video_retrieval.py and the libav decoder; ROADMAP: Queue 1 item 3)")
+            f"{name} feeds the R(2+1)D video tower, not ported yet (ROADMAP: Queue 1 "
+            "item 8, the rest of the model zoo)")
 
     dataset.__name__ = dataset.__qualname__ = name
     return dataset
 
 
-VideoDatasetSegments = _waits_for_video("VideoDatasetSegments")
-VideoDatasetFirst32 = _waits_for_video("VideoDatasetFirst32")
-VideoDatasetFirst1800 = _waits_for_video("VideoDatasetFirst1800")
-VideoDatasetReddit = _waits_for_video("VideoDatasetReddit")
-VideoDatasetLivebot = _waits_for_video("VideoDatasetLivebot")
-VideoDatasetMSRVTT = _waits_for_video("VideoDatasetMSRVTT")
-VideoDatasetMSVD = _waits_for_video("VideoDatasetMSVD")
-VideoDatasetActivityNet = _waits_for_video("VideoDatasetActivityNet")
-VideoDatasetK700Comments = _waits_for_video("VideoDatasetK700Comments")
+VideoDatasetFirst32 = _waits_for_r2plus1d("VideoDatasetFirst32")
+VideoDatasetFirst1800 = _waits_for_r2plus1d("VideoDatasetFirst1800")

@@ -11,11 +11,14 @@ one; nothing switches between them quietly:
   libjpeg-turbo does (its "fancy" upsampling and the integer tables of
   ``jdcolor.c``), so only nvJPEG's IDCT sets the pixels apart from PIL's.
   A grayscale JPEG is decoded as its luma plane and repeated into three
-  equal channels, as ``convert("RGB")`` does. What cannot be matched to PIL
-  (CMYK and YCCK; an Adobe RGB JPEG without a colour transform; a sampling
-  other than 4:4:4, 4:2:2, 4:2:0 and 4:4:0) or fails to decode raises
-  ``JpegDecodeError``, and no other decoder stands in. A PNG is decoded on
-  the host by ``png.decode_png``;
+  equal channels, as ``convert("RGB")`` does. 4:1:1 and 4:1:0 chroma is
+  box-replicated, as libjpeg-turbo's ``int_upsample`` does. What cannot be
+  matched to PIL (CMYK and YCCK; an Adobe RGB JPEG without a colour
+  transform; a sampling other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and
+  4:1:0) or fails to decode raises ``JpegDecodeError``, and no other
+  decoder stands in; an image of more than ``MAX_PIXELS`` pixels is refused
+  from its header, before anything is allocated, as PIL refuses it. A PNG
+  is decoded on the host by ``png.decode_png``;
 * the CPU (``device="cpu"``): PIL, imported in the function, as the JAX
   package does.
 
@@ -53,7 +56,13 @@ _SOF_MARKERS = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # jdcolor.c's build_ycc_rgb_table: FIX(x) = int(x * 2**16 + 0.5), ONE_HALF
 _CR_R, _CB_B, _CR_G, _CB_G, _HALF = 91881, 116130, 46802, 22554, 1 << 15
-_NAMED_SAMPLINGS = {(4, 1): "4:1:1", (4, 2): "4:1:0"}  # refused, by their names
+# the chroma's upsampling (hf, vf) of each sampling decoded: libjpeg-turbo's
+# fancy upsampling for factors of 1 and 2, int_upsample's box for 4:1:1, 4:1:0
+FACTORS = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2))
+# PIL refuses an image of more pixels as a decompression bomb (twice its
+# Image.MAX_IMAGE_PIXELS), at open; so do the port's JPEG and PNG decoders,
+# from the header, before they allocate anything
+MAX_PIXELS = 2 * 89_478_485
 
 _local = threading.local()  # each thread's decode stream
 
@@ -80,15 +89,16 @@ _INPUT_STATUSES = {3, 4, 10}
 
 
 def jpeg_header(data: bytes) -> dict:
-    """What the markers before the first scan say: ``components``,
-    ``sampling`` (each component's (horizontal, vertical) sampling
-    factors), ``subsampled`` (a component sampled otherwise than the
-    first), ``progressive`` (a SOF2 frame) and ``adobe_transform`` (the
-    APP14 "Adobe" segment's colour transform, None without one)."""
+    """What the markers before the first scan say: ``width``, ``height``
+    and ``components`` (the frame header's), ``sampling`` (each
+    component's (horizontal, vertical) sampling factors), ``subsampled`` (a
+    component sampled otherwise than the first), ``progressive`` (a SOF2
+    frame) and ``adobe_transform`` (the APP14 "Adobe" segment's colour
+    transform, None without one)."""
     if data[:2] != b"\xff\xd8":
         raise JpegInputError("not a JPEG (no SOI marker)")
-    info = {"components": None, "sampling": None, "subsampled": False, "progressive": False,
-            "adobe_transform": None}
+    info = {"width": None, "height": None, "components": None, "sampling": None,
+            "subsampled": False, "progressive": False, "adobe_transform": None}
     i = 2
     while i + 4 <= len(data):
         if data[i] != 0xFF:
@@ -108,6 +118,8 @@ def jpeg_header(data: bytes) -> dict:
             if len(seg) < 6 or len(seg) < 6 + 3 * seg[5]:
                 raise JpegInputError(f"corrupt JPEG: a truncated frame header ({len(seg)} "
                                      "bytes)")
+            info["height"] = int.from_bytes(seg[1:3], "big")
+            info["width"] = int.from_bytes(seg[3:5], "big")
             info["components"] = seg[5]
             info["sampling"] = [(b >> 4, b & 15) for b in seg[7 : 6 + 3 * seg[5] : 3]]
             if not all(1 <= f <= 4 for s in info["sampling"] for f in s):
@@ -125,23 +137,22 @@ def jpeg_header(data: bytes) -> dict:
 
 def chroma_factors(sampling, path="<bytes>") -> Tuple[int, int]:
     """``(hf, vf)``: how many times the chroma planes are upsampled across
-    and down, from the components' sampling factors. libjpeg-turbo's fancy
-    upsampling exists for factors of 1 and 2 with the luma sampled most;
-    anything else (4:1:1, 4:1:0, Cb and Cr sampled apart, a chroma plane
-    sampled above the luma) raises ``JpegInputError``."""
+    and down, from the components' sampling factors: one of ``FACTORS``,
+    with the luma sampled most and Cb and Cr alike. Anything else (Cb and
+    Cr sampled apart, a chroma plane sampled above the luma, factors such
+    as 1 x 4 or 3 x 1) raises ``JpegInputError``."""
     luma, cb, cr = sampling
     hmax = max(s[0] for s in sampling)
     vmax = max(s[1] for s in sampling)
     factors = None
     if cb == cr and luma == (hmax, vmax) and hmax % cb[0] == 0 and vmax % cb[1] == 0:
         factors = (hmax // cb[0], vmax // cb[1])
-        if max(factors) <= 2:
+        if factors in FACTORS:
             return factors
-    name = _NAMED_SAMPLINGS.get(factors, "unusual")
     raise JpegInputError(
-        f"{path}: a {name} JPEG (sampling factors {sampling}): the card's route upsamples "
-        "the chroma as libjpeg-turbo's fancy upsampling does, for 4:4:4, 4:2:2, 4:2:0 and "
-        "4:4:0 only")
+        f"{path}: an unusual JPEG (sampling factors {sampling}): the card's route upsamples "
+        "the chroma as libjpeg-turbo does for 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 "
+        "only")
 
 
 def _upsample_reference(plane: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
@@ -150,11 +161,12 @@ def _upsample_reference(plane: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
     ``h1v2_fancy_upsample`` (``jdsample.c``), the edge sample standing in
     for the missing neighbour at every border (``jdmainct.c``'s context rows
     at the top and bottom); a plane at most 2 samples wide that is upsampled
-    across is box-replicated (``h2v1_upsample``, ``h2v2_upsample``), as
-    ``jinit_upsampler`` chooses."""
+    across by 2, and a plane upsampled across by 4 (4:1:1, 4:1:0), are
+    box-replicated (``h2v1_upsample``, ``h2v2_upsample``, ``int_upsample``),
+    as ``jinit_upsampler`` chooses."""
     ch, cw = plane.shape
-    if hf == 2 and cw <= 2:
-        return plane.repeat_interleave(vf, 0).repeat_interleave(2, 1)
+    if hf == 4 or (hf == 2 and cw <= 2):
+        return plane.repeat_interleave(vf, 0).repeat_interleave(hf, 1)
 
     def interleave(a, b, dim):  # a, b, a, b ... along dim
         return torch.stack([a, b], dim + 1).flatten(dim, dim + 1)
@@ -243,7 +255,7 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         if t.device != y.device or t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1:
             raise ValueError(f"ycc_to_rgb: {name} must be a uint8 [rows, cols] plane with "
                              f"contiguous rows on {y.device}")
-    if (hf, vf) not in ((1, 1), (2, 1), (1, 2), (2, 2)) or cr.shape != cb.shape or (
+    if (hf, vf) not in FACTORS or cr.shape != cb.shape or (
             -(-w // hf), -(-h // vf)) != (cw, ch):
         raise ValueError(f"ycc_to_rgb: chroma {tuple(cb.shape)}/{tuple(cr.shape)} upsampled "
                          f"by {factors} does not make the luma {tuple(y.shape)}")
@@ -273,8 +285,13 @@ def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path=
     their own sizes and the chroma's upsampling ``(hf, vf)``, or the luma
     alone and None for a grayscale JPEG. The planes are allocated on, and
     decoded on, the calling thread's decode stream, and the call returns
-    when the decode has finished."""
+    when the decode has finished. An image of more than ``MAX_PIXELS``
+    pixels raises ``JpegInputError`` before the binding is called."""
     header = jpeg_header(data)
+    if header["width"] * header["height"] > MAX_PIXELS:
+        raise JpegInputError(
+            f"{path}: a {header['width']}x{header['height']} JPEG: over {MAX_PIXELS} pixels, "
+            "a decompression bomb")
     if header["components"] not in (1, 3):
         raise JpegInputError(
             f"{path}: a {header['components']}-component JPEG (CMYK or YCCK): nvJPEG "

@@ -52,6 +52,13 @@ def clip_preprocess(img: np.ndarray, size: int = 224) -> np.ndarray:
     return arr.transpose(2, 0, 1)
 
 
+def clip_preprocess_frames(frames: np.ndarray, size: int = 224) -> np.ndarray:
+    """uint8 ``[t, h, w, 3]`` -> float32 ``[t, 3, size, size]``:
+    ``clip_preprocess`` of each frame (the reference's frame loop,
+    ``dataset_loaders.py:540-541``)."""
+    return np.stack([clip_preprocess(frame, size) for frame in frames])
+
+
 def clip_resize_uint8(img: np.ndarray, size: int = 224) -> np.ndarray:
     """uint8 ``[h, w, 3]`` -> uint8 ``[size, size, 3]``: the host half of the
     uint8 input (normalized on the card by ``normalize_uint8_images``)."""

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data import preprocess
+from ..data.datasets import clip_preprocess_batch
 from ..data import tokenizer as tk
 from ..device import DISTRIBUTION, resolve_device
 from ..ops.retrieval import recall_at_k
@@ -123,16 +123,15 @@ def _bucket(n: int, minimum: int = 1) -> int:
 
 def _ensure_preprocessed(chunks: np.ndarray, image_size: int = 224) -> np.ndarray:
     """Raw uint8 ``[..., h, w, 3]`` frames get the CLIP transform here
-    (``data.preprocess.clip_preprocess``: PIL's bicubic resize, centre crop,
-    CLIP normalization), after stride and chunk selection; float CHW inputs
-    pass through unchanged."""
+    (``data.clip_preprocess_batch``: PIL's bicubic resize of every frame
+    on threads, centre crop, CLIP normalization), after stride and chunk
+    selection; float CHW inputs pass through unchanged."""
     arr = np.asarray(chunks)
     if arr.dtype != np.uint8 or arr.shape[-1] != 3:
         return arr
     lead = arr.shape[:-3]
-    flat = arr.reshape((-1,) + arr.shape[-3:])
-    out = np.stack([preprocess.clip_preprocess(frame, image_size) for frame in flat])
-    return out.reshape(lead + out.shape[1:])
+    flat = clip_preprocess_batch(arr.reshape((-1,) + arr.shape[-3:]), image_size)
+    return flat.reshape(lead + flat.shape[1:])
 
 
 def chunk_frames(frames: np.ndarray, frame_stride: int, nframes: int = NFRAMES) -> np.ndarray:

@@ -10,7 +10,7 @@ weights (``convert_weights``), seed 0; the queries are
 ``ClipRetrievalService`` over a ``RetrievalIndex`` on the card.
 
 * **encode + rank**: ``service.search_text`` on the token batch (the text
-  tower at the bucketed batch, the gallery product, ``torch.topk``, the
+  tower at the bucketed batch, the gallery product, its stable sort, the
   result's copy to the host), ``iters`` calls per window between two CUDA
   events, 3 windows after 3 warm-up calls; the median window's ms per
   batch and queries/s;

@@ -2,8 +2,11 @@
 service that encodes queries with the model towers and ranks them.
 
 Port of ``vtc_tpu/serving/index.py`` for one device. Ranking is
-normalize -> matmul -> isfinite mask -> ``torch.topk``: plain ops, as JAX's
-``_rank`` is XLA and not a Pallas kernel. The HTTP front end is
+normalize -> matmul -> isfinite mask -> a stable descending sort: plain
+ops, as JAX's ``_rank`` is XLA and not a Pallas kernel. The sort keeps
+``lax.top_k``'s order: descending score, ties lower gallery row first
+(``torch.topk`` leaves the order of ties open, and so which of a tie group
+at the k-th score come back). The HTTP front end is
 ``serving/server.py``; the mesh-sharded gallery waits for the port of
 distribution (ROADMAP: Queue 1 item 9).
 """
@@ -67,15 +70,17 @@ class RetrievalIndex:
 
     @torch.no_grad()
     def search(self, query_embeddings, k: int = 10):
-        """-> (ids [nq, k] numpy int64, scores [nq, k] numpy fp32)."""
+        """-> (ids [nq, k] numpy int64, scores [nq, k] numpy fp32), each
+        row by descending score, ties lower gallery row first."""
         self._materialize()
         if self._gallery is None:
             raise ValueError("index is empty")
         q = torch.as_tensor(query_embeddings, device=self.device).float()
         scores = l2_normalize(q) @ self._gallery.T
         scores = torch.where(torch.isfinite(scores), scores, float("-inf"))
-        top_scores, top_idx = torch.topk(scores, min(k, self._gallery.shape[0]))
-        return self._gallery_ids[top_idx.cpu().numpy()], top_scores.cpu().numpy()
+        ranked, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+        return (self._gallery_ids[order[:, :k].cpu().numpy()],
+                ranked[:, :k].cpu().numpy())
 
     def save(self, path) -> None:
         self._materialize()

@@ -23,6 +23,7 @@ import argparse
 import functools
 import os
 import random
+import time
 from typing import Optional
 
 import numpy as np
@@ -45,15 +46,31 @@ except ImportError:
 
 
 def _make_probe(config):
-    """The per-epoch MSRVTT probe stays off while its root is absent; with
-    the root present it needs the MSRVTT video dataset, not ported yet
-    (``evaluation.retrieval_eval`` is), so it raises before training."""
+    """The per-epoch MSRVTT full-val probe (``trainer/trainer.py:152-182``),
+    on when the MSRVTT root (``msrvtt_root``, default ``/data/MSRVTT``)
+    holds its metadata: R@10 video to text and text to video of
+    ``retrieval_evaluation`` on the trained model, each probe's R@10 and
+    seconds logged."""
     root = config.get("msrvtt_root", "/data/MSRVTT")
     if not os.path.exists(os.path.join(root, "train_val_videodatainfo.json")):
         return None
-    raise NotImplementedError(
-        f"the MSRVTT probe (root {root}) needs the MSRVTT video dataset, not ported yet "
-        "(ROADMAP: Queue 1 item 3, the video datasets)")
+
+    from .evaluation.retrieval_eval import retrieval_evaluation
+
+    def probe(trainer, branch_override=None):
+        tic = time.perf_counter()
+        trainer.model.eval()
+        table = retrieval_evaluation(trainer.model, "MSRVTT_videos", "full-val",
+                                     branch_override=branch_override,
+                                     data_roots={"MSRVTT": {"root": root}},
+                                     device=trainer.device)
+        vtt, ttv = table.to_numpy()[table.index.index("R@10")].tolist()
+        trainer.logger.info("MSRVTT probe (branch_override %s): R@10 video to text %.4f, "
+                            "text to video %.4f, %.3f s", branch_override, vtt, ttv,
+                            time.perf_counter() - tic)
+        return {"msrvtt_val_vtt": vtt, "msrvtt_val_ttv": ttv}
+
+    return probe
 
 
 def _check_mesh(config, device: torch.device, logger) -> None:
