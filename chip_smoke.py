@@ -121,7 +121,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     imported weights), with a finite loss each epoch, the monitor's key
     logged, ``checkpoint-epoch1/2.pth``, launches of ``(steps + validation
     batches) × (29, 26, 26)``, no call to a plain version, and steps/s
-    beside phase 14's. Phases 15-22 work in a temporary directory under
+    beside phase 14's. Phases 15-25 work in a temporary directory under
     ``saved/`` that the script removes;
 16. decode repair: each fixture through the card's route against PIL's
     decode, per channel, beside the readings of nvJPEG's own RGB output; the
@@ -180,7 +180,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     seeded 4:1:1 and 4:1:0 planes (the 4:1:1 fixture runs in phases 15
     and 16); serving's top-10 on a gallery of duplicated rows equals
     ``vtc_tpu``'s order (``TIES_EXPECTED``);
-23. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+23. the audio config: ``PretrainedCLIP_finaltf`` from the ``arch`` block
+    of ``configs/pretrained_clip_comments_attention_audio.jsonc`` (ViT-B/32,
+    the audio MLP: the CAM attends over 1 + 5 comments + 5 audio clips),
+    fp32 batch 8 with 5 seeded clip embeddings per item, card against CPU
+    at phase 4's limits, 29/26/26 launches, the clips moving the adapted
+    text; bf16 pairs/s at the config's batch of 50, with and without the
+    audio input; the ``train.py`` twin
+    on the config for an epoch over phase 15's corpus with a seeded
+    cached-audio file keyed by its ids (exact launches, the audio MLP's
+    BatchNorm updated 5 times a step); the ``get_audio_embeddings`` twin
+    over phase 20's mp4s (clips/s, the fallback count, whether PyAV
+    imports; no port kernel launched);
+24. the MoE config: ``configs/pretrained_clip_comments_attn_moe.jsonc``'s
+    model (frozen towers, 4 experts, top 2, the CAM moved off its
+    zero-init), fp32 batch 32 card against CPU: features at phase 4's
+    limits, each MoE layer's expert ids, queue positions and kept slots
+    equal, its load-balance loss within 1e-6, 29/26/26 launches; the bf16
+    train step (``bench_train_step``) at the config's batch of 128 with the
+    towers frozen, dense CAM and MoE CAM in turn: samples/s and peak
+    memory; the twin on the config for an epoch at batch 50;
+25. R(2+1)D-34 (``R2Plus1D_34_IG65M_32frames``) at 32 × 112², fp32 batch 4
+    card against CPU (1e-4 of the largest |feature|), bf16 cosine > 0.995
+    and clips/s at batch 32 with its peak memory; ``VideoDatasetFirst32``
+    (ig65m, seeded text features) and ``VideoDatasetFirst1800`` through
+    ``DataLoader`` over phase 20's validation mp4s (items/s), a First32
+    batch through the tower; GDT's ``AudioResNet9`` card against CPU on 40
+    seeded ``[1, 257, 199]`` spectrograms (1e-4 of the largest); none of
+    them launches a port kernel;
+26. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -1767,7 +1795,7 @@ def run_twin(ops, argv) -> dict:
 def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
     """Phase 15: decode, the loader's rate, CLIP weight import and the
     ``train.py`` twin through its CLI, in ``tmp`` (which ``main`` removes
-    after phase 22). Leaves ``VTC_CLIP_WEIGHTS`` naming the seeded CLIP file
+    after phase 25). Leaves ``VTC_CLIP_WEIGHTS`` naming the seeded CLIP file
     (``main`` restores it) and returns ``(csv path, media root)`` for the
     evaluation and serving phases."""
     from vtc_tpu_torch.models import create_model
@@ -2648,6 +2676,353 @@ def check_repairs(smi) -> None:
     require(ids.tolist() == TIES_EXPECTED, "serving ties: ids differ from vtc_tpu's order")
 
 
+# ---- phases 23-25: the rest of the model zoo ------------------------------------------
+
+AUDIO_CONFIG = "configs/pretrained_clip_comments_attention_audio.jsonc"
+MOE_CONFIG = "configs/pretrained_clip_comments_attn_moe.jsonc"
+AUDIO_FWD_BATCH, AUDIO_CLIPS = 8, 5
+# the configs' batches: the audio config's 50 (pairs/s), the MoE config's 128 (train)
+AUDIO_BENCH_BATCH, MOE_BENCH_BATCH = 50, 128
+# the MoE twin takes the flagship config's batch, so that the corpus's 100
+# validation rows make 2 batches (at 128 the validation loader has none)
+MOE_TWIN_BATCH = 50
+MOE_AUX_ATOL = 1e-6  # the load-balance loss, card vs CPU
+R21D_FWD_BATCH, R21D_BENCH_BATCH = 4, 32
+R21D_CLIP = (32, 112, 112)  # frames, height, width: the ig65m tower's input
+# R(2+1)D-34 and ResNet-9, fp32 card vs CPU: TF32 off (``resolve_device``), so
+# the convs differ only in their sums' order; held to 1e-4 of the largest
+# |feature|
+CONV_RTOL = 1e-4
+AUDIO_TOWER_VIDEOS = 8  # ResNet-9 card vs CPU: 8 × 5 spectrograms
+R21D_WARMUP, R21D_WINDOWS, R21D_PER_WINDOW = 3, 5, 2
+LOADER_BATCH, LOADER_WORKERS_R21D = 8, 8  # the R(2+1)D datasets through DataLoader
+NO_LAUNCHES = dict.fromkeys(EXPECTED_LAUNCHES, 0)
+
+
+def audio_inputs(batch: int, seed: int = 0):
+    """``bench_inputs`` and ``AUDIO_CLIPS`` seeded GDT clip embeddings per item."""
+    audio = np.random.default_rng(seed + 100).normal(size=(batch, AUDIO_CLIPS, 512))
+    return bench_inputs(batch, 32, seed) + [torch.from_numpy(audio.astype(np.float32))]
+
+
+def twin_epoch(ops, smi, what: str, argv, per_step: dict) -> dict:
+    """One epoch of the ``train.py`` twin through ``run_twin``: exact launches
+    of (steps + validation batches) × ``per_step``, no plain-version call, a
+    finite loss; steps/s printed. Returns ``run_twin``'s record."""
+    run = run_twin(ops, argv)
+    trainer, logs = run["trainer"], run["logs"]
+    steps, val = len(trainer.data_loader), len(trainer.valid_data_loader)
+    want = {k: (steps + val) * v for k, v in per_step.items()}
+    elog, ep_s, val_s = logs[0], run["seconds"]["epoch"][0], run["seconds"]["valid"][0]
+    log(f"{what} twin: loss {elog['loss']:.6f} val_loss {elog['val_loss']:.6f}; {steps} "
+        f"steps in {ep_s - val_s:.3f} s ({steps / (ep_s - val_s):.3f} steps/s), epoch "
+        f"{ep_s:.3f} s, {val} validation batches; launches {json.dumps(run['launches'])}; "
+        f"plain-version calls {run['plain_calls']}; on {smi}")
+    require(len(logs) == 1 and steps > 0 and val > 0, f"{what} twin: {len(logs)} epochs, "
+            f"{steps} steps, {val} validation batches")
+    require(run["launches"] == want, f"{what} twin launches {run['launches']} != {want}")
+    require(not run["plain_calls"], f"{what} twin called plain versions")
+    require(math.isfinite(elog["loss"]) and math.isfinite(elog["val_loss"]),
+            f"{what} twin: a non-finite loss")
+    return run
+
+
+def run_audio_config(ops, smi, tmp: Path, csv_path: Path, media: Path,
+                     video_csv: Path, video_media: Path) -> None:
+    """Phase 23: ``pretrained_clip_comments_attention_audio.jsonc``'s model
+    (ViT-B/32 + CAM + the audio MLP, L = 1 + 5 + 5 in the CAM) card vs CPU,
+    its launches and bf16 pairs/s; the ``train.py`` twin on it for an epoch
+    over phase 15's corpus with a seeded cached-audio file; the
+    ``get_audio_embeddings`` twin over phase 20's mp4s."""
+    from vtc_tpu_torch.audio.spectrogram import av_available
+    from vtc_tpu_torch.data.table import read_csv
+    from vtc_tpu_torch.models import convert_weights
+    from vtc_tpu_torch.scripts import get_audio_embeddings
+    from vtc_tpu_torch.utils import jsonc, write_json
+
+    tic = time.perf_counter()
+    model = model_from_config(AUDIO_CONFIG)
+    cpu_model = model_from_config(AUDIO_CONFIG, device="cpu")
+    require(model.init_audio_model and hasattr(model, "audio_model"),
+            "the audio config built no audio MLP")
+    inputs = audio_inputs(AUDIO_FWD_BATCH)
+    with torch.inference_mode():
+        model(*[t.cuda() for t in inputs])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        outs = model(*[t.cuda() for t in inputs])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        cpu_outs = cpu_model(*inputs)
+        no_audio = model(*[t.cuda() for t in inputs[:3]])
+    log(f"kernel use (audio config forward, CAM L = {1 + 5 + AUDIO_CLIPS}): "
+        f"{json.dumps(launches)}")
+    require(launches == EXPECTED_LAUNCHES, f"audio launches {launches} != {EXPECTED_LAUNCHES}")
+    compare_with_cpu("audio config", outs, cpu_outs, cpu_model.model.logit_scale.exp().item())
+    moved = (outs[1] - no_audio[1]).abs().max().item()
+    log(f"audio config: the audio clips move feats_text by {moved:.4g} (max |d|)")
+    require(moved > 1e-3, "the audio features do not reach the adapted text")
+    del model, cpu_model
+    bf16 = convert_weights(model_from_config(AUDIO_CONFIG, dtype="bf16"))
+    big = [t.cuda() for t in audio_inputs(AUDIO_BENCH_BATCH, seed=2)]
+    with torch.inference_mode():
+        # the same model without audio input (the flagship's path) beside it
+        for what, data in (("5 comments + 5 audio clips", big), ("no audio", big[:3])):
+            throughput(f"audio config bf16 batch {AUDIO_BENCH_BATCH} ({what})", bf16, data,
+                       AUDIO_BENCH_BATCH, VIDEO_WARMUP, VIDEO_WINDOWS, VIDEO_PER_WINDOW,
+                       "pairs/s", smi)
+    del bf16, big
+    torch.cuda.empty_cache()
+
+    # the train.py twin on the config with cached audio features keyed by the ids
+    ids = np.asarray(read_csv(csv_path).reddit_id, np.int64)
+    audio = tmp / "audio_features.npz"
+    np.savez(audio, reddit_ids=ids, embeddings=np.random.default_rng(3).normal(
+        size=(len(ids), AUDIO_CLIPS, 512)).astype(np.float32))
+    cfg = jsonc.read_json(Path(__file__).resolve().parent / AUDIO_CONFIG)
+    cfg["dataset"]["args"]["cached_audio_features"] = str(audio)
+    cfg_path = tmp / "audio_config.json"
+    write_json(cfg, cfg_path)
+    run = twin_epoch(ops, smi, "audio config", [
+        "-c", str(cfg_path), "--csv_file", str(csv_path), "--root", str(media),
+        "--epochs", "1", "--save_dir", str(tmp / "audio_run")], EXPECTED_LAUNCHES)
+    bn = run["trainer"].model.audio_model.mlp.layers[2]
+    steps = len(run["trainer"].data_loader)
+    log(f"audio MLP BatchNorm: {int(bn.num_batches_tracked)} updates over {steps} steps")
+    require(int(bn.num_batches_tracked) == AUDIO_CLIPS * steps,
+            "the audio MLP's BatchNorm did not update once per clip per step")
+    del run, bn
+    for ckpt in (tmp / "audio_run").rglob("*.pth"):
+        ckpt.unlink()
+    torch.cuda.empty_cache()
+
+    # the get_audio_embeddings twin over the video corpus's mp4s
+    n_videos = len(read_csv(video_csv))
+    # each fallback is logged; the script counts them, so quiet the log here
+    quiet = logging.getLogger("vtc_tpu_torch.audio.spectrogram")
+    quiet.setLevel(logging.ERROR)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb, falls = get_audio_embeddings.main([
+        "--csv", str(video_csv), "--root", str(video_media), "--out",
+        str(tmp / "audio_embeddings.npz"), "--batch_size", "50", "--num_workers", "8"])
+    seconds = time.perf_counter() - t0
+    quiet.setLevel(logging.NOTSET)
+    torch.cuda.synchronize()
+    log(f"get_audio_embeddings: {n_videos} videos, {n_videos * AUDIO_CLIPS} clips in "
+        f"{seconds:.3f} s ({n_videos * AUDIO_CLIPS / seconds:.1f} clips/s, ResNet-9 fp32 on "
+        f"the card, tower and host together); fallbacks {falls} (PyAV "
+        f"{'imports' if av_available() else 'does not import'} here; the corpus's mp4s "
+        f"carry no audio); launches {json.dumps(ops.launch_counts())}; on {smi}")
+    require(emb.shape == (n_videos, AUDIO_CLIPS, 512) and bool(np.isfinite(emb).all()),
+            f"audio embeddings {emb.shape} or non-finite")
+    saved = np.load(tmp / "audio_embeddings.npz")
+    require(np.array_equal(saved["reddit_ids"], np.asarray(read_csv(video_csv).reddit_id)),
+            "the embedding file's ids are not the CSV's")
+    require(ops.launch_counts() == NO_LAUNCHES, "the audio tower launched a port kernel")
+    log(f"phase 23 took {time.perf_counter() - tic:.1f} s")
+
+
+def moe_routing(model) -> tuple:
+    """Forward hooks on the model's ``MoEMLP`` layers recording each call's
+    routing (expert ids, queue positions, kept slots) and load-balance loss,
+    computed on the layer's device as its forward computes them."""
+    from vtc_tpu_torch.parallel.expert import moe_layers, route
+
+    records = []
+
+    def hook(layer, args, out):
+        x = args[0].reshape(-1, args[0].shape[-1])
+        probs = torch.softmax(x.float() @ layer.router.float(), dim=-1)
+        idx, _, pos, keep = route(probs, layer.top_k, layer.capacity(x.shape[0]))
+        records.append((idx.cpu(), pos.cpu(), keep.cpu(), float(layer.aux_loss)))
+
+    return records, [m.register_forward_hook(hook) for m in moe_layers(model)]
+
+
+def run_moe_config(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
+    """Phase 24: ``pretrained_clip_comments_attn_moe.jsonc``'s model (frozen
+    towers, a CAM of 4 experts, top 2) card vs CPU with its routing equal,
+    its launches, the bf16 train step's samples/s and peak memory beside the
+    dense CAM's with the same freeze, and the twin for an epoch."""
+    from vtc_tpu_torch.scripts import bench_train_step
+
+    tic = time.perf_counter()
+    model, cpu_model = model_from_config(MOE_CONFIG), model_from_config(MOE_CONFIG,
+                                                                       device="cpu")
+    inputs = bench_inputs(FWD_BATCH, 32)
+    routes = {}
+    with torch.inference_mode():
+        model(*[t.cuda() for t in inputs])
+        torch.cuda.synchronize()
+        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+            records, hooks = moe_routing(m)
+            data = [t.to(dev) for t in inputs]
+            if dev == "cuda":
+                ops.reset_launch_counts()
+                outs = m(*data)
+                torch.cuda.synchronize()
+                launches = ops.launch_counts()
+            else:
+                cpu_outs = m(*data)
+            for h in hooks:
+                h.remove()
+            routes[dev] = records
+    log(f"kernel use (MoE config forward): {json.dumps(launches)}")
+    require(launches == EXPECTED_LAUNCHES, f"MoE launches {launches} != {EXPECTED_LAUNCHES}")
+    compare_with_cpu("MoE config", outs, cpu_outs, cpu_model.model.logit_scale.exp().item())
+    require(len(routes["cuda"]) == len(routes["cpu"]) == 2, "not 2 MoE layers")
+    for i, ((idx, pos, keep, aux), (idx_c, pos_c, keep_c, aux_c)) in enumerate(
+            zip(routes["cuda"], routes["cpu"])):
+        same = (torch.equal(idx, idx_c), torch.equal(pos, pos_c), torch.equal(keep, keep_c))
+        log(f"MoE layer {i}: {idx.shape[0]} tokens, capacity "
+            f"{model.final_transformer.resblocks[i].mlp_moe.capacity(idx.shape[0])}, kept "
+            f"slots {int(keep.sum())} of {keep.numel()}; expert ids, positions, kept slots "
+            f"equal the CPU's {same}; aux card {aux:.7f} CPU {aux_c:.7f} (|d| "
+            f"{abs(aux - aux_c):.3g}, atol {MOE_AUX_ATOL})")
+        require(all(same), f"MoE layer {i}: the card routes otherwise than the CPU")
+        require(abs(aux - aux_c) <= MOE_AUX_ATOL, f"MoE layer {i}: aux differs")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    rates = {}
+    for what, kwargs in (("dense CAM", {"freeze": "all"}),
+                         ("MoE CAM", {"freeze": "all", "moe_experts": 4, "moe_top_k": 2})):
+        torch.cuda.reset_peak_memory_stats()
+        res = bench_train_step.main(batch=MOE_BENCH_BATCH, model_kwargs=kwargs)
+        peak = torch.cuda.max_memory_allocated()
+        require(all(math.isfinite(x) for x in res["losses"]), f"{what}: a non-finite loss")
+        rates[what] = res["samples_per_s"]
+        log(f"train throughput bf16, towers frozen, {what}: {res['samples_per_s']:.1f} "
+            f"samples/s at batch {MOE_BENCH_BATCH}, windows "
+            f"{['%.1f' % r for r in res['window_rates']]}; peak memory allocated "
+            f"{peak / 2**30:.3f} GiB; on {smi}")
+        del res
+        torch.cuda.empty_cache()
+    log(f"train throughput bf16, towers frozen: MoE / dense "
+        f"{rates['MoE CAM'] / rates['dense CAM']:.4f}")
+
+    root = Path(__file__).resolve().parent
+    run = twin_epoch(ops, smi, "MoE config", [
+        "-c", str(root / MOE_CONFIG), "--csv_file", str(csv_path), "--root", str(media),
+        "--epochs", "1", "--bs", str(MOE_TWIN_BATCH), "--save_dir", str(tmp / "moe_run")],
+        EXPECTED_LAUNCHES)
+    require(run["trainer"].moe_aux_loss_weight == 0.01, "the config's aux weight is lost")
+    del run
+    for ckpt in (tmp / "moe_run").rglob("*.pth"):
+        ckpt.unlink()
+    torch.cuda.empty_cache()
+    log(f"phase 24 took {time.perf_counter() - tic:.1f} s")
+
+
+def conv_check(what: str, ours: torch.Tensor, ref: torch.Tensor) -> None:
+    scale = ref.abs().max().item()
+    err = (ours.float().cpu() - ref).abs().max().item()
+    log(f"{what} fp32 {tuple(ours.shape)}: max_abs_err vs CPU {err:.4g}, largest |feature| "
+        f"{scale:.4g} (atol {CONV_RTOL * scale:.4g})")
+    require(ours.shape == ref.shape and bool(torch.isfinite(ours).all()),
+            f"{what}: shape or non-finite values")
+    require(err <= CONV_RTOL * scale, f"{what} differs from the CPU run by {err}")
+
+
+def run_r2plus1d(ops, smi, tmp: Path, video_csv: Path, video_media: Path) -> None:
+    """Phase 25: R(2+1)D-34 at 32 × 112² card vs CPU (fp32, batch 4), its
+    bf16 clips/s at batch 32 with peak memory; ``VideoDatasetFirst32``/
+    ``First1800`` through ``DataLoader`` over phase 20's mp4s, a First32
+    batch through the tower; ``AudioResNet9`` card vs CPU on 8 × 5 seeded
+    spectrograms. None launches a port kernel."""
+    from vtc_tpu_torch.audio import AudioResNet9
+    from vtc_tpu_torch.data import DataLoader, datasets
+    from vtc_tpu_torch.data.table import read_csv
+    from vtc_tpu_torch.models import convert_weights, create_model
+    from vtc_tpu_torch.models.factory import init_plain
+
+    tic = time.perf_counter()
+    arch = "R2Plus1D_34_IG65M_32frames"
+    model, cpu_model = create_model(arch, seed=0), create_model(arch, seed=0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(R21D_FWD_BATCH, 3) + R21D_CLIP).astype(np.float32))
+    with torch.inference_mode():
+        model(x.cuda())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        feats = model(x.cuda())
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        t0 = time.perf_counter()
+        ref = cpu_model(x)
+        cpu_s = time.perf_counter() - t0
+    log(f"R(2+1)D-34 CPU forward of {R21D_FWD_BATCH} clips: {cpu_s:.1f} s")
+    conv_check(f"R(2+1)D-34 {R21D_CLIP}", feats, ref)
+    require(launches == NO_LAUNCHES, f"R(2+1)D launched port kernels: {launches}")
+    del cpu_model
+    bf16 = convert_weights(create_model(arch, seed=0, dtype="bf16"))
+    with torch.inference_mode():
+        out16 = bf16(x.cuda()).float()
+        cos = torch.nn.functional.cosine_similarity(out16, feats, dim=-1).min().item()
+        log(f"R(2+1)D-34 bf16: min cosine vs fp32 {cos:.6f} (> {COS_MIN})")
+        require(cos > COS_MIN, f"R(2+1)D bf16 cosine {cos}")
+        big = torch.from_numpy(np.random.default_rng(6).normal(
+            size=(R21D_BENCH_BATCH, 3) + R21D_CLIP).astype(np.float32)).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        throughput(f"R(2+1)D-34 bf16 batch {R21D_BENCH_BATCH} at {R21D_CLIP}", bf16, [big],
+                   R21D_BENCH_BATCH, R21D_WARMUP, R21D_WINDOWS, R21D_PER_WINDOW, "clips/s",
+                   smi)
+        log(f"R(2+1)D-34 bf16 batch {R21D_BENCH_BATCH}: peak memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del bf16, big
+    torch.cuda.empty_cache()
+
+    # the R(2+1)D datasets over the video corpus, through DataLoader
+    ids = np.asarray(read_csv(video_csv).reddit_id, np.int64)
+    text = tmp / "r21d_text.npz"
+    np.savez(text, reddit_ids=ids, embeddings=np.random.default_rng(7).normal(
+        size=(len(ids), 512)).astype(np.float32))
+    for name, ds in (
+            ("VideoDatasetFirst32", datasets.VideoDatasetFirst32(
+                str(video_csv), str(video_media), text_features=str(text), train=False)),
+            ("VideoDatasetFirst1800", datasets.VideoDatasetFirst1800(
+                str(video_csv), str(video_media), train=False))):
+        loader = DataLoader(ds, batch_size=LOADER_BATCH, num_workers=LOADER_WORKERS_R21D)
+        t0 = time.perf_counter()
+        n, first = 0, None
+        for batch in loader:
+            n += batch[0].shape[0]
+            first = batch if first is None else first
+        seconds = time.perf_counter() - t0
+        log(f"{name} through DataLoader ({LOADER_WORKERS_R21D} workers, batch "
+            f"{LOADER_BATCH}): {n} items in {seconds:.3f} s ({n / seconds:.2f} items/s), "
+            f"video {tuple(first[0].shape)}")
+        require(n == len(ds) > 0 and bool(np.isfinite(first[0]).all()),
+                f"{name}: {n} items of {len(ds)}")
+        if name == "VideoDatasetFirst32":
+            require(tuple(first[0].shape[1:]) == (3, 32, 128, 171), "First32's shape")
+            with torch.inference_mode():
+                out = model(torch.as_tensor(first[0]).cuda())
+            require(out.shape == (LOADER_BATCH, 512) and bool(torch.isfinite(out).all()),
+                    "R(2+1)D on a First32 batch")
+        else:
+            require(tuple(first[0].shape[1:]) == (3, 90, 112, 112), "First1800's shape")
+    del model
+    torch.cuda.empty_cache()
+
+    # GDT's ResNet-9 audio tower, card vs CPU
+    tower = AudioResNet9()
+    init_plain(tower, torch.Generator().manual_seed(0))
+    cpu_tower = copy.deepcopy(tower).eval()
+    tower = tower.cuda().eval()
+    spec = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(AUDIO_TOWER_VIDEOS * AUDIO_CLIPS, 1, 257, 199)).astype(np.float32))
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out = tower(spec.cuda())
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        conv_check("AudioResNet9 [40, 1, 257, 199]", out, cpu_tower(spec))
+    require(launches == NO_LAUNCHES, f"ResNet-9 launched port kernels: {launches}")
+    log(f"phase 25 took {time.perf_counter() - tic:.1f} s")
+
+
 def main() -> int:
     # wandb, where installed, stays off: nothing here may reach the network
     os.environ["WANDB_MODE"] = "disabled"
@@ -2803,7 +3178,7 @@ def main() -> int:
     # 14. the Trainer: epochs, validation, checkpoints, resume
     trainer_rates = run_trainer(ops, smi)
 
-    # 15-22 share one temporary directory under saved/, removed at the end
+    # 15-25 share one temporary directory under saved/, removed at the end
     import shutil
     import tempfile
 
@@ -2835,6 +3210,15 @@ def main() -> int:
 
         # 22. the repairs: the JPEG bomb, 4:1:1 and 4:1:0 planes, serving's ties
         check_repairs(smi)
+
+        # 23. the audio config: card vs CPU, pairs/s, its twin, the audio embeddings
+        run_audio_config(ops, smi, tmp, csv_path, media, video_csv, video_media)
+
+        # 24. the MoE config: routing card vs CPU, train samples/s, its twin
+        run_moe_config(ops, smi, tmp, csv_path, media)
+
+        # 25. R(2+1)D-34, its datasets, GDT's ResNet-9
+        run_r2plus1d(ops, smi, tmp, video_csv, video_media)
     finally:
         if saved_env is None:
             os.environ.pop("VTC_CLIP_WEIGHTS", None)
@@ -2842,7 +3226,7 @@ def main() -> int:
             os.environ["VTC_CLIP_WEIGHTS"] = saved_env
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 23. results: each kernel's launches from the path that runs it
+    # 26. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])

@@ -663,16 +663,30 @@ def test_loader_batches_match_jax(corpus):
                 _same_item(a, b)
 
 
-def test_video_dataset_names_wait_for_their_port():
-    """The video datasets are ported (tests/test_torch_video.py) but for the
-    two that feed the R(2+1)D tower, which wait for it by name."""
+def test_video_dataset_names_wait_for_their_port(corpus):
+    """Every video dataset is ported (tests/test_torch_video.py; the two that
+    feed the R(2+1)D tower in tests/test_torch_zoo.py): each is a class, and
+    ``VideoDatasetFirst32``/``First1800`` take the JAX package's arguments
+    (and the ``device`` of ``init_obj``) on a corpus, splitting it as JAX
+    does; the ig65m path without text features is refused as there."""
+    import vtc_tpu.data.datasets as jax_ds
     from vtc_tpu_torch import data
 
-    for name in ("VideoDatasetFirst32", "VideoDatasetFirst1800"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            getattr(data, name)(csv_file="x.csv", root="")
-    for name in ("VideoDatasetSegments", "VideoDatasetReddit", "VideoDatasetMSRVTT"):
+    for name in ("VideoDatasetSegments", "VideoDatasetReddit", "VideoDatasetMSRVTT",
+                 "VideoDatasetFirst32", "VideoDatasetFirst1800"):
         assert isinstance(getattr(data, name), type)
+    args = (str(corpus["csv"]), str(corpus["tmp"]))
+    for kw in ({"train": True}, {"train": False}, {"should_partition_dataframe": False}):
+        ours = data.VideoDatasetFirst1800(*args, device="cpu", **kw)
+        ref = jax_ds.VideoDatasetFirst1800(*args, **kw)
+        assert ours.video_files == ref.video_files
+        ours = data.VideoDatasetFirst32(*args, clip_preprocess=True, **kw)
+        ref = jax_ds.VideoDatasetFirst32(*args, clip_preprocess=True, **kw)
+        assert (ours.video_files, ours.ids, ours.titles) == (
+            ref.video_files, ref.ids, ref.titles)
+    assert len(ours) == len(ref) > 0
+    with pytest.raises(ValueError, match="text_features"):
+        data.VideoDatasetFirst32(*args)
 
 
 def test_comments_column_is_read_as_jax_reads_it(corpus):

@@ -296,8 +296,12 @@ def test_state_dict_from_jax_equals_torch_export(tiny):
 def test_state_dict_from_jax_refuses_leaves_it_cannot_place(tiny):
     _, variables, _ = tiny
     params = _np_tree(variables["params"])
-    params["audio_mlp"] = {"fc1": {"kernel": np.zeros((2, 2), np.float32)}}
-    with pytest.raises(ValueError, match="audio_mlp"):
+    params["video_head"] = {"fc1": {"kernel": np.zeros((2, 2), np.float32)}}
+    with pytest.raises(ValueError, match="video_head"):
+        state_dict_from_jax(params)
+    params = _np_tree(variables["params"])
+    params["cam"]["final_transformer"]["resblocks_0"]["mlp"]["c_gate"] = np.zeros(2)
+    with pytest.raises(ValueError, match="c_gate"):
         state_dict_from_jax(params)
 
 
@@ -311,9 +315,18 @@ def test_create_model_is_seeded_and_zero_inits_the_cam():
     assert not a.final_linear.weight.any()
     torch.testing.assert_close(a.model.logit_scale, torch.tensor(np.log(1 / 0.07),
                                                                  dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="audio"):
-        create_model("PretrainedCLIP_finaltf", model_type=TINY, device="cpu",
-                     init_audio_model=True)
+    # the audio MLP: seeded too, flax's init (biases 0, BatchNorm scale 1);
+    # audio features without it are refused
+    audio = create_model("PretrainedCLIP_finaltf", model_type=TINY, device="cpu",
+                         seed=3, init_audio_model=True)
+    mlp = audio.audio_model.mlp.layers
+    assert not mlp[1].bias.any() and bool((mlp[2].weight == 1).all())
+    assert 0.03 < float(mlp[1].weight.std()) < 0.06  # lecun_normal: 512 ** -0.5
+    for k, x in a.state_dict().items():
+        torch.testing.assert_close(audio.state_dict()[k], x, atol=0, rtol=0, msg=k)
+    with pytest.raises(ValueError, match="init_audio_model"):
+        a(torch.zeros(1, 3, 32, 32), torch.zeros(1, 77, dtype=torch.long),
+          torch.zeros(1, 2, 77, dtype=torch.long), torch.zeros(1, 5, 512))
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):

@@ -16,9 +16,11 @@ JAX package's.
   BatchNorm refusals, the loader's ``shard_by_process`` and multihost
   token truncation.
 * Every ``configs/*.jsonc`` ``arch`` block builds at ``test-tiny`` on the
-  CPU but the two not ported (the audio MLP, the MoE adapter), which raise
-  a named ``NotImplementedError``; the frozen branches have
-  ``requires_grad=False`` where ``frozen_predicate`` says.
+  CPU, the audio MLP and the MoE adapter included, and takes one train
+  step (the loss finite, every trainable parameter moved by the update);
+  the frozen branches have ``requires_grad=False`` where
+  ``frozen_predicate`` says. The audio and MoE configs' labels and
+  optimizer steps are held to JAX's as the flagship's.
 """
 
 from pathlib import Path
@@ -32,7 +34,7 @@ import jax.numpy as jnp
 
 from vtc_tpu.models import create_model as jax_create_model
 from vtc_tpu.training import optim as jax_optim
-from vtc_tpu_torch.data import DataLoader
+from vtc_tpu_torch.data import DataLoader, synthetic_tokens
 from vtc_tpu_torch.models import create_model, frozen_predicate, state_dict_from_jax
 from vtc_tpu_torch.training import (
     build_optimizer,
@@ -41,14 +43,16 @@ from vtc_tpu_torch.training import (
     param_labels,
     train_step,
 )
+from vtc_tpu_torch.ops.losses import LOSSES
 from vtc_tpu_torch.utils import jsonc
 
 TINY = "test-tiny"
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "configs").glob("*.jsonc"))
-NOT_PORTED = {"pretrained_clip_comments_attention_audio.jsonc": "audio MLP",
-              "pretrained_clip_comments_attn_moe.jsonc": "MoE adapter"}
+NOT_PORTED = {}
 ARCHS = {"flagship": ("PretrainedCLIP_finaltf", {}),
-         "video": ("PretrainedCLIP_TimeSformer_finaltf", {"nframes": 4})}
+         "video": ("PretrainedCLIP_TimeSformer_finaltf", {"nframes": 4}),
+         "audio": ("PretrainedCLIP_finaltf", {"init_audio_model": True}),
+         "moe": ("PretrainedCLIP_finaltf", {"moe_experts": 4, "moe_top_k": 2})}
 
 
 @pytest.fixture(scope="module", params=sorted(ARCHS))
@@ -132,7 +136,7 @@ def test_optimizer_matches_fused_optimizer(jax_model, opt_type, amsgrad, schedul
         g = _grads(params, step)
         jparams, state = tx.apply(jax.tree_util.tree_map(jnp.asarray, g), state, jparams)
         for name, grad in state_dict_from_jax(g).items():
-            if named[name].requires_grad:
+            if name in named and named[name].requires_grad:  # not the BN buffers
                 named[name].grad = grad
         optimizer.step()
         scheduler.step()
@@ -205,13 +209,11 @@ def test_unknown_or_unported_options_raise():
 @pytest.mark.parametrize("config", CONFIGS, ids=lambda p: p.stem)
 def test_every_config_arch_builds(config):
     """Each config's ``arch`` block at ``test-tiny`` on the CPU; the frozen
-    branches have ``requires_grad=False`` where ``frozen_predicate`` says."""
+    branches have ``requires_grad=False`` where ``frozen_predicate`` says;
+    one train step moves trainable parameters only."""
     arch = jsonc.read_json(config)["arch"]
     args = dict(arch["args"], model_type=TINY)
-    if config.name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=NOT_PORTED[config.name]):
-            create_model(arch["type"], device="cpu", **args)
-        return
+    assert not NOT_PORTED
     model = create_model(arch["type"], device="cpu", **args)
     frozen = frozen_predicate(args.get("freeze", False))
     assert all(p.requires_grad != frozen(n) for n, p in model.named_parameters())
@@ -220,3 +222,25 @@ def test_every_config_arch_builds(config):
             assert getattr(model, key) == args[key]
     if args.get("freeze"):
         assert any(frozen(n) for n, _ in model.named_parameters())
+    # one train step with the config's optimizer and loss
+    cfg = jsonc.read_json(config)
+    rng = np.random.default_rng(0)
+    b = 4
+    if "TimeSformer" in arch["type"]:
+        vis = rng.normal(size=(b, int(args.get("nframes", 8)), 3, 32, 32))
+    else:
+        vis = rng.normal(size=(b, 3, 32, 32))
+    data = [torch.from_numpy(vis.astype(np.float32)),
+            torch.from_numpy(synthetic_tokens((b,), 77, 10, rng))]
+    if arch["type"] != "PretrainedCLIP" or args.get("comment_fusion") == "averaging":
+        data.append(torch.from_numpy(synthetic_tokens((b, 5), 77, 10, rng)))
+    if args.get("init_audio_model"):
+        data.append(torch.from_numpy(rng.normal(size=(b, 5, 512)).astype(np.float32)))
+    optimizer, scheduler = build_optimizer(model, cfg["optimizer"])
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss, _ = train_step(model, LOSSES[cfg["loss"]], optimizer, scheduler, data,
+                         generator=torch.Generator().manual_seed(0),
+                         moe_aux_loss_weight=cfg.get("moe_aux_loss_weight", 0.01))
+    assert np.isfinite(float(loss))
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+    assert moved and all(not frozen(n) for n in moved)

@@ -319,6 +319,81 @@ def test_twin_tracks_jax_train_main(corpus, jax_run, tmp_path, monkeypatch):
         assert (run_dir_j / f"checkpoint-epoch{epoch}").exists()
 
 
+def _moe_config(save_dir, csv, root):
+    """The test config with configs/pretrained_clip_comments_attn_moe.jsonc's
+    adapter: 4 experts, top 2, the aux loss at 0.01. Adam at lr 1e-6 (the
+    audio config's): Adam moves a parameter whose gradient sits at rounding
+    level by ``lr`` either way, and at lr 1e-3 that moved a router's near-tie
+    across within 14 steps, a different expert for one token in one package
+    (a loss jump of 1.2e-5 at step 5, from 6e-7 before it)."""
+    cfg = _config(save_dir, csv, root, moe_aux_loss_weight=0.01)
+    cfg["arch"]["args"].update(moe_experts=4, moe_top_k=2)
+    cfg["optimizer"]["args"]["lr"] = 1e-6
+    return cfg
+
+
+def test_twin_tracks_jax_train_main_on_the_moe_config(corpus, tmp_path, monkeypatch):
+    """The MoE adapter through both CLIs over 2 epochs: each epoch's loss
+    (the load-balance losses in it) within 1e-5 and the recalls equal."""
+    sys.path.insert(0, str(REPO))
+    import train as jax_train
+    from vtc_tpu.config import ConfigParser as JaxConfigParser
+    from vtc_tpu.training.trainer import Trainer as JaxTrainer
+    from vtc_tpu_torch.training import Trainer
+
+    _, csv, root = corpus
+    logs_j = _record(monkeypatch, JaxTrainer)
+    jax_train.main(JaxConfigParser(_moe_config(tmp_path / "jax", csv, root)))
+
+    def from_jax_weights(arch, seed, device, **args):
+        _, variables = jax_create_model(arch, seed=seed, **args)
+        model = create_model(arch, seed=seed, device=device, **args)
+        model.load_state_dict(state_dict_from_jax(_np_tree(variables["params"])))
+        return model
+
+    monkeypatch.setattr(twin, "create_model", from_jax_weights)
+    logs = _record(monkeypatch, Trainer)
+    cfg_path = tmp_path / "cfg.jsonc"
+    cfg_path.write_text(json.dumps(_moe_config(tmp_path / "saved", csv, root)))
+    trainer = twin.cli(["-c", str(cfg_path)], device="cpu")
+    assert trainer.moe_aux_loss_weight == 0.01
+    assert len(logs) == len(logs_j) == 2
+    for ours, ref in zip(logs, logs_j):
+        np.testing.assert_allclose(ours["loss"], ref["loss"], atol=LOSS_ATOL)
+        np.testing.assert_allclose(ours["val_loss"], ref["val_loss"], atol=LOSS_ATOL)
+        recall = {k: v for k, v in ref.items() if "recall" in k}
+        assert len(recall) == 4 and {k: ours[k] for k in recall} == recall
+
+
+def test_twin_and_eval_twin_run_the_audio_config(corpus, tmp_path):
+    """The audio config's model and dataset (cached GDT clip features joined
+    to the comments, ``audio_with_comms``) through the train twin for an
+    epoch: the audio MLP's BatchNorm moves once per clip per step; then the
+    eval twin on its checkpoint gives the trainer's model's features."""
+    from vtc_tpu_torch.data.table import read_csv
+    from vtc_tpu_torch.evaluation import eval as eval_twin
+
+    _, csv, root = corpus
+    ids = np.asarray(read_csv(csv).reddit_id, np.int64)
+    audio = tmp_path / "audio.npz"
+    np.savez(audio, reddit_ids=ids, embeddings=np.random.default_rng(1).normal(
+        size=(len(ids), 5, 512)).astype(np.float32))
+    cfg = _config(tmp_path / "saved", csv, root)
+    cfg["trainer"]["epochs"] = 1
+    cfg["arch"]["args"].update(init_audio_model=True, freeze=False)
+    cfg["dataset"]["args"].update(cached_audio_features=str(audio), audio_with_comms=True)
+    cfg_path = tmp_path / "cfg.jsonc"
+    cfg_path.write_text(json.dumps(cfg))
+    trainer = twin.cli(["-c", str(cfg_path)], device="cpu")
+    bn = trainer.model.audio_model.mlp.layers[2]
+    steps = trainer.len_epoch
+    assert int(bn.num_batches_tracked) == 5 * steps > 0
+    assert bn.running_mean.abs().max() > 0
+    ckpt = trainer.checkpoint_dir / "checkpoint-epoch1.pth"
+    res = eval_twin.cli(["-c", str(cfg_path), "-r", str(ckpt), "-d", "cpu"])
+    assert all(0 <= v <= 100 for k, v in res.items() if k.startswith("R"))
+
+
 def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     """``--csv_file``/``--root``/``--epochs``/``--save_dir``/``-d`` reach the
     config as ``;``-paths, and ``main`` builds the datasets from them."""
@@ -342,7 +417,7 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     ({"loader": "grain"}, "grain"),
     ({"pp": 2}, "distribution"),
     ({"sp": 2}, "distribution"),
-    ({"dataset": {"type": "VideoDatasetFirst32", "args": {}}}, "Queue 1 item 8"),
+    ({"ep": 2}, "Queue 1 item 9"),
 ])
 def test_twin_refusals(tmp_path, extra, match):
     config = ConfigParser(_config(tmp_path, "x.csv", "x", **extra))

@@ -12,10 +12,12 @@ the host, as in the JAX package; the trainer puts batches on the card
 (``loader.prefetch_to_device``). Randomness is one ``np.random.Generator``
 per dataset, seeded by ``seed``, drawn in the JAX package's order.
 
-``VideoDatasetFirst32`` and ``VideoDatasetFirst1800`` come with the R(2+1)D
-tower they feed (ROADMAP: Queue 1 item 8); their names raise
-``NotImplementedError``. The transfer-evaluation datasets are in
-``video_retrieval.py``.
+``VideoDatasetFirst32`` and ``VideoDatasetFirst1800`` feed the R(2+1)D
+tower: the first 32 frames at 128 x 171 with the ig65m normalization
+(``[c, t, h, w]``, or CLIP's preprocess and title tokens), and the
+collaborative-experts clips (short side 128 with OpenCV's bilinear resize,
+a 112 center crop, padded to 32 frames). The transfer-evaluation datasets
+are in ``video_retrieval.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from .partition import (
 from .preprocess import (
     CLIP_MEAN,
     CLIP_STD,
+    IG65M_MEAN,
+    IG65M_STD,
     augment_frames,
     augment_image,
     clip_preprocess,
@@ -51,8 +55,13 @@ from .preprocess import (
 from .rake import Rake
 from .resample import resize
 from .table import Table, read_csv
-from .tokenizer import get_tokenizer, tokenize_max_len
-from .video import FALLBACK_SHAPE, read_segment_with_fallbacks, read_video_full
+from .tokenizer import get_tokenizer, tokenize, tokenize_max_len
+from .video import (
+    FALLBACK_SHAPE,
+    read_segment_with_fallbacks,
+    read_video_full,
+    read_video_segment,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -540,15 +549,111 @@ class VideoDatasetLivebot:
         return frames, title_tok, comments_tok, vid_id
 
 
-def _waits_for_r2plus1d(name: str):
-    def dataset(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} feeds the R(2+1)D video tower, not ported yet (ROADMAP: Queue 1 "
-            "item 8, the rest of the model zoo)")
-
-    dataset.__name__ = dataset.__qualname__ = name
-    return dataset
+def _video_files(csv_file, root, train, should_partition_dataframe):
+    df = read_csv(csv_file)
+    if should_partition_dataframe:
+        df = partition_dataframe(df, root=root, split="train" if train else "val")
+    return df, [os.path.join(root, v[len("results/"):]) for v in df.video_path.tolist()]
 
 
-VideoDatasetFirst32 = _waits_for_r2plus1d("VideoDatasetFirst32")
-VideoDatasetFirst1800 = _waits_for_r2plus1d("VideoDatasetFirst1800")
+class VideoDatasetFirst32:
+    """The first 32 frames of each video at 128 x 171 (zero frames pad a
+    short one), ig65m-normalized as float32 ``[3, 32, 128, 171]`` with the
+    cached text feature, or with ``clip_preprocess`` CLIP's ``[32, 3, 224,
+    224]`` with the title's tokens (``dataset_loaders.py:569-680``). Items
+    ``(vid, text, {"id": reddit_id})``."""
+
+    def __init__(self, csv_file, root, text_features=None, train=True,
+                 should_partition_dataframe=True, clip_preprocess=False, seed=0,
+                 device=None):
+        self.train = train
+        self.height, self.width, self.nframes = 128, 171, 32
+        self.clip_preprocess = clip_preprocess  # ``seed``: accepted, as in vtc_tpu; unused
+        df, self.video_files = _video_files(csv_file, root, train,
+                                            should_partition_dataframe)
+        self.ids = df.reddit_id.tolist()
+        self.titles = df.title.tolist()
+        self.text_feats = (load_features(df, text_features)
+                           if text_features is not None else None)
+        if not clip_preprocess and self.text_feats is None:
+            raise ValueError(
+                "VideoDatasetFirst32 without clip_preprocess requires text_features "
+                "(the ig65m path trains against cached text embeddings)")
+
+    def __len__(self):
+        return len(self.video_files)
+
+    def __getitem__(self, idx):
+        vid = read_video_segment(self.video_files[idx], 0, 4, resize_width=self.width,
+                                 resize_height=self.height, max_frames=self.nframes)
+        vid = vid[: self.nframes]
+        if vid.shape[0] < self.nframes:
+            out = np.zeros((self.nframes, self.height, self.width, 3), np.uint8)
+            if vid.shape[0] == 0:
+                _logger.warning("Zero length video: %s", self.video_files[idx])
+            else:
+                out[: vid.shape[0]] = vid
+            vid = out
+        if self.clip_preprocess:
+            vid = clip_preprocess_batch(vid)
+            try:
+                text = tokenize(self.titles[idx])
+            except RuntimeError as e:
+                _logger.warning("Failed to tokenize %s: %s", self.titles[idx], e)
+                text = tokenize(self.titles[idx][:20])
+        else:
+            vid = (vid.astype(np.float32) / 255.0 - IG65M_MEAN) / IG65M_STD
+            vid = vid.transpose(3, 0, 1, 2)  # [c, t, h, w], the ig65m layout
+            text = self.text_feats[idx]
+        return vid, text, {"id": self.ids[idx]}
+
+
+class VideoDatasetFirst1800:
+    """Collaborative-experts clips (``dataset_loaders.py:683-775``): up to
+    1800 frames read at height 256, the short side resized to 128 (the long
+    side truncated, as torchvision's ``Resize``) with OpenCV's bilinear
+    resize, a 112 center crop, ig65m-normalized, padded with zero frames to
+    32: float32 ``[3, t, 112, 112]``. Items ``(vid, {})``."""
+
+    def __init__(self, csv_file, root, train=True, should_partition_dataframe=True,
+                 device=None):
+        self.train = train
+        self.video_read_height, self.height, self.crop_size = 256, 128, 112
+        self.nframes, self.min_nframes = 1800, 32
+        _, self.video_files = _video_files(csv_file, root, train,
+                                           should_partition_dataframe)
+
+    def __len__(self):
+        return len(self.video_files)
+
+    def _resize_crop(self, f):
+        import cv2
+
+        h, w = f.shape[:2]
+        if h <= w:
+            nh, nw = self.height, max(1, int(w * self.height / h))
+        else:
+            nw, nh = self.height, max(1, int(h * self.height / w))
+        f = cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        top, left = (nh - self.crop_size) // 2, (nw - self.crop_size) // 2
+        return f[top: top + self.crop_size, left: left + self.crop_size]
+
+    def __getitem__(self, idx):
+        vid = read_video_segment(self.video_files[idx], 0, self.nframes // 15,
+                                 resize_width=0, resize_height=self.video_read_height,
+                                 max_frames=self.nframes)[: self.nframes]
+        length = vid.shape[0]
+        c = self.crop_size
+        if length > 0:
+            vid = np.stack([self._resize_crop(f) for f in vid]).astype(np.float32)
+            vid = ((vid / 255.0 - IG65M_MEAN) / IG65M_STD).transpose(0, 3, 1, 2)
+        else:
+            vid = np.zeros((0, 3, c, c), np.float32)
+        if length < self.min_nframes:
+            out = np.zeros((self.min_nframes, 3, c, c), np.float32)
+            if length == 0:
+                _logger.warning("Zero length video: %s", self.video_files[idx])
+            else:
+                out[:length] = vid
+            vid = out
+        return vid.transpose(1, 0, 2, 3), {}

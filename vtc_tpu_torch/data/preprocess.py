@@ -20,6 +20,9 @@ from .resample import resize
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
+# the ig65m (Kinetics) normalization of the R(2+1)D datasets
+IG65M_MEAN = np.array([0.43216, 0.394666, 0.37645], dtype=np.float32)
+IG65M_STD = np.array([0.22803, 0.22145, 0.216989], dtype=np.float32)
 IG65M_MEAN = np.array([0.43216, 0.394666, 0.37645], dtype=np.float32)
 IG65M_STD = np.array([0.22803, 0.22145, 0.216989], dtype=np.float32)
 

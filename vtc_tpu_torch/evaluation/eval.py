@@ -31,6 +31,7 @@ from ..device import DISTRIBUTION, resolve_device
 from ..models import create_model
 from ..ops.retrieval import recall_at_k
 from ..training.checkpoints import graft_into, load_checkpoint
+from ..training.trainer import flatten_data
 
 
 def add_irrelevant_comms(comments: np.ndarray, num_irrelevant_comments: int,
@@ -123,7 +124,8 @@ def main(config: ConfigParser, args, checkpoint_path, device=None) -> dict:
     with torch.inference_mode():
         for items in data_loader:
             *batch, meta = items
-            batch = [np.asarray(d) for d in batch]
+            # the audio config's (comments, audio) nesting, as the trainer reads it
+            batch = [np.asarray(d) for d in flatten_data(batch)]
             if num_irrelevant_comments and needs_comments:
                 if num_irrelevant_comments > config["batch_size"]:
                     raise ValueError("Number of irrelevant comments needs to be smaller "

@@ -21,6 +21,9 @@ In training (``module.train()``, ``cam.py:110-214`` of the JAX package):
   with probability 1/2 (``random_mask_comments``, called by the retrieval
   models when configured).
 
+``moe_experts > 0`` gives the adapter's blocks mixture-of-experts MLPs
+(``parallel.expert.MoEMLP``).
+
 The random draws come from the ``torch.Generator`` the caller passes (on the
 model's device), or are handed in as tensors: ``torch.Generator`` cannot
 reproduce ``jax.random``, so a test feeds the port the JAX draw.
@@ -66,7 +69,8 @@ class ContextAdapter(nn.Module):
     def __init__(self, feature_dim: int = 512, n_layers: int = 2,
                  n_heads: int = 8, init_from_avg: bool = True,
                  residual_activation: Optional[str] = None,
-                 random_skip_adapter: bool = True, dtype=torch.float32):
+                 random_skip_adapter: bool = True, dtype=torch.float32,
+                 moe_experts: int = 0, moe_top_k: int = 1):
         super().__init__()
         if residual_activation not in RESIDUAL_ACTIVATIONS and (
             residual_activation not in NEEDS_STATE
@@ -76,7 +80,8 @@ class ContextAdapter(nn.Module):
         self.residual_activation = residual_activation
         self.random_skip_adapter = random_skip_adapter
         self.final_transformer = Transformer(
-            feature_dim, int(n_layers), int(n_heads), dtype
+            feature_dim, int(n_layers), int(n_heads), dtype, int(moe_experts),
+            int(moe_top_k),
         )
         self.final_linear = nn.Linear(feature_dim, feature_dim, bias=False)
         self.mask_embedding = nn.Parameter(torch.empty(1, feature_dim))
@@ -189,11 +194,16 @@ def draw_comment_keep(n_aux: int, batch: int, generator=None, device=None):
 def zero_init_cam_params(cam: ContextAdapter) -> None:
     """The reference's zero-init (``model/model.py:440-452``), in place: with
     ``init_from_avg`` each block's ``attn.out_proj`` weight and ``mlp.c_proj``
-    are zeroed, so the adapter starts as an exact average; ``final_linear``
-    starts at zero."""
+    (a MoE block: every expert's ``w_proj`` and ``bias_proj``) are zeroed, so
+    the adapter starts as an exact average; ``final_linear`` starts at
+    zero."""
     if cam.init_from_avg:
         for block in cam.final_transformer.resblocks:
             block.attn.out_proj.weight.zero_()
-            block.mlp.c_proj.weight.zero_()
-            block.mlp.c_proj.bias.zero_()
+            if hasattr(block, "mlp_moe"):
+                block.mlp_moe.w_proj.zero_()
+                block.mlp_moe.bias_proj.zero_()
+            else:
+                block.mlp.c_proj.weight.zero_()
+                block.mlp.c_proj.bias.zero_()
     cam.final_linear.weight.zero_()

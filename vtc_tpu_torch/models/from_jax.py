@@ -17,8 +17,17 @@ reference (torch) state-dict names that the port's modules carry:
   under ``model.visual.temporal_embed`` (the names of
   ``vtc_tpu.models.torch_export.export_vtc_state_dict``).
 
-Every leaf must be consumed: a leaf with no place in the port (an audio head,
-a MoE adapter) raises instead of being dropped.
+* the audio MLP (``audio_mlp``: ``fc1``, ``bn``, ``fc2``) goes under
+  ``audio_model.mlp.layers.{1,2,4}``, the names of ``torch_export``, its
+  BatchNorm's ``mean``/``var`` from ``batch_stats["audio_mlp"]["bn"]``;
+* a MoE adapter block's expert stacks (``mlp_moe``) go under
+  ``final_transformer.resblocks.{i}.mlp_moe.{router,w_fc,bias_fc,w_proj,
+  bias_proj}`` in their JAX layout: names of the port's own, as the
+  reference export has none.
+
+``plain_state_dict_from_jax`` carries a baseline (``MLP``,
+``JointEmbedding``, ``CLIP``) across. Every leaf must be consumed: a leaf
+with no place in the port raises instead of being dropped.
 """
 
 from __future__ import annotations
@@ -27,6 +36,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from .layers import bn_state_from_jax
+
+MOE_LEAVES = ("router", "w_fc", "bias_fc", "w_proj", "bias_proj")
 
 
 class _Reader:
@@ -76,9 +89,13 @@ def _block(r: _Reader, src: str, sd: Dict, dst: str) -> None:
     for ln in ("ln_1", "ln_2"):
         sd[f"{dst}.{ln}.weight"] = r.get(f"{src}/{ln}/scale")
         sd[f"{dst}.{ln}.bias"] = r.get(f"{src}/{ln}/bias")
-    for fc in ("c_fc", "c_proj"):
-        sd[f"{dst}.mlp.{fc}.weight"] = r.get(f"{src}/mlp/{fc}/kernel").T
-        sd[f"{dst}.mlp.{fc}.bias"] = r.get(f"{src}/mlp/{fc}/bias")
+    if r.has(f"{src}/mlp_moe"):  # a MoE block: the expert stacks as they are
+        for leaf in MOE_LEAVES:
+            sd[f"{dst}.mlp_moe.{leaf}"] = r.get(f"{src}/mlp_moe/{leaf}")
+    else:
+        for fc in ("c_fc", "c_proj"):
+            sd[f"{dst}.mlp.{fc}.weight"] = r.get(f"{src}/mlp/{fc}/kernel").T
+            sd[f"{dst}.mlp.{fc}.bias"] = r.get(f"{src}/mlp/{fc}/bias")
     if r.has(f"{src}/timeattn"):  # a TimeSformer block
         sd[f"{dst}.timeattn.in_proj_weight"] = qkv(r.get(f"{src}/timeattn/in_proj_weight"))
         sd[f"{dst}.timeattn.in_proj_bias"] = qkv(r.get(f"{src}/timeattn/in_proj_bias"))
@@ -98,6 +115,46 @@ def _blocks(r: _Reader, src: str, sd: Dict, dst: str, sep: str = "/") -> int:
         _block(r, f"{src}{sep}resblocks_{i}", sd, f"{dst}.resblocks.{i}")
         i += 1
     return i
+
+
+def _mlp(r: _Reader, stats: Optional[Dict], sd: Dict, dst: str, at) -> None:
+    """``fc1``, ``bn``, ``fc2`` -> ``{dst}.{i}`` for the indices ``at``."""
+    i1, ibn, i2 = at
+    for i, fc in ((i1, "fc1"), (i2, "fc2")):
+        sd[f"{dst}.{i}.weight"] = r.get(f"{fc}/kernel").T
+        sd[f"{dst}.{i}.bias"] = r.get(f"{fc}/bias")
+    bn = (stats or {}).get("bn") or {}
+    for k, v in bn_state_from_jax(r.get("bn/scale"), r.get("bn/bias"), bn.get("mean"),
+                                  bn.get("var")).items():
+        sd[f"{dst}.{ibn}.{k}"] = v
+
+
+def _to_torch(sd: Dict) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, order="C", copy=True)) for k, v in sd.items()}
+
+
+def plain_state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX ``MLP`` (``fc1``/``bn``/``fc2`` -> ``layers.{1,2,4}``) or
+    ``JointEmbedding``/``CLIP`` (``branch_{a,b}`` -> ``branch_{a,b}.layers.
+    {0,1,3}``, ``temperature``) -> the port's state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    stats = batch_stats or {}
+    if "fc1" in params:
+        r = _Reader(params)
+        _mlp(r, stats, sd, "layers", (1, 2, 4))
+        leftovers = r.unconsumed()
+    else:
+        leftovers = [k for k in params if k not in ("branch_a", "branch_b", "temperature")]
+        for branch in ("branch_a", "branch_b"):
+            r = _Reader(params[branch])
+            _mlp(r, stats.get(branch), sd, f"{branch}.layers", (0, 1, 3))
+            leftovers += r.unconsumed(f"{branch}/")
+        if "temperature" in params:
+            sd["temperature"] = np.asarray(params["temperature"], np.float32)
+    if leftovers:
+        raise ValueError(f"params hold leaves the port has no place for: {leftovers[:8]}")
+    return _to_torch(sd)
 
 
 def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
@@ -144,12 +201,17 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
             sd["mean_center_bn.running_var"] = np.asarray(bs["var"], np.float32)
             sd["mean_center_bn.num_batches_tracked"] = np.asarray(0, np.int64)
 
-    leftovers += [f"{k}/..." for k in params if k not in ("clip", "cam")]
+    if "audio_mlp" in params:
+        au = _Reader(params["audio_mlp"])
+        _mlp(au, (batch_stats or {}).get("audio_mlp"), sd, "audio_model.mlp.layers",
+             (1, 2, 4))
+        leftovers += au.unconsumed("audio_mlp/")
+
+    leftovers += [f"{k}/..." for k in params if k not in ("clip", "cam", "audio_mlp")]
     if leftovers:
         raise ValueError(
             "params hold leaves the port has no place for (not dropping "
             f"weights silently): {sorted(leftovers)[:8]}"
             + ("..." if len(leftovers) > 8 else "")
         )
-    return {k: torch.from_numpy(np.array(v, order="C", copy=True))
-            for k, v in sd.items()}
+    return _to_torch(sd)

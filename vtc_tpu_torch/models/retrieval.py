@@ -1,30 +1,37 @@
-"""CLIP-backed retrieval models.
+"""The retrieval models and the feature baselines.
 
 Port of ``vtc_tpu/models/retrieval.py``: ``PretrainedCLIP``,
-``PretrainedCLIP_finaltf`` (CLIP + CAM), and the video models
-``PretrainedCLIP_TimeSformer`` and ``PretrainedCLIP_TimeSformer_finaltf``
-(the TimeSformer tower, without and with the CAM). Each keeps the reference's forward
-contract ``forward(vis, title[, comments]) -> (feats_vis, feats_text, sim)``
-with L2-normalized features and ``sim = exp(logit_scale) · v @ tᵀ``.
+``PretrainedCLIP_finaltf`` (CLIP + CAM, with the audio MLP when
+``init_audio_model``), the video models ``PretrainedCLIP_TimeSformer`` and
+``PretrainedCLIP_TimeSformer_finaltf`` (the TimeSformer tower, without and
+with the CAM), and the baselines ``MLP``, ``JointEmbedding`` and ``CLIP``
+(reference ``model/model.py:80-130``). Each CLIP-backed model keeps the
+reference's forward contract ``forward(vis, title[, comments]) ->
+(feats_vis, feats_text, sim)`` with L2-normalized features and
+``sim = exp(logit_scale) · v @ tᵀ``.
 
 State-dict names are the reference's: the CLIP towers under ``model.*``
 (``model.visual.*``, ``model.transformer.*``, ...), the CAM at the top level
 (``final_transformer.*``, ``final_linear.weight``, ``mask_embedding``,
-``mean_center_bn.*``), so ``load_state_dict(strict=True)`` takes a
-reference checkpoint's keys.
+``mean_center_bn.*``), the audio MLP under ``audio_model.mlp.layers.{1,2,4}``
+(``vtc_tpu/models/torch_export.py``), so ``load_state_dict(strict=True)``
+takes a reference checkpoint's keys. A MoE adapter's expert stacks sit
+under ``final_transformer.resblocks.{i}.mlp_moe.*``, names of the port's own
+(the reference has no MoE).
 
 In training (``module.train()``, ``vtc_tpu/models/retrieval.py:287-349``)
 the CAM models adapt ``branch_to_adapt`` (not ``branch_to_adapt_val``), mask
-comments at random when ``random_comment_masking`` is set, skip the adapter
-at random when ``random_skip_adapter`` is set, and refuse the eval-only
-shared-comment broadcast. The random draws come from the ``generator`` the
-caller passes, or are handed in as ``draws`` (``{"comment_mask": [n, b, 1]
-0/1, "adapter_skip": [b, 1] bool}``, the JAX rng streams' names). ``freeze``
-is kept as the configs give it; ``create_model`` turns off the gradients of
-the frozen parameters (``factory.frozen_predicate``).
-
-Not yet ported (ROADMAP): the audio MLP (``init_audio_model``), the MoE
-adapter (``moe_experts``) and the baselines ``MLP``/``JointEmbedding``/``CLIP``.
+comments at random when ``random_comment_masking`` is set (the audio clips
+too: they join the comment stack first), skip the adapter at random when
+``random_skip_adapter`` is set, and refuse the eval-only shared-comment
+broadcast. The audio MLP runs one clip after another, so its BatchNorm
+running stats update once per clip, as in the reference. The random draws
+come from the ``generator`` the caller passes, or are handed in as
+``draws`` (``{"comment_mask": [n, b, 1] 0/1, "adapter_skip": [b, 1] bool,
+"dropout": keep mask}``, the JAX rng streams' names; the audio MLP's
+``dropout`` is ``[nclips, b, 512]``). ``freeze`` is kept as the configs give
+it; ``create_model`` turns off the gradients of the frozen parameters
+(``factory.frozen_predicate``).
 """
 
 from __future__ import annotations
@@ -36,8 +43,93 @@ from torch import nn
 
 from .cam import ContextAdapter, draw_adapter_skip, draw_comment_keep
 from .clip_model import CLIP_VARIANTS, ClipModel, patch_input_dim
-from .layers import l2_normalize
+from .layers import DrawnDropout, TorchBatchNorm, dense, draw_dropout_keep, l2_normalize
 from .timesformer import TimeSformer
+
+
+class MLP(nn.Module):
+    """Dropout -> fc1 -> BatchNorm -> ReLU -> fc2 (reference
+    ``model/model.py:80-94``), as ``nn.Sequential`` indices ``layers.{0..4}``.
+    ``draws={"dropout": keep}`` hands in the keep mask of the input's
+    shape; else it is drawn from ``generator``."""
+
+    def __init__(self, num_classes: int = 512, num_features: int = 512,
+                 p: float = 0.2, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.layers = nn.Sequential(
+            DrawnDropout(p), nn.Linear(num_features, num_features),
+            TorchBatchNorm(num_features, dtype=dtype), nn.ReLU(),
+            nn.Linear(num_features, num_classes))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
+        drop, fc1, bn, _, fc2 = self.layers
+        x = drop(x.reshape(x.shape[0], -1), (draws or {}).get("dropout"), generator)
+        return dense(torch.relu(bn(dense(x, fc1, self.dtype))), fc2, self.dtype)
+
+
+class _EmbeddingBranch(nn.Module):
+    """fc1 -> BatchNorm -> ReLU -> fc2 (reference ``model/model.py:104-111``),
+    as ``nn.Sequential`` indices ``layers.{0,1,3}``."""
+
+    def __init__(self, in_dim: int, num_features: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.layers = nn.Sequential(
+            nn.Linear(in_dim, num_features), TorchBatchNorm(num_features, dtype=dtype),
+            nn.ReLU(), nn.Linear(num_features, num_features))
+
+    def forward(self, x):
+        fc1, bn, _, fc2 = self.layers
+        return dense(torch.relu(bn(dense(x, fc1, self.dtype))), fc2, self.dtype)
+
+
+class JointEmbedding(nn.Module):
+    """Two-branch joint embedding of two feature sets (reference
+    ``model/model.py:97-119``): ``(feats_a, feats_b)``, L2-normalized with
+    ``F.normalize``'s 1e-12 floor when ``normalize``."""
+
+    def __init__(self, input_dims_a: int = 512, input_dims_b: int = 512,
+                 embedding_dims: int = 512, normalize: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.normalize = normalize
+        self.branch_a = _EmbeddingBranch(input_dims_a, embedding_dims, dtype)
+        self.branch_b = _EmbeddingBranch(input_dims_b, embedding_dims, dtype)
+
+    def forward(self, x_a, x_b, generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
+        # no random draws: ``generator``/``draws`` are the train step's call
+        feats_a, feats_b = self.branch_a(x_a), self.branch_b(x_b)
+        if self.normalize:
+            feats_a = nn.functional.normalize(feats_a, dim=-1, eps=1e-12)
+            feats_b = nn.functional.normalize(feats_b, dim=-1, eps=1e-12)
+        return feats_a, feats_b
+
+
+class CLIP(JointEmbedding):
+    """The joint embedding with a learned temperature (reference
+    ``model/model.py:122-130``): ``(feats_a, feats_b, temperature · a @ bᵀ)``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.temperature = nn.Parameter(torch.ones(()))
+
+    def forward(self, x_a, x_b, generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
+        feats_a, feats_b = super().forward(x_a, x_b)
+        return feats_a, feats_b, (feats_a @ feats_b.T) * self.temperature
+
+
+class AudioHead(nn.Module):
+    """The reference's ``audio_model`` as far as a model with cached audio
+    features keeps it: the ``mlp`` from GDT's 512-d clip embeddings to CLIP
+    space (``model/model.py:438``)."""
+
+    def __init__(self, feature_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.mlp = MLP(num_classes=feature_dim, num_features=512, dtype=dtype)
 
 
 class _ClipRetrievalBase:
@@ -138,16 +230,12 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
                  random_comment_masking: bool = False,
                  random_skip_adapter: bool = True, moe_experts: int = 0,
                  moe_top_k: int = 1, clip_kwargs: Optional[dict] = None):
-        if moe_experts:
-            raise NotImplementedError(
-                f"the MoE adapter (moe_experts={moe_experts}) is not ported yet "
-                f"(ROADMAP: Queue 1, distribution on torch.distributed)"
-            )
         variant = CLIP_VARIANTS[model_type]
         super().__init__(
             feature_dim=variant.embed_dim, n_layers=n_layers, n_heads=n_heads,
             init_from_avg=init_from_avg, residual_activation=residual_activation,
             random_skip_adapter=random_skip_adapter, dtype=dtype,
+            moe_experts=moe_experts, moe_top_k=moe_top_k,
         )
         self.freeze = freeze
         self.random_comment_masking = random_comment_masking
@@ -167,7 +255,13 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
         for its two passes."""
         b, n = comments.shape[:2]
         device = comments.device
+        audio_feats = rest[0] if rest else None
         draws = {}
+        if audio_feats is not None:  # the audio clips join the comment stack
+            n += audio_feats.shape[1]
+            draws["dropout"] = draw_dropout_keep(
+                audio_feats.shape[1::-1] + audio_feats.shape[2:],
+                self.audio_model.mlp.layers[0].p, generator, device)
         if self.random_comment_masking:
             draws["comment_mask"] = draw_comment_keep(n, b, generator, device)
         if self.random_skip_adapter:
@@ -194,8 +288,19 @@ class _CamRetrievalBase(_ClipRetrievalBase, ContextAdapter):
     def _encode_with_comments(self, feats_vis, feats_title, feats_comm,
                               branch_override: Optional[str] = None,
                               generator: Optional[torch.Generator] = None,
-                              draws: Optional[dict] = None):
+                              draws: Optional[dict] = None, audio_feats=None):
         draws = draws or {}
+        if audio_feats is not None:
+            # cached GDT clip embeddings [b, nclips, 512] through the audio
+            # MLP one clip after another, after the comments
+            # (vtc_tpu/models/retrieval.py:295-303)
+            keep = draws.get("dropout")
+            fa = audio_feats.transpose(0, 1)
+            fa = torch.stack([
+                self.audio_model.mlp(fa[i], generator,
+                                     None if keep is None else {"dropout": keep[i]})
+                for i in range(fa.shape[0])])
+            feats_comm = torch.cat([feats_comm, fa.to(feats_comm.dtype)], 0)
         if self.training:
             if self.random_comment_masking:
                 feats_comm = self.random_mask_comments(
@@ -239,26 +344,25 @@ class PretrainedCLIP_finaltf(_CamRetrievalBase):
     """CLIP + CAM image/text retrieval, the flagship model (reference
     ``model/model.py:374-480``)."""
 
-    def __init__(self, *args, init_audio_model: bool = False, **kwargs):
+    def __init__(self, model_type: str = "ViT-B/32", dtype=torch.float32,
+                 init_audio_model: bool = False, **kwargs):
+        super().__init__(model_type, dtype, **kwargs)
+        self.init_audio_model = init_audio_model
         if init_audio_model:
-            raise NotImplementedError(
-                "the audio MLP of PretrainedCLIP_finaltf is not ported yet "
-                "(ROADMAP: rest of the model zoo, audio-MLP fusion)"
-            )
-        super().__init__(*args, **kwargs)
+            self.audio_model = AudioHead(self.feature_dim, dtype)
 
     def forward(self, vis, title, comments, audio_feats=None,
                 branch_override: Optional[str] = None,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None):
-        if audio_feats is not None:
-            raise NotImplementedError(
-                "audio features need the audio MLP, not ported yet (ROADMAP)"
-            )
+        if audio_feats is not None and not self.init_audio_model:
+            raise ValueError("audio features need the audio MLP: build the model "
+                             "with init_audio_model=True")
         feats_vis = self._encode_vis(vis)
         feats_title, feats_comm = self._encode_title_and_comments(title, comments)
         feats_vis, feats_text = self._encode_with_comments(
-            feats_vis, feats_title, feats_comm, branch_override, generator, draws
+            feats_vis, feats_title, feats_comm, branch_override, generator, draws,
+            audio_feats,
         )
         return feats_vis, feats_text, self._sim(feats_vis, feats_text)
 

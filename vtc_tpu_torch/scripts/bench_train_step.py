@@ -14,7 +14,10 @@ seeded generator, fresh masks every step, as in training.
 
 ``--accum_steps K`` takes each step as the GradCache accumulation over K
 microbatches (``trainer.accum_steps``); ``--moments_dtype bfloat16`` stores
-Adam's moments in bf16 (``optimizer.args.moments_dtype``).
+Adam's moments in bf16 (``optimizer.args.moments_dtype``). ``main``'s
+``model_kwargs`` reach ``create_model`` (``chip_smoke.py`` steps the MoE
+adapter, ``moe_experts=4, moe_top_k=2, freeze="all"``, beside the dense
+one with the same freeze).
 
 After ``warmup`` steps it times ``windows`` windows of ``iters`` steps, with
 ``torch.cuda.synchronize()`` around each, and prints samples/s over all of
@@ -42,11 +45,11 @@ SEED = 0
 
 
 def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
-          frames: int = 0, moments_dtype=None):
+          frames: int = 0, moments_dtype=None, model_kwargs=None):
     """``(model, optimizer, scheduler, data)`` on the card, the JAX script's
     configuration; ``data`` is (uint8 patches, title, comments)."""
     device = resolve_device()
-    kwargs = {"nframes": frames} if frames else {}
+    kwargs = dict(model_kwargs or {}, **({"nframes": frames} if frames else {}))
     model = create_model(arch, model_type="ViT-B/32", seed=SEED, dtype="bf16",
                          device=device, **kwargs)
     optimizer_cfg = dict(OPTIMIZER, args=dict(OPTIMIZER["args"], moments_dtype=moments_dtype))
@@ -65,13 +68,13 @@ def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf
 
 def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
          frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3,
-         accum_steps: int = 1, moments_dtype=None) -> dict:
+         accum_steps: int = 1, moments_dtype=None, model_kwargs=None) -> dict:
     """Runs the benchmark; returns ``{"samples_per_s", "window_rates",
     "losses", "setup"}``: ``losses`` has every step's loss, warm-up
     included, and ``setup`` is what ``setup`` built, for a caller that
     goes on stepping (the profiler windows of ``chip_smoke.py``)."""
     model, optimizer, scheduler, data = built = setup(batch, ntoks, arch, frames,
-                                                      moments_dtype)
+                                                      moments_dtype, model_kwargs)
     generator = torch.Generator(device=data[0].device).manual_seed(SEED)
     losses = []
 
@@ -95,7 +98,8 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
     print(f"train step: {rate:.1f} samples/s over {windows * iters} steps "
           f"({1e3 * sum(seconds) / (windows * iters):.3f} ms/step, windows "
           f"{[round(r, 1) for r in rates]}), batch {batch}, {ntoks}-token texts, "
-          f"arch {arch}, accum_steps {accum_steps}, moments {moments_dtype or 'float32'}",
+          f"arch {arch} {model_kwargs or ''}, accum_steps {accum_steps}, moments "
+          f"{moments_dtype or 'float32'}",
           flush=True)
     return {"samples_per_s": rate, "window_rates": rates,
             "losses": [float(x) for x in losses], "setup": built}

@@ -22,8 +22,16 @@ its slice of the feature gradient is propagated. ``logit_scale`` takes its
 gradient from the loss alone. Microbatch ``i`` holds rows ``i, i+k, …``
 (JAX's strided split); the features go back to batch order before the loss.
 
-Not ported: multihost token truncation (raises) and the MoE aux loss (the
-port refuses ``moe_experts > 0``).
+A model with mixture-of-experts layers (``parallel.expert.MoEMLP``, the
+MoE adapter) adds ``moe_aux_loss_weight`` times its layers' summed
+load-balance losses to the loss (``trainer.py:204-226``); the accumulating
+step adds the mean over the microbatches of each microbatch's sum
+(``:289-316``), each counted once: the loss's value from the first pass, its
+gradient through the second, which routes the microbatch exactly as the
+first did. A model with BatchNorm running stats (the ``sub_mean``/``bn``
+residual activations, the audio MLP) is refused by the accumulating step.
+
+Not ported: multihost token truncation (raises).
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ import torch
 
 from ..data.preprocess import normalize_uint8_images
 from ..data.tokenizer import truncate_batch_tokens
+from ..parallel.expert import moe_layers
+
+# the Switch default, as the JAX trainer's ``moe_aux_loss_weight``
+MOE_AUX_LOSS_WEIGHT = 0.01
 
 
 def global_truncate_tokens(data: Sequence, multihost: bool = False) -> list:
@@ -50,6 +62,19 @@ def global_truncate_tokens(data: Sequence, multihost: bool = False) -> list:
     return truncate_batch_tokens(data)
 
 
+def _forward(model, args, **kwargs):
+    """``(model(*args, **kwargs), aux)``: ``aux`` is the sum of the MoE
+    layers' load-balance losses of this call, None for a dense model."""
+    layers = moe_layers(model)
+    for layer in layers:
+        layer.aux_loss = None
+    out = model(*args, **kwargs)
+    aux = [layer.aux_loss for layer in layers if layer.aux_loss is not None]
+    for layer in layers:
+        layer.aux_loss = None
+    return out, (sum(aux) if aux else None)
+
+
 def _update(optimizer, scheduler) -> None:
     optimizer.step()
     scheduler.step()
@@ -59,21 +84,26 @@ def _update(optimizer, scheduler) -> None:
 def train_step(model: torch.nn.Module, criterion: Callable, optimizer,
                scheduler, data: Sequence[torch.Tensor], meta=None,
                generator: Optional[torch.Generator] = None,
-               draws=None, accum_steps: int = 1):
+               draws=None, accum_steps: int = 1,
+               moe_aux_loss_weight: float = MOE_AUX_LOSS_WEIGHT):
     """One step on ``data`` (the model's positional inputs, on its device).
     The CAM models draw their random masks from ``generator`` (on the
     model's device), or take them as ``draws``: a dict for the batch, or
-    with ``accum_steps > 1`` one dict per microbatch. Returns
+    with ``accum_steps > 1`` one dict per microbatch. A MoE model's
+    load-balance losses join the loss at ``moe_aux_loss_weight``. Returns
     ``(loss, out)``: the loss before the update, detached, and the model's
     output (with ``accum_steps > 1``, the features and similarity of the
     whole batch)."""
     data = [normalize_uint8_images(d) for d in data]
     if accum_steps > 1:
         return _accumulating_step(model, criterion, optimizer, scheduler, data,
-                                  meta, generator, draws, int(accum_steps))
+                                  meta, generator, draws, int(accum_steps),
+                                  moe_aux_loss_weight)
     model.train()
-    out = model(*data, generator=generator, draws=draws)
+    out, aux = _forward(model, data, generator=generator, draws=draws)
     loss = criterion(out, meta)
+    if aux is not None:
+        loss = loss + moe_aux_loss_weight * aux
     loss.backward()
     _update(optimizer, scheduler)
     return loss.detach(), out
@@ -92,7 +122,7 @@ def _logit_scale(model: torch.nn.Module) -> torch.Tensor:
 
 
 def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
-                       generator, draws, k: int):
+                       generator, draws, k: int, aux_weight: float):
     if any(d.shape[0] % k for d in data):
         raise ValueError(
             f"accum_steps={k} must divide the batch ({[d.shape[0] for d in data]})"
@@ -120,16 +150,21 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
         return torch.stack(parts, 1).flatten(0, 1)
 
     with torch.no_grad():
-        outs = [model(*mb, draws=d)[:2] for mb, d in zip(mbs, draws)]
-    feats_vis = unsplit([o[0] for o in outs]).requires_grad_()
-    feats_text = unsplit([o[1] for o in outs]).requires_grad_()
+        outs = [_forward(model, mb, draws=d) for mb, d in zip(mbs, draws)]
+    feats_vis = unsplit([o[0][0] for o in outs]).requires_grad_()
+    feats_text = unsplit([o[0][1] for o in outs]).requires_grad_()
     sim = torch.exp(scale) * (feats_vis @ feats_text.T)
     loss = criterion((feats_vis, feats_text, sim), meta)
     loss.backward()
+    auxes = [aux for _, aux in outs if aux is not None]
+    if auxes:  # the mean over the microbatches, its gradient in the second pass
+        loss = loss + aux_weight * torch.stack(auxes).mean()
     for i, (mb, d) in enumerate(zip(mbs, draws)):
+        out, aux = _forward(model, mb, draws=d)
         pairs = [(f, full.grad[i::k]) for f, full in
-                 zip(model(*mb, draws=d)[:2], (feats_vis, feats_text))
-                 if f.requires_grad]
+                 zip(out[:2], (feats_vis, feats_text)) if f.requires_grad]
+        if aux is not None and aux.requires_grad:
+            pairs.append((aux, torch.full_like(aux, aux_weight / k)))
         if pairs:
             torch.autograd.backward(*zip(*pairs))
     _update(optimizer, scheduler)

@@ -45,7 +45,7 @@ from .checkpoints import (
     schedule_step,
 )
 from .metrics import LossMetric, MetricTracker
-from .step import eval_step, global_truncate_tokens, train_step
+from .step import MOE_AUX_LOSS_WEIGHT, eval_step, global_truncate_tokens, train_step
 
 try:  # optional third sink (reference logs to wandb, trainer/trainer.py:92,120)
     import wandb as _wandb
@@ -60,7 +60,7 @@ def _wandb_log(payload: dict) -> None:
         _wandb.log(payload)
 
 
-def _flatten_data(data):
+def flatten_data(data):
     """Flatten one level of tuple nesting (the audio-with-comments case,
     ``dataset_loaders.py:1039``)."""
     flat = []
@@ -116,6 +116,9 @@ class Trainer:
         self.epochs = cfg_trainer["epochs"]
         self.save_period = cfg_trainer.get("save_period", 1)
         self.accum_steps = int(cfg_trainer.get("accum_steps", 1))
+        # the MoE load-balance weight (read only where the model has MoE layers)
+        self.moe_aux_loss_weight = float(config.get("moe_aux_loss_weight",
+                                                    MOE_AUX_LOSS_WEIGHT))
         self.profile_dir = cfg_trainer.get("profile_dir")
         self.monitor = cfg_trainer.get("monitor", "off")
         self.checkpoint_dir = config.save_dir
@@ -175,7 +178,7 @@ class Trainer:
 
         def gen():
             for *data, meta in loader:
-                data = _flatten_data(data)
+                data = flatten_data(data)
                 if truncate:
                     data = tuple(global_truncate_tokens(data))
                 yield data, {k: v for k, v in meta.items() if hasattr(v, "shape")}
@@ -242,7 +245,8 @@ class Trainer:
             generator = self._step_generator((epoch - 1) * fold_stride + batch_idx)
             loss, out = train_step(self.model, self.criterion, self.optimizer,
                                    self.scheduler, data, meta, generator,
-                                   accum_steps=self.accum_steps)
+                                   accum_steps=self.accum_steps,
+                                   moe_aux_loss_weight=self.moe_aux_loss_weight)
             grid = None
             if (batch_idx % self.log_step == 0 and self.writer.writer is not None
                     and is_image_like_batch(data[0])):
