@@ -163,18 +163,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     (ViT-B/32, 8 frames, fp32, the config's batch of 50 and 40 workers,
     the imported weights) over a reddit corpus written with
     ``cv2.VideoWriter`` (150 training and 50 validation rows, mp4v 480x360,
-    3 s), 2 epochs, with the per-epoch MSRVTT probe on a written root of
-    one small clip per id of the packaged full-val list (497): steps/s,
-    seconds per epoch, each probe's seconds and R@10, launches exact
-    (steps and validation batches × (41, 26, 26, 12), each probe 497 ×
-    the model's or the CAM-less forward's), no plain-version call, no
-    decode fallback, the peak memory; then
+    3 s), 1 epoch, with the MSRVTT probe on a written root of one small
+    clip per id of the packaged full-val list (497): steps/s, seconds per
+    epoch, each probe's seconds and R@10, launches exact (steps and
+    validation batches × (41, 26, 26, 12), each probe 497 × the model's
+    or the CAM-less forward's), no plain-version call, no decode fallback,
+    the peak memory; then
     ``pretrained_clip_1frame_comments_attention.jsonc`` for one epoch
     (the flagship on each segment's first frame, (29, 26, 26) a step);
 21. the video loader: ``scripts.bench_video_pipeline`` on that corpus at
     the config's workers and batch: host videos/s, the video train step's
     videos/s alone (its demand) and both overlapped, and whether the
-    loader meets the demand;
+    loader meets the demand, with the script's ``VTC_REMAT=1`` default;
+    then the step alone and overlapped with ``VTC_REMAT=0`` (the host pass
+    once), the step's peak memory beside each;
 22. the repairs: the bomb-sized JPEG raises ``JpegInputError`` with
     ``torch.cuda.memory_allocated()`` unmoved; ``ycc_to_rgb`` bit-exact on
     seeded 4:1:1 and 4:1:0 planes (the 4:1:1 fixture runs in phases 15
@@ -208,7 +210,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     batch through the tower; GDT's ``AudioResNet9`` card against CPU on 40
     seeded ``[1, 257, 199]`` spectrograms (1e-4 of the largest); none of
     them launches a port kernel;
-26. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+26. ``fused_mha``'s long route (L > 128, ``csrc/long_attention.cuh``)
+    against ``fused_mha_plain`` on strided q/k/v views at L = 129, 197, 257
+    and 393, causal and not, fp32 (2e-5) on one input and bf16 (the
+    one-ulp share) on 8 seeded inputs each, the CPU's plain version's
+    share read beside it, each call counted on ``fused_mha_long`` and not
+    on the short tile; its time at ViT-B/16 ``[64, 197, 768]`` and
+    ViT-L/14 ``[32, 257, 1024]`` (bf16, held to the one-ulp share too)
+    beside the plain version, SDPA and the bound;
+27. ViT-B/16 and ViT-L/14: ``PretrainedCLIP_finaltf`` fp32 at batch 4 card
+    against CPU (``FEAT_ATOL``) with the exact launches of a forward (the
+    image tower's blocks on the long route, the text tower's and the CAM's
+    on the short tile), bf16 against fp32 (cosine > 0.995),
+    ``python -m vtc_tpu_torch.bench``'s row with ``BENCH_MODEL`` at each
+    (batch 64 and 32), one bf16 ``train_step`` of ViT-B/16 at batch 32
+    (finite, the forward's launches), and ``PretrainedCLIP_TimeSformer_
+    finaltf`` at ViT-B/16, batch 2, card against CPU with its launches;
+28. ``vtc_tpu_torch.bench`` at its defaults (the flagship at batch 160,
+    77-token texts, the CPU baseline, the train step, MFU against the
+    card's bf16 peak), its JSON line logged before the results;
+29. ``scripts.profile_eval`` (per-tower ms), ``scripts.bench_video_eval``
+    (videos/s) and ``scripts.bench_optim_update`` (per-leaf Adam and
+    ``Bf16MomentAdam`` against one merged buffer) at their defaults;
+30. ``VTC_REMAT=1``: the flagship config's fp32 train step at batch 8 with
+    and without it, gradients within 1e-6 of each parameter's largest and
+    a remat step's launches (each block's kernels twice); the video model's
+    bf16 train step at batch 50, videos/s and peak memory with and without;
+31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -231,8 +259,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, no TF32
 BENCH_BATCH = 160  # bench.py's batch
 FWD_BATCH = 32
 FP32_ATOL = 2e-5  # the repo's fp32 kernel tolerance (tests/test_pallas_attention.py)
@@ -284,14 +310,17 @@ LN_BF16_EDGES = {
 }
 PORT_KERNELS = ("layernorm", "add_layernorm", "fused_mha", "fused_attention")
 EXPECTED_LAUNCHES = {"layernorm": 29, "add_layernorm": 26, "fused_mha": 26,
-                     "fused_attention": 0, "ln_mxu": 0, "ln_mxu_bf16": 0}
+                     "fused_attention": 0, "ln_mxu": 0, "ln_mxu_bf16": 0,
+                     "fused_mha_long": 0}
 # video: 26 LN in the tower (ln_pre, 12 × (ln_time + ln_1), ln_post), 13 in
 # the text tower, 2 in the CAM; add+LN and fused_mha 12 + 12 + 2
 EXPECTED_VIDEO_LAUNCHES = {"layernorm": 41, "add_layernorm": 26, "fused_mha": 26,
-                           "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0}
+                           "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0,
+                           "fused_mha_long": 0}
 KERNEL_FAMILIES = (  # device-kernel name fragments, matched in this order
     ("add_layernorm", ("_addln_kernel",)),
     ("layernorm", ("_ln_kernel",)),
+    ("fused_mha_long", ("fused_mha_long_kernel",)),
     ("fused_mha", ("fused_mha_kernel",)),
     ("fused_attention", ("fused_attention_kernel",)),
     ("gemm", ("gemm", "Gemm", "gemv", "nvjet", "cutlass", "xmma")),
@@ -309,6 +338,9 @@ SOURCES = {
                "scripts/bench_ln_kernel.py:39"),
     "ln_mxu_bf16": ("cuda", "vtc_tpu_torch/csrc/ln_mxu.cu",
                     "scripts/bench_ln_kernel.py:61"),
+    # not a Pallas kernel: the XLA attention the JAX package runs past L = 128
+    "fused_mha_long": ("cuda", "vtc_tpu_torch/csrc/long_attention.cuh",
+                       "vtc_tpu/models/layers.py:269"),
 }
 
 
@@ -396,6 +428,10 @@ def kernel_instance(ptxas_line: str) -> str:
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """The least time of the work on the card (``vtc_tpu_torch.device``'s
+    figures), ms, and what bounds it."""
+    from vtc_tpu_torch.device import HBM_BYTES_PER_S, PEAK_FLOPS
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -719,11 +755,11 @@ def perturb(model, seed: int = 0):
     return model
 
 
-def flagship(**kwargs):
+def flagship(model_type: str = "ViT-B/32", **kwargs):
     from vtc_tpu_torch.models import create_model
 
     return perturb(create_model("PretrainedCLIP_finaltf",
-                                model_type="ViT-B/32", seed=0, **kwargs))
+                                model_type=model_type, seed=0, **kwargs))
 
 
 def video_model(**kwargs):
@@ -733,7 +769,7 @@ def video_model(**kwargs):
 
     arch = jsonc.read_json(Path(__file__).resolve().parent / VIDEO_CONFIG)["arch"]
     return perturb(create_model(arch["type"], seed=0, nframes=NFRAMES,
-                                **arch["args"], **kwargs))
+                                **dict(arch["args"], **kwargs)))
 
 
 def profile_calls(fn, n: int) -> dict:
@@ -1963,7 +1999,7 @@ def check_ycc(smi) -> list:
                                YCC_REPS),
                "plain_ms": stream_ms(lambda: image_io.ycc_to_rgb_reference(*planes, factors),
                                      stream, YCC_REPS // 10),
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "bound_ms": bound(nbytes, 0, torch.float32)[0], "bound_by": "bytes",
                "library_ms": None}
         rows.append(row)
         log(f"ycc_to_rgb {name}: planes {row['planes']}, bit-exact vs the plain version "
@@ -2358,10 +2394,12 @@ PROBE_CLIPS = 4  # the MSRVTT root: one per full-val id, copied from these
 PROBE_CLIP = dict(frames=24, width=128, height=96)
 PROBE_CAPTIONS = 2
 PROBE_HOST_SAMPLE = 50  # probe videos whose host work is timed alone
+VIDEO_TWIN_EPOCHS = 1  # two probes after it: the model's branch and the skip
 # the probe's forward of one video: the model's, and with the CAM skipped
 # (2 LN, 2 add+LN and 2 attention fewer: counted on the CPU)
 PROBE_SKIP_LAUNCHES = {"layernorm": 39, "add_layernorm": 24, "fused_mha": 24,
-                       "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0}
+                       "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0,
+                       "fused_mha_long": 0}
 
 
 def write_clip(path: Path, frames: int, width: int, height: int, seed: int) -> None:
@@ -2482,9 +2520,10 @@ def run_video_twin(ops, smi, tmp: Path):
     """Phase 20: ``vtc_tpu_torch.train`` through its CLI on
     ``pretrained_clip_timesformer_comments_attention.jsonc`` (ViT-B/32, 8
     frames, the config's batch of 50 and 40 workers, fp32, phase 15's
-    imported weights) over a written reddit video corpus, 2 epochs, with the
-    MSRVTT probe on a written root of the 497 full-val ids; then the 1-frame
-    config for one epoch. Steps/s, seconds per epoch, each probe's seconds
+    imported weights) over a written reddit video corpus, 1 epoch, with the
+    MSRVTT probe (the model's branch and the adapter-skip branch) on a
+    written root of the 497 full-val ids; then the 1-frame config for one
+    epoch. Steps/s, seconds per epoch, each probe's seconds
     and R@10, exact launches, no decode fallback, peak memory.
     -> (csv path, media root) of the corpus."""
     from vtc_tpu_torch.utils import jsonc, write_json
@@ -2506,14 +2545,16 @@ def run_video_twin(ops, smi, tmp: Path):
         cfg_path = tmp / "video_config.json"
         write_json(cfg, cfg_path)
         argv = ["-c", str(cfg_path), "--csv_file", str(csv_path), "--root", str(media),
-                "--epochs", "2", "--save_dir", str(tmp / "video_run")]
+                "--epochs", str(VIDEO_TWIN_EPOCHS), "--save_dir", str(tmp / "video_run")]
         torch.cuda.reset_peak_memory_stats()
         run = run_twin(ops, argv)
         peak = torch.cuda.max_memory_allocated() / 2**30
         trainer = run["trainer"]
-        require(len(run["logs"]) == 2, f"video twin: {len(run['logs'])} epochs ran")
+        require(len(run["logs"]) == VIDEO_TWIN_EPOCHS,
+                f"video twin: {len(run['logs'])} epochs ran")
         twin_launches("video twin", run, EXPECTED_VIDEO_LAUNCHES, n_probe)
-        require(len(run["probes"]) == 4, f"video twin: {len(run['probes'])} probes")
+        require([p["branch"] for p in run["probes"]] == [None, "skip"] * VIDEO_TWIN_EPOCHS,
+                f"video twin: probes of branches {[p['branch'] for p in run['probes']]}")
         for epoch, (elog, ep_s, val_s) in enumerate(
                 zip(run["logs"], run["seconds"]["epoch"], run["seconds"]["valid"]), 1):
             probe_s = sum(p["s"] for p in run["probes"][2 * epoch - 2 : 2 * epoch])
@@ -2546,9 +2587,8 @@ def run_video_twin(ops, smi, tmp: Path):
             f"preprocessing; {PROBE_HOST_SAMPLE} videos on one thread) of a pass's "
             f"{pass_ms:.2f} ms per video")
         files = {f.name: f.stat().st_size for f in trainer.checkpoint_dir.glob("*.pth")}
-        require({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(files),
-                f"video twin checkpoints: {files}")
-        log(f"video twin: 2 epochs in {run['total']:.3f} s (datasets, model with the "
+        require("checkpoint-epoch1.pth" in files, f"video twin checkpoints: {files}")
+        log(f"video twin: {VIDEO_TWIN_EPOCHS} epoch in {run['total']:.3f} s (datasets, model with the "
             f"imported weights, probes and saves included); peak memory {peak:.3f} GiB "
             f"allocated; checkpoints {files} bytes; decode fallbacks "
             f"{len(fallbacks.records)}; on {smi}")
@@ -2588,7 +2628,10 @@ def run_video_twin(ops, smi, tmp: Path):
 def run_video_loader(smi, csv_path: Path, media: Path) -> None:
     """Phase 21: ``scripts.bench_video_pipeline`` on phase 20's corpus at the
     video config's workers and batch: host videos/s (2 epochs), the train
-    step's videos/s alone (its demand), and both overlapped."""
+    step's videos/s alone (its demand), and both overlapped, with the
+    script's default (``VTC_REMAT=1``, as the JAX script measures); then the
+    step alone and overlapped again with ``VTC_REMAT=0`` (the host pass does
+    not depend on it)."""
     from vtc_tpu_torch.scripts import bench_video_pipeline
     from vtc_tpu_torch.utils import jsonc
 
@@ -2596,16 +2639,27 @@ def run_video_loader(smi, csv_path: Path, media: Path) -> None:
     cfg = jsonc.read_json(Path(__file__).resolve().parent / VIDEO_CONFIG)
     log(f"bench_video_pipeline on phase 20's corpus ({VIDEO_CORPUS_ROWS['train']} train "
         f"videos), {cfg['num_workers']} workers, batch {cfg['batch_size']}, {smi}:")
-    res = bench_video_pipeline.main(workers=cfg["num_workers"], batch=cfg["batch_size"],
-                                    epochs=2, device_step=True, csv_file=str(csv_path),
-                                    root=str(media), log=log)
-    for key in ("host_videos_per_s", "device_videos_per_s", "overlapped_videos_per_s"):
-        require(res[key] and res[key] > 0, f"bench_video_pipeline: {key} {res[key]}")
-    log(f"video loader: host {res['host_videos_per_s']:.2f} videos/s, device step "
-        f"{res['device_videos_per_s']:.2f}, overlapped {res['overlapped_videos_per_s']:.2f}; "
-        f"the loader {'meets' if res['meets_demand'] else 'does not meet'} the step's demand; "
-        f"phase 21 took {time.perf_counter() - phase_tic:.1f} s")
-    torch.cuda.empty_cache()
+
+    def pipeline(host=True):
+        return bench_video_pipeline.main(workers=cfg["num_workers"], batch=cfg["batch_size"],
+                                         epochs=2, device_step=True, csv_file=str(csv_path),
+                                         root=str(media), log=log, host=host)
+
+    host_rate = None
+    for what, res in (("the default, VTC_REMAT=1", pipeline()),
+                      ("VTC_REMAT=0", with_remat(False, lambda: pipeline(host=False)))):
+        host_rate = host_rate or res["host_videos_per_s"]
+        require(host_rate and host_rate > 0, f"bench_video_pipeline: host {host_rate}")
+        for key in ("device_videos_per_s", "overlapped_videos_per_s"):
+            require(res[key] and res[key] > 0, f"bench_video_pipeline: {key} {res[key]}")
+        meets = host_rate >= res["device_videos_per_s"]
+        log(f"video loader ({what}): host {host_rate:.2f} videos/s, device "
+            f"step {res['device_videos_per_s']:.2f} (peak {res['peak_gib']:.3f} GiB), "
+            f"overlapped {res['overlapped_videos_per_s']:.2f}; the loader "
+            f"{'meets' if meets else 'does not meet'} the step's demand")
+        torch.cuda.empty_cache()
+    require("VTC_REMAT" not in os.environ, "bench_video_pipeline left VTC_REMAT set")
+    log(f"phase 21 took {time.perf_counter() - phase_tic:.1f} s")
 
 
 # ---- phase 22: the repairs on the card -------------------------------------------------
@@ -3023,10 +3077,337 @@ def run_r2plus1d(ops, smi, tmp: Path, video_csv: Path, video_media: Path) -> Non
     log(f"phase 25 took {time.perf_counter() - tic:.1f} s")
 
 
+# ---- phase 26: fused_mha's long route against its plain version --------------
+
+# (B, L, E, H) at each checked length: the ViT-B/16 and ViT-L/14 towers' L,
+# one key past the short tile, and the joint TimeSformer's CLS row over
+# 1 + 8 · 49 keys
+LONG_CASES = {129: (16, 129, 768, 12), 197: (16, 197, 768, 12), 257: (8, 257, 1024, 16),
+              393: (4, 393, 512, 8)}
+# the timed shapes: ViT-B/16 at batch 64, ViT-L/14 at batch 32 (the batches of
+# bench.py's rows for them)
+LONG_TIMED = {"vit_b16": (64, 197, 768, 12), "vit_l14": (32, 257, 1024, 16)}
+LONG_SEEDS = 8  # bf16 inputs at each (L, causal): the one-ulp share read on each
+
+
+def check_long_route(ops) -> dict:
+    """``fused_mha`` past L = 128: the long route (``fused_mha_long``'s
+    counter moves, the short tile's does not) against ``fused_mha_plain`` on
+    strided q/k/v views of one qkv tensor at ``LONG_CASES``, causal and not:
+    fp32 (2e-5) on one input each, bf16 on ``LONG_SEEDS`` inputs each, the
+    one-ulp share of every one read beside the CPU's plain version's (the
+    same contract summed in another order) and P left unrounded's (the
+    fault); then timed at ``LONG_TIMED`` in bf16 beside the plain version,
+    SDPA (the yardstick; the port never calls it) and the bound (q, k, v
+    read and o written once; 4·L²·E FLOPs a sequence; the second pass's
+    recompute of S is the design's cost, not the work's), the timed shapes
+    held to the one-ulp share too. -> {"cases": [...], "shares": [...],
+    "headline": the ViT-B/16 case}."""
+    import torch.nn.functional as F
+
+    from vtc_tpu_torch.utils.timing import n_sets, time_ms
+
+    dev = torch.device("cuda")
+    out = {"cases": [], "shares": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for l, (b, _, e, h) in LONG_CASES.items():
+            for causal in (False, True):
+                name = f"L{l}{' causal' if causal else ''}"
+                errs = []
+                for seed in range(1 if dtype == torch.float32 else LONG_SEEDS):
+                    g = torch.Generator(device=dev).manual_seed(1000 * l + 10 * seed + causal)
+                    qkv = torch.randn(b, l, 3 * e, device=dev, generator=g).to(dtype)
+                    q, k, v = qkv.chunk(3, -1)
+                    short, long = ops.fused_mha.launches, ops.fused_mha_long.launches
+                    o = ops.fused_mha(q, k, v, h, causal)
+                    torch.cuda.synchronize()
+                    require((ops.fused_mha.launches, ops.fused_mha_long.launches)
+                            == (short, long + 1), f"L={l}: not the long route")
+                    ref = ops.fused_mha_plain(q, k, v, h, causal)
+                    errs.append((o.float() - ref.float()).abs().max().item())
+                    tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref, 1)
+                    require(errs[-1] <= tol,
+                            f"fused_mha_long {name} seed {seed}: max_abs_err {errs[-1]} > {tol}")
+                    if dtype == torch.bfloat16:
+                        ulp = bf16_ulp_at_median(ref)
+                        cpu = ops.fused_mha_plain(q.cpu(), k.cpu(), v.cpu(), h, causal)
+                        out["shares"].append(dict(
+                            L=l, causal=causal, seed=seed, share=share_beyond(o, ref, ulp),
+                            cpu_plain=share_beyond(cpu, ref.cpu(), ulp),
+                            p_unrounded=share_beyond(mha_p_unrounded(q, k, v, h, causal),
+                                                     ref, ulp)))
+                log(f"kernel fused_mha_long {name} {str(dtype)[6:]} B={b} E={e} H={h}: "
+                    f"max_abs_err={max(errs):.3g} over {len(errs)} inputs, tol={tol:.3g}")
+                out["cases"].append(dict(shape=name, dtype=str(dtype)[6:],
+                                         max_abs_err=max(errs), tol=tol))
+        del qkv, q, k, v, o, ref
+    for r in out["shares"]:
+        log(f"kernel fused_mha_long L{r['L']}{' causal' if r['causal'] else ''} bfloat16 "
+            f"seed {r['seed']}: {r['share']:.3g} of outputs beyond one ulp at the median "
+            f"(the CPU's plain version {r['cpu_plain']:.3g}, P left unrounded "
+            f"{r['p_unrounded']:.3g}), limit {ATTN_BF16_SHARE:g}")
+    for r in out["shares"]:
+        require(r["share"] <= ATTN_BF16_SHARE < r["p_unrounded"],
+                f"fused_mha_long bf16 one-ulp share at {r}: limit {ATTN_BF16_SHARE}")
+    torch.cuda.empty_cache()
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name, (b, l, e, h) in LONG_TIMED.items():
+        per = 4 * b * l * e * 2
+        sets = [torch.randn(b, l, 3 * e, device=dev, generator=g).to(dtype).chunk(3, -1)
+                for _ in range(n_sets(per))]
+        dh = e // h
+
+        def sdpa(q, k, v):
+            def heads(t):
+                return t.view(b, l, h, dh).transpose(1, 2)
+
+            return F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+
+        o = ops.fused_mha(*sets[0], h)
+        torch.cuda.synchronize()
+        ref = ops.fused_mha_plain(*sets[0], h)
+        err = (o.float() - ref.float()).abs().max().item()
+        tol = bf16_share_check("fused_mha_long", name, o, ref,
+                               mha_p_unrounded(*sets[0], h, False))
+        require(err <= tol, f"fused_mha_long {name}: max_abs_err {err} > {tol}")
+        ms = time_ms(lambda q, k, v: ops.fused_mha(q, k, v, h), sets)
+        plain_ms = time_ms(lambda q, k, v: ops.fused_mha_plain(q, k, v, h), sets)
+        library_ms = time_ms(sdpa, sets)
+        bms, by = bound(per, 4 * b * l * l * e, dtype)
+        case = dict(shape=name, dtype="bfloat16", max_abs_err=err, tol=tol,
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+                    bound_by=by)
+        log(f"kernel fused_mha_long {name} bfloat16 B={b} L={l} E={e} H={h}: "
+            f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+            f"bound_us={bms * 1e3:.2f} ({by}) share_of_bound={bms / ms:.4f} "
+            f"max_abs_err={err:.3g}")
+        out["cases"].append(case)
+        out.setdefault("headline", case)
+        del sets, o, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 27: ViT-B/16 and ViT-L/14 ------------------------------------------------
+
+VARIANT_BENCH_BATCH = {"ViT-B/16": 64, "ViT-L/14": 32}  # bench.py's rows for them
+VARIANT_BENCH_ITERS = 32
+VARIANT_FWD_BATCH = 4
+VARIANT_TRAIN_BATCH = 32
+
+
+def variant_launches(layers: int, video: bool = False) -> dict:
+    """One forward of a CLIP + CAM model whose image tower has ``layers``
+    blocks at L > 128: the tower's attention on the long route, the text
+    tower's 12 and the CAM's 2 on the short tile; a TimeSformer block adds
+    ``ln_time`` and a temporal ``fused_attention``."""
+    return dict(EXPECTED_LAUNCHES, layernorm=(2 if video else 1) * layers + 2 + 13 + 2,
+                add_layernorm=layers + 12 + 2, fused_mha=12 + 2, fused_mha_long=layers,
+                fused_attention=layers if video else 0)
+
+
+def run_variants(ops, smi) -> dict:
+    """Phase 27: ``PretrainedCLIP_finaltf`` at ViT-B/16 and ViT-L/14, fp32 on
+    the card against the CPU's plain run at batch 4 (``FEAT_ATOL``), with
+    the exact launches of the forward (its main path: counts from 0 just
+    before, read just after) and bf16 against fp32; ``vtc_tpu_torch.bench``
+    with ``BENCH_MODEL`` at each; one bf16 ``train_step`` of ViT-B/16 (finite
+    loss, the forward's launches); ``PretrainedCLIP_TimeSformer_finaltf`` at
+    ViT-B/16, batch 2, card against CPU. -> the ViT-B/16 forward's
+    launches."""
+    from vtc_tpu_torch import bench
+    from vtc_tpu_torch.models import convert_weights
+    from vtc_tpu_torch.models.clip_model import CLIP_VARIANTS
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.scripts import bench_train_step
+    from vtc_tpu_torch.training import train_step
+
+    phase_tic = time.perf_counter()
+    main_launches = None
+    for mt in ("ViT-B/16", "ViT-L/14"):
+        v = CLIP_VARIANTS[mt]
+        model, cpu_model = flagship(mt), flagship(mt, device="cpu")
+        inputs = bench_inputs(VARIANT_FWD_BATCH, v.patch_size, seed=3)
+        with torch.inference_mode():
+            model(*[t.cuda() for t in inputs])  # warm up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            fv, ft, sim = model(*[t.cuda() for t in inputs])
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            cpu_outs = cpu_model(*inputs)
+        want = variant_launches(v.vision_layers)
+        log(f"kernel use ({mt} forward): {json.dumps(launches)}")
+        require(launches == want, f"{mt} launches {launches} != {want}")
+        main_launches = main_launches or launches
+        compare_with_cpu(mt, (fv, ft, sim), cpu_outs, cpu_model.model.logit_scale.exp().item())
+        del cpu_model, cpu_outs
+        bf16 = convert_weights(flagship(mt, dtype="bf16"))
+        with torch.inference_mode():
+            fv16, ft16, _ = bf16(*[t.cuda() for t in inputs])
+        for name, a, b in (("feats_vis", fv16, fv), ("feats_text", ft16, ft)):
+            cos = cosines(a, b).min().item()
+            log(f"{mt} bf16 {name}: min cosine vs fp32 {cos:.6f} (> {COS_MIN})")
+            require(cos > COS_MIN, f"{mt} bf16 {name} cosine {cos} <= {COS_MIN}")
+        del model, bf16
+        torch.cuda.empty_cache()
+        row = bench.main({"BENCH_MODEL": mt, "BENCH_BATCH": str(VARIANT_BENCH_BATCH[mt]),
+                          "BENCH_ITERS": str(VARIANT_BENCH_ITERS)})
+        require(row["value"] > 0 and row["model"] == mt, f"bench row {row}")
+        log(f"bench {mt} at batch {VARIANT_BENCH_BATCH[mt]}: {row['value']} pairs/s, mfu "
+            f"{row['mfu']}; on {smi}")
+        torch.cuda.empty_cache()
+
+    # one bf16 train step of ViT-B/16
+    model, optimizer, scheduler, data = bench_train_step.setup(
+        VARIANT_TRAIN_BATCH, model_type="ViT-B/16")
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss, _ = train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = variant_launches(CLIP_VARIANTS["ViT-B/16"].vision_layers)
+    log(f"ViT-B/16 bf16 train step at batch {VARIANT_TRAIN_BATCH}: loss {float(loss):.6f}, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; kernel use "
+        f"{json.dumps(launches)}")
+    require(math.isfinite(float(loss)), "ViT-B/16 train step: a non-finite loss")
+    require(launches == want, f"ViT-B/16 train step launches {launches} != {want}")
+    del model, optimizer, scheduler, data
+    torch.cuda.empty_cache()
+
+    # the TimeSformer at ViT-B/16: spatial attention at L = 197 per frame
+    model = video_model(model_type="ViT-B/16")
+    cpu_model = video_model(model_type="ViT-B/16", device="cpu")
+    inputs = bench_inputs(2, 16, seed=4, frames=NFRAMES)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        outs = model(*[t.cuda() for t in inputs])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        cpu_outs = cpu_model(*inputs)
+    want = variant_launches(CLIP_VARIANTS["ViT-B/16"].vision_layers, video=True)
+    log(f"kernel use (ViT-B/16 TimeSformer forward): {json.dumps(launches)}")
+    require(launches == want, f"ViT-B/16 TimeSformer launches {launches} != {want}")
+    compare_with_cpu("ViT-B/16 TimeSformer", outs, cpu_outs,
+                     cpu_model.model.logit_scale.exp().item())
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    log(f"phase 27 took {time.perf_counter() - phase_tic:.1f} s")
+    return main_launches
+
+
+# ---- phases 28-29: the bench twin and the script twins ------------------------------
+
+def run_bench_twins(smi) -> None:
+    """Phase 28: ``vtc_tpu_torch.bench`` at its defaults (its JSON line is
+    logged here, not last); phase 29: ``scripts.profile_eval``,
+    ``scripts.bench_video_eval`` and ``scripts.bench_optim_update`` at
+    theirs."""
+    from vtc_tpu_torch import bench
+    from vtc_tpu_torch.scripts import bench_optim_update, bench_video_eval, profile_eval
+
+    tic = time.perf_counter()
+    row = bench.main({})
+    for key in ("value", "vs_baseline", "full_context_pairs_per_sec",
+                "train_samples_per_sec", "mfu", "train_mfu"):
+        require(row.get(key) is not None and row[key] > 0, f"bench: {key} {row.get(key)}")
+    log(f"bench twin took {time.perf_counter() - tic:.1f} s; on {smi}")
+    torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    ms = profile_eval.main()
+    require(all(t > 0 for t in ms.values()), f"profile_eval: {ms}")
+    torch.cuda.empty_cache()
+    video = bench_video_eval.main()
+    require(video["videos_per_s"] > 0, f"bench_video_eval: {video}")
+    torch.cuda.empty_cache()
+    optim = bench_optim_update.main()
+    require(optim["merged_ms"] > 0, f"bench_optim_update: {optim}")
+    log(f"script twins took {time.perf_counter() - tic:.1f} s; on {smi}")
+    torch.cuda.empty_cache()
+
+
+# ---- phase 30: VTC_REMAT ------------------------------------------------------------
+
+REMAT_VIDEO_BATCH = 50  # the video config's
+
+
+def with_remat(on: bool, fn):
+    saved = os.environ.get("VTC_REMAT")
+    os.environ["VTC_REMAT"] = "1" if on else "0"
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            os.environ.pop("VTC_REMAT", None)
+        else:
+            os.environ["VTC_REMAT"] = saved
+
+
+def run_remat(ops, smi) -> None:
+    """Phase 30: ``VTC_REMAT=1`` against the plain step. The flagship's
+    config at batch 8, fp32, one ``train_step`` from the same weights and
+    draws: each parameter's gradient within 1e-6 of its largest, and the
+    launches of a remat step (each block's kernels twice: 3 + 2 · 26
+    layernorm, 2 · 26 add_layernorm and fused_mha). Then the video model's
+    bf16 train step at batch 50 (``bench_train_step``): samples/s and peak
+    memory with and without."""
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.scripts import bench_train_step
+
+    tic = time.perf_counter()
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=8)
+    draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, torch.Generator().manual_seed(8))}]
+    plain = with_remat(False, lambda: train_run(ops, "cuda", inputs, draws))
+    remat = with_remat(True, lambda: train_run(ops, "cuda", inputs, draws))
+    require(plain["losses"] == remat["losses"] or
+            abs(plain["losses"][0] - remat["losses"][0]) <= LOSS_ATOL,
+            f"remat loss {remat['losses']} != {plain['losses']}")
+    worst = 0.0
+    for n, gp in plain["grads"].items():
+        gr = remat["grads"][n]
+        require((gp is None) == (gr is None), f"remat: {n} gradient presence differs")
+        if gp is None:
+            continue
+        rel = (gr - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        require(rel <= 1e-6, f"remat: {n} gradient differs by {rel} of its largest")
+    want = dict(EXPECTED_LAUNCHES, layernorm=3 + 2 * 26, add_layernorm=2 * 26,
+                fused_mha=2 * 26)
+    log(f"remat fp32 step at batch {PARITY_BATCH}: loss {remat['losses'][0]:.7f} (plain "
+        f"{plain['losses'][0]:.7f}), worst gradient difference {worst:.3g} of the "
+        f"parameter's largest; kernel use {json.dumps(remat['launches'])} (plain "
+        f"{json.dumps(plain['launches'])})")
+    require(plain["launches"] == EXPECTED_LAUNCHES, f"plain step {plain['launches']}")
+    require(remat["launches"] == want, f"remat step launches {remat['launches']} != {want}")
+    del plain, remat
+    torch.cuda.empty_cache()
+    for on in (False, True):
+        def step():
+            torch.cuda.reset_peak_memory_stats()
+            res = bench_train_step.main(REMAT_VIDEO_BATCH, 16,
+                                        "PretrainedCLIP_TimeSformer_finaltf", NFRAMES,
+                                        iters=4, warmup=2)
+            return res, torch.cuda.max_memory_allocated() / 2**30
+
+        res, peak = with_remat(on, step)
+        require(all(math.isfinite(x) for x in res["losses"]), "remat video: a loss")
+        log(f"video bf16 train step, batch {REMAT_VIDEO_BATCH}, VTC_REMAT={int(on)}: "
+            f"{res['samples_per_s']:.2f} videos/s (windows "
+            f"{['%.2f' % r for r in res['window_rates']]}), peak memory {peak:.3f} GiB; "
+            f"on {smi}")
+        del res
+        torch.cuda.empty_cache()
+    log(f"phase 30 took {time.perf_counter() - tic:.1f} s")
+
+
 def main() -> int:
     # wandb, where installed, stays off: nothing here may reach the network
     os.environ["WANDB_MODE"] = "disabled"
     os.environ["WANDB_ERROR_REPORTING"] = "false"
+    # the launch counts are a plain step's: phases 21 and 30 set VTC_REMAT
+    os.environ.pop("VTC_REMAT", None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -3226,10 +3607,24 @@ def main() -> int:
             os.environ["VTC_CLIP_WEIGHTS"] = saved_env
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 26. results: each kernel's launches from the path that runs it
+    # 26. fused_mha's long route against its plain version, timed
+    results["fused_mha_long"] = check_long_route(ops)
+
+    # 27. ViT-B/16 and ViT-L/14: card vs CPU, launches, bf16, bench rows, train, video
+    long_launches = run_variants(ops, smi)
+
+    # 28-29. the bench twin at its defaults; profile_eval, bench_video_eval,
+    # bench_optim_update
+    run_bench_twins(smi)
+
+    # 30. VTC_REMAT: gradients and launches of a remat step, the video step's memory
+    run_remat(ops, smi)
+
+    # 31. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
-                         ln_mxu_bf16=sweep_launches["ln_mxu_bf16"])
+                         ln_mxu_bf16=sweep_launches["ln_mxu_bf16"],
+                         fused_mha_long=long_launches["fused_mha_long"])
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         head = results[name]["headline"]

@@ -162,9 +162,24 @@ def test_fused_mha_takes_strided_qkv_views():
 
 
 def test_fused_mha_rejects_long_sequences():
-    q = torch.zeros(2, 129, 64)
-    with pytest.raises(ValueError, match="L <= 128"):
-        ops.fused_mha(q, q, q, 4)
+    """``fused_mha`` no longer refuses L > 128, where the Pallas kernel
+    stops: past it the JAX package runs XLA attention, with the math of the
+    kernel's own reference (``_mha_reference``), and the port takes the
+    long route. Parity at L = 129, causal, fp32."""
+    from vtc_tpu.ops.pallas_attention import _mha_reference
+
+    pairs = [both(x, "fp32") for x in _qkv(2, 129, 64, 129)]
+    ref = _mha_reference(*[j for _, j in pairs], 4, True, 16**-0.5)
+    assert_close(ops.fused_mha(*[t for t, _ in pairs], 4, True), ref, "fp32")
+
+
+def test_long_route_launch_refuses_cpu_tensors():
+    """The long route's launch takes CUDA tensors only; on the CPU
+    ``fused_mha`` runs the plain version at any L."""
+    q = torch.zeros(1, 129, 64)
+    with pytest.raises(ValueError, match="cuda tensors"):
+        ops.fused_mha_long(q, q, q, 4, False, 0.25)
+    assert ops.fused_mha(q, q, q, 4).shape == q.shape
 
 
 def test_backward_through_a_kernel_raises():
@@ -212,7 +227,7 @@ def test_launch_counters_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "layernorm": 0, "add_layernorm": 0, "fused_mha": 0, "fused_attention": 0,
-        "ln_mxu": 0, "ln_mxu_bf16": 0,
+        "ln_mxu": 0, "ln_mxu_bf16": 0, "fused_mha_long": 0,
     }
 
 
@@ -257,6 +272,28 @@ def test_fused_mha_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
     out = ops.fused_mha(q, k, v, h, causal)
     torch.cuda.synchronize()
     assert ops.fused_mha.launches == n + 1
+    assert_close(out, ops.fused_mha_plain(q, k, v, h, causal), dtype_name, ulps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,l,e,h,causal", [
+    # ViT-B/16 and ViT-L/14 heads; one key past the tile, a ragged last tile
+    (4, 197, 768, 12, False), (2, 257, 1024, 16, False), (3, 129, 256, 4, True),
+    (2, 393, 512, 8, True),
+    # Dh = 128 (the larger register bucket); Dh = 20: element loads in bf16
+    (2, 200, 256, 2, False), (2, 150, 40, 2, True),
+])
+def test_fused_mha_long_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
+    """Past L = 128 ``fused_mha`` launches the long route, not the short
+    tile: strided q/k/v views of one qkv tensor against the plain version."""
+    tdt = DTYPES[dtype_name]
+    qkv = torch.randn(b, l, 3 * e, generator=torch.Generator().manual_seed(l))
+    q, k, v = qkv.to(cuda, tdt).chunk(3, dim=-1)
+    n_short, n_long = ops.fused_mha.launches, ops.fused_mha_long.launches
+    out = ops.fused_mha(q, k, v, h, causal)
+    torch.cuda.synchronize()
+    assert (ops.fused_mha.launches, ops.fused_mha_long.launches) == (n_short, n_long + 1)
     assert_close(out, ops.fused_mha_plain(q, k, v, h, causal), dtype_name, ulps=2)
 
 

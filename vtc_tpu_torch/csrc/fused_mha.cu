@@ -32,8 +32,13 @@
 // <fp32, 2, 4> (the CAM) 72; the largest, <fp32, 16, 8>, 168. No instance
 // spills (the launch bounds of short_attention.cuh see to that).
 //
+// Past L = 128 the same contract runs on the long route of
+// long_attention.cuh (entry vtc_fused_mha_long below), which streams the
+// keys in tiles of 64.
+//
 // Plain C interface, loaded with ctypes (vtc_tpu_torch/ops/attention.py).
 
+#include "long_attention.cuh"
 #include "short_attention.cuh"
 
 namespace {
@@ -91,24 +96,56 @@ struct Launch {
 };
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, long long q_sb,
-                   long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-                   long long v_sl, int B, int L, int H, int Dh, int causal, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+  Launch<T> f{a, stream};
+  return sa::with_bucket(a.L, a.Dh, f);
+}
+
+// ---- the long route: one block per (sequence, head, 64-row query tile) -------
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(la::kThreads, la::min_blocks<T>(DC))
+fused_mha_long_kernel(const Args<T> a) {
+  la::attend_long<T, DC>(head(a, blockIdx.x), a.L, a.Dh, a.causal, round_to<T>(a.scale), a.vec_in,
+                         a.vec_out);
+}
+
+template <typename T, int DC>
+cudaError_t launch_long_dc(const Args<T>& a, cudaStream_t stream) {
+  const auto kernel = fused_mha_long_kernel<T, DC>;
+  const size_t smem = la::smem_bytes<T>(a.Dh);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((long long)a.B * a.H),
+                  (unsigned)((a.L + la::kQueryRows - 1) / la::kQueryRows));
+  kernel<<<grid, la::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_long(const Args<T>& a, cudaStream_t stream) {
+  return a.Dh <= 64 ? launch_long_dc<T, 4>(a, stream) : launch_long_dc<T, 8>(a, stream);
+}
+
+// the kernel's arguments, with 16-byte copies where every base, the head
+// offset h·Dh and every row and batch stride are 16-byte multiples
+template <typename T>
+Args<T> make_args(const void* q, const void* k, const void* v, void* o, long long q_sb,
+                  long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+                  long long v_sl, int B, int L, int H, int Dh, int causal, float scale) {
   const int es = sizeof(T);
-  // 16-byte copies need every base, the head offset h·Dh and every row and
-  // batch stride at 16-byte multiples
   const bool dh16 = (Dh * es) % 16 == 0;
   const bool vec_in = dh16 && sa::aligned16(q) && sa::aligned16(k) && sa::aligned16(v) &&
                       sa::stride16(q_sb, es, B) && sa::stride16(k_sb, es, B) &&
                       sa::stride16(v_sb, es, B) && sa::stride16(q_sl, es, L) &&
                       sa::stride16(k_sl, es, L) && sa::stride16(v_sl, es, L);
   const bool vec_out = dh16 && sa::aligned16(o);
-  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<T*>(o), q_sb, q_sl, k_sb, k_sl,
-                  v_sb, v_sl, B, L, H, Dh, causal, vec_in, vec_out, scale};
-  Launch<T> f{a, stream};
-  return sa::with_bucket(L, Dh, f);
+  return Args<T>{static_cast<const T*>(q), static_cast<const T*>(k),
+                 static_cast<const T*>(v), static_cast<T*>(o), q_sb, q_sl, k_sb, k_sl,
+                 v_sb, v_sl, B, L, H, Dh, causal, vec_in, vec_out, scale};
 }
 
 }  // namespace
@@ -126,10 +163,30 @@ extern "C" int vtc_fused_mha(const void* q, const void* k, const void* v, void* 
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B, L, H,
-                              Dh, causal, scale, st);
+    return (int)launch(make_args<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B,
+                                        L, H, Dh, causal, scale), st);
   if (dtype == 1)
-    return (int)launch<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B, L, H,
-                                 Dh, causal, scale, st);
+    return (int)launch(make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
+                                           B, L, H, Dh, causal, scale), st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The long route, the same arguments at any L >= 1 (the wrapper takes it
+// past L = 128); at most 65,535 query tiles of 64 rows.
+extern "C" int vtc_fused_mha_long(const void* q, const void* k, const void* v, void* o,
+                                  long long q_sb, long long q_sl, long long k_sb,
+                                  long long k_sl, long long v_sb, long long v_sl, int B,
+                                  int L, int H, int Dh, int causal, float scale, int dtype,
+                                  void* stream) {
+  if (L < 1 || (L + la::kQueryRows - 1) / la::kQueryRows > 65535 || Dh < 1 ||
+      Dh > sa::kMaxDh || B < 1 || H < 1 || (long long)B * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_long(make_args<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
+                                             B, L, H, Dh, causal, scale), st);
+  if (dtype == 1)
+    return (int)launch_long(make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb,
+                                                v_sl, B, L, H, Dh, causal, scale), st);
   return (int)cudaErrorInvalidValue;
 }

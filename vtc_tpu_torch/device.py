@@ -9,6 +9,13 @@ import torch
 # what a refusal of more than one device names: the port runs on one card
 DISTRIBUTION = "ROADMAP: Queue 1 item 9, distribution on torch.distributed"
 
+# the card's figures (the H100 SXM data sheet), for bounds and MFU: the HBM3
+# rate and the dense peaks, bf16 on the tensor cores and fp32 on the CUDA
+# cores (TF32 stays off, below)
+CARD = "H100"
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the card: raise when there is none, never drop to the

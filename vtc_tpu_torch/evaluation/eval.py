@@ -7,9 +7,10 @@ Bidirectional R@1/5/10 on the config's test split, the JSON results named
 by the experiment combo, and the ``add_irrelevant_comms`` robustness
 probe (``--num_irrelevant_comments``), on the card unless ``-d cpu``.
 Checkpoints are the port's ``.pth`` (``training.checkpoints``); an Orbax
-directory of the JAX package is refused by name (ROADMAP: Queue 1 item 4),
-and ``--multihost`` or a mesh (``--n_devices``/``--n_model`` above 1) wait
-for the port of distribution (Queue 1 item 9).
+directory of the JAX package is refused by name, with the route to a
+``.pth`` (``scripts/export_torch_checkpoint.py``, run where JAX is), and
+``--multihost`` or a mesh (``--n_devices``/``--n_model`` above 1) wait for
+the port of distribution (Queue 1 item 9).
 """
 
 from __future__ import annotations

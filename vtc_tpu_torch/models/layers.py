@@ -16,8 +16,15 @@ experts ``parallel.expert.MoEMLP`` (parameters under ``mlp_moe``).
 ``TorchBatchNorm`` is torch's own BatchNorm, which the JAX class of that
 name imitates, computing in fp32 whatever the activation dtype.
 
+``VTC_REMAT=1`` (``use_remat``, read at each forward as the JAX package
+reads it) runs each block of a ``Transformer`` (and of the TimeSformer)
+under ``torch.utils.checkpoint``: its activations are recomputed in the
+backward instead of kept, so the kernels of a block launch twice a train
+step. The random draws are tensors handed in, so the recompute sees the
+same masks.
+
 TPU-era means are left out: ``seq_fold``, the fused LN->Dense path, the
-tensor-parallel qkv form, remat and stack parallelism (ROADMAP). Where
+tensor-parallel qkv form and stack parallelism (ROADMAP). Where
 the JAX package folds short sequences into one masked attention call
 (``seq_fold=0``, the TimeSformer's temporal attention), the port attends
 each sequence on its own: the masked cross-sequence entries are exactly 0
@@ -26,10 +33,13 @@ after the softmax, so the two agree.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import add_layernorm, fused_attention, fused_mha, layernorm
 from ..ops.attention import causal_mask  # noqa: F401  (re-exported, as in vtc_tpu)
@@ -144,6 +154,21 @@ class ResidualAttentionBlock(nn.Module):
         return x + mlp(h)
 
 
+def use_remat() -> bool:
+    """Recompute transformer blocks in the backward (``VTC_REMAT=1``),
+    trading recompute FLOPs for activation memory, as
+    ``vtc_tpu/models/layers.py:use_remat``."""
+    return os.environ.get("VTC_REMAT") == "1"
+
+
+def run_block(block: nn.Module, x, *args):
+    """``block(x, *args)``, under ``checkpoint`` when ``use_remat()`` and a
+    gradient is being taped."""
+    if use_remat() and torch.is_grad_enabled():
+        return checkpoint(block, x, *args, use_reentrant=False)
+    return block(x, *args)
+
+
 class Transformer(nn.Module):
     """Stack of residual attention blocks (also the CAM's adapter)."""
 
@@ -157,7 +182,7 @@ class Transformer(nn.Module):
 
     def forward(self, x, causal: bool = False):
         for block in self.resblocks:
-            x = block(x, causal)
+            x = run_block(block, x, causal)
         return x
 
 

@@ -18,8 +18,9 @@ attended on its own, ``[b·n, t, m]``, which gives the same numbers.
 State-dict names are the reference's: the tower sits at ``visual.*`` with
 blocks at ``transformer.resblocks.{i}`` holding ``timeattn``, ``ln_time``,
 ``temporal_fc``, ``attn``, ``ln_1``, ``mlp``, ``ln_2``, and
-``temporal_embed`` beside the ViT's parameters. Remat and stack
-parallelism are not ported (ROADMAP).
+``temporal_embed`` beside the ViT's parameters. ``VTC_REMAT=1`` runs each
+block under ``torch.utils.checkpoint`` (``layers.run_block``); stack
+parallelism is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,7 +32,14 @@ from torch import nn
 
 from ..ops import add_layernorm
 from .clip_model import ClipVariant, embed_patches, patchify
-from .layers import HeadsAttention, LayerNorm32, MLPBlock, MultiHeadAttention, dense
+from .layers import (
+    HeadsAttention,
+    LayerNorm32,
+    MLPBlock,
+    MultiHeadAttention,
+    dense,
+    run_block,
+)
 
 TRUNC_STD = 0.02  # timeattn's trunc-normal init (timesformer.py:211-219)
 
@@ -87,7 +95,7 @@ class TimeSformerTransformer(nn.Module):
 
     def forward(self, x, nframes: int):
         for block in self.resblocks:
-            x = block(x, nframes)
+            x = run_block(block, x, nframes)
         return x
 
 

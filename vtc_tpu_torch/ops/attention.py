@@ -1,10 +1,15 @@
-"""Attention for short sequences: ``fused_mha`` and ``fused_attention``.
+"""Attention kernels: ``fused_mha`` and ``fused_attention``.
 
 ``fused_mha`` ports ``vtc_tpu/ops/pallas_attention.py:fused_mha`` (``:288``):
 heads-packed multi-head attention. q, k and v are ``[B, L, E]`` with the
 heads packed in E, and may be the strided views that splitting the merged
 qkv GEMM gives (row stride 3E): the kernel takes the strides, so no copy is
-made. The output is a contiguous ``[B, L, E]`` in q's dtype.
+made. The output is a contiguous ``[B, L, E]`` in q's dtype. It takes any
+L: up to 128 on the short tile, the Pallas kernel's range, and past it on
+the long route (``fused_mha_long``: ``csrc/long_attention.cuh``, keys
+streamed in tiles of 64), where the JAX package runs XLA attention
+(``vtc_tpu/models/layers.py:269-290``: the ViT-B/16 and ViT-L/14 towers, L
+= 197 and 257) with the same math in fp32.
 
 ``fused_attention`` ports ``fused_attention`` (``:131``): attention over
 ``[B·H, L, D]`` (the JAX layout) or over 4-D head views ``[B, H, L, D]``
@@ -16,8 +21,9 @@ On a CUDA tensor each launches its hand-written CUDA kernel
 (``csrc/fused_mha.cu``, ``csrc/fused_attention.cu``, both built on the
 tensor-core tile of ``csrc/short_attention.cuh``; the source notes give the
 bound and the design); on a CPU tensor it runs its plain version, the math
-of the JAX reference. There is no fallback from one to the other. L is
-at most 128 in both, as in the TPU kernels.
+of the JAX reference. There is no fallback from one to the other, nor
+from one route of ``fused_mha`` to the other. ``fused_attention``'s L is
+at most 128, as in the TPU kernel.
 
 Backward: ``mha_backward`` and ``attention_backward``, PyTorch ops on the
 saved ``(q, k, v[, mask])``, the math of ``jax.vjp`` of the JAX reference
@@ -102,7 +108,8 @@ def mha_backward(q, k, v, g, heads: int, causal: bool, scale: float):
 
 class FusedMhaFn(torch.autograd.Function):
     """The kernel's forward (``launch``: ``csrc/fused_mha.cu`` on the card,
-    ``fused_mha_plain`` on the CPU) and ``mha_backward``."""
+    ``fused_mha_plain`` on the CPU) and ``mha_backward``, which takes any
+    L."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, causal, scale, launch):
@@ -117,8 +124,10 @@ class FusedMhaFn(torch.autograd.Function):
             return (*mha_backward(q, k, v, g, *ctx.args), None, None, None, None)
 
 
-def _kernel():
-    fn = load_library("fused_mha").vtc_fused_mha
+def _kernel(entry: str):
+    """``vtc_fused_mha`` (the short tile) or ``vtc_fused_mha_long``: one
+    signature."""
+    fn = getattr(load_library("fused_mha"), entry)
     if fn.argtypes is None:  # ctypes hands back the same object every time
         fn.restype = ctypes.c_int
         fn.argtypes = (
@@ -128,19 +137,40 @@ def _kernel():
     return fn
 
 
-def _launch(q, k, v, heads, causal, scale):
+def _run(entry: str, q, k, v, heads, causal, scale):
     b, l, e = q.shape
     o = torch.empty((b, l, e), dtype=q.dtype, device=q.device)
-    err = _kernel()(
+    err = _kernel(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1),
         b, l, heads, e // heads, int(causal), scale, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check_launch(err, "fused_mha")
+    check_launch(err, entry)
+    return o
+
+
+def _launch(q, k, v, heads, causal, scale):
+    o = _run("vtc_fused_mha", q, k, v, heads, causal, scale)
     fused_mha.launches += 1
     return o
+
+
+def fused_mha_long(q, k, v, heads: int, causal: bool, scale: float) -> torch.Tensor:
+    """The long route's launch (``fused_mha`` checks q, k and v and sends L
+    > 128 here): ``csrc/long_attention.cuh`` through the C entry
+    ``vtc_fused_mha_long``, which takes any L. Counted apart from the short
+    tile in ``fused_mha_long.launches``. Refuses a host tensor, whose
+    pointer the kernel would read as the card's."""
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mha_long launches on cuda tensors, not {q.device}")
+    o = _run("vtc_fused_mha_long", q, k, v, heads, causal, scale)
+    fused_mha_long.launches += 1
+    return o
+
+
+fused_mha_long.launches = 0
 
 
 def _check_cuda_qkv(name, q, k, v):
@@ -159,13 +189,9 @@ def _check_cuda_qkv(name, q, k, v):
 
 def fused_mha(q, k, v, heads: int, causal: bool = False,
               scale: Optional[float] = None) -> torch.Tensor:
-    """Multi-head attention over ``[B, L, E]``, E = heads·Dh, L <= 128."""
+    """Multi-head attention over ``[B, L, E]``, E = heads·Dh: on the card
+    the short tile for L <= 128, the long route above, Dh <= 128 in both."""
     b, l, e = q.shape
-    if l > MAX_LEN:
-        raise ValueError(
-            f"fused_mha supports L <= {MAX_LEN} (got L={l}), as the TPU "
-            f"kernel it ports"
-        )
     if e % heads:
         raise ValueError(f"E={e} is not a multiple of heads={heads}")
     if k.shape != q.shape or v.shape != q.shape:
@@ -179,8 +205,10 @@ def fused_mha(q, k, v, heads: int, causal: bool = False,
         if e // heads > MAX_HEAD_DIM:
             raise ValueError(f"head dim {e // heads} > {MAX_HEAD_DIM}")
 
+        route = fused_mha_long if l > MAX_LEN else _launch
+
         def launch(q_, k_, v_):
-            return _launch(q_, k_, v_, heads, causal, s)
+            return route(q_, k_, v_, heads, causal, s)
     else:
         raise ValueError(f"fused_mha runs on cpu or cuda, not {q.device}")
     if needs_grad(q, k, v):

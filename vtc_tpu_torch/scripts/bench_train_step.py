@@ -21,7 +21,9 @@ one with the same freeze).
 
 After ``warmup`` steps it times ``windows`` windows of ``iters`` steps, with
 ``torch.cuda.synchronize()`` around each, and prints samples/s over all of
-them with each window's rate. It needs a card and raises without one.
+them with each window's rate. It needs a card and raises without one,
+unless ``main`` is told ``device="cpu"`` (``model_type`` picks the CLIP
+variant: ``vtc_tpu_torch.bench``'s tests run it at test-tiny).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from ..data import extract_patches, synthetic_tokens
 from ..device import resolve_device
 from ..models import create_model
+from ..models.clip_model import CLIP_VARIANTS
 from ..ops.losses import clip_loss
 from ..training import build_optimizer, train_step
 
@@ -45,13 +48,15 @@ SEED = 0
 
 
 def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
-          frames: int = 0, moments_dtype=None, model_kwargs=None):
+          frames: int = 0, moments_dtype=None, model_kwargs=None,
+          model_type: str = "ViT-B/32", device=None):
     """``(model, optimizer, scheduler, data)`` on the card, the JAX script's
     configuration; ``data`` is (uint8 patches, title, comments)."""
-    device = resolve_device()
+    device = resolve_device(device)
     kwargs = dict(model_kwargs or {}, **({"nframes": frames} if frames else {}))
-    model = create_model(arch, model_type="ViT-B/32", seed=SEED, dtype="bf16",
+    model = create_model(arch, model_type=model_type, seed=SEED, dtype="bf16",
                          device=device, **kwargs)
+    v = CLIP_VARIANTS[model_type]
     optimizer_cfg = dict(OPTIMIZER, args=dict(OPTIMIZER["args"], moments_dtype=moments_dtype))
     optimizer, scheduler = build_optimizer(
         model, optimizer_cfg, SCHEDULER, steps_per_epoch=STEPS_PER_EPOCH,
@@ -59,7 +64,8 @@ def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf
     )
     rng = np.random.default_rng(SEED)
     lead = (batch, frames) if frames else (batch,)
-    vis = extract_patches(rng.integers(0, 256, lead + (224, 224, 3), dtype=np.uint8), 32)
+    res = (v.input_resolution, v.input_resolution, 3)
+    vis = extract_patches(rng.integers(0, 256, lead + res, dtype=np.uint8), v.patch_size)
     title = synthetic_tokens((batch,), ntoks, 14, rng)
     comments = synthetic_tokens((batch, 5), ntoks, 14, rng)
     data = [torch.from_numpy(a).to(device) for a in (vis, title, comments)]
@@ -68,13 +74,21 @@ def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf
 
 def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
          frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3,
-         accum_steps: int = 1, moments_dtype=None, model_kwargs=None) -> dict:
+         accum_steps: int = 1, moments_dtype=None, model_kwargs=None,
+         model_type: str = "ViT-B/32", device=None, log=print) -> dict:
     """Runs the benchmark; returns ``{"samples_per_s", "window_rates",
     "losses", "setup"}``: ``losses`` has every step's loss, warm-up
     included, and ``setup`` is what ``setup`` built, for a caller that
     goes on stepping (the profiler windows of ``chip_smoke.py``)."""
     model, optimizer, scheduler, data = built = setup(batch, ntoks, arch, frames,
-                                                      moments_dtype, model_kwargs)
+                                                      moments_dtype, model_kwargs,
+                                                      model_type, device)
+    device = data[0].device
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
     generator = torch.Generator(device=data[0].device).manual_seed(SEED)
     losses = []
 
@@ -85,22 +99,21 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
 
     for _ in range(warmup):
         step()
-    torch.cuda.synchronize()
+    sync()
     seconds = []
     for _ in range(windows):
         tic = time.perf_counter()
         for _ in range(iters):
             step()
-        torch.cuda.synchronize()
+        sync()
         seconds.append(time.perf_counter() - tic)
     rates = [batch * iters / s for s in seconds]
     rate = batch * iters * windows / sum(seconds)
-    print(f"train step: {rate:.1f} samples/s over {windows * iters} steps "
+    log(f"train step: {rate:.1f} samples/s over {windows * iters} steps "
           f"({1e3 * sum(seconds) / (windows * iters):.3f} ms/step, windows "
           f"{[round(r, 1) for r in rates]}), batch {batch}, {ntoks}-token texts, "
           f"arch {arch} {model_kwargs or ''}, accum_steps {accum_steps}, moments "
-          f"{moments_dtype or 'float32'}",
-          flush=True)
+          f"{moments_dtype or 'float32'}")
     return {"samples_per_s": rate, "window_rates": rates,
             "losses": [float(x) for x in losses], "setup": built}
 

@@ -2,7 +2,7 @@
 twin of ``scripts/bench_video_pipeline.py``.
 
     python -m vtc_tpu_torch.scripts.bench_video_pipeline [--videos 48] [--workers 8]
-        [--batch 8] [--epochs 2] [--device-step] [--csv_file CSV --root DIR]
+        [--batch 8] [--epochs 2] [--device-step [--no-host]] [--csv_file CSV --root DIR]
 
 The pipeline is ``VideoDatasetSegments`` in training (OpenCV decode of a
 random 8-frame segment, the augmentations, ``clip_preprocess_batch``, the
@@ -11,9 +11,13 @@ with ``--device-step``, ``training.train_step`` of the video model from the
 ``arch``, optimizer and schedule of
 ``configs/pretrained_clip_timesformer_comments_attention.jsonc``
 (``PretrainedCLIP_TimeSformer_finaltf``, ViT-B/32, 8 frames, fp32 as the
-``train.py`` twin trains it, seed 0). It reports videos/s:
+``train.py`` twin trains it, seed 0), with its blocks recomputed in the
+backward (``VTC_REMAT=1``) unless the caller set ``VTC_REMAT``, as the JAX
+script does (``scripts/bench_video_pipeline.py:126``). It reports videos/s:
 
-* **host**: the loader alone over ``epochs`` epochs, every batch collated;
+* **host**: the loader alone over ``epochs`` epochs, every batch collated
+  (left out with ``--no-host``, to repeat only the step under another
+  ``VTC_REMAT``);
 * **device step**: ``STEPS`` train steps on one batch already on the card,
   between two synchronizations, after ``WARMUP`` steps: the rate the step
   demands of the loader;
@@ -28,6 +32,7 @@ directory. ``main`` returns the rates; ``--device-step`` needs a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 import tempfile
@@ -73,6 +78,19 @@ def make_corpus(root, n_videos: int = 48, frames: int = 240, w: int = 480, h: in
     return path, os.path.join(root, "media")
 
 
+@contextlib.contextmanager
+def remat_default():
+    """``VTC_REMAT=1`` inside, unless the caller set it: the step the JAX
+    script measures. The caller's environment is left as it was."""
+    saved = os.environ.get("VTC_REMAT")
+    os.environ["VTC_REMAT"] = "1" if saved is None else saved
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("VTC_REMAT", None)
+
+
 def _step_parts(device, steps_per_epoch: int):
     """The video model, optimizer and schedule of the config, on ``device``."""
     from ..models import create_model
@@ -90,10 +108,11 @@ def _step_parts(device, steps_per_epoch: int):
 
 def main(videos: int = 48, workers: int = 8, batch: int = 8, epochs: int = 2,
          device_step: bool = False, csv_file: Optional[str] = None,
-         root: Optional[str] = None, log=print) -> dict:
+         root: Optional[str] = None, log=print, host: bool = True) -> dict:
     """Runs the benchmark; returns ``{"host_videos_per_s", "device_videos_per_s",
     "overlapped_videos_per_s", "meets_demand", "peak_gib"}`` (the device
-    numbers None without ``device_step``)."""
+    numbers None without ``device_step``, the host's and ``meets_demand``
+    None without ``host``)."""
     from ..data import DataLoader, VideoDatasetSegments, prefetch_to_device
     from ..device import resolve_device
     from ..ops.losses import clip_loss
@@ -111,53 +130,59 @@ def main(videos: int = 48, workers: int = 8, batch: int = 8, epochs: int = 2,
     result = {"host_videos_per_s": None, "device_videos_per_s": None,
               "overlapped_videos_per_s": None, "meets_demand": None, "peak_gib": None}
 
-    n, tic = 0, time.perf_counter()
-    for _ in range(epochs):
-        for b in loader:
-            n += b[0].shape[0]
-    host_s = time.perf_counter() - tic
-    result["host_videos_per_s"] = n / host_s
-    log(f"host pipeline: {n / host_s:.2f} videos/s ({n} clips of {len(ds)} in {host_s:.2f} s, "
-        f"{workers} workers, {cores} cores; {host_s * cores / max(n, 1):.3f} core-seconds "
-        "per clip)")
+    if host:
+        n, tic = 0, time.perf_counter()
+        for _ in range(epochs):
+            for b in loader:
+                n += b[0].shape[0]
+        host_s = time.perf_counter() - tic
+        result["host_videos_per_s"] = n / host_s
+        log(f"host pipeline: {n / host_s:.2f} videos/s ({n} clips of {len(ds)} in "
+            f"{host_s:.2f} s, {workers} workers, {cores} cores; "
+            f"{host_s * cores / max(n, 1):.3f} core-seconds per clip)")
     if not device_step:
         return result
 
     device = resolve_device()
-    model, optimizer, scheduler = _step_parts(device, len(loader))
-    generator = torch.Generator(device=device).manual_seed(0)
-    *first, _ = next(iter(loader))
-    data = [torch.from_numpy(a).to(device) for a in first]
-    torch.cuda.reset_peak_memory_stats(device)
-    for _ in range(WARMUP):
-        train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
-    torch.cuda.synchronize(device)
-    tic = time.perf_counter()
-    for _ in range(STEPS):
-        loss, _ = train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
-    torch.cuda.synchronize(device)
-    step_s = (time.perf_counter() - tic) / STEPS
-    result["device_videos_per_s"] = batch / step_s
-    result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
-    log(f"device step alone: {batch / step_s:.2f} videos/s ({step_s * 1e3:.1f} ms per step "
-        f"of {batch}, loss {float(loss):.4f}, peak {result['peak_gib']:.3f} GiB)")
+    with remat_default():
+        model, optimizer, scheduler = _step_parts(device, len(loader))
+        generator = torch.Generator(device=device).manual_seed(0)
+        *first, _ = next(iter(loader))
+        data = [torch.from_numpy(a).to(device) for a in first]
+        torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(WARMUP):
+            train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
+        torch.cuda.synchronize(device)
+        tic = time.perf_counter()
+        for _ in range(STEPS):
+            loss, _ = train_step(model, clip_loss, optimizer, scheduler, data, {}, generator)
+        torch.cuda.synchronize(device)
+        step_s = (time.perf_counter() - tic) / STEPS
+        result["device_videos_per_s"] = batch / step_s
+        result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        log(f"device step alone: {batch / step_s:.2f} videos/s ({step_s * 1e3:.1f} ms per step "
+            f"of {batch}, loss {float(loss):.4f}, peak {result['peak_gib']:.3f} GiB, "
+            f"VTC_REMAT={os.environ['VTC_REMAT']})")
 
-    def batches():
-        for *d, _ in loader:
-            yield tuple(d)
+        def batches():
+            for *d, _ in loader:
+                yield tuple(d)
 
-    n, tic = 0, time.perf_counter()
-    for d in prefetch_to_device(batches(), device, size=2):
-        loss, _ = train_step(model, clip_loss, optimizer, scheduler, list(d), {}, generator)
-        n += d[0].shape[0]
-    torch.cuda.synchronize(device)
-    e2e_s = time.perf_counter() - tic
-    result["overlapped_videos_per_s"] = n / e2e_s
-    result["meets_demand"] = bool(result["host_videos_per_s"] >= result["device_videos_per_s"])
-    log(f"overlapped: {n / e2e_s:.2f} videos/s ({n} clips in {e2e_s:.2f} s, loss "
-        f"{float(loss):.4f}); the loader {'meets' if result['meets_demand'] else 'falls below'}"
-        f" the step's demand ({result['host_videos_per_s']:.2f} against "
-        f"{result['device_videos_per_s']:.2f} videos/s)")
+        n, tic = 0, time.perf_counter()
+        for d in prefetch_to_device(batches(), device, size=2):
+            loss, _ = train_step(model, clip_loss, optimizer, scheduler, list(d), {}, generator)
+            n += d[0].shape[0]
+        torch.cuda.synchronize(device)
+        e2e_s = time.perf_counter() - tic
+        result["overlapped_videos_per_s"] = n / e2e_s
+        log(f"overlapped: {n / e2e_s:.2f} videos/s ({n} clips in {e2e_s:.2f} s, loss "
+            f"{float(loss):.4f})")
+        if host:
+            result["meets_demand"] = bool(
+                result["host_videos_per_s"] >= result["device_videos_per_s"])
+            log(f"the loader {'meets' if result['meets_demand'] else 'falls below'} the "
+                f"step's demand ({result['host_videos_per_s']:.2f} against "
+                f"{result['device_videos_per_s']:.2f} videos/s)")
     return result
 
 
@@ -169,11 +194,13 @@ def cli(argv=None) -> dict:
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--device-step", action="store_true",
                     help="also run the video train step (needs a card)")
+    ap.add_argument("--no-host", action="store_true",
+                    help="leave out the loader-alone pass")
     ap.add_argument("--csv_file", default=None, help="a corpus's CSV (default: written)")
     ap.add_argument("--root", default=None, help="the corpus's media root")
     args = ap.parse_args(argv)
     return main(args.videos, args.workers, args.batch, args.epochs, args.device_step,
-                args.csv_file, args.root)
+                args.csv_file, args.root, host=not args.no_host)
 
 
 if __name__ == "__main__":

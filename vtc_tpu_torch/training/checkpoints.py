@@ -52,12 +52,13 @@ def load_checkpoint(path) -> dict:
     """A ``.pth`` of the reference layout, its tensors on the CPU. Only
     tensors and plain containers are unpickled (``weights_only``). A
     directory (the JAX package's Orbax layout) raises
-    ``NotImplementedError``."""
+    ``NotImplementedError`` naming the route to a ``.pth``."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
-            f"{path} is a directory: the port reads .pth checkpoints; reading the JAX "
-            "package's Orbax checkpoint directories waits (ROADMAP: Queue 1 item 4)")
+            f"{path} is a directory: the port reads .pth checkpoints, not the JAX "
+            "package's Orbax checkpoint directories; convert one with "
+            "scripts/export_torch_checkpoint.py, run where JAX is installed")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -1,13 +1,13 @@
-"""Device time of one kernel call on the card, L2-cold.
-
-Shared by ``chip_smoke.py`` and ``scripts/bench_ln_kernel.py``. It needs a
-card: there is no CPU path.
+"""Device time of one kernel call on the card, L2-cold (``time_ms``:
+``chip_smoke.py``, ``scripts/bench_ln_kernel.py``; it needs a card), and of
+a whole call in windows (``windows_ms``: the benchmark and profile twins).
 """
 
 from __future__ import annotations
 
 import math
 import statistics
+import time
 
 import torch
 
@@ -43,3 +43,30 @@ def time_ms(fn, arg_sets, windows: int = 5) -> float:
         times.append(start.elapsed_time(end) / iters)
     del graph
     return statistics.median(times)
+
+
+def windows_ms(fn, device, iters: int, warmup: int = 3, windows: int = 3) -> list:
+    """Milliseconds of one ``fn()`` in each of ``windows`` windows of
+    ``iters`` calls, after ``warmup``. On the card a window is timed by CUDA
+    events around its calls; on a CPU device (the tests) by the host clock."""
+    device = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(windows):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        else:
+            tic = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            times.append((time.perf_counter() - tic) * 1e3 / iters)
+    return times
