@@ -210,18 +210,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     batch through the tower; GDT's ``AudioResNet9`` card against CPU on 40
     seeded ``[1, 257, 199]`` spectrograms (1e-4 of the largest); none of
     them launches a port kernel;
-26. ``fused_mha``'s long route (L > 128, ``csrc/long_attention.cuh``)
-    against ``fused_mha_plain`` on strided q/k/v views at L = 129, 197, 257
-    and 393, causal and not, fp32 (2e-5) on one input and bf16 (the
-    one-ulp share) on 8 seeded inputs each, the CPU's plain version's
-    share read beside it, each call counted on ``fused_mha_long`` and not
-    on the short tile; its time at ViT-B/16 ``[64, 197, 768]`` and
-    ViT-L/14 ``[32, 257, 1024]`` (bf16, held to the one-ulp share too)
-    beside the plain version, SDPA and the bound;
+26. ``fused_mha``'s long route (L > 128, ``csrc/long_attention.cuh``: the
+    one-pass kernel for bf16 up to L = 272, the two-pass kernel past it
+    and in fp32) against ``fused_mha_plain`` on strided q/k/v views at L =
+    129, 197, 257 and 393, at the cutoff's 272 and 273, and at 257 with Dh
+    = 128, causal and not, fp32 (2e-5) on one input and bf16 (the one-ulp
+    share) on 8 seeded inputs each, the CPU's plain version's share read
+    beside it, each call counted on ``fused_mha_long`` and not on the short
+    tile; the route's time at ViT-B/16 ``[64, 197, 768]`` and ViT-L/14
+    ``[32, 257, 1024]`` (bf16, held to the one-ulp share too) beside the
+    plain version, SDPA and the bound;
 27. ViT-B/16 and ViT-L/14: ``PretrainedCLIP_finaltf`` fp32 at batch 4 card
     against CPU (``FEAT_ATOL``) with the exact launches of a forward (the
     image tower's blocks on the long route, the text tower's and the CAM's
-    on the short tile), bf16 against fp32 (cosine > 0.995),
+    on the short tile), bf16 against fp32 (cosine > 0.995), a
+    ``torch.profiler`` window of 5 bf16 forwards at the bench row's batch
+    (device ms per kernel family, the idle share),
     ``python -m vtc_tpu_torch.bench``'s row with ``BENCH_MODEL`` at each
     (batch 64 and 32), one bf16 ``train_step`` of ViT-B/16 at batch 32
     (finite, the forward's launches), and ``PretrainedCLIP_TimeSformer_
@@ -320,7 +324,7 @@ EXPECTED_VIDEO_LAUNCHES = {"layernorm": 41, "add_layernorm": 26, "fused_mha": 26
 KERNEL_FAMILIES = (  # device-kernel name fragments, matched in this order
     ("add_layernorm", ("_addln_kernel",)),
     ("layernorm", ("_ln_kernel",)),
-    ("fused_mha_long", ("fused_mha_long_kernel",)),
+    ("fused_mha_long", ("fused_mha_long_kernel", "fused_mha_long_onepass_kernel")),
     ("fused_mha", ("fused_mha_kernel",)),
     ("fused_attention", ("fused_attention_kernel",)),
     ("gemm", ("gemm", "Gemm", "gemv", "nvjet", "cutlass", "xmma")),
@@ -3088,6 +3092,11 @@ LONG_CASES = {129: (16, 129, 768, 12), 197: (16, 197, 768, 12), 257: (8, 257, 10
 # bench.py's rows for them)
 LONG_TIMED = {"vit_b16": (64, 197, 768, 12), "vit_l14": (32, 257, 1024, 16)}
 LONG_SEEDS = 8  # bf16 inputs at each (L, causal): the one-ulp share read on each
+# checked as LONG_CASES are: the one-pass kernel's longest row (L = 272) and
+# the next, on the two-pass kernel, and the one-pass kernel at Dh = 128 (8
+# k = 16 products of S chained a key tile, not 4)
+LONG_EDGES = {"L272": (4, 272, 512, 8), "L273": (4, 273, 512, 8),
+              "L257 Dh128": (4, 257, 1024, 8)}
 
 
 def check_long_route(ops) -> dict:
@@ -3099,20 +3108,23 @@ def check_long_route(ops) -> dict:
     same contract summed in another order) and P left unrounded's (the
     fault); then timed at ``LONG_TIMED`` in bf16 beside the plain version,
     SDPA (the yardstick; the port never calls it) and the bound (q, k, v
-    read and o written once; 4·L²·E FLOPs a sequence; the second pass's
-    recompute of S is the design's cost, not the work's), the timed shapes
+    read and o written once; 4·L²·E FLOPs a sequence), the timed shapes
     held to the one-ulp share too. -> {"cases": [...], "shares": [...],
-    "headline": the ViT-B/16 case}."""
+    "headline": the ViT-B/16 case}. ``LONG_EDGES`` are checked as
+    ``LONG_CASES`` are; each case's log line names the launch the route
+    chose (``ops.long_plan``)."""
     import torch.nn.functional as F
 
     from vtc_tpu_torch.utils.timing import n_sets, time_ms
 
     dev = torch.device("cuda")
     out = {"cases": [], "shares": []}
+    cases = {**{f"L{l}": shape for l, shape in LONG_CASES.items()}, **LONG_EDGES}
     for dtype in (torch.float32, torch.bfloat16):
-        for l, (b, _, e, h) in LONG_CASES.items():
+        for shape, (b, l, e, h) in cases.items():
+            plan = ops.long_plan(l, e // h, dtype)
             for causal in (False, True):
-                name = f"L{l}{' causal' if causal else ''}"
+                name = f"{shape}{' causal' if causal else ''}"
                 errs = []
                 for seed in range(1 if dtype == torch.float32 else LONG_SEEDS):
                     g = torch.Generator(device=dev).manual_seed(1000 * l + 10 * seed + causal)
@@ -3132,17 +3144,19 @@ def check_long_route(ops) -> dict:
                         ulp = bf16_ulp_at_median(ref)
                         cpu = ops.fused_mha_plain(q.cpu(), k.cpu(), v.cpu(), h, causal)
                         out["shares"].append(dict(
-                            L=l, causal=causal, seed=seed, share=share_beyond(o, ref, ulp),
+                            shape=name, seed=seed, share=share_beyond(o, ref, ulp),
                             cpu_plain=share_beyond(cpu, ref.cpu(), ulp),
                             p_unrounded=share_beyond(mha_p_unrounded(q, k, v, h, causal),
                                                      ref, ulp)))
-                log(f"kernel fused_mha_long {name} {str(dtype)[6:]} B={b} E={e} H={h}: "
+                log(f"kernel fused_mha_long {name} {str(dtype)[6:]} B={b} E={e} H={h} "
+                    f"({'one pass, %d key tiles' % plan.key_tiles if plan.one_pass else 'two passes'}"
+                    f", {plan.threads} threads, {plan.smem} B shared): "
                     f"max_abs_err={max(errs):.3g} over {len(errs)} inputs, tol={tol:.3g}")
                 out["cases"].append(dict(shape=name, dtype=str(dtype)[6:],
                                          max_abs_err=max(errs), tol=tol))
         del qkv, q, k, v, o, ref
     for r in out["shares"]:
-        log(f"kernel fused_mha_long L{r['L']}{' causal' if r['causal'] else ''} bfloat16 "
+        log(f"kernel fused_mha_long {r['shape']} bfloat16 "
             f"seed {r['seed']}: {r['share']:.3g} of outputs beyond one ulp at the median "
             f"(the CPU's plain version {r['cpu_plain']:.3g}, P left unrounded "
             f"{r['p_unrounded']:.3g}), limit {ATTN_BF16_SHARE:g}")
@@ -3214,8 +3228,9 @@ def run_variants(ops, smi) -> dict:
     before, read just after) and bf16 against fp32; ``vtc_tpu_torch.bench``
     with ``BENCH_MODEL`` at each; one bf16 ``train_step`` of ViT-B/16 (finite
     loss, the forward's launches); ``PretrainedCLIP_TimeSformer_finaltf`` at
-    ViT-B/16, batch 2, card against CPU. -> the ViT-B/16 forward's
-    launches."""
+    ViT-B/16, batch 2, card against CPU. Each variant's bf16 forwards at the
+    bench row's batch are also profiled (device ms per kernel family, the
+    idle share), as phase 7's. -> the ViT-B/16 forward's launches."""
     from vtc_tpu_torch import bench
     from vtc_tpu_torch.models import convert_weights
     from vtc_tpu_torch.models.clip_model import CLIP_VARIANTS
@@ -3250,7 +3265,14 @@ def run_variants(ops, smi) -> dict:
             cos = cosines(a, b).min().item()
             log(f"{mt} bf16 {name}: min cosine vs fp32 {cos:.6f} (> {COS_MIN})")
             require(cos > COS_MIN, f"{mt} bf16 {name} cosine {cos} <= {COS_MIN}")
-        del model, bf16
+        del model
+        # device time by family over bf16 forwards at the bench row's batch
+        big = [t.cuda() for t in bench_inputs(VARIANT_BENCH_BATCH[mt], v.patch_size, seed=2)]
+        with torch.inference_mode():
+            bf16(*big)  # warm up
+            prof = profile_calls(lambda: bf16(*big), PROFILED)
+        log_profile(prof, f"{mt} bf16 batch {VARIANT_BENCH_BATCH[mt]}")
+        del bf16, big
         torch.cuda.empty_cache()
         row = bench.main({"BENCH_MODEL": mt, "BENCH_BATCH": str(VARIANT_BENCH_BATCH[mt]),
                           "BENCH_ITERS": str(VARIANT_BENCH_ITERS)})

@@ -22,6 +22,7 @@ import torch
 
 from vtc_tpu_torch import ops
 from vtc_tpu_torch.ops import _build
+from vtc_tpu_torch.scripts import bench_long_variants
 
 FP32_ATOL = 2e-5
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -182,6 +183,56 @@ def test_long_route_launch_refuses_cpu_tensors():
     assert ops.fused_mha(q, q, q, 4).shape == q.shape
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,dh,dtype,want", [
+    # ViT-B/16 and ViT-L/14: one block of 3 pairs of warps per (sequence,
+    # head), K and V over the pairs' 2 × 8·T keys (L padded to 16); shared
+    # rows of 144 bytes, 4,352 bytes of exchange a pair
+    (197, 64, torch.bfloat16, (1, 13, 192, (2 * 208 + 48) * 144 + 3 * 4352)),
+    (257, 64, torch.bfloat16, (1, 17, 192, (2 * 272 + 48) * 144 + 3 * 4352)),
+    # the edges: the 13-tile bucket, the one-pass kernel's longest row and
+    # the next, Dh = 20 (rows of Dh's 4 chunks), Dh = 128 (rows of 8 chunks,
+    # O exchanged 64 columns at a time), fp32 at any L
+    (208, 64, torch.bfloat16, (1, 13, 192, (2 * 208 + 48) * 144 + 3 * 4352)),
+    (209, 64, torch.bfloat16, (1, 17, 192, (2 * 272 + 48) * 144 + 3 * 4352)),
+    (240, 20, torch.bfloat16, (1, 17, 192, (2 * 272 + 48) * 144 + 3 * 4352)),
+    (272, 128, torch.bfloat16, (1, 17, 192, (2 * 272 + 48) * 272 + 3 * 4352)),
+    (273, 64, torch.bfloat16, (0, 0, 128, 320 * 144)),
+    (393, 64, torch.bfloat16, (0, 0, 128, 320 * 144)),
+    (197, 64, torch.float32, (0, 0, 128, 320 * 272)),
+])
+def test_long_plan(cuda, l, dh, dtype, want):
+    """The long route's launch by L, as the C entry reports it: the one-pass
+    kernel for bf16 up to L = 272, the two-pass kernel past it and in fp32;
+    a row of shared memory is Dh padded to 16 (the one-pass kernel: to 64 or
+    128) plus 16 bytes."""
+    assert ops.long_plan(l, dh, dtype) == want
+
+
+@pytest.mark.cuda
+def test_long_plan_fits_an_sm(cuda):
+    """Every launch the plan makes fits an SM's 227 KB of shared memory, and
+    the one-pass kernel's pair of warps holds S for every key of the row
+    (padded to 16) in its key tiles of 8."""
+    for l in range(129, 400):
+        for dh in range(1, 129):
+            for dtype in (torch.float32, torch.bfloat16):
+                p = ops.long_plan(l, dh, dtype)
+                assert p.smem <= 232448, (l, dh, dtype)
+                assert p.one_pass == (dtype == torch.bfloat16 and l <= 272), (l, dh, dtype)
+                if p.one_pass:
+                    assert 2 * 8 * p.key_tiles >= (l + 15) // 16 * 16
+
+
+@pytest.mark.parametrize("name", list(bench_long_variants.VARIANTS))
+def test_long_variants_patch_the_kernel(name):
+    """Each variant of ``scripts/bench_long_variants.py`` finds the lines it
+    replaces in ``csrc/long_attention.cuh``, once each, and changes the
+    source (``kept`` alone leaves it as it is)."""
+    text = (_build.CSRC_DIR / "long_attention.cuh").read_text()
+    assert (bench_long_variants.patched(text, name) == text) == (name == "kept")
+
+
 def test_backward_through_a_kernel_raises():
     """The LN sweep's designs take no gradient: a gradient through their
     launch fails loudly instead of being recomputed elsewhere. (The model
@@ -283,10 +334,18 @@ def test_fused_mha_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
     (2, 393, 512, 8, True),
     # Dh = 128 (the larger register bucket); Dh = 20: element loads in bf16
     (2, 200, 256, 2, False), (2, 150, 40, 2, True),
+    # the one-pass kernel (bf16): its longest row and the next (two passes),
+    # the edge of its 13-tile bucket, last query tiles of 1 row (129, 193),
+    # Dh = 128 and Dh = 20 in the 17-tile bucket, causal and not
+    (2, 272, 512, 8, False), (2, 272, 512, 8, True), (2, 273, 512, 8, False),
+    (2, 273, 512, 8, True), (3, 208, 256, 4, True), (3, 209, 256, 4, False),
+    (3, 193, 768, 12, True), (3, 193, 768, 12, False), (2, 129, 256, 4, False),
+    (2, 257, 256, 2, True), (2, 240, 40, 2, False),
 ])
 def test_fused_mha_long_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
     """Past L = 128 ``fused_mha`` launches the long route, not the short
-    tile: strided q/k/v views of one qkv tensor against the plain version."""
+    tile: strided q/k/v views of one qkv tensor against the plain version,
+    on the one-pass kernel (bf16, L <= 272) and the two-pass kernel."""
     tdt = DTYPES[dtype_name]
     qkv = torch.randn(b, l, 3 * e, generator=torch.Generator().manual_seed(l))
     q, k, v = qkv.to(cuda, tdt).chunk(3, dim=-1)
@@ -295,6 +354,21 @@ def test_fused_mha_long_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
     torch.cuda.synchronize()
     assert (ops.fused_mha.launches, ops.fused_mha_long.launches) == (n_short, n_long + 1)
     assert_close(out, ops.fused_mha_plain(q, k, v, h, causal), dtype_name, ulps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("l,causal", [(1, False), (16, True), (100, False), (128, True)])
+def test_long_route_takes_any_length(cuda, l, causal, dtype_name):
+    """The long route's launch takes any L >= 1, as its C entry says, though
+    ``fused_mha`` sends it only L > 128: at these lengths the one-pass
+    kernel's second warp of each pair holds only padded keys."""
+    tdt = DTYPES[dtype_name]
+    qkv = torch.randn(3, l, 3 * 256, generator=torch.Generator().manual_seed(l))
+    q, k, v = qkv.to(cuda, tdt).chunk(3, dim=-1)
+    out = ops.fused_mha_long(q, k, v, 4, causal, 64**-0.5)
+    torch.cuda.synchronize()
+    assert_close(out, ops.fused_mha_plain(q, k, v, 4, causal), dtype_name, ulps=2)
 
 
 @pytest.mark.cuda

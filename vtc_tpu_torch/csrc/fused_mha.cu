@@ -33,8 +33,9 @@
 // spills (the launch bounds of short_attention.cuh see to that).
 //
 // Past L = 128 the same contract runs on the long route of
-// long_attention.cuh (entry vtc_fused_mha_long below), which streams the
-// keys in tiles of 64.
+// long_attention.cuh (entry vtc_fused_mha_long below): bf16 up to L = 272
+// in one pass over the keys with each head's K and V staged once, fp32 and
+// longer rows in two passes over 64-key tiles.
 //
 // Plain C interface, loaded with ctypes (vtc_tpu_torch/ops/attention.py).
 
@@ -101,8 +102,9 @@ cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   return sa::with_bucket(a.L, a.Dh, f);
 }
 
-// ---- the long route: one block per (sequence, head, 64-row query tile) -------
+// ---- the long route (long_attention.cuh) ----------------------------------------
 
+// the two-pass kernel: one block per (sequence, head, 64-row query tile)
 template <typename T, int DC>
 __global__ void __launch_bounds__(la::kThreads, la::min_blocks<T>(DC))
 fused_mha_long_kernel(const Args<T> a) {
@@ -110,24 +112,79 @@ fused_mha_long_kernel(const Args<T> a) {
                          a.vec_out);
 }
 
+// the one-pass kernel: one block per (sequence, head), pairs of warps
+template <int T, int DC>
+__global__ void __launch_bounds__(64 * la::kOnePassPairs, la::one_pass_min_blocks(DC))
+fused_mha_long_onepass_kernel(const Args<sa::bf16> a) {
+  // a tile's q and output rows, from the kernel's arguments and the block
+  // index read anew (volatile: not hoisted) at each tile: the 17-tile
+  // instance spilled base addresses held across its tiles
+  const auto rows = [=](const sa::bf16* base, long long sb, long long sl, int r0) {
+    int i;
+    asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(i));
+    const int b = i / a.H;
+    return base + b * sb + (i - b * a.H) * a.Dh + r0 * sl;
+  };
+  const auto q_rows = [=](int r0) { return rows(a.q, a.q_sb, a.q_sl, r0); };
+  const auto o_rows = [=](int r0) {
+    return const_cast<sa::bf16*>(rows(a.o, (long long)a.L * a.H * a.Dh, a.H * a.Dh, r0));
+  };
+  la::attend_one_pass<T, DC>(head(a, blockIdx.x), q_rows, o_rows, a.L, a.Dh, a.causal,
+                             round_to<sa::bf16>(a.scale), a.vec_in, a.vec_out);
+}
+
 template <typename T, int DC>
-cudaError_t launch_long_dc(const Args<T>& a, cudaStream_t stream) {
+cudaError_t launch_two_pass(const Args<T>& a, cudaStream_t stream) {
   const auto kernel = fused_mha_long_kernel<T, DC>;
-  const size_t smem = la::smem_bytes<T>(a.Dh);
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  // once per instance: the shared memory of its widest head
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)la::smem_bytes<T>(16 * DC));
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((unsigned)((long long)a.B * a.H),
                   (unsigned)((a.L + la::kQueryRows - 1) / la::kQueryRows));
-  kernel<<<grid, la::kThreads, smem, stream>>>(a);
+  kernel<<<grid, la::kThreads, la::smem_bytes<T>(a.Dh), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int T, int DC>
+cudaError_t launch_one_pass(const Args<sa::bf16>& a, cudaStream_t stream) {
+  const auto kernel = fused_mha_long_onepass_kernel<T, DC>;
+  const size_t smem = la::one_pass_smem(16 * T, 16 * DC);  // the instance's, at any (L, Dh)
+  // once per instance
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<(unsigned)((long long)a.B * a.H), 64 * la::kOnePassPairs, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The route's plan, by L (and Dh for the buckets); launch_long follows it and
+// the C entry vtc_fused_mha_long_plan reports it (ops.attention.long_plan).
+struct Plan {
+  int one_pass;   // 1: the one-pass kernel, 0: the two-pass kernel
+  int key_tiles;  // one pass: the key tiles of 8 of S each warp holds
+  int threads;    // a block
+  int smem;       // dynamic shared memory a block, bytes
+};
+
+inline Plan long_plan(int L, int Dh, int dtype) {
+  if (dtype == 1 && L <= la::kOnePassMaxL)
+    return {1, la::one_pass_tiles(L), 64 * la::kOnePassPairs, (int)la::one_pass_smem(L, Dh)};
+  return {0, 0, la::kThreads,
+          (int)(dtype == 1 ? la::smem_bytes<sa::bf16>(Dh) : la::smem_bytes<float>(Dh))};
 }
 
 template <typename T>
 cudaError_t launch_long(const Args<T>& a, cudaStream_t stream) {
-  return a.Dh <= 64 ? launch_long_dc<T, 4>(a, stream) : launch_long_dc<T, 8>(a, stream);
+  if constexpr (std::is_same<T, sa::bf16>::value) {
+    const Plan p = long_plan(a.L, a.Dh, 1);
+    if (p.one_pass) {
+      if (p.key_tiles == 13)
+        return a.Dh <= 64 ? launch_one_pass<13, 4>(a, stream) : launch_one_pass<13, 8>(a, stream);
+      return a.Dh <= 64 ? launch_one_pass<17, 4>(a, stream) : launch_one_pass<17, 8>(a, stream);
+    }
+  }
+  return a.Dh <= 64 ? launch_two_pass<T, 4>(a, stream) : launch_two_pass<T, 8>(a, stream);
 }
 
 // the kernel's arguments, with 16-byte copies where every base, the head
@@ -172,7 +229,8 @@ extern "C" int vtc_fused_mha(const void* q, const void* k, const void* v, void* 
 }
 
 // The long route, the same arguments at any L >= 1 (the wrapper takes it
-// past L = 128); at most 65,535 query tiles of 64 rows.
+// past L = 128): bf16 up to L = 272 on the one-pass kernel, past it and in
+// fp32 on the two-pass kernel, at most 65,535 query tiles of 64 rows.
 extern "C" int vtc_fused_mha_long(const void* q, const void* k, const void* v, void* o,
                                   long long q_sb, long long q_sl, long long k_sb,
                                   long long k_sl, long long v_sb, long long v_sl, int B,
@@ -189,4 +247,17 @@ extern "C" int vtc_fused_mha_long(const void* q, const void* k, const void* v, v
     return (int)launch_long(make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb,
                                                 v_sl, B, L, H, Dh, causal, scale), st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The plan vtc_fused_mha_long follows at (L, Dh, dtype): out = {one_pass,
+// key_tiles, threads, smem}. Returns 0, or cudaErrorInvalidValue.
+extern "C" int vtc_fused_mha_long_plan(int L, int Dh, int dtype, int* out) {
+  if (L < 1 || Dh < 1 || Dh > sa::kMaxDh || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = long_plan(L, Dh, dtype);
+  out[0] = p.one_pass;
+  out[1] = p.key_tiles;
+  out[2] = p.threads;
+  out[3] = p.smem;
+  return 0;
 }

@@ -20,6 +20,7 @@ from .attention import (
     fused_mha,
     fused_mha_long,
     fused_mha_plain,
+    long_plan,
     mha_backward,
 )
 from .layernorm import layernorm, layernorm_backward, layernorm_plain
@@ -54,6 +55,7 @@ __all__ = [
     "layernorm",
     "layernorm_backward",
     "layernorm_plain",
+    "long_plan",
     "ln_mxu",
     "ln_mxu_bf16",
     "ln_mxu_bf16_plain",

@@ -6,8 +6,9 @@ heads packed in E, and may be the strided views that splitting the merged
 qkv GEMM gives (row stride 3E): the kernel takes the strides, so no copy is
 made. The output is a contiguous ``[B, L, E]`` in q's dtype. It takes any
 L: up to 128 on the short tile, the Pallas kernel's range, and past it on
-the long route (``fused_mha_long``: ``csrc/long_attention.cuh``, keys
-streamed in tiles of 64), where the JAX package runs XLA attention
+the long route (``fused_mha_long``: ``csrc/long_attention.cuh``; bf16 up to
+L = 272 in one pass over the keys, fp32 and longer rows in two; the
+launch's choices are ``long_plan``), where the JAX package runs XLA attention
 (``vtc_tpu/models/layers.py:269-290``: the ViT-B/16 and ViT-L/14 towers, L
 = 197 and 257) with the same math in fp32.
 
@@ -39,7 +40,7 @@ strides (the q/k/v column views of one qkv GEMM output).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -49,6 +50,30 @@ from ._build import acc_dtype, check_launch, load_library, needs_grad
 MAX_LEN = 128
 MAX_HEAD_DIM = 128  # csrc/short_attention.cuh: sa::kMaxL, sa::kMaxDh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class LongPlan(NamedTuple):
+    """How ``vtc_fused_mha_long`` launches at one (L, Dh, dtype)."""
+
+    one_pass: int  # 1: the one-pass kernel, 0: the two-pass kernel
+    key_tiles: int  # one pass: the key tiles of 8 of S each warp holds, else 0
+    threads: int  # a block
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def long_plan(length: int, head_dim: int, dtype: torch.dtype) -> LongPlan:
+    """The long route's launch at ``(length, head_dim, dtype)``, as the C
+    entry ``vtc_fused_mha_long_plan`` reports it (``long_plan`` in
+    ``csrc/fused_mha.cu``, which the launch follows): bf16 up to L = 272 on
+    the one-pass kernel, one block per (sequence, head); longer bf16 rows
+    and fp32 on the two-pass kernel. Builds the library, so it needs
+    ``nvcc``, though it launches nothing."""
+    fn = load_library("fused_mha").vtc_fused_mha_long_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    check_launch(fn(length, head_dim, _DTYPES[dtype], out), "vtc_fused_mha_long_plan")
+    return LongPlan(*out)
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:
