@@ -123,8 +123,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     batches) × (29, 26, 26)``, no call to a plain version, and steps/s
     beside phase 14's. Phases 15-25 work in a temporary directory under
     ``saved/`` that the script removes;
-16. decode repair: each fixture through the card's route against PIL's
-    decode, per channel, beside the readings of nvJPEG's own RGB output; the
+16. decode repair: each fixture (YCbCr, gray, Adobe RGB, CMYK and YCCK)
+    through the card's route against PIL's decode, per channel, beside the
+    readings of nvJPEG's own RGB output; the
     ``ycc_to_rgb`` kernel (libjpeg-turbo's fancy upsampling and ``jdcolor.c``
     tables, ``csrc/jpeg_decode.cu``) bit-exact against
     ``ycc_to_rgb_reference`` on nvJPEG's own planes, one launch per colour
@@ -162,7 +163,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``configs/pretrained_clip_timesformer_comments_attention.jsonc``
     (ViT-B/32, 8 frames, fp32, the config's batch of 50 and 40 workers,
     the imported weights) over a reddit corpus written with
-    ``cv2.VideoWriter`` (150 training and 50 validation rows, mp4v 480x360,
+    ``cv2.VideoWriter`` (100 training and 50 validation rows, mp4v 480x360,
     3 s), 1 epoch, with the MSRVTT probe on a written root of one small
     clip per id of the packaged full-val list (497): steps/s, seconds per
     epoch, each probe's seconds and R@10, launches exact (steps and
@@ -179,8 +180,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     once), the step's peak memory beside each;
 22. the repairs: the bomb-sized JPEG raises ``JpegInputError`` with
     ``torch.cuda.memory_allocated()`` unmoved; ``ycc_to_rgb`` bit-exact on
-    seeded 4:1:1 and 4:1:0 planes (the 4:1:1 fixture runs in phases 15
-    and 16); serving's top-10 on a gallery of duplicated rows equals
+    seeded 4:1:1 and 4:1:0 planes, on seeded R, G, B planes (no colour
+    matrix) and with a K plane as CMYK and YCCK (the 4:1:1, Adobe-RGB, CMYK
+    and YCCK fixtures run in phases 15 and 16); serving's top-10 on a gallery of duplicated rows equals
     ``vtc_tpu``'s order (``TIES_EXPECTED``);
 23. the audio config: ``PretrainedCLIP_finaltf`` from the ``arch`` block
     of ``configs/pretrained_clip_comments_attention_audio.jsonc`` (ViT-B/32,
@@ -240,6 +242,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     and without it, gradients within 1e-6 of each parameter's largest and
     a remat step's launches (each block's kernels twice); the video model's
     bf16 train step at batch 50, videos/s and peak memory with and without;
+32. data parallelism (run right after phase 25, in its directory): W =
+    ``torch.cuda.device_count()`` ranks, each a process spawned with
+    ``torch.multiprocessing`` that joins an NCCL group at
+    ``localhost:<free port>`` through ``utils.util.init_distributed``;
+    phase 11's three fp32 steps through ``parallel.mesh.data_parallel``
+    (DDP) and the data-parallel ``train_step`` on each rank's rows of the
+    batch of 8, with phase 11's weights and skip draws: losses within 2e-6
+    and step-1 gradients within 1e-3 of each parameter's largest of phase
+    11's card steps, 3 × (29, 26, 26) launches in every rank; the ``eval.py``
+    twin with ``--n_devices W`` on phase 17's corpus giving phase 17's
+    recalls; the bf16 step at phase 12's batch of 128, plain and through
+    DDP, one after the other in each rank (samples/s: the cost of DDP's
+    hooks at W = 1). W, the backend, the group's init seconds and the
+    phase's seconds are printed;
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -1173,8 +1189,10 @@ def compare_with_cpu_run(what: str, card: dict, cpu: dict) -> None:
             f"{PARAM_ATOL_LR:g} lr from the CPU's")
 
 
-def run_train_parity(ops) -> dict:
-    """Phase 11. Returns the launch counts of the card's three steps."""
+def run_train_parity(ops) -> tuple:
+    """Phase 11. Returns the launch counts of the card's three steps and
+    their losses and step-1 gradients (phase 32 holds the data-parallel
+    step to them)."""
     from vtc_tpu_torch.models.cam import draw_adapter_skip
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.training import train_step
@@ -1190,6 +1208,7 @@ def run_train_parity(ops) -> dict:
         f"of {PARITY_BATCH}")
     compare_with_cpu_run("train parity", card, cpu)
     launches = card["launches"]
+    steps = {"losses": card["losses"], "grads": card["grads"]}
     del card, cpu
 
     # the frozen config: freeze "all" trains the CAM alone
@@ -1211,7 +1230,7 @@ def run_train_parity(ops) -> dict:
         f"and unchanged bit for bit, {len(cam_moved)} CAM parameters moved")
     del model, optimizer
     torch.cuda.empty_cache()
-    return launches
+    return launches, steps
 
 
 def run_accum_parity(ops) -> None:
@@ -1969,8 +1988,12 @@ def check_ycc(smi) -> list:
         d = np.abs(ours.astype(np.int16) - pil.astype(np.int16))
         per_channel = d.reshape(-1, 3).mean(0)
         d_luma = float(np.abs(luma(ours) - luma(pil)).mean())
-        planes, factors = image_io.decode_jpeg_planes(data)
-        log(f"decode repair {name} ({header['components']} components, sampling "
+        planes, factors, transform = image_io.decode_jpeg_planes(data)
+        colour = ("gray" if factors is None else "RGB" if header["rgb"] else
+                  "YCCK" if header["ycck"] else "CMYK" if header["components"] == 4 else "YCbCr")
+        require(factors is None or transform == (colour in ("YCbCr", "YCCK")),
+                f"{name}: colour transform {transform} for {colour}")
+        log(f"decode repair {name} ({header['components']} components, {colour}, sampling "
             f"{header['sampling']}): card vs PIL mean |d| per channel "
             f"{[round(float(c), 4) for c in per_channel]} (nvJPEG's own RGB: "
             f"{NVJPEG_RGB_DECODE.get(name)}), luma {d_luma:.4f}, max |d| {int(d.max())}, share "
@@ -1988,21 +2011,23 @@ def check_ycc(smi) -> list:
             continue
         stream = image_io._local.stream
         with torch.cuda.stream(stream):
-            out = image_io.ycc_to_rgb(*planes, factors)
-            plain_card = image_io.ycc_to_rgb_reference(*planes, factors)
+            out = image_io.planes_to_rgb(planes, factors, transform)
+            plain_card = image_io.planes_to_rgb(planes, factors, transform, reference=True)
         stream.synchronize()
-        plain = image_io.ycc_to_rgb_reference(*[p.cpu() for p in planes], factors)
+        plain = image_io.planes_to_rgb([p.cpu() for p in planes], factors, transform,
+                                       reference=True)
         err = int((out.cpu().int() - plain.int()).abs().max())
         require(err == 0 and torch.equal(plain_card.cpu(), plain),
                 f"{name}: ycc_to_rgb differs from its plain version by {err}")
         h, w = planes[0].shape
         nbytes = sum(p.numel() for p in planes) + 3 * h * w
         row = {"name": name, "planes": [tuple(p.shape) for p in planes], "factors": factors,
-               "max_abs_err": err, "launches_per_image": launches,
-               "ms": stream_ms(lambda: image_io.ycc_to_rgb(*planes, factors), stream,
-                               YCC_REPS),
-               "plain_ms": stream_ms(lambda: image_io.ycc_to_rgb_reference(*planes, factors),
-                                     stream, YCC_REPS // 10),
+               "colour": colour, "max_abs_err": err, "launches_per_image": launches,
+               "ms": stream_ms(lambda: image_io.planes_to_rgb(planes, factors, transform),
+                               stream, YCC_REPS),
+               "plain_ms": stream_ms(
+                   lambda: image_io.planes_to_rgb(planes, factors, transform, reference=True),
+                   stream, YCC_REPS // 10),
                "bound_ms": bound(nbytes, 0, torch.float32)[0], "bound_by": "bytes",
                "library_ms": None}
         rows.append(row)
@@ -2063,7 +2088,7 @@ class SyntheticVideos:
         return self.frames[i], self.captions[i], self.comments[i], {"id": i}
 
 
-def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
+def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> dict:
     """Phase 17: the ``eval.py`` twin through its CLI on the flagship config
     over phase 15's corpus (its 100-row test split, the imported weights),
     on the card and with ``-d cpu``; then ``retrieval_evaluation`` of the
@@ -2086,7 +2111,7 @@ def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
     test = partition.partition_dataframe(read_csv(csv_path), split="test")
     n_test = len(test)
     colour = sum(image_io.jpeg_header((media / (Path(v).stem + ".jpg")).read_bytes())
-                 ["components"] == 3 for v in test.video_path)
+                 ["components"] in (3, 4) for v in test.video_path)
 
     captured = []
     recall = eval_twin.recall_at_k
@@ -2136,6 +2161,7 @@ def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
         eval_recall_gaps("eval twin", feats_card, feats_cpu)
     written = json.loads((tmp / "zero_shot_res_None.json").read_text())
     require(written == out_cpu, "eval twin: the JSON file is not the last run's recalls")
+    twin_run = {"config": cfg_path, "recalls": out_card}
 
     # the transfer evaluation of the video model
     ds = SyntheticVideos(**VIDEO_EVAL)
@@ -2181,6 +2207,7 @@ def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
         eval_recall_gaps("transfer eval", (videos_card, caps_card), (videos_cpu, caps_cpu))
     log(f"phase 17 took {time.perf_counter() - phase_tic:.1f} s")
     torch.cuda.empty_cache()
+    return twin_run
 
 
 # ---- phase 18: serving over HTTP --------------------------------------------------
@@ -2391,7 +2418,8 @@ def check_video_fixture(smi) -> None:
 # ---- phase 20: the video twin at full width -----------------------------------------
 
 ONE_FRAME_CONFIG = "configs/pretrained_clip_1frame_comments_attention.jsonc"
-VIDEO_CORPUS_ROWS = {"train": 150, "val": 50}  # 3 steps, 1 validation batch of 50
+# 2 steps, 1 validation batch of 50 (cut from 3 steps to keep the script near its time)
+VIDEO_CORPUS_ROWS = {"train": 100, "val": 50}
 VIDEO_CORPUS_CLIPS = 8  # distinct videos, copied to every row
 VIDEO_CLIP = dict(frames=90, width=480, height=360)  # 3 s at 30 fps
 PROBE_CLIPS = 4  # the MSRVTT root: one per full-val id, copied from these
@@ -2690,7 +2718,8 @@ def check_repairs(smi) -> None:
     """Phase 22: the bomb-sized JPEG refused before anything is allocated on
     the card; ``ycc_to_rgb`` bit-exact on seeded 4:1:1 and 4:1:0 planes (no
     encoder on either machine writes 4:1:0; the 4:1:1 fixture is in phases
-    15-16); serving's top-10 on a gallery of duplicated rows in
+    15-16) and on seeded R, G, B planes (no colour matrix; the two fixtures
+    coded in RGB are in phases 15-16); serving's top-10 on a gallery of duplicated rows in
     ``vtc_tpu``'s order."""
     from vtc_tpu_torch.data import image_io
     from vtc_tpu_torch.serving import RetrievalIndex
@@ -2711,19 +2740,24 @@ def check_repairs(smi) -> None:
     require(after == before, f"the bomb-sized JPEG moved memory_allocated {before} -> {after}")
 
     rng = np.random.default_rng(11)
-    for factors in ((4, 1), (4, 2)):
+    # 4:1:1 and 4:1:0 (int_upsample); R, G, B planes (a JPEG coded in RGB: no
+    # colour matrix) at 4:4:4, 4:2:0 and 4:1:1; CMYK and YCCK with a K plane
+    for factors, transform, k in (((4, 1), True, 0), ((4, 2), True, 0), ((1, 1), False, 0),
+                                  ((2, 2), False, 0), ((4, 1), False, 0), ((1, 1), False, 1),
+                                  ((2, 2), False, 1), ((1, 1), True, 1), ((2, 2), True, 1)):
         for w, h in SEEDED_PLANES:
             cw, ch = -(-w // factors[0]), -(-h // factors[1])
             planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
-                      for s in ((h, w), (ch, cw), (ch, cw))]
+                      for s in ((h, w), (ch, cw), (ch, cw)) + ((h, w),) * k]
             before = image_io.ycc_to_rgb.launches
-            out = image_io.ycc_to_rgb(*[p.cuda() for p in planes], factors).cpu()
+            out = image_io.planes_to_rgb([p.cuda() for p in planes], factors, transform).cpu()
             require(image_io.ycc_to_rgb.launches == before + 1, "ycc_to_rgb did not launch")
-            ref = image_io.ycc_to_rgb_reference(*planes, factors)
+            ref = image_io.planes_to_rgb(planes, factors, transform, reference=True)
             err = int((out.int() - ref.int()).abs().max())
             require(err == 0, f"ycc_to_rgb {factors} at {w}x{h}: max |d| {err}")
-        log(f"ycc_to_rgb at {factors} (int_upsample): bit-exact against its plain version "
-            f"on seeded planes {SEEDED_PLANES}")
+        what = (("CMYK", "YCCK") if k else ("RGB planes", "YCbCr"))[transform]
+        log(f"ycc_to_rgb at {factors}, {what}: bit-exact against its plain version on "
+            f"seeded planes {SEEDED_PLANES}")
 
     base = np.random.default_rng(0).standard_normal((8, 512)).astype(np.float32)
     index = RetrievalIndex(512)
@@ -3424,6 +3458,146 @@ def run_remat(ops, smi) -> None:
     log(f"phase 30 took {time.perf_counter() - tic:.1f} s")
 
 
+# ---- phase 32: data parallelism on torch.distributed ------------------------------
+
+# phase 12's batch, fp32 weights with bf16 activations; short windows: the
+# plain step and the DDP step are timed one after the other in each rank
+DP_BENCH = dict(batch=128, iters=6, windows=2, warmup=3)
+
+
+def dp_rank(rank: int, world: int, port: int, tmp: str, eval_config: str) -> None:
+    """One rank of phase 32, in a process of its own: join the NCCL group
+    of ``world`` ranks at ``localhost:port`` (``init_distributed`` from
+    torchrun's variables), run phase 11's three fp32 steps through the
+    data-parallel path on this rank's rows, the eval twin with
+    ``--n_devices world`` on phase 17's corpus, and the bf16 step at phase
+    12's batch plain and through DDP; the results go to ``tmp``."""
+    import torch.distributed as dist
+
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.evaluation import eval as eval_twin
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.scripts import bench_train_step
+    from vtc_tpu_torch.training import train_step
+    from vtc_tpu_torch.utils.util import init_distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    # phases 11 and 12 ran on seeded weights, phase 17 on phase 15's imported
+    # ones (VTC_CLIP_WEIGHTS, set while phases 15-25 run): each part below
+    # takes the weights of the phase it is held to
+    clip_weights = os.environ.pop("VTC_CLIP_WEIGHTS", None)
+    tic = time.perf_counter()
+    init_distributed()
+    init_s = time.perf_counter() - tic
+    tmp = Path(tmp)
+    try:
+        device = torch.device("cuda", rank)
+        inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+        gen = torch.Generator().manual_seed(6)
+        draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
+                 for _ in range(PARITY_STEPS)]
+        model = model_from_config(TRAIN_CONFIG)
+        optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+        grads = {}
+
+        def keep_first_grads(opt, args, kwargs):
+            if not grads:
+                grads.update({n: None if p.grad is None else p.grad.detach().cpu()
+                              for n, p in model.named_parameters()})
+
+        optimizer.register_step_pre_hook(keep_first_grads)
+        ddp = data_parallel(model, device)
+        data = [shard_batch(x).to(device) for x in inputs]
+        torch.cuda.synchronize()
+        # the data-parallel path's run: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        tic = time.perf_counter()
+        losses = [train_step(ddp, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
+                  for d in draws]
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - tic
+        launches = ops.launch_counts()
+        del ddp, model, optimizer
+        torch.cuda.empty_cache()
+
+        (tmp / "dp_eval").mkdir(exist_ok=True)
+        cwd = os.getcwd()
+        os.chdir(tmp / "dp_eval")  # a run without a checkpoint writes to the working dir
+        if clip_weights is not None:
+            os.environ["VTC_CLIP_WEIGHTS"] = clip_weights
+        try:
+            tic = time.perf_counter()
+            recalls = eval_twin.cli(["-c", eval_config, "--n_devices", str(world)])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - tic
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("VTC_CLIP_WEIGHTS", None)
+        torch.cuda.empty_cache()
+
+        rates = {}
+        for how in ("plain", "DDP"):
+            run = bench_train_step.main(**DP_BENCH, data_parallel=how == "DDP", log=log)
+            rates[how] = run["samples_per_s"]
+            del run
+            torch.cuda.empty_cache()
+        torch.save({"losses": losses, "grads": grads, "launches": launches,
+                    "init_s": init_s, "steps_s": steps_s, "recalls": recalls,
+                    "eval_s": eval_s, "rates": rates, "backend": dist.get_backend()},
+                   tmp / f"dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_data_parallel(smi, tmp: Path, parity: dict, eval_run: dict) -> None:
+    """Phase 32: W = ``torch.cuda.device_count()`` ranks over NCCL, each a
+    process spawned here (``dp_rank``). Phase 11's three steps through the
+    data-parallel path held to phase 11's limits of phase 11's card steps,
+    with 3 × (29, 26, 26) launches in every rank; the eval twin with
+    ``--n_devices W`` giving phase 17's recalls; the W = 1 step's samples/s
+    beside the plain step's at phase 12's batch."""
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    tic = time.perf_counter()
+    mp.start_processes(dp_rank, args=(world, free_port(), str(tmp), str(eval_run["config"])),
+                       nprocs=world, start_method="spawn")
+    phase_s = time.perf_counter() - tic
+    ranks = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(world)]
+    ours = ranks[0]
+    compare_losses("data-parallel step", ours["losses"], parity["losses"],
+                   names=(f"W = {world}", "phase 11"))
+    compare_grads(f"data-parallel step (W = {world}) vs phase 11", ours["grads"],
+                  parity["grads"])
+    want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    for r, out in enumerate(ranks):
+        log(f"kernel use (rank {r}, {PARITY_STEPS} data-parallel fp32 steps): "
+            f"{json.dumps(out['launches'])}")
+        require(out["launches"] == want, f"rank {r} launches {out['launches']} != {want}")
+        require(out["losses"] == ours["losses"], f"rank {r} losses {out['losses']}")
+        require(out["recalls"] == eval_run["recalls"],
+                f"rank {r}: eval twin --n_devices {world} {out['recalls']} != phase 17's "
+                f"{eval_run['recalls']}")
+    rates = ours["rates"]
+    log(f"data parallelism: W = {world}, backend {ours['backend']}, group init "
+        f"{ours['init_s']:.2f} s, {PARITY_STEPS} steps {ours['steps_s']:.2f} s, eval twin "
+        f"--n_devices {world} {json.dumps(ours['recalls'])} (phase 17's) in "
+        f"{ours['eval_s']:.2f} s; bf16 step at batch {DP_BENCH['batch']}: plain "
+        f"{rates['plain']:.1f}, DDP {rates['DDP']:.1f} samples/s (DDP / plain "
+        f"{rates['DDP'] / rates['plain']:.4f}); phase 32 took {phase_s:.1f} s; on {smi}")
+
+
 def main() -> int:
     # wandb, where installed, stays off: nothing here may reach the network
     os.environ["WANDB_MODE"] = "disabled"
@@ -3567,7 +3741,7 @@ def main() -> int:
     check_backward(ops)
 
     # 11. train-step parity, card vs CPU, and the frozen config
-    parity_launches = run_train_parity(ops)
+    parity_launches, parity_steps = run_train_parity(ops)
     want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
     log(f"kernel use ({PARITY_STEPS} fp32 train steps): {json.dumps(parity_launches)}")
     require(parity_launches == want, f"train launches {parity_launches} != {want}")
@@ -3597,7 +3771,7 @@ def main() -> int:
         check_ycc(smi)
 
         # 17. evaluation: the eval.py twin, the transfer evaluation
-        run_evaluation(ops, smi, tmp, csv_path, media)
+        eval_run = run_evaluation(ops, smi, tmp, csv_path, media)
 
         # 18. serving: the embedding script, serve.py over HTTP, bench_serving
         run_serving(ops, smi, tmp, csv_path, media)
@@ -3622,6 +3796,11 @@ def main() -> int:
 
         # 25. R(2+1)D-34, its datasets, GDT's ResNet-9
         run_r2plus1d(ops, smi, tmp, video_csv, video_media)
+
+        # 32. data parallelism: phase 11's steps and phase 17's eval twin on W
+        # ranks over NCCL (here, inside phases 15-25's directory: the eval twin
+        # reads their corpus)
+        run_data_parallel(smi, tmp, parity_steps, eval_run)
     finally:
         if saved_env is None:
             os.environ.pop("VTC_CLIP_WEIGHTS", None)

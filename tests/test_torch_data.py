@@ -75,14 +75,55 @@ JPEG_FIXTURES = {  # name: (width, height, PIL save options, mode)
     "progressive_240x180": (240, 180, {"quality": 88, "progressive": True}, "RGB"),
     # written by OpenCV: PIL's encoder writes no 4:1:1
     "rgb411_94x64": (94, 64, {"quality": 90, "opencv_sampling": "411"}, "RGB"),
+    # coded in RGB: an Adobe segment with colour transform 0, the planes R, G, B
+    "adobergb444_96x64": (96, 64, {"quality": 90, "subsampling": 0, "keep_rgb": True}, "RGB"),
+    # PIL's encoder refuses a subsampled RGB JPEG: a 4:2:0 one's JFIF segment
+    # replaced by an Adobe segment of transform 0, so R is the full plane and
+    # G and B the subsampled ones
+    "adobergb420_98x66": (98, 66, {"quality": 90, "adobe_rgb": True}, "RGB"),
+    # 4 components: CMYK as PIL writes it (Adobe transform 0, inverted planes),
+    # and YCCK, which no encoder here writes: a CMYK one's transform set to 2
+    "cmyk_96x64": (96, 64, {"quality": 90}, "CMYK"),
+    "ycck_96x64": (96, 64, {"quality": 90, "ycck": True}, "CMYK"),
 }
+# an APP14 "Adobe" segment: version 100, no flags, colour transform 0 (RGB)
+ADOBE_RGB_SEGMENT = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+
+
+def as_adobe_rgb(data: bytes) -> bytes:
+    """The JPEG ``data`` with its APP0 JFIF segment replaced by an Adobe
+    segment of colour transform 0: the same bitstream, read as R, G, B."""
+    assert data[2:4] == b"\xff\xe0" and data[6:11] == b"JFIF\x00"
+    return data[:2] + ADOBE_RGB_SEGMENT + data[4 + int.from_bytes(data[4:6], "big"):]
+
+
+def with_adobe_transform(data: bytes, transform: int) -> bytes:
+    """The JPEG ``data`` with its Adobe segment's colour transform set."""
+    i = data.index(b"\xff\xee")
+    assert data[i + 4 : i + 9] == b"Adobe"
+    out = bytearray(data)
+    out[i + 4 + 11] = transform
+    return bytes(out)
+
+
+def save_npz_lzma(path, **arrays) -> None:
+    """``np.savez`` with LZMA compression (``np.load`` reads it): a third
+    smaller than ``savez_compressed`` on the decodes."""
+    import zipfile
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_LZMA) as z:
+        for name, arr in arrays.items():
+            buf = io.BytesIO()
+            np.save(buf, np.asarray(arr))
+            z.writestr(f"{name}.npy", buf.getvalue())
 
 
 def make_jpeg_fixtures(out_dir, seed=9):
     """The committed fixtures: smooth scenes (a gradient, discs, strokes;
     not noise, on which chroma upsampling alone would set the difference)
-    saved by PIL as JPEG (the 4:1:1 one by OpenCV), and PIL's RGB decodes
-    of them in ``pil_decodes.npz``."""
+    saved by PIL as JPEG (the 4:1:1 one by OpenCV; the subsampled RGB one
+    through ``as_adobe_rgb``), and PIL's RGB decodes of them in
+    ``pil_decodes.npz``."""
     import cv2
     from PIL import ImageDraw
 
@@ -105,19 +146,27 @@ def make_jpeg_fixtures(out_dir, seed=9):
             pts = [(float(rng.uniform(0, w)), float(rng.uniform(0, h))) for _ in range(3)]
             draw.line(pts, fill=tuple(int(c) for c in rng.integers(0, 256, 3)),
                       width=int(rng.integers(2, 7)))
-        if mode == "L":
-            img = img.convert("L")
+        if mode in ("L", "CMYK"):
+            img = img.convert(mode)
         path = out_dir / f"{name}.jpg"
         if "opencv_sampling" in opts:
             sampling = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{opts['opencv_sampling']}")
             assert cv2.imwrite(str(path), np.asarray(img)[..., ::-1].copy(), [
                 cv2.IMWRITE_JPEG_QUALITY, opts["quality"],
                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling])
+        elif opts.get("ycck"):
+            buf = io.BytesIO()
+            img.save(buf, "JPEG", quality=opts["quality"])
+            path.write_bytes(with_adobe_transform(buf.getvalue(), 2))
+        elif opts.get("adobe_rgb"):
+            buf = io.BytesIO()
+            img.save(buf, "JPEG", quality=opts["quality"])
+            path.write_bytes(as_adobe_rgb(buf.getvalue()))
         else:
             img.save(path, "JPEG", **opts)
         with Image.open(path) as f:
             decodes[name] = np.asarray(f.convert("RGB"))
-    np.savez_compressed(out_dir / "pil_decodes.npz", **decodes)
+    save_npz_lzma(out_dir / "pil_decodes.npz", **decodes)
     return decodes
 
 
@@ -142,25 +191,40 @@ def test_fixture_generator_makes_the_named_images(tmp_path):
     for name, (w, h, _, mode) in JPEG_FIXTURES.items():
         assert decodes[name].shape == (h, w, 3)
         header = image_io.jpeg_header((tmp_path / f"{name}.jpg").read_bytes())
-        assert header["components"] == (1 if mode == "L" else 3)
+        assert header["components"] == {"L": 1, "RGB": 3, "CMYK": 4}[mode]
         assert header["subsampled"] == (mode == "RGB" and "444" not in name)
         assert header["progressive"] == name.startswith("progressive")
+        assert header["rgb"] == name.startswith("adobergb"), name
+        assert header["ycck"] == name.startswith("ycck"), name
 
 
 def test_decode_refusals_on_the_cpu(tmp_path):
     """What nvJPEG cannot decode as PIL does is refused by name before any
-    card work: CMYK, an Adobe JPEG coded in RGB, a file that is no JPEG."""
+    card work: a 4-component JPEG whose K is sampled otherwise than its
+    first plane, a file that is no JPEG. A JPEG coded in RGB is decoded (no
+    longer refused), and is told from YCbCr as libjpeg-turbo tells it: a
+    JFIF segment means YCbCr whatever an Adobe segment says; CMYK and YCCK
+    are decoded too (no longer refused)."""
     rng = np.random.default_rng(0)
-    buf = io.BytesIO()
-    Image.fromarray(rng.integers(0, 256, (16, 16, 4), dtype=np.uint8), "CMYK").save(
-        buf, "JPEG")
-    with pytest.raises(image_io.JpegDecodeError, match="CMYK"):
-        image_io.decode_jpeg(buf.getvalue())
+    cmyk = bytearray((JPEG_DIR / "cmyk_96x64.jpg").read_bytes())
+    sof = cmyk.index(b"\xff\xc0")
+    cmyk[sof + 11] = 0x11  # C at 1 x 1 ...
+    cmyk[sof + 20] = 0x22  # ... and K at 2 x 2: K above the first plane
+    with pytest.raises(image_io.JpegDecodeError, match="K is sampled"):
+        image_io.decode_jpeg(bytes(cmyk))
     rgb = (JPEG_DIR / "rgb444_160x120.jpg").read_bytes()
-    adobe = rgb[:2] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00" + rgb[2:]
-    assert image_io.jpeg_header(adobe)["adobe_transform"] == 0
-    with pytest.raises(image_io.JpegDecodeError, match="Adobe"):
-        image_io.decode_jpeg(adobe)
+    both = rgb[:2] + ADOBE_RGB_SEGMENT + rgb[2:]  # JFIF and Adobe transform 0
+    header = image_io.jpeg_header(both)
+    assert header["adobe_transform"] == 0 and header["jfif"] and not header["rgb"]
+    with Image.open(io.BytesIO(both)) as img:  # PIL (libjpeg-turbo) reads YCbCr
+        np.testing.assert_array_equal(np.asarray(img.convert("RGB")),
+                                      np.load(JPEG_DIR / "pil_decodes.npz")["rgb444_160x120"])
+    assert image_io.jpeg_header(as_adobe_rgb(rgb))["rgb"]
+    no_markers = bytearray(rgb[:2] + rgb[4 + int.from_bytes(rgb[4:6], "big"):])
+    sof = no_markers.index(b"\xff\xc0")
+    assert image_io.jpeg_header(bytes(no_markers))["rgb"] is False  # ids 1, 2, 3
+    no_markers[sof + 10 : sof + 19 : 3] = b"RGB"
+    assert image_io.jpeg_header(bytes(no_markers))["rgb"]  # ids R, G, B
     buf = io.BytesIO()
     Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(buf, "PNG")
     with pytest.raises(image_io.JpegDecodeError, match="not a JPEG"):
@@ -209,8 +273,10 @@ def test_decode_bound_rejects_a_wrong_chroma():
     moved (by 1 or 3 pixels, either way) its chroma planes misses the
     bound, and an error of the IDCT's size (±1 level) does not."""
     ref = np.load(JPEG_DIR / "pil_decodes.npz")
-    subsampled = [n for n in ref.files
-                  if image_io.jpeg_header((JPEG_DIR / f"{n}.jpg").read_bytes())["subsampled"]]
+    headers = {n: image_io.jpeg_header((JPEG_DIR / f"{n}.jpg").read_bytes())
+               for n in ref.files}
+    # chroma: the subsampled fixtures coded in YCbCr
+    subsampled = [n for n, h in headers.items() if h["subsampled"] and not h["rgb"]]
     assert sorted(subsampled) == ["odd_211x97", "progressive_240x180", "rgb411_94x64",
                                   "rgb420_480x360"]
     for name in subsampled:

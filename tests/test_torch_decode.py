@@ -9,8 +9,17 @@ YCbCr -> RGB (``image_io.ycc_to_rgb`` and its plain version
   ``int_upsample`` for 4:1:1 and 4:1:0), the context rows of ``jdmainct.c``
   and ``ycc_rgb_convert`` with ``build_ycc_rgb_table`` (``jdcolor.c``), on
   seeded planes at even, odd, 1-row and 1-column sizes;
+* without the colour matrix (a JPEG coded in RGB) the plain version is
+  the transcription's upsampling of each plane;
 * on the committed fixtures, PIL's own upsampled YCbCr
   (``draft("YCbCr")``) through the plain colour conversion is PIL's RGB;
+  on the two coded in RGB (Adobe colour transform 0), PIL's upsampled
+  planes of the same bitstream read as YCbCr, through the plain version
+  without the matrix, are PIL's RGB; on the CMYK and YCCK fixtures, the
+  planes PIL reads (inverted back, and the YCCK file read as CMYK for its
+  raw planes) through the plain version with the K plane are PIL's RGB;
+  and the plain version's CMYK and YCCK conversions are PIL's
+  ``convert("RGB")`` of seeded CMYK values;
   on the 4:1:1 fixture (written by OpenCV) its chroma, taken back to one
   sample in 4, through the plain version at 4 x 1 is PIL's RGB too;
 * samplings other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 are
@@ -22,7 +31,8 @@ YCbCr -> RGB (``image_io.ycc_to_rgb`` and its plain version
   own encoder: neither PIL nor OpenCV writes interlaced PNGs), on the
   committed ``tests/data/png`` fixtures too;
 * on the card (``cuda``-marked): the kernel bit-exact against the plain
-  version on nvJPEG's own planes of every fixture and on seeded planes.
+  version on nvJPEG's own planes of every fixture and on seeded planes,
+  with and without the colour matrix.
 """
 
 import io
@@ -209,6 +219,20 @@ def test_reference_equals_libjpeg_turbo(factors):
                                       err_msg=f"{w}x{h} at {factors}")
 
 
+@pytest.mark.parametrize("factors", FACTORS)
+def test_reference_without_the_matrix_is_libjpeg_turbos_upsampling(factors):
+    """A JPEG coded in RGB: the planes upsampled as the transcription does
+    and written as R, G, B (``rgb_rgb_convert``)."""
+    rng = np.random.default_rng(10 + sum(factors))
+    for w, h in SIZES:
+        y, cb, cr = _planes(w, h, factors, rng)
+        ours = image_io.ycc_to_rgb_reference(*map(torch.from_numpy, (y, cb, cr)), factors,
+                                             transform=False)
+        up = [np.asarray(_libjpeg_upsample(p, *factors))[:h, :w] for p in (cb, cr)]
+        np.testing.assert_array_equal(ours.numpy(), np.stack([y, *up], -1),
+                                      err_msg=f"{w}x{h} at {factors}")
+
+
 def test_reference_takes_the_extremes_of_the_tables():
     """Saturated chroma against dark and bright luma clamps as range_limit
     does."""
@@ -227,6 +251,9 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
     torch.testing.assert_close(image_io.ycc_to_rgb(y, cb, cr, (2, 2)),
                                image_io.ycc_to_rgb_reference(y, cb, cr, (2, 2)),
                                atol=0, rtol=0)
+    torch.testing.assert_close(image_io.ycc_to_rgb(y, cb, cr, (2, 2), transform=False),
+                               image_io.ycc_to_rgb_reference(y, cb, cr, (2, 2), False),
+                               atol=0, rtol=0)
     assert image_io.ycc_to_rgb.launches == before  # no kernel was launched
     with pytest.raises(ValueError, match="do not cover"):
         image_io.ycc_to_rgb_reference(y, cb[:2], cr[:2], (2, 2))
@@ -240,6 +267,8 @@ def test_colour_conversion_of_pil_upsampled_planes_is_pils_rgb():
     ref = np.load(JPEG_DIR / "pil_decodes.npz")
     n = 0
     for name in ref.files:
+        if image_io.jpeg_header((JPEG_DIR / f"{name}.jpg").read_bytes())["rgb"]:
+            continue  # coded in RGB: the next test
         with Image.open(JPEG_DIR / f"{name}.jpg") as img:
             if img.mode != "RGB":
                 continue
@@ -249,6 +278,82 @@ def test_colour_conversion_of_pil_upsampled_planes_is_pils_rgb():
         np.testing.assert_array_equal(rgb.numpy(), ref[name], err_msg=name)
         n += 1
     assert n == 5
+
+
+def _read_as_ycbcr(data: bytes) -> bytes:
+    """The JPEG ``data`` with its Adobe segment replaced by a JFIF one: the
+    same bitstream, which libjpeg-turbo then reads as YCbCr."""
+    i = data.index(b"\xff\xee")
+    jfif = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    return data[:i] + jfif + data[i + 2 + int.from_bytes(data[i + 2 : i + 4], "big"):]
+
+
+@pytest.mark.skipif(Image is None, reason="PIL is the reference")
+def test_rgb_coded_fixtures_through_the_plain_version_are_pils_rgb():
+    """The fixtures coded in RGB: PIL's upsampled planes of their bitstream
+    read as YCbCr (``draft("YCbCr")``, no colour conversion) through the
+    plain version without the matrix (factors 1 x 1) give PIL's RGB decode
+    bit for bit, for the 4:4:4 fixture and the one whose G and B planes are
+    subsampled 2 x 2."""
+    ref = np.load(JPEG_DIR / "pil_decodes.npz")
+    names = [n for n in ref.files
+             if image_io.jpeg_header((JPEG_DIR / f"{n}.jpg").read_bytes())["rgb"]]
+    assert sorted(names) == ["adobergb420_98x66", "adobergb444_96x64"]
+    for name in names:
+        data = (JPEG_DIR / f"{name}.jpg").read_bytes()
+        header = image_io.jpeg_header(data)
+        assert header["adobe_transform"] == 0 and not header["jfif"]
+        with Image.open(io.BytesIO(_read_as_ycbcr(data))) as img:
+            assert img.mode == "RGB"
+            img.draft("YCbCr", img.size)
+            planes = torch.from_numpy(np.array(img))
+        rgb = image_io.ycc_to_rgb_reference(*planes.unbind(-1), (1, 1), transform=False)
+        np.testing.assert_array_equal(rgb.numpy(), ref[name], err_msg=name)
+        # with the matrix, the same planes miss PIL's decode by far
+        ycc = image_io.ycc_to_rgb_reference(*planes.unbind(-1), (1, 1))
+        assert np.abs(ycc.numpy().astype(int) - ref[name]).mean() > 10, name
+
+
+@pytest.mark.skipif(Image is None, reason="PIL is the reference")
+def test_cmyk_conversions_are_pils():
+    """Seeded planes: CMYK (Adobe-inverted C, M, Y, K) and YCCK (Y, Cb,
+    Cr through the tables, then inverted, as ``ycck_cmyk_convert``) through
+    the plain version against PIL's ``cmyk2rgb`` of the CMYK that PIL's
+    decoder would hold (the inverted planes)."""
+    rng = np.random.default_rng(12)
+    for factors in ((1, 1), (2, 2)):
+        y, cb, cr = _planes(33, 17, factors, rng)
+        k = rng.integers(0, 256, y.shape, dtype=np.uint8)
+        t = [torch.from_numpy(a) for a in (y, cb, cr, k)]
+        for transform in (False, True):
+            ours = image_io.ycc_to_rgb_reference(*t[:3], factors, transform, t[3]).numpy()
+            up = (np.asarray(_libjpeg_rgb(y, cb, cr, factors)) if transform else np.stack(
+                [y] + [np.asarray(_libjpeg_upsample(p, *factors))[:17, :33] for p in (cb, cr)],
+                -1))
+            # PIL's CMYK: 255 - libjpeg's output; libjpeg's CMYK output is the
+            # planes (CMYK) or 255 - the tables' RGB (YCCK)
+            pil_cmy = up if transform else 255 - up
+            held = np.concatenate([pil_cmy, 255 - k[..., None]], -1).astype(np.uint8)
+            ref = np.asarray(Image.fromarray(held, "CMYK").convert("RGB"))
+            np.testing.assert_array_equal(ours, ref, err_msg=f"{factors} {transform}")
+
+
+@pytest.mark.skipif(Image is None, reason="PIL is the reference")
+def test_cmyk_and_ycck_fixtures_through_the_plain_version_are_pils_rgb():
+    """The 4-component fixtures: their raw planes (PIL's CMYK inverted back;
+    the YCCK file read as CMYK for them) through the plain version with
+    ``k`` give PIL's RGB decode bit for bit."""
+    from test_torch_data import with_adobe_transform
+
+    ref = np.load(JPEG_DIR / "pil_decodes.npz")
+    for name, ycck in (("cmyk_96x64", False), ("ycck_96x64", True)):
+        data = (JPEG_DIR / f"{name}.jpg").read_bytes()
+        assert image_io.jpeg_header(data)["ycck"] == ycck
+        with Image.open(io.BytesIO(with_adobe_transform(data, 0))) as img:
+            assert img.mode == "CMYK"
+            raw = torch.from_numpy(255 - np.array(img))
+        rgb = image_io.ycc_to_rgb_reference(*raw[..., :3].unbind(-1), (1, 1), ycck, raw[..., 3])
+        np.testing.assert_array_equal(rgb.numpy(), ref[name], err_msg=name)
 
 
 @pytest.mark.skipif(Image is None, reason="PIL is the reference")
@@ -589,26 +694,36 @@ def test_kernel_is_bit_exact_on_nvjpeg_planes():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel and nvJPEG run on the card")
     for path in sorted(JPEG_DIR.glob("*.jpg")):
-        planes, factors = image_io.decode_jpeg_planes(path.read_bytes())
+        planes, factors, transform = image_io.decode_jpeg_planes(path.read_bytes())
         if factors is None:
             continue
+        assert transform == path.name.startswith(("rgb", "odd", "progressive", "ycck")), \
+            path.name
+        assert len(planes) == (4 if path.name.startswith(("cmyk", "ycck")) else 3)
         before = image_io.ycc_to_rgb.launches
         with torch.cuda.stream(image_io._local.stream):
-            ours = image_io.ycc_to_rgb(*planes, factors).cpu()
+            ours = image_io.planes_to_rgb(planes, factors, transform).cpu()
         assert image_io.ycc_to_rgb.launches == before + 1
-        ref = image_io.ycc_to_rgb_reference(*[p.cpu() for p in planes], factors)
+        ref = image_io.planes_to_rgb([p.cpu() for p in planes], factors, transform,
+                                     reference=True)
         torch.testing.assert_close(ours, ref, atol=0, rtol=0, msg=path.name)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_k", [False, True])
+@pytest.mark.parametrize("transform", [True, False])
 @pytest.mark.parametrize("factors", FACTORS)
-def test_kernel_is_bit_exact_on_seeded_planes(factors):
+def test_kernel_is_bit_exact_on_seeded_planes(factors, transform, with_k):
+    """YCbCr, R, G, B planes, and with a K plane YCCK and CMYK."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs on the card")
     rng = np.random.default_rng(7)
     for w, h in SIZES + [(257, 3), (480, 360)]:
         planes = [torch.from_numpy(p) for p in _planes(w, h, factors, rng)]
-        ours = image_io.ycc_to_rgb(*[p.cuda() for p in planes], factors)
+        if with_k:
+            planes.append(torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)))
+        ours = image_io.planes_to_rgb([p.cuda() for p in planes], factors, transform)
         torch.cuda.synchronize()
-        torch.testing.assert_close(ours.cpu(), image_io.ycc_to_rgb_reference(*planes, factors),
-                                   atol=0, rtol=0, msg=f"{w}x{h}")
+        torch.testing.assert_close(
+            ours.cpu(), image_io.planes_to_rgb(planes, factors, transform, reference=True),
+            atol=0, rtol=0, msg=f"{w}x{h}")

@@ -17,9 +17,12 @@ with the JAX weights carried across by ``state_dict_from_jax``.
   on ``tests/test_cli.py``'s corpus from one ``.pth``, with the probe on
   and off; the twin of ``evaluation/retrieval_evaluation.py``'s ``main``
   against the JAX one;
-* the refusals: a mesh, several processes, ``--multihost``, a mesh on the
-  CLI, Orbax directories, a 1-element tail; a named video dataset whose
-  root is absent raises what the JAX package raises.
+* the refusals: a mesh, a process count without its process group, a
+  tensor-parallel axis, ``--n_devices`` on a machine with the cards but no
+  group (the ``torchrun`` line), Orbax directories, a 1-element tail; a
+  named video dataset whose root is absent raises what the JAX package
+  raises. The evaluations on a group's processes are in
+  ``tests/test_torch_dist.py``.
 """
 
 import json
@@ -262,7 +265,7 @@ def test_retrieval_evaluation_refusals(cam_pair):
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         port_re.retrieval_evaluation(model, "synthetic", "test", dataset=ds, mesh=object(),
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(RuntimeError, match="runs under torchrun"):
         port_re.retrieval_evaluation(model, "synthetic", "test", dataset=ds, process_count=2,
                                      device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
@@ -319,6 +322,8 @@ def test_retrieval_evaluation_main_matches_jax(tiny_ckpt, monkeypatch, tmp_path)
 
 
 def test_retrieval_evaluation_cli_refusals(tmp_path, monkeypatch):
+    """A strict graft, Orbax, no card; ``--n_devices 2`` on a machine with
+    the cards but without a process group names the ``torchrun`` line."""
     from vtc_tpu_torch.training.checkpoints import save_checkpoint
 
     monkeypatch.setattr(port_cli, "create_model",
@@ -329,8 +334,9 @@ def test_retrieval_evaluation_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="missing"):  # grafted strictly
         port_cli.load_model(ckpt, "pretrained_clip_finaltf", device="cpu")
     port_cli.load_model(ckpt, "pretrained_clip", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port_cli.main(["-m", "pretrained_clip", "--n_devices", "2", "-d", "cpu"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        port_cli.main(["-m", "pretrained_clip", "--n_devices", "2", "-d", "cuda"])
     with pytest.raises(NotImplementedError, match="Orbax"):
         port_cli.load_model(tmp_path, "pretrained_clip", device="cpu")
     if not torch.cuda.is_available():
@@ -442,14 +448,22 @@ def test_eval_twin_cli_zero_shot_name(corpus, monkeypatch, tmp_path):
     assert json.loads((tmp_path / "zero_shot_res_None.json").read_text()) == out
 
 
-def test_eval_twin_refusals(corpus, tmp_path):
+def test_eval_twin_refusals(corpus, tmp_path, monkeypatch):
     tmp, csv, root = corpus
-    for over in ({"n_devices": 2}, {"n_model": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            port_eval.main(ConfigParser(_eval_config(tmp_path, csv, root, **over)), _Args(),
-                           None, device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        ConfigParser(_eval_config(tmp_path, csv, root, multihost=1))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        port_eval.main(ConfigParser(_eval_config(tmp_path, csv, root, n_model=2)), _Args(),
+                       None, device="cpu")
+    # a multihost config waits for its process group to pick the run dir
+    with pytest.raises(RuntimeError, match="finalize_run_dir"):
+        ConfigParser(_eval_config(tmp_path, csv, root, multihost=1)).save_dir
+    with pytest.raises(RuntimeError, match="runs under torchrun"):
+        port_eval.main(ConfigParser(_eval_config(tmp_path, csv, root)), _Args(), None,
+                       device="cpu", process_index=0, process_count=2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        port_eval.main(ConfigParser(_eval_config(tmp_path, csv, root, n_devices=2)), _Args(),
+                       None, device="cuda")
+    monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="Orbax"):
         port_eval.main(ConfigParser(_eval_config(tmp_path, csv, root)), _Args(),
                        str(tmp_path), device="cpu")

@@ -13,8 +13,9 @@ JAX package's.
   (atol 1e-6, rtol 1e-6, as tests/test_optim_parity.py holds the fused
   optimizer to the optax chain).
 * The refusals: unknown options, the accumulating step's divisibility and
-  BatchNorm refusals, the loader's ``shard_by_process`` and multihost
-  token truncation.
+  BatchNorm refusals; without a process group the loader's
+  ``shard_by_process`` and the multihost token truncation are the single
+  process's (they ran only on a group's ranks: ``tests/test_torch_dist.py``).
 * Every ``configs/*.jsonc`` ``arch`` block builds at ``test-tiny`` on the
   CPU, the audio MLP and the MoE adapter included, and takes one train
   step (the loss finite, every trainable parameter moved by the update);
@@ -200,10 +201,11 @@ def test_unknown_or_unported_options_raise():
     optimizer, scheduler = build_optimizer(bn, {"type": "Adam"})
     with pytest.raises(ValueError, match="BatchNorm running stats"):
         train_step(bn, None, optimizer, scheduler, data, accum_steps=2)
-    with pytest.raises(NotImplementedError, match="shard_by_process"):
-        DataLoader([0, 1], batch_size=1, shard_by_process=True)
-    with pytest.raises(NotImplementedError, match="multihost"):
-        global_truncate_tokens([np.zeros((2, 77), np.int32)], multihost=True)
+    loader = DataLoader([0, 1], batch_size=1, shard_by_process=True)
+    assert (loader.process_index, loader.process_count, len(loader)) == (0, 1, 2)
+    tokens = np.zeros((2, 77), np.int32)
+    tokens[:, :3] = (49406, 5, 49407)
+    assert [t.shape for t in global_truncate_tokens([tokens], multihost=True)] == [(2, 16)]
 
 
 @pytest.mark.parametrize("config", CONFIGS, ids=lambda p: p.stem)

@@ -16,9 +16,12 @@
   and validation loss within 1e-5 and the validation R@K equal over 2
   epochs (``test_trainer_matches_jax_trainer``'s tolerance); both write
   their epoch checkpoints.
-* The refusals: ``loader: grain``, ``multihost``, ``pp``, the R(2+1)D
-  video datasets, a mesh on a machine with the devices; the unsharded
-  warning on one without them; the MSRVTT probe off without its root.
+* The refusals: ``loader: grain``, ``--multihost`` without the process
+  topology ``torchrun`` exports, ``pp``, ``sp``, ``ep``, ``n_model``,
+  ``fsdp``, the R(2+1)D video datasets, ``--n_devices`` on a machine with
+  the cards but no process group (the ``torchrun`` line); the unsharded
+  warning on one without them; the MSRVTT probe off without its root. The
+  twin on a group's ranks is in ``tests/test_torch_dist.py``.
 """
 
 import inspect
@@ -418,6 +421,9 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     ({"pp": 2}, "distribution"),
     ({"sp": 2}, "distribution"),
     ({"ep": 2}, "Queue 1 item 9"),
+    ({"slices": 2}, "Queue 1 item 9"),
+    ({"n_model": 2}, "Queue 1 item 9"),
+    ({"fsdp": 1}, "Queue 1 item 9"),
 ])
 def test_twin_refusals(tmp_path, extra, match):
     config = ConfigParser(_config(tmp_path, "x.csv", "x", **extra))
@@ -425,10 +431,18 @@ def test_twin_refusals(tmp_path, extra, match):
         twin.main(config, device="cpu")
 
 
-def test_twin_refuses_multihost(tmp_path):
+def test_twin_refuses_multihost(tmp_path, monkeypatch):
+    """``--multihost`` joins the group that torchrun describes: without its
+    variables it raises by name, before any run dir exists."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     cfg_path = tmp_path / "cfg.jsonc"
     cfg_path.write_text(json.dumps(_config(tmp_path, "x.csv", "x")))
-    with pytest.raises(NotImplementedError, match="multihost"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node N"):
+        twin.cli(["-c", str(cfg_path), "--multihost", "1"], device="cpu")
+    assert not (tmp_path / "models").exists()
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="missing: \\['WORLD_SIZE'"):
         twin.cli(["-c", str(cfg_path), "--multihost", "1"], device="cpu")
 
 
@@ -456,5 +470,5 @@ def test_mesh_warns_without_the_devices_and_refuses_with_them(tmp_path, monkeypa
         logger.removeHandler(handler)
     assert any("training UNSHARDED" in r.getMessage() for r in records)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="mesh on 4 devices"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m vtc_tpu_torch.train"):
         twin._check_mesh(config, torch.device("cuda"), logger)

@@ -411,8 +411,9 @@ def test_loader_worker_error_surfaces():
     loader = DataLoader(_ItemDataset(20, fail_at=7), batch_size=4, num_workers=2)
     with pytest.raises(KeyError, match="item 7 is broken"):
         list(loader)
-    with pytest.raises(NotImplementedError, match="shard_by_process"):
-        DataLoader(_ItemDataset(4), batch_size=2, shard_by_process=True)
+    # without a process group, each process's slice is the whole stream
+    sharded = DataLoader(_ItemDataset(4), batch_size=2, shard_by_process=True)
+    assert len(sharded) == 2 and sharded.process_count == 1
 
 
 def test_prefetch_to_device_on_the_cpu():
@@ -513,7 +514,8 @@ def test_config_parser_matches_jax(tmp_path, monkeypatch):
     """The same ``;``-path overrides, run-dir layout and saved config as
     JAX's ``ConfigParser``, from a dict and from the command line (with a
     resume that re-reads the run's config); ``init_obj`` builds from a
-    section; a multihost config raises."""
+    section; a multihost config made before its process group exists
+    defers its run dir to ``finalize_run_dir``, as JAX's does."""
     from vtc_tpu.config import ConfigParser as JaxConfigParser
     from vtc_tpu.utils import read_json as jax_read_json
 
@@ -555,8 +557,17 @@ def test_config_parser_matches_jax(tmp_path, monkeypatch):
         assert parsed.resume == ckpt and parsed["optimizer"]["args"]["lr"] == 0.25
         made[name] = parsed
     assert made["port"].config == made["jax"].config
-    with pytest.raises(NotImplementedError, match="multihost"):
-        ConfigParser(dict(_config(tmp_path / "mh"), multihost=1))
+    deferred = {}
+    for name, cls in (("port", ConfigParser), ("jax", JaxConfigParser)):
+        deferred[name] = cls(dict(_config(tmp_path / "mh" / name), multihost=1))
+        with pytest.raises(RuntimeError, match="finalize_run_dir"):
+            deferred[name].save_dir
+        assert not (tmp_path / "mh" / name).exists()
+    # the port's finalize_run_dir without a group is one process's (JAX's
+    # needs jax.distributed)
+    run_dir = deferred["port"].finalize_run_dir()
+    assert deferred["port"].save_dir == run_dir and (run_dir / "config.json").exists()
+    assert deferred["port"].finalize_run_dir() == run_dir  # once
 
 
 # ---- checkpoints across the packages -----------------------------------------

@@ -1,0 +1,214 @@
+"""What each rank of ``tests/test_torch_dist.py`` runs, in a process of its
+own: a module the spawned children import (they cannot unpickle a test's
+closure), with no JAX, as on the card's machine.
+
+``spawn(fn, world, tmp, *args)`` starts ``world`` processes with the
+``spawn`` method (``join=False`` returns at once: ``wait`` joins them); each sets ``torchrun``'s variables, runs torch on one
+thread, joins a gloo group through a file in ``tmp`` (no port for pytest's
+workers to race for) and calls ``fn(rank, world, tmp, *args)``. The ranks
+hand their results back through ``torch.save`` files in ``tmp``."""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import numpy as np
+import torch
+
+TINY = "test-tiny"
+OPT = {"type": "Adam", "args": {"lr": 1e-3, "weight_decay": 1e-4, "amsgrad": True}}
+SCHED = {"type": "StepLR", "args": {"step_size": 1, "gamma": 0.5}}
+STEP_KW = dict(steps_per_epoch=2, adapter_lr=1e-2, fc_lr=2e-3)
+
+
+def spawn(fn, world: int, tmp, *args, join: bool = True):
+    """Run ``fn`` on ``world`` ranks; with ``join`` False return at once
+    with the processes' context, whose ``join()`` the caller loops on."""
+    import torch.multiprocessing as mp
+
+    return mp.start_processes(_entry, args=(fn, world, str(tmp), args), nprocs=world,
+                              join=join, start_method="spawn")
+
+
+def wait(context) -> None:
+    """Block until every rank of ``spawn(..., join=False)`` has ended;
+    a rank's error is raised here."""
+    while not context.join():
+        pass
+
+
+def _entry(rank, fn, world, tmp, args):
+    import torch.distributed as dist
+
+    from vtc_tpu_torch.utils.util import init_distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      WANDB_MODE="disabled")
+    torch.set_num_threads(1)
+    init_distributed("gloo", f"file://{tmp}/rendezvous")
+    try:
+        fn(rank, world, Path(tmp), *args)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---- the train step --------------------------------------------------------------
+
+def flagship_port(state_dict, **kwargs):
+    """The test-tiny flagship on ``state_dict``, its frozen branches without
+    gradients as ``create_model`` leaves them."""
+    from vtc_tpu_torch.models import frozen_predicate
+    from vtc_tpu_torch.models.retrieval import PretrainedCLIP_finaltf
+
+    model = PretrainedCLIP_finaltf(model_type=TINY, **kwargs)
+    model.load_state_dict(state_dict, strict=True)
+    frozen = frozen_predicate(model.freeze)
+    for name, p in model.named_parameters():
+        p.requires_grad_(not frozen(name))
+    return model
+
+
+def step_case(case: dict) -> dict:
+    """``case["steps"]`` train steps of the flagship (``case["model_kw"]``)
+    on this process's rows of the global batch ``case["data"]``: DDP under
+    a process group, the plain module without one. ``case["draws"]`` holds
+    each step's draws of the global batch (one dict per microbatch with
+    ``accum``), or None: drawn from a generator seeded ``seed + step`` on
+    every rank. Returns each loss, the step-1 gradients (the optimizer's
+    view), the parameters and buffers after, and the last output's
+    shapes."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.training import build_optimizer, train_step
+
+    model = flagship_port(case["state_dict"], **case.get("model_kw", {}))
+    optimizer, scheduler = build_optimizer(model, OPT, SCHED, **STEP_KW)
+    grads = {}
+
+    def first(opt, args, kwargs):
+        if not grads:
+            grads.update({n: None if p.grad is None else p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+
+    optimizer.register_step_pre_hook(first)
+    ddp = data_parallel(model, torch.device("cpu"))
+    data = [torch.from_numpy(np.ascontiguousarray(shard_batch(a))) for a in case["data"]]
+    losses, shapes = [], None
+    for step in range(case["steps"]):
+        draws = case["draws"][step] if case.get("draws") else None
+        gen = torch.Generator().manual_seed(case.get("seed", 0) + step)
+        loss, out = train_step(ddp, clip_loss, optimizer, scheduler, data, {},
+                               generator=gen, draws=draws,
+                               accum_steps=case.get("accum", 1))
+        losses.append(float(loss))
+        shapes = [tuple(o.shape) for o in out]
+    return {"losses": losses, "grads": grads, "shapes": shapes,
+            "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+
+
+def run_steps(rank, world, tmp):
+    """Every case of ``tmp/steps.pt`` through ``step_case``, then the small
+    collectives: the token bucket, ``allgather_varlen``, the BatchNorm of
+    the global batch, ``recall_at_k_sharded`` and the refusals."""
+    from vtc_tpu_torch.models.layers import TorchBatchNorm
+    from vtc_tpu_torch.ops.retrieval import recall_at_k_sharded
+    from vtc_tpu_torch.parallel.mesh import all_gather_rows, shard_batch
+    from vtc_tpu_torch.training.step import global_truncate_tokens
+    from vtc_tpu_torch.utils.util import allgather_varlen
+
+    spec = torch.load(tmp / "steps.pt", weights_only=False)
+    out = {"cases": {name: step_case(case) for name, case in spec["cases"].items()}}
+
+    # the token bucket: each rank's rows reach a different EOT
+    tokens = [shard_batch(a) for a in spec["tokens"]]
+    out["bucket"] = [t.shape for t in global_truncate_tokens(tokens, multihost=True)]
+    out["local_bucket"] = [t.shape for t in global_truncate_tokens(tokens)]
+
+    # allgather_varlen: rank r holds spec["varlen"][r] rows, none on one rank
+    out["varlen"] = allgather_varlen(spec["varlen"][rank])
+
+    # a TorchBatchNorm in training on the rank's rows of a [8, 4, 3] batch
+    bn = TorchBatchNorm(4)
+    bn.load_state_dict(spec["bn"]["state"])
+    x = torch.from_numpy(shard_batch(spec["bn"]["x"])).requires_grad_()
+    y = bn.train()(x)
+    full = all_gather_rows(y)
+    (full * torch.from_numpy(spec["bn"]["c"])).sum().backward()
+    out["bn"] = {"y": full.detach(), "x_grad": x.grad / world,
+                 "running": (bn.running_mean.clone(), bn.running_var.clone())}
+
+    # ranking with the query axis split over the ranks
+    r = spec["recall"]
+    out["recall"] = recall_at_k_sharded(r["a"], r["b"], r["k"], targets=r["targets"],
+                                        device="cpu")
+
+    refusals = {}
+    try:
+        moe = spec["moe"]
+        step_case(moe)
+    except NotImplementedError as e:
+        refusals["moe"] = str(e)
+    out["refusals"] = refusals
+    if rank < 2:
+        torch.save(out, tmp / f"steps_rank{rank}.pt")
+
+
+# ---- the evaluations and the train CLI --------------------------------------------
+
+class EvalArgs:
+    def __init__(self, num_irrelevant_comments=0):
+        self.num_irrelevant_comments = num_irrelevant_comments
+
+
+def run_evals(rank, world, tmp):
+    """The ``eval.py`` twin's ``main`` and ``retrieval_evaluation`` on this
+    rank's share, from the files the test wrote in ``tmp``; the result file
+    and the CSV go to ``tmp/evalrun``, the working directory."""
+    from vtc_tpu_torch.config import ConfigParser
+    from vtc_tpu_torch.evaluation import eval as port_eval
+    from vtc_tpu_torch.evaluation.retrieval_eval import retrieval_evaluation
+
+    import json
+    import types
+
+    spec = torch.load(tmp / "evals.pt", weights_only=False)
+    os.chdir(tmp / "evalrun")
+    written = []  # the result files this process writes
+    port_eval.json = types.SimpleNamespace(
+        dump=lambda obj, f: (written.append(f.name), json.dump(obj, f)))
+    recalls = port_eval.main(ConfigParser(spec["config"]), EvalArgs(), spec["ckpt"],
+                             device="cpu")
+    model = flagship_port(spec["state_dict"]).eval()
+    table = retrieval_evaluation(model, "synthetic", "test", dataset=spec["videos"],
+                                 frame_stride=4, out_csv=str(tmp / "evalrun" / "table.csv"),
+                                 device="cpu")
+    torch.save({"recalls": recalls, "table": table.to_numpy(), "written": written},
+               tmp / f"evals_rank{rank}.pt")
+
+
+def run_cli(rank, world, tmp):
+    """The train twin's CLI at ``--n_devices 2``: 2 epochs, then a resume
+    from the first epoch's checkpoint for its second; each epoch's
+    parameters and the run dirs each process saw."""
+    from vtc_tpu_torch import train as twin
+    from vtc_tpu_torch.training import trainer as trainer_mod
+
+    epochs = []
+    run_epoch = trainer_mod.Trainer._train_epoch
+
+    def record(self, epoch):
+        log = run_epoch(self, epoch)
+        epochs.append({n: p.detach().clone() for n, p in self.model.named_parameters()})
+        return log
+
+    trainer_mod.Trainer._train_epoch = record
+    argv = ["-c", str(tmp / "cli_config.json"), "--n_devices", str(world)]
+    first = twin.cli(argv, device="cpu")
+    ckpt = first.checkpoint_dir / "checkpoint-epoch1.pth"
+    resumed = twin.cli(["-r", str(ckpt), "--n_devices", str(world)], device="cpu")
+    torch.save({"epochs": epochs, "dirs": [str(first.checkpoint_dir),
+                                           str(resumed.checkpoint_dir)],
+                "start": resumed.start_epoch},
+               tmp / f"cli_rank{rank}.pt")

@@ -1,5 +1,5 @@
 """Config / flag system, the port's own copy of
-``vtc_tpu/config/parse_config.py:37-261`` for one host.
+``vtc_tpu/config/parse_config.py:37-261``.
 
 Behavior-compatible with the reference's ``utils/parse_config.py:13-187``
 (the config surface is part of the experiment contract):
@@ -18,11 +18,14 @@ Behavior-compatible with the reference's ``utils/parse_config.py:13-187``
   (``utils/parse_config.py:77-89``).
 * Reflective construction ``init_obj`` (``utils/parse_config.py:97-112``).
 
-A ``multihost`` config, whose run directory rank 0 picks and broadcasts,
-waits for the port of distribution and raises. ``-d/--device`` is the JAX
-package's: a count of mesh devices (or the reference's id list, "0,1"),
-written to ``n_devices`` unless ``--n_devices`` is given; the training CLI
-then refuses or warns, as a one-card program must.
+Under a process group (``torchrun``) rank 0 alone picks the run directory,
+broadcasts its name, creates it and writes ``config.json`` and the log
+files; the other ranks create nothing and log warnings to the console with
+their rank. A ``multihost`` config made before the group exists defers the
+directory to ``finalize_run_dir``, as ``vtc_tpu``'s does
+(``:73-157``). ``-d/--device`` is the JAX package's: a count of mesh
+devices (or the reference's id list, "0,1"), written to ``n_devices``
+unless ``--n_devices`` is given.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ import re
 from pathlib import Path
 from typing import NamedTuple
 
+import torch.distributed as dist
+
 from ..utils import read_json, setup_logging, write_json
+from ..utils.util import barrier, broadcast_object, is_main, rank
 
 
 class CustomArgs(NamedTuple):
@@ -77,25 +83,42 @@ class ConfigParser:
             for path, value in modification.items():
                 if value is not None:
                     _override(config, path, value)
-        if bool(config.get("multihost")):
-            raise NotImplementedError(
-                "multihost runs (rank 0 picks and broadcasts the run dir) wait "
-                "for the port of distribution (ROADMAP: Queue 1 item 9, torch.distributed)"
-            )
         self._config = config
         self.resume = resume
         self.log_levels = dict(enumerate(_LOG_LEVELS))
+        self._run_dir = None
+        if bool(config.get("multihost")) and run_id is None and not dist.is_initialized():
+            # each process of a multihost run picking its own wall-clock run
+            # id races the mkdir or splits the run over two directories: the
+            # CLI calls finalize_run_dir() once the group exists
+            return
+        self.finalize_run_dir(run_id)
 
-        exp_dir = Path(config["trainer"]["save_dir"]) / "models" / config["name"]
+    def finalize_run_dir(self, run_id=None) -> Path:
+        """Create the run directory: rank 0 picks the next run id and
+        broadcasts it, and only rank 0 creates the directory and writes
+        ``config.json`` and the log files; a barrier lets no rank go on
+        before it exists. One process: the same without the collectives. A
+        no-op once the directory is set."""
+        if self._run_dir is not None:
+            return self._run_dir
+        exp_dir = Path(self._config["trainer"]["save_dir"]) / "models" / self._config["name"]
+        main = is_main()
         if run_id is None:
-            run_id = _next_run_id(exp_dir)
+            run_id = broadcast_object(_next_run_id(exp_dir) if main else None)
         run_dir = exp_dir / run_id
-        # an explicit empty run_id reuses exp_dir itself (no fresh-dir guard)
-        run_dir.mkdir(parents=True, exist_ok=(run_id == ""))
+        if main:
+            # an explicit empty run_id reuses exp_dir itself (no fresh-dir guard)
+            run_dir.mkdir(parents=True, exist_ok=(run_id == ""))
+            write_json(self._config, run_dir / "config.json")
+            setup_logging(run_dir)
+        else:
+            logging.basicConfig(
+                level=logging.WARNING,
+                format=f"[rank {rank()}] %(levelname)s %(name)s: %(message)s")
+        barrier()
         self._run_dir = run_dir
-
-        write_json(config, run_dir / "config.json")
-        setup_logging(run_dir)
+        return run_dir
 
     @classmethod
     def from_args(cls, args, options=(), argv=None):
@@ -168,7 +191,8 @@ class ConfigParser:
                 f"Valid options are {list(self.log_levels)}."
             )
         logger = logging.getLogger(name)
-        logger.setLevel(self.log_levels[verbosity])
+        # only rank 0 logs below a warning
+        logger.setLevel(self.log_levels[verbosity] if is_main() else logging.WARNING)
         return logger
 
     @property
@@ -177,6 +201,10 @@ class ConfigParser:
 
     @property
     def save_dir(self) -> Path:
+        if self._run_dir is None:
+            raise RuntimeError("run dir not finalized: a --multihost config defers it until "
+                               "its process group exists; call finalize_run_dir() first "
+                               "(the CLIs do)")
         return self._run_dir
 
     @property

@@ -16,7 +16,8 @@
 //
 // nvJPEG stops before colour conversion: NVJPEG_OUTPUT_YUV gives the Y, Cb
 // and Cr planes at their own sizes (for 4:2:0 the chroma is ceil(w/2) x
-// ceil(h/2)); a grayscale image gives its Y plane (NVJPEG_OUTPUT_Y). nvJPEG's
+// ceil(h/2)); a grayscale image gives its Y plane (NVJPEG_OUTPUT_Y); a
+// 4-component one its four planes (NVJPEG_OUTPUT_UNCHANGED). nvJPEG's
 // own RGB output upsamples the chroma otherwise than libjpeg-turbo, 1.28-4.88
 // levels off PIL per channel on 4:2:0 images, so the upsampling and the
 // colour conversion are done here, by `ycc_to_rgb_kernel`, as libjpeg-turbo
@@ -34,7 +35,14 @@
 //   and 4:1:0 chroma, upsampled 4 times across and 1 or 2 times down
 //   (int_upsample: each sample repeated over its 4 x vf box);
 // * YCbCr -> RGB with the integer tables of jdcolor.c (build_ycc_rgb_table,
-//   SCALEBITS 16), each result clamped to 0-255.
+//   SCALEBITS 16), each result clamped to 0-255; for a JPEG coded in RGB
+//   (transform = 0: an Adobe segment with colour transform 0, or the ids R,
+//   G, B) nvJPEG's three planes are R, G and B, and they are upsampled alike
+//   and written as they are (rgb_rgb_convert);
+// * a fourth plane K (mode 2: CMYK, whose planes hold Adobe's inverted C, M,
+//   Y; mode 3: YCCK, whose Y, Cb, Cr go through the YCbCr tables first, as
+//   jdcolor.c's ycck_cmyk_convert) makes RGB as PIL's cmyk2rgb does
+//   (Convert.c): K - MULDIV255(c, K) per channel, clamped.
 //
 // The wrapper refuses other samplings (Cb and Cr sampled apart, a chroma plane
 // sampled above the luma, factors such as 1 x 4) by name. The kernel computes
@@ -42,7 +50,7 @@
 // them: output pixel (x, y) reads chroma column x / hf, rows y / vf and its
 // neighbour.
 //
-// Bound: it reads w*h + 2*cw*ch bytes and writes 3*w*h; at thumbnail sizes
+// Bound: it reads w*h + 2*cw*ch bytes (and w*h of K) and writes 3*w*h; at thumbnail sizes
 // (480 x 360: 0.86 MB) that is 0.26 us at 3.35 TB/s, so the launch and the
 // decode's synchronizations set its time. One thread writes one output
 // pixel pair (the two pixels of a horizontally upsampled chroma sample share
@@ -137,11 +145,19 @@ __device__ __forceinline__ uint8_t clamp255(int v) {
   return static_cast<uint8_t>(min(max(v, 0), 255));
 }
 
+// PIL's MULDIV255(a, b): a * b / 255, rounded as Convert.c rounds it
+__device__ __forceinline__ int muldiv255(int a, int b) {
+  int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
+// mode: 0 R, G, B planes; 1 YCbCr; 2 CMYK (Adobe-inverted) with k; 3 YCCK with k
 __global__ void ycc_to_rgb_kernel(const uint8_t* __restrict__ y, int y_pitch,
                                   const uint8_t* __restrict__ cb, int cb_pitch,
-                                  const uint8_t* __restrict__ cr, int cr_pitch, int w, int h,
-                                  int cw, int ch, int hf, int vf, uint8_t* __restrict__ out,
-                                  int out_pitch) {
+                                  const uint8_t* __restrict__ cr, int cr_pitch,
+                                  const uint8_t* __restrict__ k, int k_pitch, int w, int h,
+                                  int cw, int ch, int hf, int vf, int mode,
+                                  uint8_t* __restrict__ out, int out_pitch) {
   int x0 = 2 * (blockIdx.x * kPairsPerBlock + threadIdx.x);
   int row = blockIdx.y;
   if (x0 >= w || row >= h) return;
@@ -151,11 +167,21 @@ __global__ void ycc_to_rgb_kernel(const uint8_t* __restrict__ y, int y_pitch,
   uint8_t* o = out + static_cast<size_t>(row) * out_pitch + 3 * x0;
   for (int i = 0; i < 2 && x0 + i < w; ++i) {
     int luma = sample(y, y_pitch, row, x0 + i);
-    int dcb = cbv[i] - 128, dcr = crv[i] - 128;
-    // arithmetic shifts of signed ints, as jdcolor.c's RIGHT_SHIFT
-    o[3 * i + 0] = clamp255(luma + ((kCrR * dcr + kHalf) >> 16));
-    o[3 * i + 1] = clamp255(luma + ((-kCbG * dcb + kHalf - kCrG * dcr) >> 16));
-    o[3 * i + 2] = clamp255(luma + ((kCbB * dcb + kHalf) >> 16));
+    int c[3] = {luma, cbv[i], crv[i]};
+    if (mode & 1) {
+      int dcb = cbv[i] - 128, dcr = crv[i] - 128;
+      // arithmetic shifts of signed ints, as jdcolor.c's RIGHT_SHIFT
+      c[0] = clamp255(luma + ((kCrR * dcr + kHalf) >> 16));
+      c[1] = clamp255(luma + ((-kCbG * dcb + kHalf - kCrG * dcr) >> 16));
+      c[2] = clamp255(luma + ((kCbB * dcb + kHalf) >> 16));
+    }
+    if (mode & 2) {  // PIL's C, M, Y: 255 - plane (CMYK) or the tables' (YCCK)
+      int kk = sample(k, k_pitch, row, x0 + i);
+      for (int j = 0; j < 3; ++j) {
+        c[j] = clamp255(kk - muldiv255(mode == 2 ? 255 - c[j] : c[j], kk));
+      }
+    }
+    for (int j = 0; j < 3; ++j) o[3 * i + j] = static_cast<uint8_t>(c[j]);
   }
 }
 
@@ -176,10 +202,11 @@ int vtc_jpeg_info(const unsigned char* data, size_t len, int* widths, int* heigh
 
 // Decode `data` on `stream` into planes the caller allocates in device
 // memory: with planes = 3, Y, Cb and Cr at their own sizes
-// (NVJPEG_OUTPUT_YUV); with planes = 1, the luma (NVJPEG_OUTPUT_Y).
+// (NVJPEG_OUTPUT_YUV); with planes = 1, the luma (NVJPEG_OUTPUT_Y); with
+// planes = 4, the four components as coded (NVJPEG_OUTPUT_UNCHANGED).
 int vtc_jpeg_decode(const unsigned char* data, size_t len, int planes, unsigned char* y,
                     size_t y_pitch, unsigned char* cb, size_t cb_pitch, unsigned char* cr,
-                    size_t cr_pitch, cudaStream_t stream) {
+                    size_t cr_pitch, unsigned char* k, size_t k_pitch, cudaStream_t stream) {
   nvjpegStatus_t s;
   nvjpegHandle_t h = handle(&s);
   if (s != NVJPEG_STATUS_SUCCESS) return s;
@@ -190,29 +217,38 @@ int vtc_jpeg_decode(const unsigned char* data, size_t len, int planes, unsigned 
   nvjpegImage_t img = {};
   img.channel[0] = y;
   img.pitch[0] = y_pitch;
-  if (planes == 3) {
+  if (planes >= 3) {
     img.channel[1] = cb;
     img.pitch[1] = cb_pitch;
     img.channel[2] = cr;
     img.pitch[2] = cr_pitch;
   }
-  s = nvjpegDecode(h, t_state.state, data, len,
-                   planes == 3 ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &img, stream);
+  if (planes == 4) {
+    img.channel[3] = k;
+    img.pitch[3] = k_pitch;
+  }
+  nvjpegOutputFormat_t format = planes == 4   ? NVJPEG_OUTPUT_UNCHANGED
+                                : planes == 3 ? NVJPEG_OUTPUT_YUV
+                                              : NVJPEG_OUTPUT_Y;
+  s = nvjpegDecode(h, t_state.state, data, len, format, &img, stream);
   if (s != NVJPEG_STATUS_SUCCESS) return s;
   cudaError_t err = cudaStreamSynchronize(stream);
   return err == cudaSuccess ? 0 : 1000 + err;
 }
 
-// Upsample Cb and Cr (cw x ch, by hf x vf) and convert with Y (w x h) into
-// the uint8 [h, w, 3] RGB `out` on `stream`; returns cudaGetLastError().
+// Upsample Cb and Cr (cw x ch, by hf x vf) and convert with Y (w x h), and
+// K (w x h) in modes 2 and 3, into the uint8 [h, w, 3] RGB `out` on
+// `stream` (mode 0: R, G, B planes; 1: YCbCr; 2: CMYK; 3: YCCK); returns
+// cudaGetLastError().
 int vtc_ycc_to_rgb(const unsigned char* y, int y_pitch, const unsigned char* cb, int cb_pitch,
-                   const unsigned char* cr, int cr_pitch, int w, int h, int cw, int ch, int hf,
-                   int vf, unsigned char* out, int out_pitch, cudaStream_t stream) {
+                   const unsigned char* cr, int cr_pitch, const unsigned char* k, int k_pitch,
+                   int w, int h, int cw, int ch, int hf, int vf, int mode, unsigned char* out,
+                   int out_pitch, cudaStream_t stream) {
   int pairs = (w + 1) / 2;
   dim3 grid((pairs + kPairsPerBlock - 1) / kPairsPerBlock, h);
   ycc_to_rgb_kernel<<<grid, kPairsPerBlock, 0, stream>>>(y, y_pitch, cb, cb_pitch, cr,
-                                                         cr_pitch, w, h, cw, ch, hf, vf, out,
-                                                         out_pitch);
+                                                         cr_pitch, k, k_pitch, w, h, cw, ch,
+                                                         hf, vf, mode, out, out_pitch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,10 +12,18 @@ one; nothing switches between them quietly:
   ``jdcolor.c``), so only nvJPEG's IDCT sets the pixels apart from PIL's.
   A grayscale JPEG is decoded as its luma plane and repeated into three
   equal channels, as ``convert("RGB")`` does. 4:1:1 and 4:1:0 chroma is
-  box-replicated, as libjpeg-turbo's ``int_upsample`` does. What cannot be
-  matched to PIL (CMYK and YCCK; an Adobe RGB JPEG without a colour
-  transform; a sampling other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and
-  4:1:0) or fails to decode raises ``JpegDecodeError``, and no other
+  box-replicated, as libjpeg-turbo's ``int_upsample`` does. A JPEG coded in
+  RGB (an Adobe segment with colour transform 0, or the component ids R, G,
+  B without a JFIF or Adobe segment: libjpeg-turbo's
+  ``default_decompress_parms``) takes the same upsampling without the colour
+  matrix: its planes are R, G and B. A 4-component JPEG is decoded into its
+  four planes (``NVJPEG_OUTPUT_UNCHANGED``) and converted as PIL converts
+  it: CMYK planes, stored inverted by Adobe's convention, or YCCK ones,
+  whose Y, Cb and Cr go through the YCbCr tables first (libjpeg-turbo's
+  ``ycck_cmyk_convert``), then PIL's ``cmyk2rgb``. What cannot be matched
+  to PIL (a sampling other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and
+  4:1:0, a fourth component sampled otherwise than the first) or fails to
+  decode raises ``JpegDecodeError``, and no other
   decoder stands in; an image of more than ``MAX_PIXELS`` pixels is refused
   from its header, before anything is allocated, as PIL refuses it. A PNG
   is decoded on the host by ``png.decode_png``;
@@ -37,6 +45,7 @@ route applies the EXIF orientation; ``Image.open`` does not either.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional, Tuple
@@ -93,12 +102,18 @@ def jpeg_header(data: bytes) -> dict:
     and ``components`` (the frame header's), ``sampling`` (each
     component's (horizontal, vertical) sampling factors), ``subsampled`` (a
     component sampled otherwise than the first), ``progressive`` (a SOF2
-    frame) and ``adobe_transform`` (the APP14 "Adobe" segment's colour
-    transform, None without one)."""
+    frame), ``adobe_transform`` (the APP14 "Adobe" segment's colour
+    transform, None without one), ``jfif`` (an APP0 "JFIF" segment),
+    ``component_ids`` and ``rgb``: a 3-component image coded in RGB, as
+    libjpeg-turbo decides it (``jdapimin.c:default_decompress_parms``: JFIF
+    means YCbCr, else Adobe transform 0 means RGB, else the ids R, G, B);
+    ``ycck``: a 4-component image coded in YCCK (an Adobe segment of a
+    transform other than 0; without one, CMYK)."""
     if data[:2] != b"\xff\xd8":
         raise JpegInputError("not a JPEG (no SOI marker)")
     info = {"width": None, "height": None, "components": None, "sampling": None,
-            "subsampled": False, "progressive": False, "adobe_transform": None}
+            "subsampled": False, "progressive": False, "adobe_transform": None,
+            "jfif": False, "component_ids": None}
     i = 2
     while i + 4 <= len(data):
         if data[i] != 0xFF:
@@ -122,6 +137,7 @@ def jpeg_header(data: bytes) -> dict:
             info["width"] = int.from_bytes(seg[3:5], "big")
             info["components"] = seg[5]
             info["sampling"] = [(b >> 4, b & 15) for b in seg[7 : 6 + 3 * seg[5] : 3]]
+            info["component_ids"] = list(seg[6 : 6 + 3 * seg[5] : 3])
             if not all(1 <= f <= 4 for s in info["sampling"] for f in s):
                 raise JpegInputError(f"corrupt JPEG: sampling factors {info['sampling']} "
                                      "outside 1-4")
@@ -129,9 +145,15 @@ def jpeg_header(data: bytes) -> dict:
             info["progressive"] = marker in (0xC2, 0xC6, 0xCA, 0xCE)
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             info["adobe_transform"] = seg[11]
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+            info["jfif"] = True
         i += 2 + length
     if info["components"] is None:
         raise JpegInputError("corrupt JPEG: no frame header before the first scan")
+    info["rgb"] = info["components"] == 3 and not info["jfif"] and (
+        info["adobe_transform"] == 0 if info["adobe_transform"] is not None
+        else info["component_ids"] == list(b"RGB"))
+    info["ycck"] = info["components"] == 4 and info["adobe_transform"] not in (None, 0)
     return info
 
 
@@ -188,13 +210,20 @@ def _upsample_reference(plane: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
 
 
 def ycc_to_rgb_reference(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                         factors: Tuple[int, int]) -> torch.Tensor:
+                         factors: Tuple[int, int], transform: bool = True,
+                         k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of the ``ycc_to_rgb`` kernel on CPU tensors: uint8
     planes Y ``[h, w]``, Cb and Cr ``[ch, cw]`` sampled ``factors = (hf,
     vf)`` times below the luma -> uint8 ``[h, w, 3]`` RGB. The chroma is
     upsampled as libjpeg-turbo does, cropped to ``w x h``, and converted
     with ``jdcolor.c``'s integer tables (``SCALEBITS`` 16), clamped to
-    0-255."""
+    0-255. With ``transform`` False (a JPEG coded in RGB) the three planes
+    are R, G and B: upsampled and cropped alike, with no colour matrix
+    (``jdcolor.c:rgb_rgb_convert``). With a fourth plane ``k`` (``[h, w]``)
+    the image is CMYK (``transform`` False: the planes are Adobe's inverted
+    C, M, Y) or YCCK (True: the YCbCr tables give 255 minus C, M, Y, as
+    ``ycck_cmyk_convert``), and PIL's ``cmyk2rgb`` makes RGB:
+    ``K - K·c/255`` in its integer rounding."""
     hf, vf = factors
     h, w = y.shape
     up = [_upsample_reference(p.to(torch.int32), hf, vf)[:h, :w] for p in (cb, cr)]
@@ -202,11 +231,21 @@ def ycc_to_rgb_reference(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         raise ValueError(f"chroma planes {tuple(cb.shape)} upsampled by {factors} do not "
                          f"cover the luma {tuple(y.shape)}")
     luma = y.to(torch.int32)
-    dcb, dcr = up[0] - 128, up[1] - 128
-    rgb = torch.stack([luma + ((_CR_R * dcr + _HALF) >> 16),
-                       luma + ((-_CB_G * dcb + _HALF - _CR_G * dcr) >> 16),
-                       luma + ((_CB_B * dcb + _HALF) >> 16)], -1)
-    return rgb.clamp(0, 255).to(torch.uint8)
+    if transform:
+        dcb, dcr = up[0] - 128, up[1] - 128
+        rgb = torch.stack([luma + ((_CR_R * dcr + _HALF) >> 16),
+                           luma + ((-_CB_G * dcb + _HALF - _CR_G * dcr) >> 16),
+                           luma + ((_CB_B * dcb + _HALF) >> 16)], -1).clamp(0, 255)
+    else:
+        rgb = torch.stack([luma, *up], -1)
+    if k is not None:
+        kk = k.to(torch.int32)[..., None]
+        # PIL's C, M, Y: the inverted planes of a CMYK JPEG, the converted
+        # ones of a YCCK JPEG; PIL's K: 255 minus the plane, so nk is the plane
+        c = rgb if transform else 255 - rgb
+        tmp = c * kk + 128
+        rgb = (kk - (((tmp >> 8) + tmp) >> 8)).clamp(0, 255)
+    return rgb.to(torch.uint8)
 
 
 def _lib():
@@ -222,8 +261,9 @@ def _lib():
         p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         ip = ctypes.POINTER(i)
         lib.vtc_jpeg_info.argtypes = [ctypes.c_char_p, size, ip, ip]
-        lib.vtc_jpeg_decode.argtypes = [ctypes.c_char_p, size, i, p, size, p, size, p, size, p]
-        lib.vtc_ycc_to_rgb.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, p, i, p]
+        lib.vtc_jpeg_decode.argtypes = [ctypes.c_char_p, size, i, p, size, p, size, p, size,
+                                        p, size, p]
+        lib.vtc_ycc_to_rgb.argtypes = [p, i, p, i, p, i, p, i, i, i, i, i, i, i, i, p, i, p]
         lib.vtc_jpeg_info.restype = lib.vtc_jpeg_decode.restype = i
         lib.vtc_ycc_to_rgb.restype = i
     return lib
@@ -241,32 +281,47 @@ def _check(rc: int, what: str, path) -> None:
 
 
 def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-               factors: Tuple[int, int]) -> torch.Tensor:
+               factors: Tuple[int, int], transform: bool = True,
+               k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """uint8 ``[h, w, 3]`` RGB from the Y, Cb and Cr planes (uint8, rows
     contiguous) with the chroma sampled ``factors = (hf, vf)`` times below
     the luma: the CUDA kernel of ``csrc/jpeg_decode.cu`` on CUDA tensors, on
-    the current stream; ``ycc_to_rgb_reference`` on CPU tensors."""
+    the current stream; ``ycc_to_rgb_reference`` on CPU tensors. With
+    ``transform`` False the planes are R, G and B (a JPEG coded in RGB):
+    the same upsampling, no colour matrix; a fourth plane ``k`` makes the
+    image CMYK or YCCK, as ``ycc_to_rgb_reference`` says."""
     if y.device.type == "cpu":
-        return ycc_to_rgb_reference(y, cb, cr, factors)
+        return ycc_to_rgb_reference(y, cb, cr, factors, transform, k)
     hf, vf = factors
     h, w = y.shape
     ch, cw = cb.shape
-    for name, t in (("y", y), ("cb", cb), ("cr", cr)):
+    planes = (("y", y), ("cb", cb), ("cr", cr)) + ((("k", k),) if k is not None else ())
+    for name, t in planes:
         if t.device != y.device or t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1:
             raise ValueError(f"ycc_to_rgb: {name} must be a uint8 [rows, cols] plane with "
                              f"contiguous rows on {y.device}")
     if (hf, vf) not in FACTORS or cr.shape != cb.shape or (
-            -(-w // hf), -(-h // vf)) != (cw, ch):
+            -(-w // hf), -(-h // vf)) != (cw, ch) or (k is not None and k.shape != y.shape):
         raise ValueError(f"ycc_to_rgb: chroma {tuple(cb.shape)}/{tuple(cr.shape)} upsampled "
                          f"by {factors} does not make the luma {tuple(y.shape)}")
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
-    err = _lib().vtc_ycc_to_rgb(
-        y.data_ptr(), y.stride(0), cb.data_ptr(), cb.stride(0), cr.data_ptr(), cr.stride(0),
-        w, h, cw, ch, hf, vf, out.data_ptr(), out.stride(0),
-        torch.cuda.current_stream(y.device).cuda_stream)
+    mode = int(bool(transform)) + (2 if k is not None else 0)
+    with torch.cuda.device(y.device):
+        err = _lib().vtc_ycc_to_rgb(
+            y.data_ptr(), y.stride(0), cb.data_ptr(), cb.stride(0), cr.data_ptr(),
+            cr.stride(0), None if k is None else k.data_ptr(), 0 if k is None else k.stride(0),
+            w, h, cw, ch, hf, vf, mode, out.data_ptr(), out.stride(0),
+            torch.cuda.current_stream(y.device).cuda_stream)
     _build.check_launch(err, "ycc_to_rgb")
     ycc_to_rgb.launches += 1
     return out
+
+
+def planes_to_rgb(planes, factors, transform: bool = True, reference: bool = False):
+    """``ycc_to_rgb`` (or its plain version) of ``decode_jpeg_planes``'s
+    three or four colour planes."""
+    fn = ycc_to_rgb_reference if reference else ycc_to_rgb
+    return fn(*planes[:3], factors, transform, planes[3] if len(planes) == 4 else None)
 
 
 ycc_to_rgb.launches = 0
@@ -281,9 +336,12 @@ def _decode_stream(device: torch.device) -> torch.cuda.Stream:
 
 def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path="<bytes>"):
     """nvJPEG's decode of the JPEG bytes ``data`` before colour conversion:
-    ``(planes, factors)`` with the uint8 Y, Cb and Cr planes on the card at
-    their own sizes and the chroma's upsampling ``(hf, vf)``, or the luma
-    alone and None for a grayscale JPEG. The planes are allocated on, and
+    ``(planes, factors, transform)`` with the uint8 Y, Cb and Cr planes on
+    the card at their own sizes (R, G and B where ``transform`` is False: a
+    JPEG coded in RGB), C, M, Y and K (``transform`` False) or Y, Cb, Cr
+    and K (True) for a 4-component one, and the chroma's upsampling ``(hf,
+    vf)``; or the luma alone and None for a grayscale JPEG
+    (``planes_to_rgb`` converts them). The planes are allocated on, and
     decoded on, the calling thread's decode stream, and the call returns
     when the decode has finished. An image of more than ``MAX_PIXELS``
     pixels raises ``JpegInputError`` before the binding is called."""
@@ -292,23 +350,29 @@ def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path=
         raise JpegInputError(
             f"{path}: a {header['width']}x{header['height']} JPEG: over {MAX_PIXELS} pixels, "
             "a decompression bomb")
-    if header["components"] not in (1, 3):
+    n = header["components"]
+    if n not in (1, 3, 4):
+        raise JpegInputError(f"{path}: a {n}-component JPEG: PIL reads 1, 3 or 4")
+    if n == 4 and header["sampling"][3] != header["sampling"][0]:
         raise JpegInputError(
-            f"{path}: a {header['components']}-component JPEG (CMYK or YCCK): nvJPEG "
-            "does not convert it as PIL does")
-    if header["components"] == 3 and header["adobe_transform"] == 0:
-        raise JpegInputError(
-            f"{path}: an Adobe JPEG coded in RGB (no colour transform): nvJPEG would "
-            "read it as YCbCr")
-    factors = chroma_factors(header["sampling"], path) if header["components"] == 3 else None
+            f"{path}: a 4-component JPEG whose K is sampled otherwise than its first "
+            f"plane ({header['sampling']}): the card's route upsamples planes 2 and 3 only")
+    factors = chroma_factors(header["sampling"][:3], path) if n > 1 else None
     lib = _lib()
+    # nvJPEG and the planes on ``device`` whichever card the calling thread (a
+    # loader's worker) would pick; None: that card
+    with contextlib.nullcontext() if device is None else torch.cuda.device(device):
+        return _decode_planes(lib, data, header, n, factors, device, path)
+
+
+def _decode_planes(lib, data, header, n, factors, device, path):
     widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
     _check(lib.vtc_jpeg_info(data, len(data), widths, heights), "image info", path)
     w, h = widths[0], heights[0]
     sizes = [(h, w)]
     if factors is not None:
-        sizes += [(-(-h // factors[1]), -(-w // factors[0]))] * 2
-        got = [(heights[c], widths[c]) for c in range(3)]
+        sizes += [(-(-h // factors[1]), -(-w // factors[0]))] * 2 + [(h, w)] * (n - 3)
+        got = [(heights[c], widths[c]) for c in range(n)]
         if got != sizes:
             raise JpegDecodeError(f"{path}: nvJPEG's planes {got} are not the sizes the "
                                   f"header's sampling gives, {sizes}")
@@ -316,11 +380,12 @@ def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path=
     stream = _decode_stream(device)
     with torch.cuda.stream(stream):
         planes = [torch.empty(s, dtype=torch.uint8, device=device) for s in sizes]
-        ptrs = [(t.data_ptr(), t.stride(0)) for t in planes] + [(None, 0)] * (3 - len(planes))
+        ptrs = [(t.data_ptr(), t.stride(0)) for t in planes] + [(None, 0)] * (4 - len(planes))
         what = "progressive decode" if header["progressive"] else "decode"
         _check(lib.vtc_jpeg_decode(data, len(data), len(planes), *ptrs[0], *ptrs[1], *ptrs[2],
-                                   stream.cuda_stream), what, path)
-    return planes, factors
+                                   *ptrs[3], stream.cuda_stream), what, path)
+    transform = header["ycck"] if n == 4 else not header["rgb"]
+    return planes, factors, transform
 
 
 def decode_jpeg(data: bytes, device: Optional[torch.device] = None, path="<bytes>"
@@ -329,11 +394,11 @@ def decode_jpeg(data: bytes, device: Optional[torch.device] = None, path="<bytes
     nvJPEG's planes through the ``ycc_to_rgb`` kernel, on the calling
     thread's decode stream (the caller reads the result on that stream, as
     ``decode_rgb`` does)."""
-    planes, factors = decode_jpeg_planes(data, device, path)
+    planes, factors, transform = decode_jpeg_planes(data, device, path)
     with torch.cuda.stream(_local.stream):
         if factors is None:
             return planes[0][..., None].expand(-1, -1, 3).contiguous()
-        return ycc_to_rgb(*planes, factors)
+        return planes_to_rgb(planes, factors, transform)
 
 
 def decode_rgb(data: bytes, device=None, path="<bytes>") -> np.ndarray:

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import shard_rows
+from ..utils.util import rank, world
 
 
 def default_collate(items):
@@ -45,9 +47,19 @@ def default_collate(items):
 
 
 class DataLoader:
-    """Batches of ``dataset`` in the JAX loader's order. Single process:
-    ``shard_by_process`` (each host reading its slice of the index stream)
-    waits for the port of distribution and raises."""
+    """Batches of ``dataset`` in the JAX loader's order.
+
+    Under a process group two ways of sharding the input:
+
+    * ``shard_by_process`` (``--multihost``): each process reads its slice
+      ``p·n/P … (p+1)·n/P`` of the (identically shuffled) index stream in
+      batches of ``batch_size``, as ``vtc_tpu/data/loader.py:66-95`` does,
+      ``len`` included; the global batch is ``P·batch_size``;
+    * ``shard_batches`` (``--n_devices``): every process walks the same
+      global batches of ``batch_size`` and loads only its rows
+      ``r·B/W … (r+1)·B/W`` of each (``parallel.mesh.shard_rows``).
+
+    Without a group both are the single process's loader."""
 
     def __init__(
         self,
@@ -60,12 +72,8 @@ class DataLoader:
         collate_fn=default_collate,
         prefetch: int = 2,
         shard_by_process: bool = False,
+        shard_batches: bool = False,
     ):
-        if shard_by_process:
-            raise NotImplementedError(
-                "shard_by_process (per-host input sharding) waits for the "
-                "port of distribution (ROADMAP: Queue 1, torch.distributed)"
-            )
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -75,24 +83,33 @@ class DataLoader:
         self.collate_fn = collate_fn
         self.prefetch = prefetch
         self._epoch = 0
+        self.process_index, self.process_count = (rank(), world()) if shard_by_process \
+            else (0, 1)
+        self.shard_batches = shard_batches
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.process_count
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
-        idx = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        idx = np.arange(n)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
+        if self.process_count > 1:
+            per_host = n // self.process_count
+            idx = idx[self.process_index * per_host : (self.process_index + 1) * per_host]
         batches = [
             idx[i : i + self.batch_size]
             for i in range(0, len(idx), self.batch_size)
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.shard_batches and world() > 1:
+            batches = [b[shard_rows(len(b))] for b in batches]
         return batches
 
     def __iter__(self) -> Iterator:

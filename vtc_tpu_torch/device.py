@@ -6,7 +6,9 @@ from typing import Optional, Union
 
 import torch
 
-# what a refusal of more than one device names: the port runs on one card
+# what a refusal of a distributed mode names: data parallelism runs (one
+# process per card under torchrun); tensor, fsdp, pipeline, sequence, expert
+# and multi-slice axes and the sharded gallery do not
 DISTRIBUTION = "ROADMAP: Queue 1 item 9, distribution on torch.distributed"
 
 # the card's figures (the H100 SXM data sheet), for bounds and MFU: the HBM3
@@ -19,7 +21,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` means the card: raise when there is none, never drop to the
-    CPU quietly. An explicit device is taken as given.
+    CPU quietly; under a process group on the card it is this process's
+    card, ``cuda:LOCAL_RANK``. An explicit device is taken as given.
 
     fp32 matmuls and convolutions are pinned to full fp32 on the card
     (PyTorch lets cuDNN use TF32 by default), so an fp32 run keeps the
@@ -32,5 +35,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU"
             )
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            from .utils.util import local_rank
+
+            return torch.device("cuda", local_rank())
         return torch.device("cuda")
     return torch.device(device)

@@ -8,9 +8,16 @@ by the experiment combo, and the ``add_irrelevant_comms`` robustness
 probe (``--num_irrelevant_comments``), on the card unless ``-d cpu``.
 Checkpoints are the port's ``.pth`` (``training.checkpoints``); an Orbax
 directory of the JAX package is refused by name, with the route to a
-``.pth`` (``scripts/export_torch_checkpoint.py``, run where JAX is), and
-``--multihost`` or a mesh (``--n_devices``/``--n_model`` above 1) wait for
-the port of distribution (Queue 1 item 9).
+``.pth`` (``scripts/export_torch_checkpoint.py``, run where JAX is).
+
+Under a process group (``torchrun --nproc_per_node N -m
+vtc_tpu_torch.evaluation.eval ... --n_devices N``, or ``--multihost 1``)
+each process encodes the strided disjoint subset ``rank::world`` of the test
+split, the embedding blocks are merged by ``allgather_varlen`` and both
+directions are ranked on every process (``evaluation/eval.py:80-101,
+267-286``); R@K does not depend on the rows' order, since queries and
+gallery permute together. Rank 0 alone writes the JSON file. ``--n_model``
+above 1 raises, naming ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -28,11 +35,13 @@ from .. import data as module_data
 from ..config import ConfigParser, CustomArgs
 from ..data import DataLoader
 from ..data.tokenizer import truncate_batch_tokens
-from ..device import DISTRIBUTION, resolve_device
+from ..device import resolve_device
 from ..models import create_model
 from ..ops.retrieval import recall_at_k
+from ..parallel.mesh import check_axes, check_data_devices, process_share
 from ..training.checkpoints import graft_into, load_checkpoint
 from ..training.trainer import flatten_data
+from ..utils.util import all_max, allgather_varlen, init_distributed, launched
 
 
 def add_irrelevant_comms(comments: np.ndarray, num_irrelevant_comments: int,
@@ -61,25 +70,41 @@ def add_irrelevant_comms(comments: np.ndarray, num_irrelevant_comments: int,
     return updated
 
 
-def _check_single_device(config) -> None:
-    """A mesh raises; ``--multihost`` is refused by ``ConfigParser``."""
-    n_dev = int(config.get("n_devices", 1) or 1)
-    n_model = int(config.get("n_model", 1) or 1)
-    if n_dev * n_model > 1:
-        raise NotImplementedError(
-            f"a {n_dev}x{n_model} (data x model) evaluation mesh waits for the port of "
-            f"distribution ({DISTRIBUTION})")
+class _StridedSubset:
+    """Every ``count``-th item from ``index``: a process's share of the
+    test split (``evaluation/eval.py:_StridedSubset``). The shares cover
+    the split once; their uneven tails merge through the varlen gather."""
+
+    def __init__(self, dataset, index: int, count: int):
+        self.dataset, self.index, self.count = dataset, int(index), int(count)
+
+    def __len__(self):
+        return len(range(self.index, len(self.dataset), self.count))
+
+    def __getitem__(self, i):
+        return self.dataset[self.index + i * self.count]
 
 
-def main(config: ConfigParser, args, checkpoint_path, device=None) -> dict:
+def main(config: ConfigParser, args, checkpoint_path, device=None,
+         process_index=None, process_count=None) -> dict:
     """Run the test-split evaluation as ``evaluation/eval.py:main`` does, on
     ``device`` (default: the card); returns the six recalls, also written
-    to the JSON file that ``evaluation/eval.py`` names."""
+    to the JSON file that ``evaluation/eval.py`` names. Under a process
+    group each process encodes its strided share (``process_index``/
+    ``process_count``, the group's by default)."""
     device = resolve_device(device)
-    _check_single_device(config)
     logger = config.get_logger("test")
+    check_axes(config.get("n_model", 1))
+    check_data_devices(config.get("n_devices", 1), device, logger, "evaluating",
+                       "vtc_tpu_torch.evaluation.eval")
+    pidx, pcount = process_share(process_index, process_count)
 
     dataset = config.init_obj("dataset", module_data, train=False, test=True, device=device)
+    n_total = len(dataset)
+    if pcount > 1:
+        dataset = _StridedSubset(dataset, pidx, pcount)
+        logger.info("multi-process eval: process %d/%d evaluates %d of the %d items",
+                    pidx, pcount, len(dataset), n_total)
 
     arch_args = dict(config["arch"]["args"])
     branch_to_adapt = arch_args.get("branch_to_adapt_val", None)
@@ -112,13 +137,15 @@ def main(config: ConfigParser, args, checkpoint_path, device=None) -> dict:
 
     needs_comments = hasattr(model, "branch_to_adapt_val")
     if num_irrelevant_comments and needs_comments:
-        # fail fast, before encoding: a 1-element tail batch would make
-        # add_irrelevant_comms raise mid-loop
-        bs, n_total = int(config["batch_size"]), len(dataset)
-        if bs < 2 or n_total % bs == 1:
+        # fail fast, before encoding, and on every process alike: a
+        # 1-element tail batch would make add_irrelevant_comms raise mid-loop
+        # on the process that drew it, leaving the others in the gather
+        bs = int(config["batch_size"])
+        sizes = [len(range(p, n_total, pcount)) for p in range(pcount)]
+        if bs < 2 or any(n % bs == 1 for n in sizes):
             raise ValueError(
                 f"--num_irrelevant_comments with batch_size={bs} yields a 1-element batch "
-                f"(split size {n_total}); add_irrelevant_comms needs >= 2 items per batch "
+                f"(split sizes {sizes}); add_irrelevant_comms needs >= 2 items per batch "
                 f"— use batch_size >= 2 without 1-element remainders")
 
     res_vis, res_text = [], []
@@ -138,11 +165,24 @@ def main(config: ConfigParser, args, checkpoint_path, device=None) -> dict:
                                             for d in batch])[:2]
             res_vis.append(feats_vis.float().cpu().numpy())
             res_text.append(feats_text.float().cpu().numpy())
-    if not res_vis:
+    if res_vis:
+        res_vis = np.concatenate(res_vis)
+        res_text = np.concatenate(res_text)
+    elif pcount == 1:
         raise RuntimeError(f"eval produced no embeddings: the test split of {len(dataset)} "
                            f"items is empty or smaller than expected")
-    res_vis = np.concatenate(res_vis)
-    res_text = np.concatenate(res_text)
+    if pcount > 1:
+        # a process whose share is empty joins the gathers with empty blocks
+        # of the width the others agree on; raising alone would leave them
+        # waiting in the gather
+        dim = all_max(res_vis.shape[1] if len(res_vis) else 0)
+        if dim == 0:
+            raise RuntimeError(f"eval produced no embeddings on ANY of {pcount} processes: "
+                               f"the test split is empty (check the data root paths)")
+        if not len(res_vis):
+            res_vis = res_text = np.zeros((0, dim), np.float32)
+        res_vis = allgather_varlen(np.asarray(res_vis, np.float32))
+        res_text = allgather_varlen(np.asarray(res_text, np.float32))
 
     recall_title_from_im = recall_at_k(res_vis, res_text, [1, 5, 10], device=device)
     recall_im_from_title = recall_at_k(res_text, res_vis, [1, 5, 10], device=device)
@@ -157,8 +197,9 @@ def main(config: ConfigParser, args, checkpoint_path, device=None) -> dict:
         "R5_im_from_title": recall_im_from_title[1][1],
         "R10_im_from_title": recall_im_from_title[2][1],
     }
-    with open(save_path, "w") as f:
-        json.dump(out, f)
+    if pidx == 0:  # every process holds the same recalls; one writes them
+        with open(save_path, "w") as f:
+            json.dump(out, f)
     return out
 
 
@@ -189,9 +230,16 @@ def parser() -> argparse.ArgumentParser:
 
 def cli(argv=None) -> dict:
     """Parse ``argv`` (default: the process's) as ``evaluation/eval.py``
-    does, then ``main`` on the device ``-d`` names."""
+    does, then ``main`` on the device ``-d`` names; in a process that
+    ``torchrun`` started, or with ``--multihost``, join the process group
+    first."""
+    if launched():  # torchrun: the group exists before the run dir is picked
+        init_distributed()
     args = parser()
     config = ConfigParser.from_args(args, OPTIONS, argv)
+    if config.get("multihost"):
+        init_distributed()
+        config.finalize_run_dir()
     parsed = args.parse_args(argv)
     return main(config, parsed, config.resume, device=parsed.run_device)
 

@@ -14,9 +14,13 @@ The recall table is a ``RecallTable``: the card's machine has no pandas.
 It has the ``DataFrame``'s column names, ``R@k`` index and percent scaling,
 and ``to_csv`` writes the bytes that ``DataFrame.to_csv`` writes.
 
-What waits for other slices raises ``NotImplementedError``: a dataset by
-name (the video datasets, ROADMAP: Queue 1 item 3) and a mesh or several
-processes (distribution, Queue 1 item 9). ``dataset=`` takes any object
+Under a process group each process encodes the strided disjoint video
+subset ``rank::world`` and the embeddings are merged by
+``allgather_varlen`` in the dataset's order before the ranking, as
+``vtc_tpu/evaluation/retrieval_eval.py:352-425`` does; a process left
+without embeddings joins the gathers with empty blocks. A mesh (the
+sharded gallery and encode) raises, naming ROADMAP Queue 1 item 9.
+``dataset=`` takes any object
 with ``__len__`` and ``__getitem__`` that gives ``(frames, captions,
 comments, meta)`` or ``(frames, captions, meta)`` items, frames as uint8
 ``[t, h, w, 3]`` or preprocessed float ``[t, 3, h, w]`` (None where the
@@ -36,6 +40,8 @@ from ..data.datasets import clip_preprocess_batch
 from ..data import tokenizer as tk
 from ..device import DISTRIBUTION, resolve_device
 from ..ops.retrieval import recall_at_k
+from ..parallel.mesh import process_share
+from ..utils.util import all_max, allgather_varlen
 
 logger = logging.getLogger(__name__)
 
@@ -101,8 +107,8 @@ def _recall_df(vt_fracs, tv_fracs, dataset_name, split) -> RecallTable:
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError(f"a mesh-sharded evaluation waits for the port of "
-                                  f"distribution ({DISTRIBUTION})")
+        raise NotImplementedError(f"a mesh-sharded evaluation (the sharded gallery and "
+                                  f"encode) is not ported ({DISTRIBUTION})")
 
 
 def compute_recall(tensor_v, tensor_t, split="full-test", dataset_name="MSRVTT", mesh=None,
@@ -250,11 +256,11 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
                          process_count: Optional[int] = None, device=None) -> RecallTable:
     """Evaluate ``model`` on a transfer dataset on ``device`` (default: the
     card, which the model must be on); returns the recall table, also
-    written to ``out_csv`` where given."""
+    written to ``out_csv`` (by rank 0) where given. Under a process group
+    each process encodes its strided share (``process_index``/
+    ``process_count``, the group's by default)."""
     _refuse_mesh(mesh)
-    if (process_count or 1) > 1:
-        raise NotImplementedError(f"a multihost evaluation (process_count {process_count}) "
-                                  f"waits for the port of distribution ({DISTRIBUTION})")
+    pidx, pcount = process_share(process_index, process_count)
     device = _model_device(model, device)
     if dataset is None:
         if datasetname not in DATASETS:
@@ -269,20 +275,45 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
         needs_comments = hasattr(model, "branch_to_adapt_val")
 
     logger.info("Computing joint embeddings")
-    indices = range(len(dataset))
+    indices = range(pidx, len(dataset), pcount)
     ids, video_means, caption_embs = _encode_local(
         model, dataset, indices, frame_stride=frame_stride, first_frame_only=first_frame_only,
         first_chunk_only=first_chunk_only, branch_override=branch_override,
         needs_comments=needs_comments, image_size=image_size, nframes=nframes, device=device)
-    if not ids:
+    if not ids and pcount == 1:
         raise RuntimeError(
             f"retrieval evaluation produced no embeddings: all {len(indices)} items of "
             f"{datasetname}/{split} failed to decode or the split is empty (check the data "
             f"root paths)")
 
-    ids = np.asarray(ids, np.int64)
-    video_tensor = np.stack(video_means)
-    flat_caps, cap_vid = _flatten_caps(ids, caption_embs)
+    if ids:
+        ids = np.asarray(ids, np.int64)
+        video_tensor = np.asarray(np.stack(video_means), np.float32)
+        flat_caps, cap_vid = _flatten_caps(ids, caption_embs)
+        flat_caps = np.asarray(flat_caps, np.float32)
+    else:
+        logger.warning("process %d/%d produced no embeddings (all %d of its items failed to "
+                       "decode); it joins the gathers with empty blocks", pidx, pcount,
+                       len(indices))
+        ids, cap_vid = np.zeros((0,), np.int64), np.zeros((0,), np.int64)
+        video_tensor = flat_caps = None
+    if pcount > 1:
+        dim = all_max(0 if video_tensor is None else video_tensor.shape[1])
+        if dim == 0:
+            raise RuntimeError(
+                f"retrieval evaluation produced no embeddings on ANY of {pcount} processes: "
+                f"{datasetname}/{split} failed to decode everywhere or the split is empty "
+                f"(check the data root paths)")
+        if video_tensor is None:
+            video_tensor = flat_caps = np.zeros((0, dim), np.float32)
+        ids, video_tensor, flat_caps, cap_vid = (
+            allgather_varlen(a) for a in (ids, video_tensor, flat_caps, cap_vid))
+    # the dataset's order, whatever the number of processes: videos by
+    # index, captions after their video's
+    order = np.argsort(ids, kind="stable")
+    ids, video_tensor = ids[order], video_tensor[order]
+    cap_order = np.argsort(cap_vid, kind="stable")
+    flat_caps, cap_vid = flat_caps[cap_order], cap_vid[cap_order]
     row_of = {int(v): i for i, v in enumerate(ids)}
     flat_targets = np.asarray([row_of[int(v)] for v in cap_vid], np.int64)
     max_len = int(np.bincount(flat_targets, minlength=len(ids)).max())
@@ -298,7 +329,7 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
         vt_hits = _vt_recall(video_tensor, flat_caps, flat_targets, RECALL_RANGE, device)
         table = _recall_df(vt_hits, tvr, datasetname, split)
 
-    if out_csv is not None:
+    if out_csv is not None and pidx == 0:
         table.to_csv(out_csv)
     return table
 

@@ -7,10 +7,12 @@
 
 The same parser; ``-d`` names the torch device to run on (``cpu``,
 ``cuda``, ``cuda:1``), as the ``eval.py`` twin's does; without it, the
-card. A name that is no torch device raises. The named datasets wait for the port of the video datasets
-(ROADMAP: Queue 1 item 3) and raise; ``main(argv, dataset)`` takes an
-injected dataset as ``retrieval_eval.retrieval_evaluation`` does.
-``--n_devices`` above 1 waits for distribution (Queue 1 item 9).
+card. A name that is no torch device raises. ``main(argv, dataset)`` takes
+an injected dataset as ``retrieval_eval.retrieval_evaluation`` does.
+``--n_devices N`` under ``torchrun --nproc_per_node N`` splits the videos
+over the processes (``retrieval_eval``); without a process group it runs
+on one device with a warning where the machine has fewer cards, and raises
+with the ``torchrun`` line where it has them.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from __future__ import annotations
 import argparse
 import logging
 
-from ..device import DISTRIBUTION, resolve_device
+from ..device import resolve_device
 from ..models import create_model
+from ..parallel.mesh import check_data_devices
+from ..utils.util import init_distributed, launched
 from ..training.checkpoints import graft_into, load_checkpoint
 from .retrieval_eval import retrieval_evaluation
 
@@ -75,18 +79,20 @@ def parser() -> argparse.ArgumentParser:
     args.add_argument("--first_frame_only", action="store_true")
     args.add_argument("--first_chunk_only", action="store_true")
     args.add_argument("--n_devices", default=1, type=int,
-                      help="shard eval batches + ranking over a data mesh")
+                      help="the processes of a torchrun group to split the videos over")
     return args
 
 
 def main(argv=None, dataset=None):
     """CLI entry (``argv`` and ``dataset`` injectable, as in the JAX
-    package); returns the recall table."""
+    package); returns the recall table. In a process that ``torchrun``
+    started, join the process group first."""
     args = parser().parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError(f"--n_devices {args.n_devices}: a sharded evaluation "
-                                  f"waits for the port of distribution ({DISTRIBUTION})")
+    if launched():
+        init_distributed()
     device = resolve_device(args.device)
+    check_data_devices(args.n_devices, device, logging.getLogger(__name__), "evaluating",
+                       "vtc_tpu_torch.evaluation.retrieval_evaluation")
     model = load_model(args.checkpoint, args.model_type, branch_to_adapt=args.branch_to_adapt,
                        residual_activation=args.residual_activation, device=device)
     return retrieval_evaluation(

@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import add_layernorm, fused_attention, fused_mha, layernorm
+from ..utils.util import world
 from ..ops.attention import causal_mask  # noqa: F401  (re-exported, as in vtc_tpu)
 
 
@@ -216,7 +217,10 @@ class TorchBatchNorm(nn.modules.batchnorm._BatchNorm):
     normalizes and the unbiased one updates ``running_var`` at torch's
     momentum 0.1 (flax's 0.9), as ``vtc_tpu``'s ``TorchBatchNorm`` does; in
     eval the running stats normalize. Statistics and the affine map are
-    fp32, the output is cast to ``dtype``."""
+    fp32, the output is cast to ``dtype``. In training under a process
+    group of more than one rank the statistics are the global batch's: the
+    ranks' rows are gathered, normalized as one device does, and each rank
+    keeps its own, so the running stats are one device's bit for bit."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  dtype=torch.float32):
@@ -228,6 +232,12 @@ class TorchBatchNorm(nn.modules.batchnorm._BatchNorm):
             raise ValueError(f"expected an input of 2 or more dims, got {x.dim()}")
 
     def forward(self, x):
+        if self.training and world() > 1:
+            from ..parallel.mesh import all_gather_rows, shard_rows
+
+            full = all_gather_rows(x)  # the global batch, in rank order
+            return super().forward(full.float()).to(self.compute_dtype)[
+                shard_rows(full.shape[0])]
         return super().forward(x.float()).to(self.compute_dtype)
 
 

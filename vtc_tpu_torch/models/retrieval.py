@@ -119,7 +119,10 @@ class CLIP(JointEmbedding):
     def forward(self, x_a, x_b, generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None):
         feats_a, feats_b = super().forward(x_a, x_b)
-        return feats_a, feats_b, (feats_a @ feats_b.T) * self.temperature
+        return feats_a, feats_b, self._sim(feats_a, feats_b)
+
+    def _sim(self, feats_a, feats_b):
+        return (feats_a @ feats_b.T) * self.temperature
 
 
 class AudioHead(nn.Module):

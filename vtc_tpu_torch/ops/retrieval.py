@@ -18,9 +18,13 @@ so the ``[nq, ng]`` score matrix never exists whole; it counts the same
 place from the same tile scores in two passes (the target's score, then the
 items ahead of it), so it keeps ``recall_at_k``'s contract on ties.
 
+``recall_at_k_sharded`` splits the query axis over a process group's ranks
+(``vtc_tpu/ops/retrieval.py:144-197``): every rank holds the whole gallery
+and queries, ranks its contiguous share of the queries, and the targets'
+places are gathered in rank order, so the hits are ``recall_at_k``'s.
+
 Inputs are tensors, computed on their device, or numpy arrays, put on
-``device`` (default: the card; raises without one). The sharded variant
-waits for the port of distribution (ROADMAP: Queue 1 item 9).
+``device`` (default: the card; raises without one).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.util import allgather_varlen, rank, world
 
 
 def _as_tensor(x, device: Optional[torch.device]) -> torch.Tensor:
@@ -74,12 +79,35 @@ def recall_at_k(features_a, features_b, k_vals: Sequence[int] = (1, 5, 10),
     ``k`` holds every target within its top ``k``. Returns
     ``[(k, recall), ...]``."""
     gallery, queries, targets = _operands(features_a, features_b, targets, device)
+    place = _places(gallery, queries, targets)
+    nq = place.shape[0]
+    return [(int(k), int(torch.sum(place < int(k))) / nq) for k in k_vals]
+
+
+def _places(gallery, queries, targets) -> torch.Tensor:
+    """Each query's target's place: the items scoring above it, and those
+    scoring equal at a lower index."""
     scores = l2_scores(gallery, queries)
     ts = _target_scores(scores, targets)
     lower = torch.arange(scores.shape[1], device=scores.device)[None, :] < targets[:, None]
-    place = torch.sum((scores > ts) | ((scores == ts) & lower), dim=-1)
-    nq = place.shape[0]
-    return [(int(k), int(torch.sum(place < int(k))) / nq) for k in k_vals]
+    return torch.sum((scores > ts) | ((scores == ts) & lower), dim=-1)
+
+
+def recall_at_k_sharded(features_a, features_b, k_vals: Sequence[int] = (1, 5, 10),
+                        group=None, targets=None, device=None):
+    """``recall_at_k`` with the query axis split over the ranks of
+    ``group`` (default: the process group; one process: ``recall_at_k``'s
+    work). Every rank passes the same arrays; rank ``r`` ranks the queries
+    ``r·⌈nq/W⌉ …`` against the whole gallery, and the places are gathered
+    (``allgather_varlen``) before they are counted, so every rank returns
+    the same ``[(k, recall), ...]``."""
+    gallery, queries, targets = _operands(features_a, features_b, targets, device)
+    nq = queries.shape[0]
+    per = -(-nq // world(group))
+    lo, hi = min(rank(group) * per, nq), min((rank(group) + 1) * per, nq)
+    place = _places(gallery, queries[lo:hi], targets[lo:hi]).cpu().numpy()
+    places = allgather_varlen(place, group)
+    return [(int(k), int(np.sum(places < int(k))) / nq) for k in k_vals]
 
 
 def ranks_of_targets(features_a, features_b, targets=None, device=None) -> np.ndarray:

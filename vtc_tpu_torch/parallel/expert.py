@@ -1,8 +1,8 @@
 """A mixture-of-experts MLP on one device.
 
 Port of ``vtc_tpu/parallel/expert.py:MoEMLP`` without its mesh (an expert
-mesh, ``create_ep_mesh`` and the expert shardings wait for the port of
-distribution, ``device.DISTRIBUTION``). The math is the JAX package's,
+mesh, ``create_ep_mesh`` and the expert shardings are not ported,
+``device.DISTRIBUTION``; a MoE model trains on one rank only). The math is the JAX package's,
 GShard/Switch dispatch:
 
 * the router in fp32: ``probs = softmax(x @ router)``;

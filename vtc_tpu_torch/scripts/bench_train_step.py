@@ -13,7 +13,10 @@ backward, optimizer, scheduler. The CAM's random adapter skip draws from one
 seeded generator, fresh masks every step, as in training.
 
 ``--accum_steps K`` takes each step as the GradCache accumulation over K
-microbatches (``trainer.accum_steps``); ``--moments_dtype bfloat16`` stores
+microbatches (``trainer.accum_steps``); ``main(data_parallel=True)`` steps
+through ``DistributedDataParallel`` in a process group (each rank its rows
+of the batch; ``chip_smoke.py`` phase 32 times it beside the plain step on
+one card, the cost of DDP's hooks); ``--moments_dtype bfloat16`` stores
 Adam's moments in bf16 (``optimizer.args.moments_dtype``). ``main``'s
 ``model_kwargs`` reach ``create_model`` (``chip_smoke.py`` steps the MoE
 adapter, ``moe_experts=4, moe_top_k=2, freeze="all"``, beside the dense
@@ -75,7 +78,8 @@ def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf
 def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
          frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3,
          accum_steps: int = 1, moments_dtype=None, model_kwargs=None,
-         model_type: str = "ViT-B/32", device=None, log=print) -> dict:
+         model_type: str = "ViT-B/32", device=None, log=print,
+         data_parallel: bool = False) -> dict:
     """Runs the benchmark; returns ``{"samples_per_s", "window_rates",
     "losses", "setup"}``: ``losses`` has every step's loss, warm-up
     included, and ``setup`` is what ``setup`` built, for a caller that
@@ -84,6 +88,10 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
                                                       moments_dtype, model_kwargs,
                                                       model_type, device)
     device = data[0].device
+    if data_parallel:
+        from ..parallel.mesh import data_parallel as wrap, shard_batch
+
+        model, data = wrap(model, device), [shard_batch(d) for d in data]
 
     def sync():
         if device.type == "cuda":
@@ -113,7 +121,7 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
           f"({1e3 * sum(seconds) / (windows * iters):.3f} ms/step, windows "
           f"{[round(r, 1) for r in rates]}), batch {batch}, {ntoks}-token texts, "
           f"arch {arch} {model_kwargs or ''}, accum_steps {accum_steps}, moments "
-          f"{moments_dtype or 'float32'}")
+          f"{moments_dtype or 'float32'}{', DDP' if data_parallel else ''}")
     return {"samples_per_s": rate, "window_rates": rates,
             "losses": [float(x) for x in losses], "setup": built}
 

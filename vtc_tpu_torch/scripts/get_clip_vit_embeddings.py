@@ -11,8 +11,8 @@ host, through the ``DataLoader`` -> batched ``encode_image`` of
 ``PretrainedCLIP`` on the card (bf16 activations unless ``--fp32``) ->
 ``{"reddit_ids", "embeddings"}`` in ``--out`` (``np.savez``; a ``.pth``
 name also gets ``torch.save``). ``--clip_weights`` names CLIP weights
-(``models/clip_import.py``). A mesh (``--n_devices`` above 1) waits for
-the port of distribution (ROADMAP: Queue 1 item 9).
+(``models/clip_import.py``). A sharded encode (``--n_devices`` above 1)
+is not ported (ROADMAP: Queue 1 item 9) and raises.
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--device", default=None, help="cpu, or a card (default: the card)")
     args = ap.parse_args(argv)
     if args.n_devices > 1:
-        raise NotImplementedError(f"--n_devices {args.n_devices}: a sharded encode waits "
-                                  f"for the port of distribution ({DISTRIBUTION})")
+        raise NotImplementedError(f"--n_devices {args.n_devices}: a sharded encode is not "
+                                  f"ported ({DISTRIBUTION})")
     device = resolve_device(args.device)
 
     table = read_csv(args.csv)

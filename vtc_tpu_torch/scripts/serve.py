@@ -8,8 +8,8 @@ twin of ``scripts/serve.py``:
 (``vtc_tpu_torch.scripts.get_clip_vit_embeddings``: ``reddit_ids`` +
 ``embeddings``) or a ``RetrievalIndex.save`` file; ``-r`` a ``.pth``
 checkpoint. The model and the gallery live on the card unless ``--device
-cpu``. A mesh (``--n_devices``/``--n_model`` above 1) waits for the port of
-distribution (ROADMAP: Queue 1 item 9). Endpoints: ``serving/server.py``.
+cpu``. A mesh-sharded gallery (``--n_devices``/``--n_model`` above 1) is
+not ported (ROADMAP: Queue 1 item 9) and raises. Endpoints: ``serving/server.py``.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def build_server(config, checkpoint, index_path, *, n_devices=1, n_model=1,
     or adds are reported) and a gallery file, on ``device`` (default: the
     card)."""
     if n_devices * n_model > 1:
-        raise NotImplementedError(f"a {n_devices}x{n_model} mesh-sharded gallery waits for "
-                                  f"the port of distribution ({DISTRIBUTION})")
+        raise NotImplementedError(f"a {n_devices}x{n_model} mesh-sharded gallery is not "
+                                  f"ported ({DISTRIBUTION})")
     device = resolve_device(device)
     arch = config["arch"]
     model = create_model(arch["type"], seed=0, device=device, **dict(arch["args"]))

@@ -7,8 +7,8 @@ ops, as JAX's ``_rank`` is XLA and not a Pallas kernel. The sort keeps
 ``lax.top_k``'s order: descending score, ties lower gallery row first
 (``torch.topk`` leaves the order of ties open, and so which of a tie group
 at the k-th score come back). The HTTP front end is
-``serving/server.py``; the mesh-sharded gallery waits for the port of
-distribution (ROADMAP: Queue 1 item 9).
+``serving/server.py``; the mesh-sharded gallery is not ported (ROADMAP:
+Queue 1 item 9).
 """
 
 from __future__ import annotations

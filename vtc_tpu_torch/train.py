@@ -10,11 +10,21 @@ optimizer) and calls ``Trainer.train()``, on the card unless ``device``
 says otherwise. ``VTC_CLIP_WEIGHTS`` names CLIP weights and
 ``VTC_BPE_VOCAB`` CLIP's merges file, as for the JAX package.
 
+Data parallelism runs one process per card under ``torchrun``:
+
+    torchrun --nproc_per_node N -m vtc_tpu_torch.train -c <config> --n_devices N
+
+trains at the global ``batch_size``, each rank loading and stepping its
+``batch_size / N`` rows (``parallel.mesh``); ``--multihost 1`` keeps the
+JAX package's meaning, ``batch_size`` per process with each process reading
+its slice of the index stream (``DataLoader(shard_by_process=True)``). On
+the CPU the group is gloo's. ``--n_devices N`` without a group trains
+unsharded with a warning where the machine has fewer than N cards, as the
+JAX package does, and raises with the ``torchrun`` line where it has them.
+
 What the port cannot do yet raises a ``NotImplementedError`` naming its
-ROADMAP item: the grain loader, multihost runs, pipeline, sequence, expert
-and multi-slice axes, and a mesh of more than one card on a machine that
-has them. Where the JAX package trains unsharded with a warning (fewer
-devices than the mesh asks for), the port does the same.
+ROADMAP item: the grain loader, and the tensor, fsdp, pipeline, sequence,
+expert and multi-slice axes (and the MoE adapter on more than one rank).
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ from .data import DataLoader
 from .device import DISTRIBUTION, resolve_device
 from .models import create_model
 from .ops.losses import LOSSES
+from .parallel.mesh import check_axes, check_data_devices
 from .training import METRICS, Trainer, build_optimizer
+from .utils.util import init_distributed, is_main, launched, world
 
 try:
     import wandb
@@ -74,36 +86,35 @@ def _make_probe(config):
 
 
 def _check_mesh(config, device: torch.device, logger) -> None:
-    """The port trains on one device: the axes that need distribution raise;
-    a data or tensor-parallel mesh warns and trains unsharded where the
-    machine lacks the devices (as the JAX package does), and raises where it
-    has them."""
+    """Data parallelism runs under a process group (``--n_devices`` names
+    its size, or is 1) or ``--multihost``'s; the other axes raise.
+    ``--n_devices`` without a group warns and trains unsharded where the
+    machine lacks the cards (as the JAX package does), and raises with the
+    ``torchrun`` line where it has them."""
     if config.get("loader", "threads") == "grain":
         raise NotImplementedError(
             "loader 'grain' is not ported; the port's DataLoader runs thread "
             "workers (ROADMAP: Queue 1 item 10, TPU-era opt-ins)")
-    if config.get("multihost"):
-        raise NotImplementedError(f"multihost runs wait for the port of distribution "
-                                  f"({DISTRIBUTION})")
     for key in ("pp", "sp", "ep", "slices"):
         if int(config.get(key, 1) or 1) > 1:
             raise NotImplementedError(
                 f"--{key} {config[key]}: pipeline, sequence, expert and multi-slice "
-                f"axes wait for the port of distribution ({DISTRIBUTION})")
-    n_devices = int(config.get("n_devices", config.get("n_gpu", 1)) or 1)
-    n_model = int(config.get("n_model", 1) or 1)
-    want = n_devices * n_model
-    if want <= 1:
-        return
-    have = torch.cuda.device_count() if device.type == "cuda" else 1
-    if have >= want:
+                f"axes are not ported; the port shards the data axis only ({DISTRIBUTION})")
+    check_axes(config.get("n_model", 1), bool(config.get("fsdp")))
+    if world() > 1 and int(config["arch"]["args"].get("moe_experts", 0) or 0):
         raise NotImplementedError(
-            f"a {n_devices}x{n_model} (data x model) mesh on {have} devices: "
-            f"sharded training waits for the port of distribution ({DISTRIBUTION})")
-    logger.warning(
-        "Requested a 1x%dx%d (slices x data x second-axis) mesh but only %d "
-        "device(s) are available; training UNSHARDED on one device.",
-        n_devices, n_model, have)
+            f"the mixture-of-experts adapter on {world()} ranks: expert parallelism is "
+            f"not ported ({DISTRIBUTION})")
+    n_devices = int(config.get("n_devices", config.get("n_gpu", 1)) or 1)
+    if config.get("multihost"):
+        if n_devices not in (1, world()):
+            raise ValueError(f"--n_devices {n_devices} with --multihost on {world()} "
+                             f"processes: one process per card")
+        return
+    check_data_devices(n_devices, device, logger, "training", "vtc_tpu_torch.train")
+    if int(config["batch_size"]) % world():
+        raise ValueError(f"batch_size {config['batch_size']} does not split over "
+                         f"{world()} ranks")
 
 
 def main(config: ConfigParser, device: Optional[str] = None) -> Trainer:
@@ -122,11 +133,16 @@ def main(config: ConfigParser, device: Optional[str] = None) -> Trainer:
     dataset = config.init_obj("dataset", module_data, device=device)
     valid_dataset = config.init_obj("dataset", module_data, train=False, device=device)
     num_workers = config.get("num_workers", 4)
+    # --multihost: batch_size per process, each reading its slice of the
+    # index stream; --n_devices: the global batch, each rank its rows
+    shard = dict(shard_by_process=True) if config.get("multihost") else dict(
+        shard_batches=True)
     data_loader = DataLoader(dataset, batch_size=config["batch_size"],
                              num_workers=num_workers, shuffle=True, drop_last=True,
-                             seed=seed_value)
+                             seed=seed_value, **shard)
     valid_data_loader = DataLoader(valid_dataset, batch_size=config["batch_size"],
-                                   num_workers=num_workers, shuffle=False, drop_last=True)
+                                   num_workers=num_workers, shuffle=False, drop_last=True,
+                                   **shard)
 
     arch_cfg = config["arch"]
     model = create_model(arch_cfg["type"], seed=seed_value, device=device,
@@ -205,12 +221,19 @@ def parser() -> argparse.ArgumentParser:
 
 def cli(argv=None, device: Optional[str] = None) -> Trainer:
     """Parse ``argv`` (default: the process's) as ``train.py`` does, then
-    ``main``. A wandb run starts where ``wandb`` is importable; without a
+    ``main``; in a process that ``torchrun`` started, or with
+    ``--multihost``, join the process group first (``init_distributed``).
+    A wandb run starts on rank 0 where ``wandb`` is importable; without a
     network, set ``WANDB_MODE=disabled``."""
+    if launched():  # torchrun: the group exists before the run dir is picked
+        init_distributed()
     args = parser()
     config = ConfigParser.from_args(args, OPTIONS, argv)
+    if config.get("multihost"):
+        init_distributed()
+        config.finalize_run_dir()
     parsed = args.parse_args(argv)
-    if _HAS_WANDB:
+    if _HAS_WANDB and is_main():
         wandb.init(config=parsed)
         wandb.run.name = config["name"]
         wandb.run.save()

@@ -5,7 +5,10 @@ The result keys are the reference's (``"{b}_from_{a}-recall_at_{k}"``,
 plain objects with ``reset``/``update``/``result`` and ``is_train``/
 ``is_val`` routing flags; the tracker owns the TensorBoard emission.
 ``RecallAtK`` keeps each batch's features on the device that made them and
-ranks them there (``ops.retrieval.recall_at_k``) at the epoch's end.
+ranks them there (``ops.retrieval.recall_at_k``) at the epoch's end. Under
+a process group it is fed the features of the global batch, gathered over
+the ranks by ``step.eval_step``, so every rank logs the R@K that one
+device computes on the whole validation set, and every rank ranks alike.
 """
 
 from __future__ import annotations

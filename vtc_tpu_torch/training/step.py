@@ -31,35 +31,66 @@ gradient through the second, which routes the microbatch exactly as the
 first did. A model with BatchNorm running stats (the ``sub_mean``/``bn``
 residual activations, the audio MLP) is refused by the accumulating step.
 
-Not ported: multihost token truncation (raises).
+**Data parallelism.** Under a process group (``torchrun``, one process per
+card) ``model`` is ``parallel.mesh.data_parallel``'s
+``DistributedDataParallel`` and ``data`` this rank's rows of the global
+batch (``parallel.mesh.shard_batch``). The step is the single-device step
+at the global batch, as GSPMD runs ``vtc_tpu``'s:
+
+* the features are gathered over the ranks (``all_gather_rows``) and every
+  rank computes the loss of all ``W·b`` pairs from them, with the
+  similarity of the model's ``_sim``; the gather's backward sums over the
+  ranks, DDP averages, and the product is the single-device gradient;
+* the random draws are drawn for the global batch from the one generator
+  state every rank holds (or handed in for the global batch) and each rank
+  takes its rows, so a sample's draw does not depend on ``W``;
+* the BatchNorms take the global batch's statistics (``models.cam``,
+  ``models.layers.TorchBatchNorm``);
+* with ``accum_steps`` k each rank splits its rows with the same strided
+  rule, the features of every rank are gathered for the loss, and this
+  rank's rows of the feature gradient, times ``W``, drive its second pass;
+  the microbatches before the last do not synchronize (``no_sync``);
+* a MoE model raises at ``W`` > 1: ``vtc_tpu`` routes over the global token
+  set (capacity ``ceil(cf·k·T/nE)`` with T global,
+  ``vtc_tpu/parallel/expert.py:133``), which a per-rank routing does not
+  reproduce (ROADMAP Queue 1 item 9, its expert-parallel part).
+
+``global_truncate_tokens(multihost=True)`` buckets on the largest coverage
+over the ranks, so every rank runs the same text lengths.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..data.preprocess import normalize_uint8_images
-from ..data.tokenizer import truncate_batch_tokens
+from ..data.tokenizer import batch_token_need, truncate_batch_tokens
+from ..device import DISTRIBUTION
 from ..parallel.expert import moe_layers
+from ..parallel.mesh import active, all_gather_rows, shard_rows, unwrap
+from ..utils.util import all_max, world
 
 # the Switch default, as the JAX trainer's ``moe_aux_loss_weight``
 MOE_AUX_LOSS_WEIGHT = 0.01
+# each draw's batch axis, to take a rank's rows of the global batch's draws
+DRAW_BATCH_AXES = {"adapter_skip": 0, "comment_mask": 1, "dropout": 1}
 
 
 def global_truncate_tokens(data: Sequence, multihost: bool = False) -> list:
     """EOT-bucket truncation of the batch's token arrays, one bucket for
-    all (``trainer.py:58-80``). Single host only: a multihost run buckets on
-    the allgathered coverage, which waits for the port of
-    ``torch.distributed``."""
-    if multihost:
-        raise NotImplementedError(
-            "multihost token truncation needs the allgather of the coverage "
-            "(ROADMAP: Queue 1, distribution on torch.distributed)"
-        )
-    return truncate_batch_tokens(data)
+    all (``trainer.py:58-80``). ``multihost``: the bucket of the largest
+    coverage over the process group's ranks (one all-reduce of an int), so
+    every rank runs the same lengths."""
+    if not multihost:
+        return truncate_batch_tokens(data)
+    need = batch_token_need(data)
+    if need is None:
+        return list(data)
+    return truncate_batch_tokens(data, need=all_max(need))
 
 
 def _forward(model, args, **kwargs):
@@ -81,6 +112,52 @@ def _update(optimizer, scheduler) -> None:
     optimizer.zero_grad(set_to_none=True)
 
 
+def _check_data_parallel(module) -> None:
+    if world() > 1 and moe_layers(module):
+        raise NotImplementedError(
+            f"a mixture-of-experts model on {world()} ranks: vtc_tpu routes over the "
+            f"global token set, which per-rank routing does not reproduce; the "
+            f"expert-parallel axis is not ported ({DISTRIBUTION})")
+    if not hasattr(module, "_sim"):
+        raise NotImplementedError(
+            f"{type(module).__name__} under a process group: the data-parallel step "
+            f"takes the contrastive models, whose output is (feats_a, feats_b, sim) "
+            f"with a _sim of the gathered features ({DISTRIBUTION})")
+
+
+def _rank_draws(module, data, generator, draws):
+    """This rank's rows of the draws of the global batch: ``draws`` as handed
+    in for it, else drawn from ``generator`` with the global batch's shapes
+    (``data`` are this rank's rows)."""
+    if draws is None:
+        draw = getattr(module, "training_draws", None)
+        if draw is None:
+            return None
+        shapes = [d[:1].expand((d.shape[0] * world(),) + d.shape[1:]) for d in data]
+        draws = draw(*shapes, generator=generator)
+    return {name: v[(slice(None),) * DRAW_BATCH_AXES[name]
+                    + (shard_rows(v.shape[DRAW_BATCH_AXES[name]]),)]
+            for name, v in draws.items()}
+
+
+def _global_meta(meta, b: int):
+    """The meta's per-row tensors (``b`` rows) gathered over the ranks."""
+    if world() == 1 or not isinstance(meta, dict):
+        return meta
+    return {k: all_gather_rows(v) if torch.is_tensor(v) and v.dim() and v.shape[0] == b
+            else v for k, v in meta.items()}
+
+
+def _global(module, out, meta):
+    """The output and meta of the global batch: each rank's features
+    gathered, the similarity of all pairs from them (the model's
+    ``_sim``), the meta's per-row tensors gathered. One rank: as given."""
+    if world() == 1:
+        return out, meta
+    feats = [all_gather_rows(f) for f in out[:2]]
+    return (*feats, module._sim(*feats)), _global_meta(meta, out[0].shape[0])
+
+
 def train_step(model: torch.nn.Module, criterion: Callable, optimizer,
                scheduler, data: Sequence[torch.Tensor], meta=None,
                generator: Optional[torch.Generator] = None,
@@ -93,14 +170,26 @@ def train_step(model: torch.nn.Module, criterion: Callable, optimizer,
     load-balance losses join the loss at ``moe_aux_loss_weight``. Returns
     ``(loss, out)``: the loss before the update, detached, and the model's
     output (with ``accum_steps > 1``, the features and similarity of the
-    whole batch)."""
+    whole batch).
+
+    Under a process group ``model`` is the DDP wrapper, ``data`` this rank's
+    rows, ``draws`` (if given) those of the global batch (with
+    ``accum_steps`` k: of its k strided microbatches), and ``out`` that of
+    the global batch."""
     data = [normalize_uint8_images(d) for d in data]
+    module = unwrap(model)
+    if active():
+        _check_data_parallel(module)
     if accum_steps > 1:
         return _accumulating_step(model, criterion, optimizer, scheduler, data,
                                   meta, generator, draws, int(accum_steps),
                                   moe_aux_loss_weight)
-    model.train()
+    module.train()
+    if active():
+        draws = _rank_draws(module, data, generator, draws)
     out, aux = _forward(model, data, generator=generator, draws=draws)
+    if active():
+        out, meta = _global(module, out, meta)
     loss = criterion(out, meta)
     if aux is not None:
         loss = loss + moe_aux_loss_weight * aux
@@ -123,11 +212,12 @@ def _logit_scale(model: torch.nn.Module) -> torch.Tensor:
 
 def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
                        generator, draws, k: int, aux_weight: float):
+    module = unwrap(model)
     if any(d.shape[0] % k for d in data):
         raise ValueError(
             f"accum_steps={k} must divide the batch ({[d.shape[0] for d in data]})"
         )
-    if any(name.endswith("running_mean") for name, _ in model.named_buffers()):
+    if any(name.endswith("running_mean") for name, _ in module.named_buffers()):
         # per-microbatch statistics and k momentum updates per step are not
         # the large batch's semantics: refuse rather than deviate
         raise ValueError(
@@ -135,12 +225,16 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
             "running stats: per-microbatch statistics change the training "
             "semantics"
         )
-    scale = _logit_scale(model)
-    model.train()
+    scale = _logit_scale(module)
+    module.train()
     mbs = [[d[i::k] for d in data] for i in range(k)]
-    if draws is None:
+    if active():
+        # microbatch i of this rank is its part of the global microbatch i
+        draws = [_rank_draws(module, mb, generator, None if draws is None else draws[i])
+                 for i, mb in enumerate(mbs)]
+    elif draws is None:
         # drawn once, so that both passes see the same masks
-        draw = getattr(model, "training_draws", None)
+        draw = getattr(module, "training_draws", None)
         draws = [draw(*mb, generator=generator) if draw else {} for mb in mbs]
     if len(draws) != k:
         raise ValueError(f"accum_steps={k} needs one dict of draws per microbatch, "
@@ -151,22 +245,42 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
 
     with torch.no_grad():
         outs = [_forward(model, mb, draws=d) for mb, d in zip(mbs, draws)]
-    feats_vis = unsplit([o[0][0] for o in outs]).requires_grad_()
-    feats_text = unsplit([o[0][1] for o in outs]).requires_grad_()
+        feats = [unsplit([o[0][j] for o in outs]) for j in (0, 1)]
+        if active():
+            meta = _global_meta(meta, feats[0].shape[0])
+            feats = [all_gather_rows(f) for f in feats]
+    feats_vis, feats_text = (f.requires_grad_() for f in feats)
     sim = torch.exp(scale) * (feats_vis @ feats_text.T)
     loss = criterion((feats_vis, feats_text, sim), meta)
-    loss.backward()
+    scale_grad = None
+    if active():
+        # no gradient may reach a parameter outside DDP's synchronized pass:
+        # logit_scale's joins the last microbatch's backward; this rank's rows
+        # of the feature gradient carry W, which DDP's mean takes back
+        wanted = [feats_vis, feats_text] + ([scale] if scale.requires_grad else [])
+        grads = torch.autograd.grad(loss, wanted)
+        rows = shard_rows(feats_vis.shape[0])
+        feat_grads = [g[rows] * world() for g in grads[:2]]
+        scale_grad = grads[2] if scale.requires_grad else None
+    else:
+        loss.backward()
+        feat_grads = [feats_vis.grad, feats_text.grad]
     auxes = [aux for _, aux in outs if aux is not None]
     if auxes:  # the mean over the microbatches, its gradient in the second pass
         loss = loss + aux_weight * torch.stack(auxes).mean()
     for i, (mb, d) in enumerate(zip(mbs, draws)):
-        out, aux = _forward(model, mb, draws=d)
-        pairs = [(f, full.grad[i::k]) for f, full in
-                 zip(out[:2], (feats_vis, feats_text)) if f.requires_grad]
-        if aux is not None and aux.requires_grad:
-            pairs.append((aux, torch.full_like(aux, aux_weight / k)))
-        if pairs:
-            torch.autograd.backward(*zip(*pairs))
+        last = i == k - 1
+        sync = last or not hasattr(model, "no_sync")
+        with contextlib.nullcontext() if sync else model.no_sync():
+            out, aux = _forward(model, mb, draws=d)
+            pairs = [(f, full[i::k]) for f, full in zip(out[:2], feat_grads)
+                     if f.requires_grad]
+            if aux is not None and aux.requires_grad:
+                pairs.append((aux, torch.full_like(aux, aux_weight / k)))
+            if last and scale_grad is not None:
+                pairs.append((scale, scale_grad))
+            if pairs:
+                torch.autograd.backward(*zip(*pairs))
     _update(optimizer, scheduler)
     return loss.detach(), (feats_vis.detach(), feats_text.detach(), sim.detach())
 
@@ -174,7 +288,10 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
 def eval_step(model: torch.nn.Module, criterion: Callable, data, meta=None,
               branch_override: Optional[str] = None):
     """The model in eval mode without a graph, and the loss: ``(loss,
-    out)``. ``branch_override`` reaches the models that take it."""
+    out)``. ``branch_override`` reaches the models that take it. Under a
+    process group of more than one rank ``data`` is this rank's rows, and
+    the loss and ``out`` are the global batch's (the features gathered)."""
+    model = unwrap(model)
     model.eval()
     kwargs = {}
     if branch_override is not None and (
@@ -182,4 +299,6 @@ def eval_step(model: torch.nn.Module, criterion: Callable, data, meta=None,
         kwargs["branch_override"] = branch_override
     with torch.no_grad():
         out = model(*[normalize_uint8_images(d) for d in data], **kwargs)
+        if active():
+            out, meta = _global(model, out, meta)
         return criterion(out, meta), out

@@ -19,6 +19,15 @@ checkpoint semantics (``trainer/base_trainer.py:9-219``,
   to the warm-start key patterns), the optimizer state unless its type or
   lr changed, and the schedule's step.
 * ``trainer.profile_dir`` writes a ``torch.profiler`` trace of epoch 1.
+* Under a process group (``torchrun``) the model steps inside
+  ``DistributedDataParallel`` (``parallel.mesh.data_parallel``) on this
+  rank's rows, the token bucket is the ranks' common one, and validation
+  runs each rank's rows and merges them (``step.eval_step`` gathers the
+  features, so the loss and ``RecallAtK`` are the global batch's). Every
+  rank therefore holds the same log, ``monitor_best`` and early stop; only
+  rank 0 logs below a warning, writes TensorBoard, the profiler trace and
+  the ``.pth`` files, which have a single card's keys (the module's state
+  dict). Every rank resumes from the same checkpoint.
 
 The loader's epoch counter is not restored on resume, as in the JAX package:
 a resumed run's first shuffle is that of ``seed + 1``.
@@ -36,7 +45,9 @@ import torch
 
 from ..data.loader import prefetch_to_device
 from ..device import resolve_device
+from ..parallel.mesh import data_parallel
 from ..utils import TensorboardWriter, inf_loop, is_image_like_batch
+from ..utils.util import barrier, is_main, world
 from .checkpoints import (
     assert_warm_start_keys,
     graft_params,
@@ -102,6 +113,8 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        # the step's model: DistributedDataParallel under a process group
+        self.ddp = data_parallel(self.model, self.device)
         self.criterion = criterion
         self.metrics = metrics
         self.optimizer = optimizer
@@ -144,7 +157,7 @@ class Trainer:
         self.writer = TensorboardWriter(
             config.log_dir if hasattr(config, "log_dir") else ".",
             self.logger,
-            cfg_trainer.get("tensorboard", False),
+            cfg_trainer.get("tensorboard", False) and is_main(),
         )
 
         self.data_loader = data_loader
@@ -180,7 +193,7 @@ class Trainer:
             for *data, meta in loader:
                 data = flatten_data(data)
                 if truncate:
-                    data = tuple(global_truncate_tokens(data))
+                    data = tuple(global_truncate_tokens(data, multihost=world() > 1))
                 yield data, {k: v for k, v in meta.items() if hasattr(v, "shape")}
 
         yield from prefetch_to_device(gen(), self.device, size=2)
@@ -195,7 +208,7 @@ class Trainer:
         hz_list = []
 
         profiler = None
-        if self.profile_dir and epoch == 1:
+        if self.profile_dir and epoch == 1 and is_main():
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -243,7 +256,7 @@ class Trainer:
         for batch_idx, (data, meta) in enumerate(batch_iter):
             batch_size = data[0].shape[0]
             generator = self._step_generator((epoch - 1) * fold_stride + batch_idx)
-            loss, out = train_step(self.model, self.criterion, self.optimizer,
+            loss, out = train_step(self.ddp, self.criterion, self.optimizer,
                                    self.scheduler, data, meta, generator,
                                    accum_steps=self.accum_steps,
                                    moe_aux_loss_weight=self.moe_aux_loss_weight)
@@ -373,6 +386,12 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _save_checkpoint(self, epoch: int, save_best: bool = False):
+        """Rank 0 writes; no rank goes on before the files exist."""
+        if is_main():
+            self._write_checkpoints(epoch, save_best)
+        barrier()
+
+    def _write_checkpoints(self, epoch: int, save_best: bool):
         cfg = self.config.config if hasattr(self.config, "config") else self.config
         names = [f"checkpoint-epoch{epoch}"] + (["model_best"] if save_best else [])
         for name in names:
