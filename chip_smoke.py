@@ -83,7 +83,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     the device's idle share over 5 plain steps, and device time per step
     by family and by phase over 5 steps with a synchronize after each
     phase (forward, backward, optimizer); then the same benchmark with
-    ``--accum_steps 4`` and with ``--moments_dtype bfloat16``, each with its
+    ``--accum_steps 4`` and with ``--moments_dtype bfloat16`` (windows of 4
+    steps), each with its
     samples/s, peak memory and falling loss, and the optimizer phase's
     device ms with bf16 moments beside fp32's;
 13. accumulating step: the flagship's config as in phase 11 at
@@ -163,7 +164,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``configs/pretrained_clip_timesformer_comments_attention.jsonc``
     (ViT-B/32, 8 frames, fp32, the config's batch of 50 and 40 workers,
     the imported weights) over a reddit corpus written with
-    ``cv2.VideoWriter`` (100 training and 50 validation rows, mp4v 480x360,
+    ``cv2.VideoWriter`` (50 training and 50 validation rows, mp4v 480x360,
     3 s), 1 epoch, with the MSRVTT probe on a written root of one small
     clip per id of the packaged full-val list (497): steps/s, seconds per
     epoch, each probe's seconds and R@10, launches exact (steps and
@@ -256,6 +257,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     DDP, one after the other in each rank (samples/s: the cost of DDP's
     hooks at W = 1). W, the backend, the group's init seconds and the
     phase's seconds are printed;
+33. tensor parallelism (the model axis): 2 ranks on the one card over gloo
+    (NCCL takes one rank per card), each a process spawned here that joins
+    through a file and lays the group out as ``create_mesh(1, 2)``; phase
+    11's three fp32 steps of the flagship config, its weights split over the
+    model axis (``parallel.tensor.shard_model``), at phase 11's limits of
+    phase 11's card steps, every rank launching 3 × (29, 26, 26) (each
+    attention on 6, 4 and 4 of its heads), the split parameters gathered;
+    then the bf16 step at batch 128 split, and in this process unsplit, one
+    after the other (samples/s of each), and in the ranks the bf16 step of
+    the full-size dry run twin (``scripts.dryrun_fullsize.step_once``: a
+    finite loss, a split ``in_proj_weight`` moved);
+34. the sharded gallery: phase 22's tie gallery cut to 30 rows in 4 row
+    shards on card 0 (2 rows of padding), against the one-shard index and
+    the same shards on the CPU: ids equal, scores within 1e-4, the pad rows
+    id -1 past the 30 real rows;
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -304,6 +320,7 @@ FROZEN_CONFIG = "configs/pretrained_clip_comments_attn_frozen.jsonc"
 PARITY_BATCH, PARITY_STEPS = 8, 3
 ACCUM_K, ACCUM_RUN_STEPS = 2, 2  # the accumulating step's microbatches and steps
 BENCH_ACCUM_K = 4  # bench_train_step's accumulating run at batch 128
+BENCH_OTHER_ITERS = 4  # its windows' steps, and the bf16-moments run's
 TRAINER_EPOCHS, TRAINER_ITEMS = 2, (400, 100)  # the Trainer phase: train, val items
 # card vs CPU, full depth fp32, loss ~2.1: the measured spread was 2.38e-7,
 # one ulp (PERF.md, PR 6 run 1); 2e-6 leaves eight
@@ -337,14 +354,6 @@ EXPECTED_LAUNCHES = {"layernorm": 29, "add_layernorm": 26, "fused_mha": 26,
 EXPECTED_VIDEO_LAUNCHES = {"layernorm": 41, "add_layernorm": 26, "fused_mha": 26,
                            "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0,
                            "fused_mha_long": 0}
-KERNEL_FAMILIES = (  # device-kernel name fragments, matched in this order
-    ("add_layernorm", ("_addln_kernel",)),
-    ("layernorm", ("_ln_kernel",)),
-    ("fused_mha_long", ("fused_mha_long_kernel", "fused_mha_long_onepass_kernel")),
-    ("fused_mha", ("fused_mha_kernel",)),
-    ("fused_attention", ("fused_attention_kernel",)),
-    ("gemm", ("gemm", "Gemm", "gemv", "nvjet", "cutlass", "xmma")),
-)
 SOURCES = {
     "layernorm": ("triton", "vtc_tpu_torch/ops/layernorm.py",
                   "vtc_tpu/ops/pallas_layernorm.py:66"),
@@ -793,47 +802,10 @@ def video_model(**kwargs):
 
 
 def profile_calls(fn, n: int) -> dict:
-    """``n`` calls of ``fn`` (forwards, train steps) under
-    ``torch.profiler``: device time per kernel family (the port's kernels,
-    GEMMs, the rest) and the device's idle share, 1 - (union of device
-    intervals) / (the host's window from the first launch to the
-    synchronize after the last call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """``vtc_tpu_torch.scripts.profile_trace.profile_calls`` on the card."""
+    from vtc_tpu_torch.scripts.profile_trace import profile_calls as calls
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("forwards"):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-    events = prof.events()
-    window = next(e for e in events
-                  if e.name == "forwards" and e.device_type == DeviceType.CPU)
-    t0, t1 = window.time_range.start, window.time_range.end
-    device = sorted(
-        (e for e in events
-         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-        key=lambda e: e.time_range.start,
-    )
-    require(len(device) > 0, "the profiler recorded no device events")
-    by_family, other = {}, {}
-    busy, end = 0.0, t0
-    for e in device:
-        start, stop = max(e.time_range.start, end), min(e.time_range.end, t1)
-        if stop > start:
-            busy += stop - start
-            end = stop
-        us = e.time_range.end - e.time_range.start
-        family = next((f for f, keys in KERNEL_FAMILIES if any(k in e.name for k in keys)),
-                      "other")
-        by_family[family] = by_family.get(family, 0.0) + us
-        if family == "other":
-            other[e.name] = other.get(e.name, 0.0) + us
-    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / (t1 - t0),
-            "family_ms": {f: us / 1e3 / n for f, us in by_family.items()},
-            "other_top": sorted(other.items(), key=lambda kv: -kv[1])[:6],
-            "launches": len(device) / n}
+    return calls(fn, n, "cuda")
 
 
 def throughput(what, model, inputs, batch, warmup, windows, per_window, unit,
@@ -859,16 +831,11 @@ def throughput(what, model, inputs, batch, warmup, windows, per_window, unit,
 
 
 def log_profile(prof, what: str) -> None:
-    log(f"profile {what}, {PROFILED} forwards under torch.profiler: window "
-        f"{prof['window_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, idle "
-        f"share {prof['idle_share']:.4f}, {prof['launches']:.0f} device events "
-        f"per forward")
-    total = sum(prof["family_ms"].values())
-    for family, ms in sorted(prof["family_ms"].items(), key=lambda kv: -kv[1]):
-        log(f"profile device ms per forward: {family} {ms:.4f} "
-            f"({ms / total:.4f} of device time)")
-    for kname, us in prof["other_top"]:
-        log(f"profile other: {us / 1e3 / PROFILED:.4f} ms per forward: {kname[:120]}")
+    """``vtc_tpu_torch.scripts.profile_trace.log_profile`` of ``PROFILED``
+    forwards, in this log."""
+    from vtc_tpu_torch.scripts.profile_trace import log_profile as lines
+
+    lines(prof, what, PROFILED, log)
 
 
 def compare_with_cpu(what, outs, cpu_outs, scale) -> None:
@@ -1278,6 +1245,7 @@ def profile_train_phases(model, optimizer, scheduler, data, generator, n: int) -
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.scripts.profile_trace import KERNEL_FAMILIES
 
     model.train()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1335,8 +1303,8 @@ def profile_train_phases(model, optimizer, scheduler, data, generator, n: int) -
             "backward_top": sorted(backward_top.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def run_train_bench(ops, smi) -> dict:
-    """Phase 12. Returns the launch counts of one train step."""
+def run_train_bench(ops, smi) -> float:
+    """Phase 12. Returns the plain step's samples/s."""
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.scripts import bench_train_step
     from vtc_tpu_torch.training import train_step
@@ -1385,15 +1353,17 @@ def run_train_bench(ops, smi) -> dict:
     for kname, ms in phases["backward_top"]:
         log(f"profile train backward op: {ms:.4f} ms per step: {kname[:120]}")
     optimizer_ms = {"float32": phases["phase_ms"]["optimizer"]}
+    rate = res["samples_per_s"]
     del res, model, optimizer, scheduler, data, generator, phases
     torch.cuda.empty_cache()
 
     # the accumulating step and bf16 moments, one after the other at the same
-    # batch: samples/s and peak memory beside the plain step's above
+    # batch: samples/s and peak memory beside the plain step's above (windows
+    # of BENCH_OTHER_ITERS steps)
     for what, kwargs in ((f"accum_steps {BENCH_ACCUM_K}", {"accum_steps": BENCH_ACCUM_K}),
                          ("bf16 moments", {"moments_dtype": "bfloat16"})):
         torch.cuda.reset_peak_memory_stats()
-        res = bench_train_step.main(**kwargs)
+        res = bench_train_step.main(iters=BENCH_OTHER_ITERS, **kwargs)
         peak_k = torch.cuda.max_memory_allocated()
         losses = res["losses"]
         log(f"train throughput bf16, {what}: {res['samples_per_s']:.1f} samples/s, "
@@ -1413,7 +1383,7 @@ def run_train_bench(ops, smi) -> dict:
     log(f"profile train optimizer phase, device ms per step: fp32 moments "
         f"{optimizer_ms['float32']:.4f} (torch.optim.Adam), bf16 moments "
         f"{optimizer_ms['bfloat16']:.4f} (Bf16MomentAdam); on {smi}")
-    return launches
+    return rate
 
 
 class PatchTextDataset:
@@ -2419,7 +2389,7 @@ def check_video_fixture(smi) -> None:
 
 ONE_FRAME_CONFIG = "configs/pretrained_clip_1frame_comments_attention.jsonc"
 # 2 steps, 1 validation batch of 50 (cut from 3 steps to keep the script near its time)
-VIDEO_CORPUS_ROWS = {"train": 100, "val": 50}
+VIDEO_CORPUS_ROWS = {"train": 50, "val": 50}
 VIDEO_CORPUS_CLIPS = 8  # distinct videos, copied to every row
 VIDEO_CLIP = dict(frames=90, width=480, height=360)  # 3 s at 30 fps
 PROBE_CLIPS = 4  # the MSRVTT root: one per full-val id, copied from these
@@ -2714,6 +2684,15 @@ def bomb_jpeg() -> bytes:
     return bytes(out)
 
 
+GIF_BMP_DIR = "tests/data/gif_bmp"
+
+
+def bomb_header(head: bytes) -> bytes:
+    """``head`` (a GIF whose logical screen, or a BMP whose header, claims
+    20000 x 20000 pixels) padded to a file of 64 bytes."""
+    return head + bytes(max(0, 64 - len(head)))
+
+
 def check_repairs(smi) -> None:
     """Phase 22: the bomb-sized JPEG refused before anything is allocated on
     the card; ``ycc_to_rgb`` bit-exact on seeded 4:1:1 and 4:1:0 planes (no
@@ -2758,6 +2737,28 @@ def check_repairs(smi) -> None:
         what = (("CMYK", "YCCK") if k else ("RGB planes", "YCbCr"))[transform]
         log(f"ycc_to_rgb at {factors}, {what}: bit-exact against its plain version on "
             f"seeded planes {SEEDED_PLANES}")
+
+    # GIF and BMP on the card's route: the host decoders, PIL's pixels exactly
+    ref = np.load(Path(__file__).resolve().parent / GIF_BMP_DIR / "pil_decodes.npz")
+    names = sorted(p for p in (Path(__file__).resolve().parent / GIF_BMP_DIR).iterdir()
+                   if p.suffix in (".gif", ".bmp"))
+    for path in names:
+        rgb = image_io.decode_rgb(path.read_bytes(), None, str(path))
+        want = ref[path.name.replace(".", "_")]
+        require(rgb.shape == want.shape and np.array_equal(rgb, want),
+                f"{path.name}: the host decode differs from PIL's")
+    refused = 0
+    for data in (bomb_header(b"GIF89a" + (20000).to_bytes(2, "little") * 2 + bytes(3) + b","
+                             + bytes(4) + (2).to_bytes(2, "little") * 2 + b"\x00\x02\x00;"),
+                 bomb_header(b"BM" + bytes(12) + (40).to_bytes(4, "little")
+                             + (20000).to_bytes(4, "little") * 2 + bytes(32))):
+        try:
+            image_io.decode_rgb(data)
+        except image_io.ImageInputError as e:
+            refused += "decompression bomb" in str(e)
+    require(refused == 2, "a bomb-sized GIF or BMP header was not refused")
+    log(f"GIF and BMP on the card's route: {len(names)} committed files equal PIL's decodes "
+        f"pixel for pixel; bomb-sized GIF and BMP headers refused")
 
     base = np.random.default_rng(0).standard_normal((8, 512)).astype(np.float32)
     index = RetrievalIndex(512)
@@ -3598,6 +3599,210 @@ def run_data_parallel(smi, tmp: Path, parity: dict, eval_run: dict) -> None:
         f"{rates['DDP'] / rates['plain']:.4f}); phase 32 took {phase_s:.1f} s; on {smi}")
 
 
+# ---- phase 33: tensor parallelism on the model axis ---------------------------------
+
+TP_DEGREE = 2
+TP_BENCH = dict(batch=128, steps=3, warmup=1)  # phase 12's batch, bf16
+
+
+def tp_bench(model, optimizer, scheduler, data, steps: int, warmup: int) -> float:
+    """samples/s of ``steps`` bf16 train steps after ``warmup`` (the CAM's
+    skip draws from one seeded generator)."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.training import train_step
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    for _ in range(warmup):
+        train_step(model, clip_loss, optimizer, scheduler, data, {}, generator=gen)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(steps):
+        train_step(model, clip_loss, optimizer, scheduler, data, {}, generator=gen)
+    torch.cuda.synchronize()
+    return data[0].shape[0] * steps / (time.perf_counter() - tic)
+
+
+def bench_model(split: bool):
+    """The bf16 flagship of ``bench_train_step`` (seed 0, Adam amsgrad at lr
+    1e-5), split over the model axis where ``split``, and phase 12's batch."""
+    from vtc_tpu_torch.models import create_model
+    from vtc_tpu_torch.parallel.mesh import data_parallel
+    from vtc_tpu_torch.parallel.tensor import shard_model
+    from vtc_tpu_torch.scripts import bench_train_step as bts
+
+    model = create_model("PretrainedCLIP_finaltf", seed=bts.SEED, dtype="bf16")
+    if split:
+        model = shard_model(model)
+    optimizer, scheduler = bts.build_optimizer(model, bts.OPTIMIZER, bts.SCHEDULER,
+                                               steps_per_epoch=bts.STEPS_PER_EPOCH)
+    if split:
+        model = data_parallel(model, torch.device("cuda", 0))
+    data = [t.cuda() for t in bench_inputs(TP_BENCH["batch"], 32, seed=2)]
+    return model, optimizer, scheduler, data
+
+
+def tp_rank(rank: int, world: int, init: str, tmp: str, t0: float) -> None:
+    """One rank of phase 33, in a process of its own on card 0: a gloo group
+    of ``world`` ranks as ``create_mesh(1, world)``; phase 11's three fp32
+    steps with the weights split, the bf16 step at batch 128 split, the
+    dry run twin's bf16 step. ``t0``: the spawn's time, for the rank's own
+    account of its seconds."""
+    seconds = {"start": time.time() - t0}
+    tic = time.perf_counter()
+    import torch.distributed as dist
+
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import create_mesh, data_parallel
+    from vtc_tpu_torch.parallel.tensor import full_tensors, shard_model
+    from vtc_tpu_torch.scripts import dryrun_fullsize
+    from vtc_tpu_torch.training import train_step
+
+    seconds["imports"] = time.perf_counter() - tic
+    # both ranks on card 0 (resolve_device reads LOCAL_RANK)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tic = time.perf_counter()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        create_mesh(1, world)
+        seconds["init"] = time.perf_counter() - tic
+        tic = time.perf_counter()
+        device = torch.device("cuda", 0)
+        inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+        gen = torch.Generator().manual_seed(6)
+        draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
+                 for _ in range(PARITY_STEPS)]
+        model = shard_model(model_from_config(TRAIN_CONFIG))
+        heads = sorted({m.local_heads for m in model.modules() if hasattr(m, "local_heads")})
+        optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+        grads = {}
+
+        def keep_first_grads(opt, args, kwargs):
+            if not grads:
+                grads.update({n: None if p.grad is None else p.grad.detach().clone()
+                              for n, p in model.named_parameters()})
+
+        optimizer.register_step_pre_hook(keep_first_grads)
+        ddp = data_parallel(model, device)
+        data = [x.to(device) for x in inputs]
+        torch.cuda.synchronize()
+        seconds["build"] = time.perf_counter() - tic
+        # the split path's run: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        tic = time.perf_counter()
+        losses = [train_step(ddp, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
+                  for d in draws]
+        torch.cuda.synchronize()
+        seconds["steps"] = time.perf_counter() - tic
+        launches = ops.launch_counts()
+        grads = {n: None if g is None else g.cpu()
+                 for n, g in full_tensors(model, grads).items()}
+        del ddp, model, optimizer
+        torch.cuda.empty_cache()
+        tic = time.perf_counter()
+        rate = tp_bench(*bench_model(split=True), TP_BENCH["steps"], TP_BENCH["warmup"])
+        seconds["bench"] = time.perf_counter() - tic
+        torch.cuda.empty_cache()
+        # the bf16 full-size dry run twin's step, in this group
+        tic = time.perf_counter()
+        dry = dryrun_fullsize.step_once(device, dtype="bf16")
+        seconds["dry_run"] = time.perf_counter() - tic
+        torch.save({"losses": losses, "grads": grads, "launches": launches, "heads": heads,
+                    "rate": rate, "dry": dry, "seconds": seconds,
+                    "backend": dist.get_backend()}, Path(tmp) / f"tp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tensor_parallel(smi, parity: dict, plain: float) -> None:
+    """Phase 33: ``tp_rank`` on 2 ranks against phase 11's card steps; the
+    split bf16 step beside phase 12's plain one (``plain`` samples/s, the
+    same model, optimizer and batch); the bf16 dry run twin's step."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    phase_tic = time.perf_counter()
+    saved = Path(__file__).resolve().parent / "saved"
+    saved.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=saved)
+    try:
+        tic = time.perf_counter()
+        mp.start_processes(tp_rank, args=(TP_DEGREE, f"file://{tmp}/rendezvous", tmp,
+                                          time.time()),
+                           nprocs=TP_DEGREE, start_method="spawn")
+        spawn_s = time.perf_counter() - tic
+        ranks = [torch.load(Path(tmp) / f"tp_rank{r}.pt", weights_only=False)
+                 for r in range(TP_DEGREE)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ours = ranks[0]
+    compare_losses("tensor-parallel step", ours["losses"], parity["losses"],
+                   names=(f"dp1xtp{TP_DEGREE}", "phase 11"))
+    compare_grads(f"tensor-parallel step (dp1xtp{TP_DEGREE}) vs phase 11", ours["grads"],
+                  parity["grads"])
+    want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    for r, out in enumerate(ranks):
+        log(f"kernel use (rank {r} of dp1xtp{TP_DEGREE}, {PARITY_STEPS} fp32 steps, "
+            f"attention on {out['heads']} heads a rank): {json.dumps(out['launches'])}")
+        require(out["launches"] == want, f"rank {r} launches {out['launches']} != {want}")
+        require(out["losses"] == ours["losses"], f"rank {r} losses {out['losses']}")
+    for r, out in enumerate(ranks):
+        dry = out["dry"]
+        require(dry["finite"] and dry["moved"], f"rank {r}: the bf16 dry run {dry}")
+        require(dry["loss"] == ours["dry"]["loss"], f"rank {r}: dry-run loss {dry['loss']}")
+    dry = ours["dry"]
+    log(f"full-size dry run (scripts.dryrun_fullsize's step) dp1xtp{TP_DEGREE} bf16: loss "
+        f"{dry['loss']:.6f} on both ranks, a split in_proj_weight of {dry['split_rows']} rows "
+        f"a rank moved; build {dry['init_s']:.2f} s, step {dry['step_s']:.2f} s")
+    seconds = {k: round(v, 2) for k, v in ours["seconds"].items()}
+    log(f"tensor parallelism: dp1xtp{TP_DEGREE} on one card over {ours['backend']}; bf16 "
+        f"step at batch {TP_BENCH['batch']}: split {ours['rate']:.1f} ({TP_BENCH['steps']} "
+        f"steps after {TP_BENCH['warmup']}), plain {plain:.1f} samples/s (phase 12; split / "
+        f"plain {ours['rate'] / plain:.4f}); rank 0's seconds {json.dumps(seconds)}; the "
+        f"ranks' spawn {spawn_s:.1f} s; phase 33 took {time.perf_counter() - phase_tic:.1f} s; "
+        f"on {smi}")
+
+
+# ---- phase 34: the sharded gallery ---------------------------------------------------
+
+def check_sharded_gallery(smi) -> None:
+    """Phase 34: phase 22's tie gallery cut to 30 rows, in 4 row shards on
+    card 0, against the one-shard index on the card and the 4 shards on the
+    CPU, at k inside the gallery and past its real rows."""
+    from vtc_tpu_torch.serving import RetrievalIndex
+
+    base = np.random.default_rng(0).standard_normal((8, 512)).astype(np.float32)
+    gallery, ids = np.repeat(base, 4, axis=0)[:30], np.arange(1000, 1030)
+    one = RetrievalIndex(512)
+    sharded = RetrievalIndex(512, devices=["cuda:0"] * 4)
+    cpu = RetrievalIndex(512, devices=["cpu"] * 4)
+    for index in (one, sharded, cpu):
+        index.add(gallery, ids)
+    queries = np.concatenate([base[:2], base[7:8]])
+    for k in (10, 32):
+        got, want, ref = (ix.search(queries, k) for ix in (sharded, one, cpu))
+        cols = min(k, 30)
+        require(np.array_equal(got[0][:, :cols], want[0]),
+                f"sharded gallery k={k}: ids differ from the one-shard index's")
+        require(np.array_equal(got[0], ref[0]), f"sharded gallery k={k}: ids differ from "
+                f"the CPU's shards'")
+        err = max(float(np.abs(got[1][:, :cols] - want[1]).max()),
+                  float(np.abs(got[1][:, :cols] - ref[1][:, :cols]).max()))
+        require(err <= FEAT_ATOL, f"sharded gallery k={k}: scores differ by {err}")
+        if k > 30:
+            require((got[0][:, 30:] == -1).all() and np.isneginf(got[1][:, 30:]).all(),
+                    "sharded gallery: a pad row surfaced as a real one")
+        log(f"sharded gallery, 4 shards on cuda:0, k={k}: ids {got[0][:2, :12].tolist()} "
+            f"equal the one-shard index's and the CPU shards'; scores max |d| {err:.3g}")
+    require(got[0][:2, :10].tolist() == TIES_EXPECTED, "sharded gallery: not vtc_tpu's tie order")
+    log(f"sharded gallery: vtc_tpu's tie order, pad ids -1 past the 30 rows; on {smi}")
+
+
 def main() -> int:
     # wandb, where installed, stays off: nothing here may reach the network
     os.environ["WANDB_MODE"] = "disabled"
@@ -3612,7 +3817,14 @@ def main() -> int:
     from vtc_tpu_torch.models import convert_weights
     from vtc_tpu_torch.ops import _build
     from vtc_tpu_torch.serving import ClipRetrievalService, RetrievalIndex
+    clock = time.perf_counter()
+    marks = []
 
+    def mark(phase: str) -> None:
+        """The script's clock at the start of ``phase`` (the phases' seconds)."""
+        marks.append((phase, time.perf_counter() - clock))
+
+    mark("1")
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3625,6 +3837,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {card} "
         f"count {torch.cuda.device_count()}")
 
+    mark("2")
     # 2. build
     tic = time.perf_counter()
     libs = _build.build_all()
@@ -3649,9 +3862,11 @@ def main() -> int:
     log(f"build: nvcc {nvcc_s:.1f} s ({', '.join(libs)}), triton first "
         f"compiles (layernorm, add_layernorm) {time.perf_counter() - tic:.1f} s")
 
+    mark("3")
     # 3. kernels
     results = check_kernels(ops)
 
+    mark("4")
     # 4. flagship forward, fp32, card vs CPU
     tic = time.perf_counter()
     model = flagship()
@@ -3661,6 +3876,7 @@ def main() -> int:
     with torch.inference_mode():
         model(*[t.cuda() for t in inputs])  # warm up
         torch.cuda.synchronize()
+        mark("5")
         # 5. the main path's run: counts from 0 just before, read just after
         ops.reset_launch_counts()
         fv, ft, sim = model(*[t.cuda() for t in inputs])
@@ -3673,6 +3889,7 @@ def main() -> int:
     compare_with_cpu("flagship", (fv, ft, sim), (fv_c, ft_c, sim_c),
                      cpu_model.model.logit_scale.exp().item())
 
+    mark("6")
     # 6. serving
     rng = np.random.default_rng(1)
     extra = rng.normal(size=(10_000, 512)).astype(np.float32)
@@ -3713,6 +3930,7 @@ def main() -> int:
             require(np.array_equal(ids[:, 0], np.arange(lo, hi)),
                     "an image query did not find its own gallery row first")
 
+    mark("7")
     # 7. bf16
     del cpu_model
     bf16 = convert_weights(flagship(dtype="bf16"))
@@ -3730,28 +3948,35 @@ def main() -> int:
     del model, bf16, big
     torch.cuda.empty_cache()
 
+    mark("8")
     # 8. video
     video_launches = run_video(ops, smi)
     torch.cuda.empty_cache()
 
+    mark("9")
     # 9. the LN sweep
     sweep_launches = run_ln_sweep(ops)
 
+    mark("10")
     # 10. each model kernel's backward
     check_backward(ops)
 
+    mark("11")
     # 11. train-step parity, card vs CPU, and the frozen config
     parity_launches, parity_steps = run_train_parity(ops)
     want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
     log(f"kernel use ({PARITY_STEPS} fp32 train steps): {json.dumps(parity_launches)}")
     require(parity_launches == want, f"train launches {parity_launches} != {want}")
 
+    mark("12")
     # 12. train throughput: plain, accumulating, bf16 moments
-    run_train_bench(ops, smi)
+    plain_rate = run_train_bench(ops, smi)
 
+    mark("13")
     # 13. the accumulating step, card vs CPU and against the plain step
     run_accum_parity(ops)
 
+    mark("14")
     # 14. the Trainer: epochs, validation, checkpoints, resume
     trainer_rates = run_trainer(ops, smi)
 
@@ -3764,39 +3989,51 @@ def main() -> int:
                                 dir=Path(__file__).resolve().parent / "saved"))
     saved_env = os.environ.get("VTC_CLIP_WEIGHTS")
     try:
+        mark("15")
         # 15. the data path and the train.py twin
         csv_path, media = run_data_and_train(ops, smi, trainer_rates, tmp)
 
+        mark("16")
         # 16. libjpeg-turbo's chroma upsampling and colour conversion on the card
         check_ycc(smi)
 
+        mark("17")
         # 17. evaluation: the eval.py twin, the transfer evaluation
         eval_run = run_evaluation(ops, smi, tmp, csv_path, media)
 
+        mark("18")
         # 18. serving: the embedding script, serve.py over HTTP, bench_serving
         run_serving(ops, smi, tmp, csv_path, media)
 
+        mark("19")
         # 19. the committed video fixture through the running machine's OpenCV
         check_video_fixture(smi)
 
+        mark("20")
         # 20. the video twin: the TimeSformer config with the MSRVTT probe, 1-frame
         video_csv, video_media = run_video_twin(ops, smi, tmp)
 
+        mark("21")
         # 21. the video loader against the video step's demand
         run_video_loader(smi, video_csv, video_media)
 
+        mark("22")
         # 22. the repairs: the JPEG bomb, 4:1:1 and 4:1:0 planes, serving's ties
         check_repairs(smi)
 
+        mark("23")
         # 23. the audio config: card vs CPU, pairs/s, its twin, the audio embeddings
         run_audio_config(ops, smi, tmp, csv_path, media, video_csv, video_media)
 
+        mark("24")
         # 24. the MoE config: routing card vs CPU, train samples/s, its twin
         run_moe_config(ops, smi, tmp, csv_path, media)
 
+        mark("25")
         # 25. R(2+1)D-34, its datasets, GDT's ResNet-9
         run_r2plus1d(ops, smi, tmp, video_csv, video_media)
 
+        mark("32")
         # 32. data parallelism: phase 11's steps and phase 17's eval twin on W
         # ranks over NCCL (here, inside phases 15-25's directory: the eval twin
         # reads their corpus)
@@ -3808,19 +4045,32 @@ def main() -> int:
             os.environ["VTC_CLIP_WEIGHTS"] = saved_env
         shutil.rmtree(tmp, ignore_errors=True)
 
+    mark("26")
     # 26. fused_mha's long route against its plain version, timed
     results["fused_mha_long"] = check_long_route(ops)
 
+    mark("27")
     # 27. ViT-B/16 and ViT-L/14: card vs CPU, launches, bf16, bench rows, train, video
     long_launches = run_variants(ops, smi)
 
+    mark("28-29")
     # 28-29. the bench twin at its defaults; profile_eval, bench_video_eval,
     # bench_optim_update
     run_bench_twins(smi)
 
+    mark("30")
     # 30. VTC_REMAT: gradients and launches of a remat step, the video step's memory
     run_remat(ops, smi)
 
+    mark("33")
+    # 33. tensor parallelism: phase 11's steps split over 2 ranks, the dry run
+    run_tensor_parallel(smi, parity_steps, plain_rate)
+
+    mark("34")
+    # 34. the sharded gallery against the one-shard index and the CPU's shards
+    check_sharded_gallery(smi)
+
+    mark("31")
     # 31. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
@@ -3837,6 +4087,9 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
         })
+    mark("end")
+    log("phase seconds (from each start to the next): " + json.dumps(
+        {p: round(t1 - t0, 1) for (p, t0), (_, t1) in zip(marks, marks[1:])}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,29 @@ def test_profile_eval_runs():
     assert all(t > 0 for t in ms.values())
 
 
+@pytest.mark.parametrize("patches", ["0", "1"])
+def test_profile_trace_runs(monkeypatch, patches):
+    """The ``profile_trace`` twin at test-tiny on the CPU (the CPU's
+    operators in place of the card's kernels), NCHW bf16 images and the
+    uint8 patch input: the families, the top kernels and the idle share."""
+    from vtc_tpu_torch.scripts import profile_trace
+
+    monkeypatch.setenv("VTC_PROFILE_PATCHES", patches)
+    lines = []
+    prof = profile_trace.main(batch=2, iters=2, model_type=TINY, device="cpu",
+                              log=lines.append)
+    assert prof["family_ms"] and all(ms >= 0 for ms in prof["family_ms"].values())
+    assert 0 < len(prof["kernel_ms"]) <= profile_trace.TOP
+    assert 0 <= prof["idle_share"] < 1 and prof["launches"] > 0
+    assert any(line.startswith("profile bf16 batch 2, 2 forwards") for line in lines)
+    assert sum(line.startswith("profile device ms per forward:") for line in lines) == len(
+        prof["family_ms"])
+    assert profile_trace.family("triton_per_fused_ln_kernel_0") == "layernorm"
+    assert profile_trace.family("x_addln_kernel") == "add_layernorm"
+    assert profile_trace.family("fused_mha_long_onepass_kernel<64>") == "fused_mha_long"
+    assert profile_trace.family("nvjet_tst_128x64") == "gemm"
+
+
 def test_bench_video_eval_runs():
     out = bench_video_eval.main(batch=2, frames=2, iters=1, warmup=1, model_type=TINY,
                                 device="cpu", log=lambda m: None)

@@ -10,10 +10,11 @@ single-process run at the global batch.
   at ``accum_steps`` 2 (losses at rtol 2e-5, as ``tests/test_parallel.py``;
   parameters within Adam's bound of ``lr`` per step, as
   ``tests/test_torch_training.py``, and 99% of the entries at atol 1e-5, as
-  ``tests/test_parallel.py`` holds its parameters). ``torch.optim.Adam``
-  leaves a parameter without a gradient (``final_linear`` beside
-  ``init_from_avg``) where it is, as the reference does; the JAX package's
-  fused optimizer decays it, which the ``lr`` bound covers.
+  ``tests/test_parallel.py`` holds its parameters). A parameter without a
+  gradient (``final_linear`` beside ``init_from_avg``) is stepped with a zero
+  gradient by both optimizers, so under this test's weight decay both move
+  it alike (``vtc_tpu_torch/training/optim.py``); each entry lies within one
+  ``lr`` a step of JAX's (0.35 lr at most after the 2 steps).
 * Against the port's own single-process step at the global batch: the
   loss within 2e-6, the step-1 gradients within ``GRAD_RTOL`` (1e-5) of
   each parameter's largest |gradient|, above fp32's reordering floor of
@@ -222,12 +223,12 @@ def test_two_rank_step_matches_jax_on_a_dp2_mesh(steps_run, case):
     assert ours["shapes"][2] == (8, 8)  # the global batch's similarity
     # Adam moves a parameter by about lr whatever its gradient, so an entry
     # whose gradient sits at rounding level may move either way: each entry
-    # within 2 lr per step, 99% within PARAM_ATOL_JAX (1% of the base lr)
+    # within 1 lr per step, 99% within PARAM_ATOL_JAX (1% of the base lr)
     lr = _lrs(spec["cases"][f"jax_{case}"]["state_dict"])
     near = []
     for name, p in ours["params"].items():
         d = np.abs(_np(p) - _np(params_j[name]))
-        assert (d / lr[name]).max() <= 2 * 2, (name, d.max())
+        assert (d / lr[name]).max() <= 1 * 2, (name, d.max())
         near.append(d.ravel() <= PARAM_ATOL_JAX)
     assert np.concatenate(near).mean() >= 0.99
 
@@ -328,9 +329,9 @@ def test_shard_by_process_matches_the_jax_loader(monkeypatch, n, batch, drop_las
         for index in range(count):
             monkeypatch.setattr(jax, "process_index", lambda: index)
             monkeypatch.setattr(jax, "process_count", lambda: count)
-            for mod in (port_loader, mesh):
-                monkeypatch.setattr(mod, "rank", lambda group=None: index)
-                monkeypatch.setattr(mod, "world", lambda group=None: count)
+            # the loader reads the data axis of parallel.mesh
+            monkeypatch.setattr(mesh, "rank", lambda group=None: index)
+            monkeypatch.setattr(mesh, "world", lambda group=None: count)
             kw = dict(batch_size=batch, shuffle=True, seed=7, drop_last=drop_last,
                       num_workers=0, shard_by_process=True)
             ours, ref = port_loader.DataLoader(_Index(n), **kw), JaxLoader(_Index(n), **kw)

@@ -262,13 +262,15 @@ def test_all_decodes_failing_raises_clearly(cam_pair):
 def test_retrieval_evaluation_refusals(cam_pair):
     _, _, model = cam_pair
     ds = _SyntheticVideoDataset(n=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # a mesh is the process group's (create_mesh); the model axis runs in
+    # tests/test_torch_tp.py
+    with pytest.raises(ValueError, match="create_mesh"):
         port_re.retrieval_evaluation(model, "synthetic", "test", dataset=ds, mesh=object(),
                                      device="cpu")
     with pytest.raises(RuntimeError, match="runs under torchrun"):
         port_re.retrieval_evaluation(model, "synthetic", "test", dataset=ds, process_count=2,
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="create_mesh"):
         port_re.compute_recall(np.ones((2, 4)), np.ones((2, 4)), mesh=object(), device="cpu")
     # a named dataset whose root is absent raises what vtc_tpu raises
     module, variables, _ = cam_pair
@@ -450,9 +452,12 @@ def test_eval_twin_cli_zero_shot_name(corpus, monkeypatch, tmp_path):
 
 def test_eval_twin_refusals(corpus, tmp_path, monkeypatch):
     tmp, csv, root = corpus
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # --n_model without a process group: on a machine with the cards, the
+    # torchrun line that runs them (the mesh runs in tests/test_torch_tp.py)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 .*--n_model 2"):
         port_eval.main(ConfigParser(_eval_config(tmp_path, csv, root, n_model=2)), _Args(),
-                       None, device="cpu")
+                       None, device="cuda")
     # a multihost config waits for its process group to pick the run dir
     with pytest.raises(RuntimeError, match="finalize_run_dir"):
         ConfigParser(_eval_config(tmp_path, csv, root, multihost=1)).save_dir

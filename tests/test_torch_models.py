@@ -357,7 +357,8 @@ def test_port_imports_no_jax():
         "serving/server", "scripts/serve", "scripts/get_clip_vit_embeddings",
         "scripts/bench_serving", "data/png", "data/image_io", "data/video",
         "data/video_retrieval", "scripts/bench_video_pipeline", "parallel/mesh",
-        "utils/util")} <= walked
+        "utils/util", "parallel/tensor", "data/gif", "data/bmp", "scripts/dryrun_fullsize",
+        "scripts/profile_trace")} <= walked
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu", "pandas", "regex")
     pil_imports = []
     for f in files:

@@ -151,6 +151,52 @@ def test_optimizer_matches_fused_optimizer(jax_model, opt_type, amsgrad, schedul
     assert any(frozen(n) for n in named)
 
 
+@pytest.mark.parametrize("opt_type,moments", [
+    ("Adam", None), ("AdamW", None), ("Adam", "bfloat16"), ("AdamW", "bfloat16"),
+])
+def test_decay_moves_a_parameter_without_a_gradient(opt_type, moments):
+    """``final_linear`` beside ``init_from_avg`` takes no gradient; under
+    weight decay 0.01 the fused optimizer steps it as if its gradient were
+    zero, and so does the port's (the other parameters on random
+    gradients), over 2 steps, each leaf within fp32 rounding of JAX's."""
+    _, variables = jax_create_model("PretrainedCLIP_finaltf", model_type=TINY, seed=0)
+    params = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
+                                    variables["params"])
+    params["cam"]["final_linear"] = np.random.default_rng(7).normal(
+        size=params["cam"]["final_linear"].shape).astype(np.float32)
+    args = {"lr": 1e-2, "weight_decay": 1e-2, "amsgrad": True}
+    if moments:
+        args["moments_dtype"] = moments
+    cfg = {"type": opt_type, "args": args}
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    tx = jax_optim.build_optimizer(jparams, cfg, None, adapter_lr=3e-2)
+    state = tx.init(jparams)
+    model = _port(("PretrainedCLIP_finaltf", {}), params)
+    assert model.init_from_avg
+    optimizer, _ = build_optimizer(model, cfg, None, adapter_lr=3e-2)
+    seen = []
+    optimizer.register_step_pre_hook(
+        lambda opt, a, k: seen.append(model.final_linear.weight.grad))
+    named = dict(model.named_parameters())
+    for step in range(2):
+        g = _grads(params, step)
+        g["cam"]["final_linear"] = np.zeros_like(g["cam"]["final_linear"])
+        jparams, state = tx.apply(jax.tree_util.tree_map(jnp.asarray, g), state, jparams)
+        for name, grad in state_dict_from_jax(g).items():
+            if name in named and name != "final_linear.weight":
+                named[name].grad = grad
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+    assert seen == [None, None]  # the hooks see the step's own gradients
+    assert model.final_linear.weight.grad is None
+    ref = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    moved = model.final_linear.weight.detach().numpy() - params["cam"]["final_linear"].T
+    assert np.abs(moved).min() > 0  # decay moved every entry
+    for name, p in named.items():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(),
+                                   atol=1e-6, rtol=1e-6, err_msg=name)
+
+
 @pytest.mark.parametrize("cfg", [
     None,
     {"type": "StepLR", "args": {"step_size": 3, "gamma": 0.5}},

@@ -289,6 +289,36 @@ def test_bomb_sized_jpeg_is_a_400_before_the_binding(servers, monkeypatch):
     assert got[0] == 400 and "decompression bomb" in got[1]["error"], got
 
 
+def test_gif_and_bmp_fixtures_on_the_card_route(servers, monkeypatch):
+    """On the card's route (the JPEG binding stubbed to fail if asked) the
+    committed GIFs and BMPs posted as base64 give what posting the floats of
+    their committed PIL decodes gives; a bomb-sized header and a truncated
+    file of each format get a 400, the bomb refused from its header."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import test_torch_gif_bmp as gb
+    from vtc_tpu_torch.data import image_io
+
+    _, server = servers
+    monkeypatch.setattr(image_io, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(image_io._build, "load_library", _fail_to_load)
+    ref = np.load(gb.DIR / "pil_decodes.npz")
+    names = sorted(p.name for p in gb.DIR.iterdir() if p.suffix in (".gif", ".bmp"))
+    for lo in range(0, len(names), 8):  # max_batch 8
+        part = names[lo:lo + 8]
+        b64 = _post(server.port, "/search/image", {"images_b64": [
+            base64.b64encode((gb.DIR / n).read_bytes()).decode() for n in part], "k": 5})
+        floats = _post(server.port, "/search/image", {"images": np.stack([
+            clip_preprocess(ref[n.replace(".", "_")], 32) for n in part]).tolist(), "k": 5})
+        assert b64[0] == 200 and b64[1] == floats[1], part
+    gif, bmp = ((gb.DIR / n).read_bytes() for n in ("pil_interlaced.gif", "pil_rgb.bmp"))
+    for data, said in ((gb.bomb_gif(), "decompression bomb"),
+                       (gb.bomb_bmp(), "decompression bomb"),
+                       (gif[: len(gif) // 2], "truncated"), (bmp[: len(bmp) // 2], "truncated")):
+        got = _post(server.port, "/search/image",
+                    {"images_b64": [base64.b64encode(data).decode()]})
+        assert got[0] == 400 and said in got[1]["error"], got
+
+
 def test_server_on_the_card_route_needs_a_card(monkeypatch):
     """Without a card the service's default device raises; nothing falls
     back to the CPU or to PIL."""
@@ -316,7 +346,7 @@ def test_build_server_from_a_gallery_npz(tmp_path):
         server.shutdown()
 
 
-def test_build_server_takes_a_checkpoint_and_an_index_file(tmp_path, capsys):
+def test_build_server_takes_a_checkpoint_and_an_index_file(tmp_path, capsys, monkeypatch):
     """A ``.pth`` of other weights is grafted (the CAM keys it lacks are
     reported), and a ``RetrievalIndex.save`` file serves as the gallery."""
     from vtc_tpu_torch.training.checkpoints import save_checkpoint
@@ -336,8 +366,19 @@ def test_build_server_takes_a_checkpoint_and_an_index_file(tmp_path, capsys):
     assert torch.equal(model.model.text_projection, plain.model.text_projection)
     assert len(server.service.index) == 7
     server._httpd.server_close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        serve.build_server(config, None, tmp_path / "index.npz", n_devices=2, device="cpu")
+    # a 2 x 1 mesh: the gallery in 2 row shards (on the CPU, both there), the
+    # same answers; on the card the mesh needs its cards
+    sharded = serve.build_server(config, None, tmp_path / "index.npz", n_devices=2,
+                                 device="cpu")
+    assert len(sharded.service.index.devices) == 2 and len(sharded.service.index) == 7
+    q = np.random.default_rng(3).normal(size=(2, DIM))
+    for got, want in zip(sharded.service.index.search(q, k=7), server.service.index.search(q, 7)):
+        np.testing.assert_array_equal(got, want)
+    sharded._httpd.server_close()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(RuntimeError, match="a 2x2 mesh needs 4 cards; this machine has 3"):
+        serve.build_server(config, None, tmp_path / "index.npz", n_devices=2, n_model=2,
+                           device="cuda")
     with pytest.raises(NotImplementedError, match="Orbax"):
         serve.build_server(config, tmp_path, tmp_path / "index.npz", device="cpu")
 
@@ -396,7 +437,7 @@ def test_embedding_script_matches_jax(thumbnails, monkeypatch):
     np.testing.assert_allclose(load_features(read_csv(csv), str(out)), emb)
 
 
-def test_embedding_script_in_bf16_and_refusals(thumbnails):
+def test_embedding_script_in_bf16_and_refusals(thumbnails, monkeypatch):
     tmp, csv, root, weights = thumbnails
     out = tmp / "bf16.npz"
     emb = get_clip_vit_embeddings.main(_args(csv, root, out, weights, "--device", "cpu"))
@@ -405,6 +446,30 @@ def test_embedding_script_in_bf16_and_refusals(thumbnails):
     assert emb.shape == (10, DIM) and np.isfinite(emb).all()
     cos = (emb * fp32).sum(-1) / np.linalg.norm(emb, axis=-1) / np.linalg.norm(fp32, axis=-1)
     assert cos.min() > 0.995  # tests/test_clip_parity.py::test_bf16_close_to_fp32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # --n_devices without a process group, on a machine with the cards: the
+    # torchrun line (the ranks run in test_embedding_script_on_two_processes)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         get_clip_vit_embeddings.main(_args(csv, root, out, weights, "--n_devices", "2",
-                                           "--device", "cpu"))
+                                           "--device", "cuda"))
+
+
+def test_embedding_script_on_two_processes(thumbnails, tmp_path):
+    """``--n_devices 2`` on 2 gloo ranks: each encodes its strided share,
+    rank 0 alone writes, and the ``.npz`` equals the one process's byte for
+    byte (batches of 5, so each process's batches have one process's
+    shape: a row's features do not depend on its batch's other rows)."""
+    import torch_dist_ranks as R
+
+    _, csv, root, weights = thumbnails
+    one = tmp_path / "one.npz"
+    get_clip_vit_embeddings.main(_args(csv, root, one, weights, "--fp32", "--device", "cpu",
+                                       "--batch_size", "5"))
+    two = tmp_path / "two.npz"
+    argv = _args(csv, root, two, weights, "--fp32", "--device", "cpu", "--batch_size", "5",
+                 "--n_devices", "2")
+    R.spawn(R.run_embeddings, 2, tmp_path, argv)
+    assert two.read_bytes() == one.read_bytes()
+    ranks = [torch.load(tmp_path / f"emb_rank{r}.pt", weights_only=False) for r in (0, 1)]
+    assert [r["rows"] for r in ranks] == [5, 5]
+    assert all(np.array_equal(r["stacked"], np.load(one)["embeddings"]) for r in ranks)

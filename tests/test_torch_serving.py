@@ -123,3 +123,34 @@ def test_ties_rank_as_lax_top_k(k):
         np.testing.assert_array_equal(index.search(queries, k=6)[0],
                                       [[1000, 1001, 1002, 1003, 1016, 1017],
                                        [1004, 1005, 1006, 1007, 1020, 1021]])
+
+
+@pytest.mark.parametrize("k", [6, 12, 30, 31, 32])
+def test_sharded_gallery_ranks_as_one_shard_and_as_jax(k):
+    """The duplicate-row gallery of ``test_ties_rank_as_lax_top_k`` cut to 30
+    rows (not a multiple of the 4 shards: 2 rows of padding): the ids and
+    scores of the one-shard index over its columns, and ``vtc_tpu``'s index
+    sharded over a 4-device data axis over all of them, the pad rows as id
+    -1 where ``k`` passes the 30 real rows."""
+    from vtc_tpu.parallel.mesh import create_mesh
+
+    base = np.random.default_rng(0).standard_normal((8, 512)).astype(np.float32)
+    gallery = np.repeat(base, 4, axis=0)[:30]
+    ids = np.arange(1000, 1030)
+    one = RetrievalIndex(512, device="cpu")
+    sharded = RetrievalIndex(512, devices=["cpu"] * 4)
+    jindex = JaxIndex(512, mesh=create_mesh(4, 1, devices=jax.devices()[:4]))
+    for index in (one, sharded, jindex):
+        index.add(gallery, ids)
+    queries = np.concatenate([base[:2], base[7:8]])
+    got, want, ref = sharded.search(queries, k), one.search(queries, k), jindex.search(queries, k)
+    assert got[0].shape == (3, min(k, 32))
+    cols = min(k, 30)
+    np.testing.assert_array_equal(got[0][:, :cols], want[0])
+    np.testing.assert_allclose(got[1][:, :cols], want[1], atol=SCORE_ATOL, rtol=0)
+    _same(got, ref)
+    if k > 30:
+        assert (got[0][:, 30:] == -1).all() and np.isneginf(got[1][:, 30:]).all()
+    assert len(sharded) == 30 and [g.shape[0] for g in sharded._shards] == [8] * 4
+    sharded.add(base[:1], [2000])  # re-open: the padding is not carried over
+    assert len(sharded) == 31 and sharded.search(base[:1], 32)[0][0, 4] == 2000

@@ -17,8 +17,8 @@
   epochs (``test_trainer_matches_jax_trainer``'s tolerance); both write
   their epoch checkpoints.
 * The refusals: ``loader: grain``, ``--multihost`` without the process
-  topology ``torchrun`` exports, ``pp``, ``sp``, ``ep``, ``n_model``,
-  ``fsdp``, the R(2+1)D video datasets, ``--n_devices`` on a machine with
+  topology ``torchrun`` exports, ``pp``, ``sp``, ``ep``, ``fsdp`` (also
+  beside ``n_model``, whose axis runs in ``tests/test_torch_tp.py``), the R(2+1)D video datasets, ``--n_devices`` on a machine with
   the cards but no process group (the ``torchrun`` line); the unsharded
   warning on one without them; the MSRVTT probe off without its root. The
   twin on a group's ranks is in ``tests/test_torch_dist.py``.
@@ -422,7 +422,7 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     ({"sp": 2}, "distribution"),
     ({"ep": 2}, "Queue 1 item 9"),
     ({"slices": 2}, "Queue 1 item 9"),
-    ({"n_model": 2}, "Queue 1 item 9"),
+    ({"n_model": 2, "fsdp": 1}, "Queue 1 item 9"),  # the model axis runs: test_torch_tp.py
     ({"fsdp": 1}, "Queue 1 item 9"),
 ])
 def test_twin_refusals(tmp_path, extra, match):

@@ -80,9 +80,11 @@ def step_case(case: dict) -> dict:
     shapes."""
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.parallel.tensor import full_tensors, shard_model
     from vtc_tpu_torch.training import build_optimizer, train_step
 
-    model = flagship_port(case["state_dict"], **case.get("model_kw", {}))
+    # split over the model axis where the rank's mesh has one
+    model = shard_model(flagship_port(case["state_dict"], **case.get("model_kw", {})))
     optimizer, scheduler = build_optimizer(model, OPT, SCHED, **STEP_KW)
     grads = {}
 
@@ -103,8 +105,10 @@ def step_case(case: dict) -> dict:
                                accum_steps=case.get("accum", 1))
         losses.append(float(loss))
         shapes = [tuple(o.shape) for o in out]
-    return {"losses": losses, "grads": grads, "shapes": shapes,
-            "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+    return {"losses": losses, "grads": full_tensors(model, grads), "shapes": shapes,
+            "params": full_tensors(model, {n: p.detach().clone()
+                                           for n, p in model.named_parameters()}),
+            "local_params": {n: p.detach().clone() for n, p in model.named_parameters()},
             "buffers": {n: b.clone() for n, b in model.named_buffers()}}
 
 
@@ -212,3 +216,100 @@ def run_cli(rank, world, tmp):
                                            str(resumed.checkpoint_dir)],
                 "start": resumed.start_epoch},
                tmp / f"cli_rank{rank}.pt")
+
+
+# ---- the model axis (tests/test_torch_tp.py) --------------------------------------
+
+def run_tp(rank, world, tmp):
+    """A ``create_mesh(world // 2, 2)`` mesh: every step case of
+    ``tmp/tp.pt`` through ``step_case``; where the spec has them, the
+    ``eval.py`` twin and ``retrieval_evaluation`` on the mesh, and the train
+    twin at ``--n_model 2`` with a resume, recording each epoch's gathered
+    parameters and the state the resume restored."""
+
+    from vtc_tpu_torch.parallel.mesh import create_mesh, current_mesh
+    from vtc_tpu_torch.parallel.tensor import shard_model
+
+    create_mesh(world // 2, 2)
+    spec = torch.load(tmp / "tp.pt", weights_only=False)
+    out = {"cases": {name: step_case(case) for name, case in spec["cases"].items()}}
+    if "evals" in spec:
+        import json
+        import types
+
+        from vtc_tpu_torch.config import ConfigParser
+        from vtc_tpu_torch.evaluation import eval as port_eval
+        from vtc_tpu_torch.evaluation.retrieval_eval import retrieval_evaluation
+
+        ev = spec["evals"]
+        os.chdir(tmp / "evalrun")
+        written = []
+        port_eval.json = types.SimpleNamespace(
+            dump=lambda obj, f: (written.append(f.name), json.dump(obj, f)))
+        out["recalls"] = port_eval.main(ConfigParser(ev["config"]), EvalArgs(), ev["ckpt"],
+                                        device="cpu")
+        out["written"] = written
+        model = shard_model(flagship_port(ev["state_dict"])).eval()
+        out["table"] = retrieval_evaluation(
+            model, "synthetic", "test", dataset=ev["videos"], frame_stride=4,
+            out_csv=str(tmp / "evalrun" / "table.csv"), mesh=current_mesh(),
+            device="cpu").to_numpy()
+    if "cli" in spec:
+        out.update(_tp_cli(tmp, world))
+    torch.save(out, tmp / f"tp_rank{rank}.pt")
+
+
+def _tp_cli(tmp, world):
+    from vtc_tpu_torch import train as twin
+    from vtc_tpu_torch.parallel.tensor import full_optimizer_state, full_state_dict
+    from vtc_tpu_torch.training import trainer as trainer_mod
+
+    epochs, resumed = [], []
+    run_epoch = trainer_mod.Trainer._train_epoch
+    resume = trainer_mod.Trainer._resume_checkpoint
+
+    def copied(tree):
+        if torch.is_tensor(tree):
+            return tree.detach().clone()
+        if isinstance(tree, dict):
+            return {k: copied(v) for k, v in tree.items()}
+        return tree
+
+    def record(self, epoch):
+        log = run_epoch(self, epoch)
+        epochs.append(copied(full_state_dict(self.model)))
+        return log
+
+    def record_resume(self, path):
+        resume(self, path)
+        resumed.append((copied(full_state_dict(self.model)),
+                        copied(full_optimizer_state(self.model, self.optimizer))))
+
+    trainer_mod.Trainer._train_epoch = record
+    trainer_mod.Trainer._resume_checkpoint = record_resume
+    argv = ["-c", str(tmp / "cli_config.json"), "--n_devices", str(world // 2),
+            "--n_model", "2"]
+    first = twin.cli(argv, device="cpu")
+    ckpt = first.checkpoint_dir / "checkpoint-epoch1.pth"
+    again = twin.cli(["-r", str(ckpt), "--n_devices", str(world // 2), "--n_model", "2",
+                      "--epochs", "2"], device="cpu")
+    return {"epochs": epochs, "resumed": resumed, "start": again.start_epoch,
+            "dirs": [str(first.checkpoint_dir), str(again.checkpoint_dir)],
+            "local": {n: p.detach().clone() for n, p in again.model.named_parameters()}}
+
+
+def run_embeddings(rank, world, tmp, argv):
+    """The embedding script's ``main(argv)`` on this rank: the rows it
+    encoded and the merged embeddings it returned."""
+    from vtc_tpu_torch.scripts import get_clip_vit_embeddings as script
+
+    encoded = []
+    encode = script.Thumbnails.__getitem__
+
+    def count(self, i):
+        encoded.append(i)
+        return encode(self, i)
+
+    script.Thumbnails.__getitem__ = count
+    stacked = script.main(argv)
+    torch.save({"rows": len(encoded), "stacked": stacked}, tmp / f"emb_rank{rank}.pt")

@@ -25,14 +25,17 @@ one; nothing switches between them quietly:
   4:1:0, a fourth component sampled otherwise than the first) or fails to
   decode raises ``JpegDecodeError``, and no other
   decoder stands in; an image of more than ``MAX_PIXELS`` pixels is refused
-  from its header, before anything is allocated, as PIL refuses it. A PNG
-  is decoded on the host by ``png.decode_png``;
+  from its header, before anything is allocated, as PIL refuses it. A PNG,
+  a GIF and a BMP are decoded on the host, by ``png.decode_png``,
+  ``gif.decode_gif`` and ``bmp.decode_bmp``, each PIL's pixels bit for bit
+  (WebP and the other formats PIL reads raise ``JpegInputError``);
 * the CPU (``device="cpu"``): PIL, imported in the function, as the JAX
   package does.
 
 A fault of the bytes themselves (not an image the route decodes, a
 malformed file, a kind of image refused by name) raises an
-``ImageInputError``: ``JpegInputError``, ``png.PngDecodeError``, or PIL's
+``ImageInputError``: ``JpegInputError``, ``png.PngDecodeError``,
+``gif.GifDecodeError``, ``bmp.BmpDecodeError``, or PIL's
 error wrapped on the CPU route. Every other error (a binding that does not
 build or load, a failed launch, the card's own errors) is the program's,
 and is not an ``ImageInputError``.
@@ -403,9 +406,10 @@ def decode_jpeg(data: bytes, device: Optional[torch.device] = None, path="<bytes
 
 def decode_rgb(data: bytes, device=None, path="<bytes>") -> np.ndarray:
     """uint8 ``[h, w, 3]`` RGB of the encoded image ``data``, on the host:
-    on the card (default; raises without one) a JPEG by ``decode_jpeg`` and
-    a PNG by ``png.decode_png``, any other format raising
-    ``JpegInputError``; by PIL where ``device`` is the CPU, whose errors
+    on the card (default; raises without one) a JPEG by ``decode_jpeg``, and
+    on the host a PNG by ``png.decode_png``, a GIF by ``gif.decode_gif`` and
+    a BMP by ``bmp.decode_bmp`` (told apart by their magic bytes), any other
+    format raising ``JpegInputError``; by PIL where ``device`` is the CPU, whose errors
     (PIL reading the bytes) are raised as ``ImageInputError``."""
     device = resolve_device(device)
     if device.type == "cpu":
@@ -422,6 +426,14 @@ def decode_rgb(data: bytes, device=None, path="<bytes>") -> np.ndarray:
         from .png import decode_png
 
         return decode_png(data)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        from .gif import decode_gif
+
+        return decode_gif(data)
+    if data[:2] == b"BM":
+        from .bmp import decode_bmp
+
+        return decode_bmp(data)
     img = decode_jpeg(data, device if device.index is not None else None, path)
     with torch.cuda.stream(_local.stream):
         return img.cpu().numpy()

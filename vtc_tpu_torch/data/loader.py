@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel.mesh import shard_rows
-from ..utils.util import rank, world
+from ..parallel.mesh import data_rank, data_world, shard_rows
 
 
 def default_collate(items):
@@ -49,7 +48,9 @@ def default_collate(items):
 class DataLoader:
     """Batches of ``dataset`` in the JAX loader's order.
 
-    Under a process group two ways of sharding the input:
+    Under a process group two ways of sharding the input over the data
+    axis (``parallel.mesh``; the model places of a data rank load the same
+    rows):
 
     * ``shard_by_process`` (``--multihost``): each process reads its slice
       ``p·n/P … (p+1)·n/P`` of the (identically shuffled) index stream in
@@ -83,8 +84,8 @@ class DataLoader:
         self.collate_fn = collate_fn
         self.prefetch = prefetch
         self._epoch = 0
-        self.process_index, self.process_count = (rank(), world()) if shard_by_process \
-            else (0, 1)
+        self.process_index, self.process_count = (data_rank(), data_world()) \
+            if shard_by_process else (0, 1)
         self.shard_batches = shard_batches
 
     def __len__(self) -> int:
@@ -108,7 +109,7 @@ class DataLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        if self.shard_batches and world() > 1:
+        if self.shard_batches and data_world() > 1:
             batches = [b[shard_rows(len(b))] for b in batches]
         return batches
 

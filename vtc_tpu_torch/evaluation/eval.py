@@ -16,8 +16,11 @@ each process encodes the strided disjoint subset ``rank::world`` of the test
 split, the embedding blocks are merged by ``allgather_varlen`` and both
 directions are ranked on every process (``evaluation/eval.py:80-101,
 267-286``); R@K does not depend on the rows' order, since queries and
-gallery permute together. Rank 0 alone writes the JSON file. ``--n_model``
-above 1 raises, naming ROADMAP Queue 1 item 9.
+gallery permute together. Rank 0 alone writes the JSON file. With
+``--n_model M`` (``torchrun --nproc_per_node N·M``) the group is
+``create_mesh(N, M)``'s: the model is split over each model group
+(``parallel.tensor``), whose ranks encode the same share, and the shares
+merge over the data group.
 """
 
 from __future__ import annotations
@@ -38,10 +41,18 @@ from ..data.tokenizer import truncate_batch_tokens
 from ..device import resolve_device
 from ..models import create_model
 from ..ops.retrieval import recall_at_k
-from ..parallel.mesh import check_axes, check_data_devices, process_share
+from ..parallel.mesh import (
+    check_axes,
+    check_data_devices,
+    create_mesh,
+    data_group,
+    model_rank,
+    process_share,
+)
+from ..parallel.tensor import shard_model
 from ..training.checkpoints import graft_into, load_checkpoint
 from ..training.trainer import flatten_data
-from ..utils.util import all_max, allgather_varlen, init_distributed, launched
+from ..utils.util import all_max, allgather_varlen, init_distributed, launched, world
 
 
 def add_irrelevant_comms(comments: np.ndarray, num_irrelevant_comments: int,
@@ -94,9 +105,12 @@ def main(config: ConfigParser, args, checkpoint_path, device=None,
     ``process_count``, the group's by default)."""
     device = resolve_device(device)
     logger = config.get_logger("test")
-    check_axes(config.get("n_model", 1))
+    n_model = int(config.get("n_model", 1) or 1)
+    check_axes(n_model)
     check_data_devices(config.get("n_devices", 1), device, logger, "evaluating",
-                       "vtc_tpu_torch.evaluation.eval")
+                       "vtc_tpu_torch.evaluation.eval", n_model)
+    if world() > 1:
+        create_mesh(world() // n_model, n_model)
     pidx, pcount = process_share(process_index, process_count)
 
     dataset = config.init_obj("dataset", module_data, train=False, test=True, device=device)
@@ -133,6 +147,7 @@ def main(config: ConfigParser, args, checkpoint_path, device=None,
     model = create_model(config["arch"]["type"], device=device, **arch_args)
     if checkpoint_path is not None:
         graft_into(model, load_checkpoint(checkpoint_path)["state_dict"], strict=True)
+    shard_model(model)  # over the model axis, where the mesh has one
     logger.info("Model: %s", config["arch"]["type"])
 
     needs_comments = hasattr(model, "branch_to_adapt_val")
@@ -181,8 +196,8 @@ def main(config: ConfigParser, args, checkpoint_path, device=None,
                                f"the test split is empty (check the data root paths)")
         if not len(res_vis):
             res_vis = res_text = np.zeros((0, dim), np.float32)
-        res_vis = allgather_varlen(np.asarray(res_vis, np.float32))
-        res_text = allgather_varlen(np.asarray(res_text, np.float32))
+        res_vis = allgather_varlen(np.asarray(res_vis, np.float32), data_group())
+        res_text = allgather_varlen(np.asarray(res_text, np.float32), data_group())
 
     recall_title_from_im = recall_at_k(res_vis, res_text, [1, 5, 10], device=device)
     recall_im_from_title = recall_at_k(res_text, res_vis, [1, 5, 10], device=device)
@@ -197,7 +212,7 @@ def main(config: ConfigParser, args, checkpoint_path, device=None,
         "R5_im_from_title": recall_im_from_title[1][1],
         "R10_im_from_title": recall_im_from_title[2][1],
     }
-    if pidx == 0:  # every process holds the same recalls; one writes them
+    if pidx == 0 and model_rank() == 0:  # every process holds them; one writes
         with open(save_path, "w") as f:
             json.dump(out, f)
     return out

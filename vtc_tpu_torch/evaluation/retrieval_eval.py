@@ -18,8 +18,11 @@ Under a process group each process encodes the strided disjoint video
 subset ``rank::world`` and the embeddings are merged by
 ``allgather_varlen`` in the dataset's order before the ranking, as
 ``vtc_tpu/evaluation/retrieval_eval.py:352-425`` does; a process left
-without embeddings joins the gathers with empty blocks. A mesh (the
-sharded gallery and encode) raises, naming ROADMAP Queue 1 item 9.
+without embeddings joins the gathers with empty blocks. ``mesh`` (the
+current ``parallel.mesh.create_mesh``'s, as ``vtc_tpu``'s evaluation takes
+its mesh) splits the videos over its data axis, the model's forward over
+its model axis (the model split by ``parallel.tensor.shard_model``), and
+ranks the queries with ``recall_at_k_sharded`` over the data group.
 ``dataset=`` takes any object
 with ``__len__`` and ``__getitem__`` that gives ``(frames, captions,
 comments, meta)`` or ``(frames, captions, meta)`` items, frames as uint8
@@ -38,9 +41,10 @@ import torch
 
 from ..data.datasets import clip_preprocess_batch
 from ..data import tokenizer as tk
-from ..device import DISTRIBUTION, resolve_device
-from ..ops.retrieval import recall_at_k
-from ..parallel.mesh import process_share
+from ..device import resolve_device
+from ..ops.retrieval import recall_at_k, recall_at_k_sharded
+from ..parallel.mesh import current_mesh, data_group, model_rank, model_world, process_share
+from ..parallel.tensor import model_axis
 from ..utils.util import all_max, allgather_varlen
 
 logger = logging.getLogger(__name__)
@@ -105,18 +109,27 @@ def _recall_df(vt_fracs, tv_fracs, dataset_name, split) -> RecallTable:
     return table
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"a mesh-sharded evaluation (the sharded gallery and "
-                                  f"encode) is not ported ({DISTRIBUTION})")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and mesh is not current_mesh():
+        raise ValueError(f"mesh {mesh!r} is not the process group's: pass the mesh of "
+                         f"parallel.mesh.create_mesh")
+
+
+def _recall(gallery, queries, mesh, device, targets=None):
+    if mesh is None:
+        return recall_at_k(gallery, queries, RECALL_RANGE, targets=targets, device=device)
+    return recall_at_k_sharded(gallery, queries, RECALL_RANGE, group=data_group(),
+                               targets=targets, device=device)
 
 
 def compute_recall(tensor_v, tensor_t, split="full-test", dataset_name="MSRVTT", mesh=None,
                    device=None) -> RecallTable:
-    """Bidirectional R@1/5/10 table (``retrieval_evaluation.py:23-47``)."""
-    _refuse_mesh(mesh)
-    vtr = [r for _, r in recall_at_k(tensor_v, tensor_t, RECALL_RANGE, device=device)]
-    tvr = [r for _, r in recall_at_k(tensor_t, tensor_v, RECALL_RANGE, device=device)]
+    """Bidirectional R@1/5/10 table (``retrieval_evaluation.py:23-47``);
+    with ``mesh`` the queries are ranked over its data group
+    (``recall_at_k_sharded``), every rank returning the same table."""
+    _check_mesh(mesh)
+    vtr = [r for _, r in _recall(tensor_v, tensor_t, mesh, device)]
+    tvr = [r for _, r in _recall(tensor_t, tensor_v, mesh, device)]
     return _recall_df(tvr, vtr, dataset_name, split)
 
 
@@ -258,8 +271,12 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
     card, which the model must be on); returns the recall table, also
     written to ``out_csv`` (by rank 0) where given. Under a process group
     each process encodes its strided share (``process_index``/
-    ``process_count``, the group's by default)."""
-    _refuse_mesh(mesh)
+    ``process_count``, the data axis's by default); with ``mesh`` a model
+    split over its model axis runs its split forward."""
+    _check_mesh(mesh)
+    if model_world() > 1 and model_axis(model) is None:
+        raise ValueError(f"a mesh of {model_world()} model ranks evaluates a split model: "
+                         f"split it with parallel.tensor.shard_model")
     pidx, pcount = process_share(process_index, process_count)
     device = _model_device(model, device)
     if dataset is None:
@@ -307,7 +324,7 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
         if video_tensor is None:
             video_tensor = flat_caps = np.zeros((0, dim), np.float32)
         ids, video_tensor, flat_caps, cap_vid = (
-            allgather_varlen(a) for a in (ids, video_tensor, flat_caps, cap_vid))
+            allgather_varlen(a, data_group()) for a in (ids, video_tensor, flat_caps, cap_vid))
     # the dataset's order, whatever the number of processes: videos by
     # index, captions after their video's
     order = np.argsort(ids, kind="stable")
@@ -320,16 +337,15 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
 
     if max_len == 1:
         table = compute_recall(video_tensor, flat_caps, split=split, dataset_name=datasetname,
-                               device=device)
+                               mesh=mesh, device=device)
     else:
         # text -> video: every real caption is a query, its target its video
-        tvr = [r for _, r in recall_at_k(video_tensor, flat_caps, RECALL_RANGE,
-                                         targets=flat_targets, device=device)]
+        tvr = [r for _, r in _recall(video_tensor, flat_caps, mesh, device, flat_targets)]
         # video -> text: a video hits if any of its captions is in its top k
         vt_hits = _vt_recall(video_tensor, flat_caps, flat_targets, RECALL_RANGE, device)
         table = _recall_df(vt_hits, tvr, datasetname, split)
 
-    if out_csv is not None and pidx == 0:
+    if out_csv is not None and pidx == 0 and model_rank() == 0:
         table.to_csv(out_csv)
     return table
 

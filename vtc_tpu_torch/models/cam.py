@@ -14,9 +14,9 @@ In training (``module.train()``, ``cam.py:110-214`` of the JAX package):
 
 * ``sub_mean``/``bn`` use the batch's statistics and update the running
   stats of ``mean_center_bn`` in fp32, at momentum 0.2 with the unbiased
-  batch variance (torch ``BatchNorm1d``); a batch of 1 is refused. Under a
-  process group of more than one rank the batch is the global one: each
-  rank gathers every rank's ``[b, d]`` rows (``parallel.mesh.
+  batch variance (torch ``BatchNorm1d``); a batch of 1 is refused. On more
+  than one data rank (``parallel.mesh``) the batch is the global one: each
+  rank gathers every data rank's ``[b, d]`` rows (``parallel.mesh.
   all_gather_rows``), normalizes them with the same ops as one device, and
   keeps its own rows, so the output and the running stats are one device's
   bit for bit (a sum-and-square all-reduce moved this CAM's gradients by
@@ -121,11 +121,12 @@ class ContextAdapter(nn.Module):
         act = self.residual_activation
         batch_stats = self.training and not finaltf_frozen
         if batch_stats and act in NEEDS_STATE and ranks and world() > 1:
-            from ..parallel.mesh import all_gather_rows, shard_rows
+            from ..parallel.mesh import all_gather_rows, data_world, shard_rows
 
-            full = all_gather_rows(s)  # the global batch, in rank order
-            out = self._residual_activation(full, finaltf_frozen, ranks=False)
-            return out[shard_rows(full.shape[0])]
+            if data_world() > 1:  # the model ranks of a data rank hold its rows
+                full = all_gather_rows(s)  # the global batch, in rank order
+                out = self._residual_activation(full, finaltf_frozen, ranks=False)
+                return out[shard_rows(full.shape[0])]
         if act == "sub_mean":
             if batch_stats:
                 self._update_bn_stats(s)

@@ -136,7 +136,11 @@ class VisionTransformer(nn.Module):
 
 
 class TextTransformer(nn.Module):
-    """CLIP text tower: causal transformer, EOT pooling, projection."""
+    """CLIP text tower: causal transformer, EOT pooling, projection. On the
+    model axis (``tp``) ``token_embedding`` holds this rank's vocabulary
+    rows: a masked lookup, then the ranks' rows summed."""
+
+    tp = None  # the model axis of a split vocabulary
 
     def __init__(self, variant: ClipVariant, dtype=torch.float32):
         super().__init__()
@@ -154,13 +158,24 @@ class TextTransformer(nn.Module):
     def encode_text(self, text):
         """[N, L] token ids -> [N, embed_dim] in the model's dtype."""
         n, length = text.shape
-        x = F.embedding(text.long(), self.token_embedding.weight).to(self.dtype)
+        x = self.embed_tokens(text.long()).to(self.dtype)
         x = x + self.positional_embedding[:length].to(self.dtype)
         x = self.transformer(x, causal=True)
         # pool at EOT (the highest id) BEFORE ln_final: LayerNorm is per
         # token, so normalizing only the pooled rows is the same math
         x = x[torch.arange(n, device=x.device), text.argmax(dim=-1)]
         return torch.matmul(self.ln_final(x), self.text_projection.to(self.dtype))
+
+    def embed_tokens(self, ids):
+        weight = self.token_embedding.weight
+        if self.tp is None:
+            return F.embedding(ids, weight)
+        from ..parallel.tensor import reduce_from_model
+
+        local = ids - self.tp.rank * weight.shape[0]
+        mine = (local >= 0) & (local < weight.shape[0])
+        rows = F.embedding(local.clamp(0, weight.shape[0] - 1), weight)
+        return reduce_from_model(torch.where(mine[..., None], rows, 0.0), self.tp)
 
     def forward(self, text):
         return self.encode_text(text)

@@ -23,8 +23,15 @@ backward instead of kept, so the kernels of a block launch twice a train
 step. The random draws are tensors handed in, so the recompute sees the
 same masks.
 
+On the model axis (``parallel.tensor.shard_model``) an attention holds
+the q/k/v rows of its rank's heads and attends over ``num_heads / tp``
+heads, the MLP holds its part of ``c_fc``'s rows and ``c_proj``'s columns;
+``tp`` (a ``parallel.tensor.ModelAxis``, None when whole) routes the
+forward through the model axis's two collectives, ``out_proj``'s and
+``c_proj``'s biases added after the all-reduce.
+
 TPU-era means are left out: ``seq_fold``, the fused LN->Dense path, the
-tensor-parallel qkv form and stack parallelism (ROADMAP). Where
+per-projection qkv form of GSPMD and stack parallelism (ROADMAP). Where
 the JAX package folds short sequences into one masked attention call
 (``seq_fold=0``, the TimeSformer's temporal attention), the port attends
 each sequence on its own: the masked cross-sequence entries are exactly 0
@@ -56,6 +63,28 @@ def dense(x, linear: nn.Linear, dtype):
     return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
 
 
+def into_split(x, tp):
+    """A replicated activation entering a layer split over the model axis
+    ``tp`` (None: ``x``)."""
+    if tp is None:
+        return x
+    from ..parallel.tensor import copy_to_model
+
+    return copy_to_model(x, tp)
+
+
+def row_parallel_dense(x, linear: nn.Linear, dtype, tp):
+    """``dense`` of a layer whose input columns are split over the model
+    axis ``tp``: the ranks' partial products summed, then the bias; ``tp``
+    None: ``dense``."""
+    if tp is None:
+        return dense(x, linear, dtype)
+    from ..parallel.tensor import reduce_from_model
+
+    out = reduce_from_model(F.linear(x.to(dtype), linear.weight.to(dtype)), tp)
+    return out if linear.bias is None else out + linear.bias.to(dtype)
+
+
 class LayerNorm32(nn.Module):
     """LayerNorm in fp32 whatever the activation dtype, cast back; runs the
     ``ops.layernorm`` kernel on the card."""
@@ -75,6 +104,8 @@ class MultiHeadAttention(nn.Module):
     the ``[3E, E]`` ``in_proj_weight``, whose q/k/v column slices go to the
     ``ops.fused_mha`` kernel as strided views, then ``out_proj``."""
 
+    tp = None  # the model axis of a split attention
+
     def __init__(self, embed_dim: int, num_heads: int, dtype=torch.float32):
         super().__init__()
         if embed_dim % num_heads:
@@ -90,10 +121,15 @@ class MultiHeadAttention(nn.Module):
         b = self.in_proj_bias.to(self.dtype).to(x.dtype)
         return F.linear(x, w, b).chunk(3, dim=-1)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank attends over."""
+        return self.num_heads // (1 if self.tp is None else self.tp.size)
+
     def forward(self, x, causal: bool = False):
-        q, k, v = self.qkv(x)
-        out = fused_mha(q, k, v, self.num_heads, causal)
-        return dense(out, self.out_proj, self.dtype)
+        q, k, v = self.qkv(into_split(x, self.tp))
+        out = fused_mha(q, k, v, self.local_heads, causal)
+        return row_parallel_dense(out, self.out_proj, self.dtype, self.tp)
 
 
 class HeadsAttention(MultiHeadAttention):
@@ -108,15 +144,17 @@ class HeadsAttention(MultiHeadAttention):
     ``timeattn``."""
 
     def forward(self, x, mask=None):
-        b, l, e = x.shape
-        q, k, v = (t.unflatten(-1, (self.num_heads, -1)).transpose(1, 2)
-                   for t in self.qkv(x))
-        out = fused_attention(q, k, v, mask).transpose(1, 2).reshape(b, l, e)
-        return dense(out, self.out_proj, self.dtype)
+        b, l, _ = x.shape
+        q, k, v = (t.unflatten(-1, (self.local_heads, -1)).transpose(1, 2)
+                   for t in self.qkv(into_split(x, self.tp)))
+        out = fused_attention(q, k, v, mask).transpose(1, 2).reshape(b, l, -1)
+        return row_parallel_dense(out, self.out_proj, self.dtype, self.tp)
 
 
 class MLPBlock(nn.Module):
     """CLIP MLP: c_fc (E -> 4E) -> QuickGELU -> c_proj (4E -> E)."""
+
+    tp = None  # the model axis of a split MLP
 
     def __init__(self, width: int, dtype=torch.float32):
         super().__init__()
@@ -125,8 +163,8 @@ class MLPBlock(nn.Module):
         self.c_proj = nn.Linear(4 * width, width)
 
     def forward(self, x):
-        return dense(quick_gelu(dense(x, self.c_fc, self.dtype)), self.c_proj,
-                     self.dtype)
+        h = quick_gelu(dense(into_split(x, self.tp), self.c_fc, self.dtype))
+        return row_parallel_dense(h, self.c_proj, self.dtype, self.tp)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -217,9 +255,9 @@ class TorchBatchNorm(nn.modules.batchnorm._BatchNorm):
     normalizes and the unbiased one updates ``running_var`` at torch's
     momentum 0.1 (flax's 0.9), as ``vtc_tpu``'s ``TorchBatchNorm`` does; in
     eval the running stats normalize. Statistics and the affine map are
-    fp32, the output is cast to ``dtype``. In training under a process
-    group of more than one rank the statistics are the global batch's: the
-    ranks' rows are gathered, normalized as one device does, and each rank
+    fp32, the output is cast to ``dtype``. In training on more than one data
+    rank (``parallel.mesh``) the statistics are the global batch's: the
+    data ranks' rows are gathered, normalized as one device does, and each rank
     keeps its own, so the running stats are one device's bit for bit."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
@@ -233,11 +271,12 @@ class TorchBatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x):
         if self.training and world() > 1:
-            from ..parallel.mesh import all_gather_rows, shard_rows
+            from ..parallel.mesh import all_gather_rows, data_world, shard_rows
 
-            full = all_gather_rows(x)  # the global batch, in rank order
-            return super().forward(full.float()).to(self.compute_dtype)[
-                shard_rows(full.shape[0])]
+            if data_world() > 1:  # the model ranks of a data rank hold its rows
+                full = all_gather_rows(x)  # the global batch, in rank order
+                return super().forward(full.float()).to(self.compute_dtype)[
+                    shard_rows(full.shape[0])]
         return super().forward(x.float()).to(self.compute_dtype)
 
 

@@ -1,26 +1,37 @@
-"""Data parallelism on ``torch.distributed``: the ``data`` axis of
-``vtc_tpu/parallel/mesh.py``, one process per card.
+"""The ``("data", "model")`` mesh of ``vtc_tpu/parallel/mesh.py`` on
+``torch.distributed``, one process per card.
+
+``create_mesh(n_data, n_model)`` lays the process group out as
+``vtc_tpu``'s mesh: rank ``d·n_model + m`` holds place ``(d, m)``, so a
+model group is ``n_model`` consecutive ranks and a data group the ranks of
+one model place. It returns a ``DeviceMesh`` with those dims and keeps it as
+the current mesh; ``data_group``/``data_rank``/``data_world`` and their
+``model_`` twins read it. Without a mesh the data axis is the whole group
+and the model axis one rank, which is how data parallelism ran before the
+model axis existed.
 
 GSPMD runs ``vtc_tpu``'s step at the global batch with the batch axis
 sharded over ``data``; the port runs one process per card (``torchrun``),
-each on its rows of the global batch:
+each data place on its rows of the global batch, every model place of it
+on the same rows:
 
-* ``shard_batch`` gives rank ``r`` of ``W`` the rows ``r·B/W … (r+1)·B/W``
-  of a global batch of ``B``;
-* ``data_parallel`` wraps the model in ``DistributedDataParallel``, which
-  averages the gradients over the ranks; ``unwrap`` gives the module back,
-  whose state dict is a single card's;
-* ``all_gather_rows`` concatenates each rank's rows in rank order with a
-  backward that sums the gradient over the ranks and keeps this rank's
-  rows. Every rank computes the loss of the whole batch from the gathered
-  features, so the gathered rows' gradient is ``W`` times the loss's on
-  each rank and DDP's mean makes it the single-device gradient;
-* the BatchNorms in training gather the ranks' rows the same way, take the
-  statistics of the global batch with one device's ops and keep their own
-  rows (``models.cam``, ``models.layers.TorchBatchNorm``).
+* ``shard_batch`` gives data rank ``r`` of ``W`` the rows ``r·B/W …
+  (r+1)·B/W`` of a global batch of ``B``;
+* ``data_parallel`` wraps the model in ``DistributedDataParallel`` over the
+  data group, which averages the gradients over the data ranks; ``unwrap``
+  gives the module back;
+* ``all_gather_rows`` concatenates each data rank's rows in rank order with
+  a backward that sums the gradient over the data ranks and keeps this
+  rank's rows. Every rank computes the loss of the whole batch from the
+  gathered features, so the gathered rows' gradient is ``W`` times the
+  loss's on each rank and DDP's mean makes it the single-device gradient;
+* the BatchNorms in training gather the data ranks' rows the same way, take
+  the statistics of the global batch with one device's ops and keep their
+  own rows (``models.cam``, ``models.layers.TorchBatchNorm``).
 
-Tensor parallelism (``n_model``) and ZeRO-3 (``fsdp``) are refused by
-``check_axes``, naming ROADMAP Queue 1 item 9.
+The model axis is ``parallel.tensor``'s (Megatron-style tensor
+parallelism). ZeRO-3 (``fsdp``) and the pipeline, sequence, expert and
+multi-slice axes are refused by ``check_axes``, naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -28,46 +39,121 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..device import DISTRIBUTION
+from ..device import DISTRIBUTION, FSDP_ITEM
 from ..utils.util import rank, world
 
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+_MESH = None  # the newest create_mesh's
 
-def check_axes(n_model: int = 1, fsdp: bool = False) -> None:
-    """The axes beyond ``data`` raise: DTensor TP and FSDP2 are not ported."""
-    if int(n_model or 1) > 1:
-        raise NotImplementedError(
-            f"--n_model {n_model}: tensor parallelism is not ported; the port shards "
-            f"the data axis only ({DISTRIBUTION})")
+
+def check_axes(n_model: int = 1, fsdp: bool = False, **others) -> None:
+    """The axes the port does not shard raise: ``fsdp`` (FSDP2) and the
+    pipeline, sequence, expert and multi-slice axes (``others``: ``pp``,
+    ``sp``, ``ep``, ``slices``). ``n_model`` must be a whole degree."""
+    if int(n_model or 1) < 1:
+        raise ValueError(f"--n_model {n_model}: the model axis needs 1 rank or more")
     if fsdp:
         raise NotImplementedError(
             f"--fsdp: sharded parameters and moments are not ported; the port shards "
-            f"the data axis only ({DISTRIBUTION})")
+            f"the data and model axes ({FSDP_ITEM})")
+    for key, value in others.items():
+        if int(value or 1) > 1:
+            raise NotImplementedError(
+                f"--{key} {value}: pipeline, sequence, expert and multi-slice axes are "
+                f"not ported; the port shards the data and model axes ({DISTRIBUTION})")
+
+
+def create_mesh(n_data=None, n_model: int = 1):
+    """The process group as a ``("data", "model")`` ``DeviceMesh`` of
+    ``n_data × n_model`` ranks (``n_data`` by default: the group's size over
+    ``n_model``), rank ``d·n_model + m`` at ``(d, m)``, kept as the current
+    mesh. One process without a group: None (no axis to shard)."""
+    global _MESH
+    n_model = int(n_model or 1)
+    if not dist.is_initialized():
+        if n_model > 1 or int(n_data or 1) > 1:
+            raise RuntimeError(
+                f"a {n_data or 1}x{n_model} mesh runs one process per card: launch "
+                f"`torchrun --nproc_per_node {(n_data or 1) * n_model}` and pass "
+                f"--n_devices {n_data or 1} --n_model {n_model}")
+        _MESH = None
+        return None
+    w = world()
+    n_data = w // n_model if n_data is None else int(n_data)
+    if n_data * n_model != w:
+        raise ValueError(f"a {n_data}x{n_model} mesh over a group of {w} processes: "
+                         f"launch {n_data * n_model} (n_devices x n_model)")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    _MESH = DeviceMesh(device_type, torch.arange(w).reshape(n_data, n_model),
+                       mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return _MESH
+
+
+def current_mesh():
+    """The newest ``create_mesh``'s, while its process group lives."""
+    return _MESH if dist.is_initialized() else None
+
+
+def data_group():
+    """The process group of this rank's data axis (None: the whole group)."""
+    mesh = current_mesh()
+    return None if mesh is None else mesh.get_group(DATA_AXIS)
+
+
+def data_rank() -> int:
+    return rank(data_group())
+
+
+def data_world() -> int:
+    return world(data_group())
+
+
+def model_group():
+    """The process group of this rank's model axis; None without a mesh,
+    where the model axis is this rank alone."""
+    mesh = current_mesh()
+    return None if mesh is None else mesh.get_group(MODEL_AXIS)
+
+
+def model_rank() -> int:
+    return 0 if current_mesh() is None else rank(model_group())
+
+
+def model_world() -> int:
+    return 1 if current_mesh() is None else world(model_group())
 
 
 def check_data_devices(n_devices, device: torch.device, logger, what: str,
-                       module: str) -> None:
-    """``--n_devices N`` of an entry point: under a process group the data
-    axis is the group, whose size it must name (1 leaves it to the group);
-    without one, a machine with N cards or more raises with the
-    ``torchrun`` line that runs them, and one with fewer warns and runs
-    unsharded on one device, as the JAX package does."""
-    n = int(n_devices or 1)
+                       module: str, n_model: int = 1) -> None:
+    """``--n_devices N`` (and ``--n_model M``) of an entry point: under a
+    process group the data axis is the group over M, whose size N must name
+    (1 leaves it to the group); without one, a machine with N·M cards or
+    more raises with the ``torchrun`` line that runs them, and one with
+    fewer warns and runs unsharded on one device, as the JAX package
+    does."""
+    n, m = int(n_devices or 1), int(n_model or 1)
     if world() > 1:
-        if n not in (1, world()):
-            raise ValueError(f"--n_devices {n} in a group of {world()} processes: launch "
-                             f"`torchrun --nproc_per_node {n}` with --n_devices {n}")
+        if world() % m:
+            raise ValueError(f"--n_model {m} does not divide the group of {world()} "
+                             f"processes")
+        if n not in (1, world() // m):
+            raise ValueError(f"--n_devices {n} --n_model {m} in a group of {world()} "
+                             f"processes: launch `torchrun --nproc_per_node {n * m}`")
         return
-    if n <= 1:
+    if n * m <= 1:
         return
     have = torch.cuda.device_count() if device.type == "cuda" else 1
-    if have >= n:
+    if have >= n * m:
         raise RuntimeError(
-            f"--n_devices {n} on a machine with {have} devices: data parallelism runs one "
-            f"process per card; launch `torchrun --nproc_per_node {n} -m {module} ... "
-            f"--n_devices {n}`")
+            f"--n_devices {n} --n_model {m} on a machine with {have} devices: the mesh "
+            f"runs one process per card; launch `torchrun --nproc_per_node {n * m} -m "
+            f"{module} ... --n_devices {n} --n_model {m}`")
     logger.warning(
         "Requested a 1x%dx%d (slices x data x second-axis) mesh but only %d "
-        "device(s) are available; %s UNSHARDED on one device.", n, 1, have, what)
+        "device(s) are available; %s UNSHARDED on one device.", n, m, have, what)
 
 
 def active() -> bool:
@@ -76,61 +162,65 @@ def active() -> bool:
 
 
 def shard_rows(n: int) -> slice:
-    """This rank's rows of a global batch of ``n``."""
-    r, w = rank(), world()
+    """This data rank's rows of a global batch of ``n``."""
+    r, w = data_rank(), data_world()
     if n % w:
-        raise ValueError(f"a global batch of {n} does not split over {w} ranks")
+        raise ValueError(f"a global batch of {n} does not split over {w} data ranks")
     return slice(r * n // w, (r + 1) * n // w)
 
 
 def shard_batch(x):
-    """This rank's rows ``r·B/W … (r+1)·B/W`` of ``x`` (an array or tensor
-    with the batch first)."""
+    """This data rank's rows ``r·B/W … (r+1)·B/W`` of ``x`` (an array or
+    tensor with the batch first)."""
     return x[shard_rows(x.shape[0])]
 
 
 def process_share(process_index=None, process_count=None) -> tuple:
-    """``(index, count)`` of this process's share: the process group's rank
-    and size unless given, and given ones must be the group's (a count of
-    more than one without a group would rank a part of the split as the
-    whole)."""
-    pidx = rank() if process_index is None else int(process_index)
-    pcount = world() if process_count is None else int(process_count)
-    if pcount != world() or not 0 <= pidx < pcount:
+    """``(index, count)`` of this process's share of an evaluation: the data
+    axis's rank and size unless given, and given ones must be the data
+    axis's (a count of more than one without a group would rank a part of
+    the split as the whole). The model places of a data rank take the same
+    share."""
+    pidx = data_rank() if process_index is None else int(process_index)
+    pcount = data_world() if process_count is None else int(process_count)
+    if pcount != data_world() or not 0 <= pidx < pcount:
         raise RuntimeError(
-            f"process {pidx} of {pcount}: this process is rank {rank()} of a group of "
-            f"{world()}; a multi-process evaluation runs under torchrun")
+            f"process {pidx} of {pcount}: this process is data rank {data_rank()} of "
+            f"{data_world()}; a multi-process evaluation runs under torchrun")
     return pidx, pcount
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        parts = [torch.empty_like(x) for _ in range(world())]
-        dist.all_gather(parts, x.contiguous())
-        ctx.rows = shard_rows(x.shape[0] * world())
+        group = data_group()
+        parts = [torch.empty_like(x) for _ in range(world(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.rows = shard_rows(x.shape[0] * world(group))
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=data_group())
         return grad[ctx.rows]
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Each rank's ``x`` (equal shapes) concatenated in rank order; the
-    backward sums the gradient over the ranks and keeps this rank's rows.
-    One rank: ``x``."""
-    return _AllGather.apply(x) if world() > 1 else x
+    """Each data rank's ``x`` (equal shapes) concatenated in rank order; the
+    backward sums the gradient over the data ranks and keeps this rank's
+    rows. One data rank: ``x``."""
+    return _AllGather.apply(x) if data_world() > 1 else x
 
 
 def data_parallel(model: torch.nn.Module, device: torch.device):
-    """``model`` in ``DistributedDataParallel`` under a process group (also
-    of one rank: the same path), else ``model``. The parameters that take no
-    gradient in a step (``final_linear`` beside ``init_from_avg``, a frozen
-    tower) are found each step; the buffers are not broadcast, since the
-    BatchNorms take the global batch's statistics on every rank."""
+    """``model`` in ``DistributedDataParallel`` over the data group under a
+    process group (also of one rank: the same path), else ``model``. The
+    parameters that take no gradient in a step (``final_linear`` beside
+    ``init_from_avg``, a frozen tower) are found each step; the buffers are
+    not broadcast, since the BatchNorms take the global batch's statistics
+    on every rank. The split parameters of a tensor-parallel model average
+    with their own model place's."""
     if not active():
         return model
     from torch.nn.parallel import DistributedDataParallel
@@ -138,7 +228,8 @@ def data_parallel(model: torch.nn.Module, device: torch.device):
     ids = [device.index if device.index is not None else torch.cuda.current_device()] \
         if device.type == "cuda" else None
     return DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False,
-                                   find_unused_parameters=True)
+                                   find_unused_parameters=True,
+                                   process_group=data_group())
 
 
 def unwrap(model: torch.nn.Module) -> torch.nn.Module:

@@ -1,0 +1,278 @@
+"""Tensor parallelism over the ``model`` axis: ``vtc_tpu``'s GSPMD rules
+(``vtc_tpu/parallel/mesh.py:92-105``) written Megatron-style, on local
+tensors, one process per card.
+
+``shard_model(model)`` splits, on model rank ``m`` of ``M``, exactly the
+parameters that ``vtc_tpu.parallel.mesh.tree_pspecs`` puts on ``"model"``
+(``SPLIT_RULES``, matched by name, so the CLIP towers' blocks, the CAM's and
+the TimeSformer's ``timeattn`` alike):
+
+* each attention's ``[3E, E]`` ``in_proj_weight`` and ``[3E]`` bias keep the
+  rows of rank ``m``'s heads from each of q, k and v (JAX stores ``[3, E,
+  E]`` and shards dim 1; the merged rows are not split contiguously, which
+  would mix q, k and v). The attention then runs on ``H/M`` heads of the
+  local q/k/v column views, through the same kernels;
+* ``out_proj`` takes its input columns, its bias added once, after the
+  all-reduce;
+* the MLP's ``c_fc`` is split by output row, with its bias, and ``c_proj``
+  by input column, its bias after the all-reduce;
+* ``token_embedding`` is split by vocabulary row: a masked lookup, then an
+  all-reduce.
+
+Two autograd functions carry every collective: ``copy_to_model`` (identity
+forward, all-reduce backward) where a replicated activation enters a split
+layer, and ``reduce_from_model`` (all-reduce forward, identity backward)
+where the partial sums leave it. Every other parameter is replicated and
+takes the same gradient on each model rank. A degree that does not divide
+each attention's head count and each split dimension raises before any
+parameter is touched, as ``tree_shardings`` and ``qkv_project`` do.
+
+Checkpoints keep the single-card layout: ``full_state_dict`` and
+``full_optimizer_state`` gather the split tensors (and their Adam moments)
+over the model group, ``split_state_dict`` and ``split_optimizer_state``
+take rank ``m``'s part of a full one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+# (name pattern, the dimension split) of the port's parameter names; "qkv"
+# splits each of q, k and v of dim 0
+SPLIT_RULES = (
+    (re.compile(r"(.*\.)?\w*attn\.in_proj_(weight|bias)$"), "qkv"),
+    (re.compile(r"(.*\.)?\w*attn\.out_proj\.weight$"), 1),
+    (re.compile(r"(.*\.)?mlp\.c_fc\.(weight|bias)$"), 0),
+    (re.compile(r"(.*\.)?mlp\.c_proj\.weight$"), 1),
+    (re.compile(r"(.*\.)?token_embedding\.weight$"), 0),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's place on the model axis: its process group (None: the
+    whole group), rank and size."""
+    group: Optional[object]
+    rank: int
+    size: int
+
+
+def split_rule(name: str):
+    """The dimension ``name`` splits on (0, 1 or "qkv"), or None where the
+    parameter is replicated."""
+    for pattern, rule in SPLIT_RULES:
+        if pattern.match(name):
+            return rule
+    return None
+
+
+def split_names(model: torch.nn.Module) -> list:
+    """The names of the parameters that the model axis splits."""
+    return [n for n, _ in model.named_parameters() if split_rule(n) is not None]
+
+
+# ---- the collectives ------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """``x`` (replicated over the model axis) entering a split layer: the
+    identity, whose backward sums the ranks' gradients."""
+    return _CopyToModel.apply(x, axis.group)
+
+
+def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The ranks' partial sums ``x`` summed (an all-reduce); the backward
+    is the identity."""
+    return _ReduceFromModel.apply(x, axis.group)
+
+
+# ---- splitting and gathering --------------------------------------------------------
+
+def _check(name: str, shape, rule, size: int) -> None:
+    dim = 0 if rule == "qkv" else rule
+    n = shape[dim] // 3 if rule == "qkv" else shape[dim]
+    if (rule == "qkv" and shape[dim] % 3) or n % size:
+        raise ValueError(
+            f"the model axis (size {size}) does not divide dim {dim} of param {name!r} "
+            f"(shape {tuple(shape)}); pick a tp degree that divides every tower's head "
+            f"count (ViT-B/32: tp in {{2, 4}})")
+
+
+def split_tensor(t: torch.Tensor, rule, rank: int, size: int) -> torch.Tensor:
+    """Rank ``rank`` of ``size``'s part of the full tensor ``t``."""
+    if rule == "qkv":
+        parts = t.unflatten(0, (3, size, -1))[:, rank]
+        return parts.flatten(0, 1).contiguous()
+    return t.chunk(size, dim=rule)[rank].contiguous()
+
+
+def join_tensors(parts, rule) -> torch.Tensor:
+    """The full tensor of each rank's part, in rank order."""
+    if rule == "qkv":
+        stacked = torch.stack([p.unflatten(0, (3, -1)) for p in parts], 1)
+        return stacked.flatten(0, 2)
+    return torch.cat(parts, dim=rule)
+
+
+def split_state_dict(state_dict: Dict[str, torch.Tensor], rank: int, size: int) -> dict:
+    """Rank ``rank`` of ``size``'s part of a full (single-card) state dict:
+    the split parameters' slices, every other entry as it is."""
+    out = {}
+    for name, t in state_dict.items():
+        rule = split_rule(name)
+        if rule is None or size == 1:
+            out[name] = t
+            continue
+        _check(name, t.shape, rule, size)
+        out[name] = split_tensor(t, rule, rank, size)
+    return out
+
+
+def _gather(t: torch.Tensor, rule, axis: ModelAxis) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    return join_tensors(parts, rule)
+
+
+def model_axis(model: torch.nn.Module) -> Optional[ModelAxis]:
+    """The axis ``shard_model`` split ``model`` over, or None."""
+    return getattr(model, "tp_axis", None)
+
+
+def full_tensors(model: torch.nn.Module, named: Dict[str, Optional[torch.Tensor]]) -> dict:
+    """``named`` (parameter names to this rank's tensors of their shapes,
+    such as their gradients; None passes through) with the split ones
+    gathered into their single-card form (every model rank must call it,
+    with the same names and Nones)."""
+    axis = model_axis(model)
+    if axis is None or axis.size == 1:
+        return dict(named)
+    return {n: _gather(t, split_rule(n), axis) if t is not None and split_rule(n) is not None
+            else t for n, t in named.items()}
+
+
+def full_state_dict(model: torch.nn.Module) -> dict:
+    """``model``'s state dict in the single-card layout: a split model's
+    parts gathered over the model group (every model rank must call it)."""
+    return full_tensors(model, model.state_dict())
+
+
+def _param_names(model, optimizer) -> list:
+    """The name of each parameter in the optimizer's state-dict order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def _moments(optimizer_state: dict, model, optimizer, fn) -> dict:
+    names = _param_names(model, optimizer)
+    state = {}
+    for index, entry in optimizer_state["state"].items():
+        rule = split_rule(names[int(index)])
+        state[index] = {k: fn(v, rule) if rule is not None and torch.is_tensor(v)
+                        and v.dim() else v for k, v in entry.items()}
+    return {"state": state, "param_groups": optimizer_state["param_groups"]}
+
+
+def full_optimizer_state(model: torch.nn.Module, optimizer) -> dict:
+    """``optimizer.state_dict()`` with the split parameters' moments
+    gathered, the state of a single card's run (every model rank must call
+    it)."""
+    sd = optimizer.state_dict()
+    axis = model_axis(model)
+    if axis is None or axis.size == 1:
+        return sd
+    return _moments(sd, model, optimizer, lambda v, rule: _gather(v, rule, axis))
+
+
+def split_optimizer_state(model: torch.nn.Module, optimizer, full_state: dict) -> dict:
+    """This model rank's part of a single-card optimizer state."""
+    axis = model_axis(model)
+    if axis is None or axis.size == 1:
+        return full_state
+    return _moments(full_state, model, optimizer,
+                    lambda v, rule: split_tensor(v, rule, axis.rank, axis.size))
+
+
+def load_full_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool = True):
+    """Load a single-card state dict into ``model``, split where it is."""
+    axis = model_axis(model)
+    if axis is not None and axis.size > 1:
+        state_dict = split_state_dict(state_dict, axis.rank, axis.size)
+    return model.load_state_dict(state_dict, strict=strict)
+
+
+# ---- the model ------------------------------------------------------------------------
+
+def shard_model(model: torch.nn.Module, axis: Optional[ModelAxis] = None) -> torch.nn.Module:
+    """Split ``model`` (built whole, the same weights on every rank) over
+    the model axis, in place: each split parameter keeps this rank's part
+    (the ``Parameter`` objects stay, so an optimizer built after sees the
+    parts), and the attentions, MLPs and text embeddings run their split
+    forward. ``axis`` defaults to ``parallel.mesh``'s current model axis;
+    of size 1 the model is left whole. Raises before anything is split
+    where the degree does not divide a head count or a split dimension, or
+    where the model has mixture-of-experts layers."""
+    from ..models.layers import MLPBlock, MultiHeadAttention
+    from ..models.clip_model import TextTransformer
+    from .expert import moe_layers
+    from .mesh import model_group, model_rank, model_world
+
+    if axis is None:
+        axis = ModelAxis(model_group(), model_rank(), model_world())
+    if axis.size == 1:
+        return model
+    if model_axis(model) is not None:
+        raise ValueError("the model is split already")
+    if moe_layers(model):
+        raise NotImplementedError(
+            "a mixture-of-experts model on the model axis: the expert-parallel axis is "
+            "not ported (ROADMAP: Queue 1 item 9c)")
+    for name, module in model.named_modules():
+        if isinstance(module, MultiHeadAttention) and module.num_heads % axis.size:
+            raise ValueError(
+                f"tensor-parallel degree {axis.size} does not divide the head count "
+                f"{module.num_heads} of {name}: the split would cross head boundaries "
+                f"(pick a tp that divides every tower's head count; ViT-B/32: 12 visual "
+                f"+ 8 text heads -> tp in {{2, 4}})")
+    params = [(n, p, split_rule(n)) for n, p in model.named_parameters()]
+    for name, p, rule in params:
+        if rule is not None:
+            _check(name, p.shape, rule, axis.size)
+    with torch.no_grad():
+        for name, p, rule in params:
+            if rule is not None:
+                p.data = split_tensor(p.data, rule, axis.rank, axis.size)
+    for module in model.modules():
+        if isinstance(module, (MultiHeadAttention, MLPBlock, TextTransformer)):
+            module.tp = axis
+    model.tp_axis = axis
+    return model

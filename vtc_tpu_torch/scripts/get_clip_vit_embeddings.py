@@ -11,13 +11,21 @@ host, through the ``DataLoader`` -> batched ``encode_image`` of
 ``PretrainedCLIP`` on the card (bf16 activations unless ``--fp32``) ->
 ``{"reddit_ids", "embeddings"}`` in ``--out`` (``np.savez``; a ``.pth``
 name also gets ``torch.save``). ``--clip_weights`` names CLIP weights
-(``models/clip_import.py``). A sharded encode (``--n_devices`` above 1)
-is not ported (ROADMAP: Queue 1 item 9) and raises.
+(``models/clip_import.py``).
+
+``--n_devices N`` encodes on N processes, one per card, under ``torchrun
+--nproc_per_node N``: each encodes the strided share ``rank::N`` of the
+rows, the shares merge with ``allgather_varlen`` and go back to the CSV's
+order, and rank 0 writes the file, whose rows are those of one process.
+Without a process group it raises with the ``torchrun`` line on a machine
+with N cards, and warns and encodes on one device on one with fewer, as the
+JAX script does.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 
@@ -28,8 +36,10 @@ from ..data.image_io import read_rgb
 from ..data.loader import DataLoader
 from ..data.preprocess import clip_preprocess
 from ..data.table import read_csv
-from ..device import DISTRIBUTION, resolve_device
+from ..device import resolve_device
 from ..models import create_model
+from ..parallel.mesh import check_data_devices, data_group, process_share
+from ..utils.util import allgather_varlen, init_distributed, is_main, launched
 
 
 class Thumbnails:
@@ -61,14 +71,17 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--n_devices", type=int, default=1)
     ap.add_argument("--device", default=None, help="cpu, or a card (default: the card)")
     args = ap.parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError(f"--n_devices {args.n_devices}: a sharded encode is not "
-                                  f"ported ({DISTRIBUTION})")
+    if launched():
+        init_distributed()
     device = resolve_device(args.device)
+    check_data_devices(args.n_devices, device, logging.getLogger(__name__), "encoding",
+                       "vtc_tpu_torch.scripts.get_clip_vit_embeddings")
+    pidx, pcount = process_share()
 
     table = read_csv(args.csv)
     files = [x[len("results/"):-4] + ".jpg" for x in table.video_path]
-    filenames = [os.path.join(args.root, x) for x in files]
+    rows = np.arange(len(files))[pidx::pcount]  # this process's share
+    filenames = [os.path.join(args.root, files[i]) for i in rows]
 
     model = create_model("PretrainedCLIP", model_type=args.model_type,
                          clip_weights=args.clip_weights,
@@ -86,13 +99,20 @@ def main(argv=None) -> np.ndarray:
             tic = time.time()
             print(bi, "/", len(loader), "%.1fHz" % (args.batch_size / toc), y.shape)
 
-    stacked = np.vstack(out)
+    dim = model.feature_dim
+    stacked = np.vstack(out) if out else np.zeros((0, dim), np.float32)
+    if pcount > 1:  # the shares, back in the CSV's order
+        merged = allgather_varlen(stacked, data_group())
+        order = allgather_varlen(rows, data_group())
+        stacked = np.empty_like(merged)
+        stacked[order] = merged
     reddit_ids = np.asarray(table.reddit_id).astype(np.int64)
-    np.savez(args.out, reddit_ids=reddit_ids, embeddings=stacked)
-    if args.out.endswith(".pth"):
-        torch.save({"reddit_ids": torch.tensor(reddit_ids),
-                    "embeddings": torch.tensor(stacked)}, args.out)
-    print("saved", args.out, stacked.shape)
+    if is_main():
+        np.savez(args.out, reddit_ids=reddit_ids, embeddings=stacked)
+        if args.out.endswith(".pth"):
+            torch.save({"reddit_ids": torch.tensor(reddit_ids),
+                        "embeddings": torch.tensor(stacked)}, args.out)
+        print("saved", args.out, stacked.shape)
     return stacked
 
 

@@ -8,8 +8,16 @@ twin of ``scripts/serve.py``:
 (``vtc_tpu_torch.scripts.get_clip_vit_embeddings``: ``reddit_ids`` +
 ``embeddings``) or a ``RetrievalIndex.save`` file; ``-r`` a ``.pth``
 checkpoint. The model and the gallery live on the card unless ``--device
-cpu``. A mesh-sharded gallery (``--n_devices``/``--n_model`` above 1) is
-not ported (ROADMAP: Queue 1 item 9) and raises. Endpoints: ``serving/server.py``.
+cpu``. Endpoints: ``serving/server.py``.
+
+``--n_devices N --n_model M`` is ``vtc_tpu``'s serving mesh
+(``scripts/serve.py:54-60``), one process over its cards: it needs N·M
+cards and raises by count otherwise. The gallery's rows shard over the N
+data places (card ``d·M`` holds shard ``d``; ``RetrievalIndex(devices=...)``)
+and are replicated over the model axis; the query towers run whole on the
+first card (a single process places no tower weights over the model axis).
+With ``--device cpu`` the N shards lie on the CPU, as ``vtc_tpu``'s CPU test
+mesh holds them.
 """
 
 from __future__ import annotations
@@ -17,8 +25,10 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+
 from ..data.tokenizer import tokenize
-from ..device import DISTRIBUTION, resolve_device
+from ..device import resolve_device
 from ..models import create_model
 from ..serving import ClipRetrievalService, RetrievalHTTPServer, RetrievalIndex
 from ..training.checkpoints import graft_into, load_checkpoint
@@ -30,11 +40,20 @@ def build_server(config, checkpoint, index_path, *, n_devices=1, n_model=1,
     """Assemble the ``RetrievalHTTPServer`` from a config's ``arch``, an
     optional ``.pth`` checkpoint (grafted as a warm start: the keys it lacks
     or adds are reported) and a gallery file, on ``device`` (default: the
-    card)."""
-    if n_devices * n_model > 1:
-        raise NotImplementedError(f"a {n_devices}x{n_model} mesh-sharded gallery is not "
-                                  f"ported ({DISTRIBUTION})")
+    card), the gallery sharded over ``n_devices`` data places of an
+    ``n_devices × n_model`` mesh."""
     device = resolve_device(device)
+    n_devices, n_model = int(n_devices or 1), int(n_model or 1)
+    devices = None
+    if n_devices * n_model > 1:
+        if device.type == "cuda":
+            have = torch.cuda.device_count()
+            if have < n_devices * n_model:
+                raise RuntimeError(f"a {n_devices}x{n_model} mesh needs "
+                                   f"{n_devices * n_model} cards; this machine has {have}")
+            devices = [torch.device("cuda", d * n_model) for d in range(n_devices)]
+        else:
+            devices = [device] * n_devices
     arch = config["arch"]
     model = create_model(arch["type"], seed=0, device=device, **dict(arch["args"]))
     if checkpoint is not None:
@@ -42,7 +61,7 @@ def build_server(config, checkpoint, index_path, *, n_devices=1, n_model=1,
         if missing or unexpected:
             print(f"warm-start: {len(missing)} missing / {len(unexpected)} unexpected keys",
                   file=sys.stderr)
-    index = RetrievalIndex.load(index_path, device=device)
+    index = RetrievalIndex.load(index_path, device=device, devices=devices)
     service = ClipRetrievalService(model, index, device=device)
     return RetrievalHTTPServer(service, tokenizer=tokenize, host=host, port=port)
 

@@ -22,9 +22,19 @@ the CPU the group is gloo's. ``--n_devices N`` without a group trains
 unsharded with a warning where the machine has fewer than N cards, as the
 JAX package does, and raises with the ``torchrun`` line where it has them.
 
+Tensor parallelism adds the model axis under the same launch:
+
+    torchrun --nproc_per_node N·M -m vtc_tpu_torch.train -c <config> \
+        --n_devices N --n_model M
+
+lays the ranks out as ``vtc_tpu``'s ``create_mesh(N, M)`` does
+(``parallel.mesh``), splits the model over each group of M consecutive
+ranks (``parallel.tensor.shard_model``) and steps it at the global
+``batch_size``, each data place on its ``batch_size / N`` rows.
+
 What the port cannot do yet raises a ``NotImplementedError`` naming its
-ROADMAP item: the grain loader, and the tensor, fsdp, pipeline, sequence,
-expert and multi-slice axes (and the MoE adapter on more than one rank).
+ROADMAP item: the grain loader, and the fsdp, pipeline, sequence, expert
+and multi-slice axes (and the MoE adapter on more than one rank).
 """
 
 from __future__ import annotations
@@ -45,7 +55,14 @@ from .data import DataLoader
 from .device import DISTRIBUTION, resolve_device
 from .models import create_model
 from .ops.losses import LOSSES
-from .parallel.mesh import check_axes, check_data_devices
+from .parallel.mesh import (
+    check_axes,
+    check_data_devices,
+    create_mesh,
+    current_mesh,
+    data_world,
+)
+from .parallel.tensor import shard_model
 from .training import METRICS, Trainer, build_optimizer
 from .utils.util import init_distributed, is_main, launched, world
 
@@ -75,7 +92,7 @@ def _make_probe(config):
         table = retrieval_evaluation(trainer.model, "MSRVTT_videos", "full-val",
                                      branch_override=branch_override,
                                      data_roots={"MSRVTT": {"root": root}},
-                                     device=trainer.device)
+                                     mesh=current_mesh(), device=trainer.device)
         vtt, ttv = table.to_numpy()[table.index.index("R@10")].tolist()
         trainer.logger.info("MSRVTT probe (branch_override %s): R@10 video to text %.4f, "
                             "text to video %.4f, %.3f s", branch_override, vtt, ttv,
@@ -86,35 +103,36 @@ def _make_probe(config):
 
 
 def _check_mesh(config, device: torch.device, logger) -> None:
-    """Data parallelism runs under a process group (``--n_devices`` names
-    its size, or is 1) or ``--multihost``'s; the other axes raise.
-    ``--n_devices`` without a group warns and trains unsharded where the
-    machine lacks the cards (as the JAX package does), and raises with the
-    ``torchrun`` line where it has them."""
+    """The data and model axes run under a process group (``--n_devices``
+    names the data axis's size, or is 1; ``--n_model`` the model axis's) or
+    ``--multihost``'s, laid out by ``create_mesh``; the other axes raise.
+    ``--n_devices``/``--n_model`` without a group warn and train unsharded
+    where the machine lacks the cards (as the JAX package does), and raise
+    with the ``torchrun`` line where it has them."""
     if config.get("loader", "threads") == "grain":
         raise NotImplementedError(
             "loader 'grain' is not ported; the port's DataLoader runs thread "
             "workers (ROADMAP: Queue 1 item 10, TPU-era opt-ins)")
-    for key in ("pp", "sp", "ep", "slices"):
-        if int(config.get(key, 1) or 1) > 1:
-            raise NotImplementedError(
-                f"--{key} {config[key]}: pipeline, sequence, expert and multi-slice "
-                f"axes are not ported; the port shards the data axis only ({DISTRIBUTION})")
-    check_axes(config.get("n_model", 1), bool(config.get("fsdp")))
+    n_model = int(config.get("n_model", 1) or 1)
+    check_axes(n_model, bool(config.get("fsdp")),
+               **{key: config.get(key, 1) for key in ("pp", "sp", "ep", "slices")})
     if world() > 1 and int(config["arch"]["args"].get("moe_experts", 0) or 0):
         raise NotImplementedError(
             f"the mixture-of-experts adapter on {world()} ranks: expert parallelism is "
             f"not ported ({DISTRIBUTION})")
     n_devices = int(config.get("n_devices", config.get("n_gpu", 1)) or 1)
     if config.get("multihost"):
-        if n_devices not in (1, world()):
-            raise ValueError(f"--n_devices {n_devices} with --multihost on {world()} "
-                             f"processes: one process per card")
-        return
-    check_data_devices(n_devices, device, logger, "training", "vtc_tpu_torch.train")
-    if int(config["batch_size"]) % world():
+        if world() % n_model or n_devices not in (1, world() // n_model):
+            raise ValueError(f"--n_devices {n_devices} --n_model {n_model} with "
+                             f"--multihost on {world()} processes: one process per card")
+    else:
+        check_data_devices(n_devices, device, logger, "training", "vtc_tpu_torch.train",
+                           n_model)
+    if world() > 1:
+        create_mesh(world() // n_model, n_model)
+    if not config.get("multihost") and int(config["batch_size"]) % data_world():
         raise ValueError(f"batch_size {config['batch_size']} does not split over "
-                         f"{world()} ranks")
+                         f"{data_world()} data ranks")
 
 
 def main(config: ConfigParser, device: Optional[str] = None) -> Trainer:
@@ -147,6 +165,7 @@ def main(config: ConfigParser, device: Optional[str] = None) -> Trainer:
     arch_cfg = config["arch"]
     model = create_model(arch_cfg["type"], seed=seed_value, device=device,
                          **dict(arch_cfg["args"]))
+    shard_model(model)  # over the model axis, where the mesh has one
     logger.info("Model: %s", arch_cfg["type"])
 
     criterion = LOSSES[config["loss"]]

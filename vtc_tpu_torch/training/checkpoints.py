@@ -30,8 +30,10 @@ def save_checkpoint(ckpt_dir, name: str, *, arch: str, epoch: int,
                     state_dict: Dict[str, torch.Tensor], optimizer=None,
                     lr_scheduler=None, monitor_best=None, config=None) -> Path:
     """Write ``ckpt_dir/{name}.pth``; ``optimizer`` and ``lr_scheduler`` are
-    the objects whose ``state_dict()`` is saved. Tensors are saved on their
-    device; ``load_checkpoint`` maps them to the CPU."""
+    the objects whose ``state_dict()`` is saved, or ``optimizer`` the state
+    dict itself (a tensor-parallel run's, gathered into the single-card
+    layout). Tensors are saved on their device; ``load_checkpoint`` maps
+    them to the CPU."""
     path = Path(ckpt_dir) / f"{name}.pth"
     payload = {
         "arch": arch,
@@ -41,7 +43,8 @@ def save_checkpoint(ckpt_dir, name: str, *, arch: str, epoch: int,
         "config": dict(config) if config is not None else {},
     }
     if optimizer is not None:
-        payload["optimizer"] = optimizer.state_dict()
+        payload["optimizer"] = optimizer if isinstance(optimizer, dict) \
+            else optimizer.state_dict()
     if lr_scheduler is not None:
         payload["lr_scheduler"] = lr_scheduler.state_dict()
     torch.save(payload, path)

@@ -19,6 +19,15 @@ per-step schedule (``make_lr_schedule``) is a ``LambdaLR`` indexed by the
 step before the update, as ``FusedOptimizer`` indexes it by its
 pre-increment count.
 
+A parameter of a group that took no gradient in a step (``final_linear``
+beside ``init_from_avg``, whose output the adapter never reads) is stepped
+as if its gradient were zero, as ``FusedOptimizer`` steps every leaf it
+holds: its moments decay, its count advances, and under weight decay the
+decay moves it. ``torch.optim`` would skip it; ``Adam``, ``AdamW`` and
+``Bf16MomentAdam`` here give it a zero gradient for the update, after the
+step's pre-hooks (which still see ``None``), and take it away after. A
+parameter with ``requires_grad=False`` sits in no group and is left alone.
+
 Names are the port's (the reference state dict's): ``model.visual.*``,
 ``model.transformer.*`` (the text transformer), ``model.text_projection``;
 the CAM is ``final_transformer.*``, ``final_linear.*``, ``mask_embedding``
@@ -155,9 +164,44 @@ def build_optimizer(
         optimizer = Bf16MomentAdam(groups, lr=base_lr, decoupled=opt_type == "AdamW",
                                    **kwargs)
     else:
-        cls = torch.optim.AdamW if opt_type == "AdamW" else torch.optim.Adam
+        cls = AdamW if opt_type == "AdamW" else Adam
         optimizer = cls(groups, lr=base_lr, **kwargs)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
+
+
+class _ZeroGradients:
+    """Within the block, every parameter of ``optimizer``'s groups that has
+    no gradient holds a zero one; after it, ``None`` again."""
+
+    def __init__(self, optimizer):
+        self.filled = [p for g in optimizer.param_groups for p in g["params"]
+                       if p.requires_grad and p.grad is None]
+
+    def __enter__(self):
+        for p in self.filled:
+            p.grad = torch.zeros_like(p)
+
+    def __exit__(self, *exc):
+        for p in self.filled:
+            p.grad = None
+
+
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam`` that steps a parameter without a gradient as
+    one with a zero gradient (the module docstring)."""
+
+    def step(self, closure=None):
+        with _ZeroGradients(self):
+            return super().step(closure)
+
+
+class AdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` that steps a parameter without a gradient as
+    one with a zero gradient (the module docstring)."""
+
+    def step(self, closure=None):
+        with _ZeroGradients(self):
+            return super().step(closure)
 
 
 def _factor(schedule: Callable[[int], float], lr: float) -> Callable[[int], float]:
@@ -198,10 +242,11 @@ class Bf16MomentAdam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if params:
-                self._update(group, params)
+        with _ZeroGradients(self):
+            for group in self.param_groups:
+                params = [p for p in group["params"] if p.grad is not None]
+                if params:
+                    self._update(group, params)
         return loss
 
     def _update(self, group, params):

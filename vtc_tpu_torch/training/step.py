@@ -71,7 +71,7 @@ from ..data.preprocess import normalize_uint8_images
 from ..data.tokenizer import batch_token_need, truncate_batch_tokens
 from ..device import DISTRIBUTION
 from ..parallel.expert import moe_layers
-from ..parallel.mesh import active, all_gather_rows, shard_rows, unwrap
+from ..parallel.mesh import active, all_gather_rows, data_world, shard_rows, unwrap
 from ..utils.util import all_max, world
 
 # the Switch default, as the JAX trainer's ``moe_aux_loss_weight``
@@ -133,7 +133,7 @@ def _rank_draws(module, data, generator, draws):
         draw = getattr(module, "training_draws", None)
         if draw is None:
             return None
-        shapes = [d[:1].expand((d.shape[0] * world(),) + d.shape[1:]) for d in data]
+        shapes = [d[:1].expand((d.shape[0] * data_world(),) + d.shape[1:]) for d in data]
         draws = draw(*shapes, generator=generator)
     return {name: v[(slice(None),) * DRAW_BATCH_AXES[name]
                     + (shard_rows(v.shape[DRAW_BATCH_AXES[name]]),)]
@@ -141,18 +141,19 @@ def _rank_draws(module, data, generator, draws):
 
 
 def _global_meta(meta, b: int):
-    """The meta's per-row tensors (``b`` rows) gathered over the ranks."""
-    if world() == 1 or not isinstance(meta, dict):
+    """The meta's per-row tensors (``b`` rows) gathered over the data ranks."""
+    if data_world() == 1 or not isinstance(meta, dict):
         return meta
     return {k: all_gather_rows(v) if torch.is_tensor(v) and v.dim() and v.shape[0] == b
             else v for k, v in meta.items()}
 
 
 def _global(module, out, meta):
-    """The output and meta of the global batch: each rank's features
+    """The output and meta of the global batch: each data rank's features
     gathered, the similarity of all pairs from them (the model's
-    ``_sim``), the meta's per-row tensors gathered. One rank: as given."""
-    if world() == 1:
+    ``_sim``), the meta's per-row tensors gathered. One data rank: as
+    given."""
+    if data_world() == 1:
         return out, meta
     feats = [all_gather_rows(f) for f in out[:2]]
     return (*feats, module._sim(*feats)), _global_meta(meta, out[0].shape[0])
@@ -260,7 +261,7 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
         wanted = [feats_vis, feats_text] + ([scale] if scale.requires_grad else [])
         grads = torch.autograd.grad(loss, wanted)
         rows = shard_rows(feats_vis.shape[0])
-        feat_grads = [g[rows] * world() for g in grads[:2]]
+        feat_grads = [g[rows] * data_world() for g in grads[:2]]
         scale_grad = grads[2] if scale.requires_grad else None
     else:
         loss.backward()

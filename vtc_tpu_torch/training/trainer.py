@@ -27,7 +27,10 @@ checkpoint semantics (``trainer/base_trainer.py:9-219``,
   rank therefore holds the same log, ``monitor_best`` and early stop; only
   rank 0 logs below a warning, writes TensorBoard, the profiler trace and
   the ``.pth`` files, which have a single card's keys (the module's state
-  dict). Every rank resumes from the same checkpoint.
+  dict). Every rank resumes from the same checkpoint. A model split over
+  the model axis (``parallel.tensor``) gathers its parameters and Adam
+  moments into the single-card layout before rank 0 writes them, and
+  takes its part of them on resume.
 
 The loader's epoch counter is not restored on resume, as in the JAX package:
 a resumed run's first shuffle is that of ``seed + 1``.
@@ -46,6 +49,12 @@ import torch
 from ..data.loader import prefetch_to_device
 from ..device import resolve_device
 from ..parallel.mesh import data_parallel
+from ..parallel.tensor import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_state_dict,
+    split_optimizer_state,
+)
 from ..utils import TensorboardWriter, inf_loop, is_image_like_batch
 from ..utils.util import barrier, is_main, world
 from .checkpoints import (
@@ -386,18 +395,22 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _save_checkpoint(self, epoch: int, save_best: bool = False):
-        """Rank 0 writes; no rank goes on before the files exist."""
+        """Rank 0 writes; no rank goes on before the files exist. The
+        model's and the optimizer's state are gathered on every rank
+        first, where the model is split over the model axis."""
+        state = (full_state_dict(self.model),
+                 full_optimizer_state(self.model, self.optimizer))
         if is_main():
-            self._write_checkpoints(epoch, save_best)
+            self._write_checkpoints(epoch, save_best, *state)
         barrier()
 
-    def _write_checkpoints(self, epoch: int, save_best: bool):
+    def _write_checkpoints(self, epoch: int, save_best: bool, state_dict, optimizer_state):
         cfg = self.config.config if hasattr(self.config, "config") else self.config
         names = [f"checkpoint-epoch{epoch}"] + (["model_best"] if save_best else [])
         for name in names:
             path = save_checkpoint(
                 self.checkpoint_dir, name, arch=self.arch_name, epoch=epoch,
-                state_dict=self.model.state_dict(), optimizer=self.optimizer,
+                state_dict=state_dict, optimizer=optimizer_state,
                 lr_scheduler=self.scheduler, monitor_best=self.mnt_best, config=cfg,
             )
             self.logger.info("Saving %s: %s ...",
@@ -424,14 +437,14 @@ class Trainer:
             )
 
         state_dict, missing, unexpected = graft_params(
-            self.model.state_dict(), ckpt["state_dict"]
+            full_state_dict(self.model), ckpt["state_dict"]
         )
         if missing:
             self.logger.warning("%d missing checkpoint keys", len(missing))
         if unexpected:
             self.logger.warning("%d unexpected checkpoint keys", len(unexpected))
         assert_warm_start_keys(missing, unexpected)
-        self.model.load_state_dict(state_dict)
+        load_full_state_dict(self.model, state_dict)
 
         restored_opt = ckpt.get("optimizer")
         # the reference does not resume the optimizer state when the
@@ -459,7 +472,8 @@ class Trainer:
                 restored_opt = None
         if restored_opt is not None and not (missing or unexpected):
             try:
-                self.optimizer.load_state_dict(restored_opt)
+                self.optimizer.load_state_dict(
+                    split_optimizer_state(self.model, self.optimizer, restored_opt))
             except ValueError as e:
                 # the groups changed: the moments cannot be mapped, but the
                 # step can, so the schedule resumes at its decayed position
