@@ -130,8 +130,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``ycc_to_rgb`` kernel (libjpeg-turbo's fancy upsampling and ``jdcolor.c``
     tables, ``csrc/jpeg_decode.cu``) bit-exact against
     ``ycc_to_rgb_reference`` on nvJPEG's own planes, one launch per colour
-    image, with its ms, the plain version's on the card and its bytes
-    bound;
+    image, with its ms (CUDA events around the wrapper), its device time
+    under ``torch.profiler`` beside an empty kernel's (``torch.cuda.
+    _sleep(0)``), the plain version's on the card and its bytes bound;
 17. evaluation: ``python -m vtc_tpu_torch.evaluation.eval``'s ``cli`` on
     the flagship config over the corpus's 100-row test split (imported
     weights), on the card and with ``-d cpu`` (whose images the card
@@ -272,6 +273,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     shards on card 0 (2 rows of padding), against the one-shard index and
     the same shards on the CPU: ids equal, scores within 1e-4, the pad rows
     id -1 past the 30 real rows;
+35. ZeRO-3 (FSDP2, ``parallel.mesh.fully_shard_model``): two ranks spawned
+    here on card 0, each group laid out as ``create_mesh(W, 1)`` on the
+    card; at dp2 over gloo, then W = 1 over NCCL, phase 11's three fp32 steps
+    sharded over the data axis at phase 11's limits of phase 11's card
+    steps, 3 × (29, 26, 26) launches a rank, the gathered single-card state
+    (at W = 1 through a ``.pth`` on disk) loaded into the emptied sharded
+    model and gathered again bit for bit; at W = 1 the bf16 step at batch
+    128 sharded (samples/s, beside phase 12's plain step) and one sharded
+    step's launches; each rank's bytes of parameters and moments (and
+    ``memory_allocated``) against phase 11's unsharded model's. A failure
+    of either run fails the phase;
+36. the joint-layout TimeSformer (``models.timesformer_joint``) at
+    ViT-B/32, 8 frames (L = 393), the surgery's weights with the time
+    attention moved off its no-op by seeded noise: fp32 batch 2 card
+    against the CPU (features within 1e-4), 14 / 24 / 24 / 24 launches a
+    forward (LN, add+LN, the short tile, the long route); ``fused_mha``
+    at (Lq, Lk) = (1, 393) (``fused_mha_long_cross``: the long route's
+    two-pass kernel) against its plain version, fp32 and 8 bf16 inputs at
+    the one-ulp share, timed at batch 16 beside SDPA and the bound; a bf16
+    forward at batch 16 (launches, videos/s, cosine against fp32) and one
+    bf16 train step (finite, every parameter moved);
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -370,6 +392,11 @@ SOURCES = {
     # not a Pallas kernel: the XLA attention the JAX package runs past L = 128
     "fused_mha_long": ("cuda", "vtc_tpu_torch/csrc/long_attention.cuh",
                        "vtc_tpu/models/layers.py:269"),
+    # not a Pallas kernel: the joint TimeSformer's CLS row, XLA attention of 1
+    # query over 1 + T·N keys in vtc_tpu (the long route at Lq < Lk, its
+    # two-pass kernel, counted in fused_mha_long's launches)
+    "fused_mha_long_cross": ("cuda", "vtc_tpu_torch/csrc/long_attention.cuh",
+                             "vtc_tpu/models/timesformer_joint.py:31"),
 }
 
 
@@ -396,17 +423,19 @@ def bf16_ulp_at_median(ref: torch.Tensor) -> float:
 def mha_p_unrounded(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     """``fused_mha_plain`` with P left in fp32: the fault that the bf16 check
     of ``fused_mha`` must see. (At Dh = 64 the scale is 1/8, so q·scale is
-    exact in bf16 and P's rounding is the only one that shows.)"""
+    exact in bf16 and P's rounding is the only one that shows.) k and v may
+    have more rows than q (no causal mask then)."""
     b, l, e = q.shape
+    lk = k.shape[1]
     d = e // heads
     qh = (q * torch.tensor(d**-0.5, dtype=q.dtype)).reshape(b, l, heads, d)
     scores = torch.einsum("blhd,bmhd->bhlm", qh.float(),
-                          k.reshape(b, l, heads, d).float())
+                          k.reshape(b, lk, heads, d).float())
     if causal:
         scores = scores.masked_fill(
             torch.ones(l, l, dtype=torch.bool, device=q.device).triu(1), float("-inf"))
     out = torch.einsum("bhlm,bmhd->blhd", torch.softmax(scores, -1),
-                       v.reshape(b, l, heads, d).float())
+                       v.reshape(b, lk, heads, d).float())
     return out.reshape(b, l, e).to(q.dtype)
 
 
@@ -1061,6 +1090,9 @@ def train_run(ops, dev: str, inputs, draws, accum_steps: int = 1) -> dict:
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.training import train_step
 
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
     model = model_from_config(TRAIN_CONFIG, **({} if dev == "cuda" else {"device": "cpu"}))
     require(model.random_skip_adapter, "the config's random_skip_adapter is off")
     optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
@@ -1077,15 +1109,17 @@ def train_run(ops, dev: str, inputs, draws, accum_steps: int = 1) -> dict:
     ops.reset_launch_counts()
     losses = [train_step(model, clip_loss, optimizer, scheduler, data, {}, draws=d,
                          accum_steps=accum_steps)[0].item() for d in draws]
-    launches = None
+    launches = held = None
     if dev == "cuda":
         torch.cuda.synchronize()
         launches = ops.launch_counts()
+        del data
+        held = held_bytes(model, optimizer, base)
     hook.remove()
     lr = {n: g["initial_lr"] for g in optimizer.param_groups
           for n, p in model.named_parameters() if any(p is q for q in g["params"])}
     run = dict(losses=losses, grads=grads, before=before, lr=lr, launches=launches,
-               params={n: p.detach().cpu() for n, p in model.named_parameters()})
+               held=held, params={n: p.detach().cpu() for n, p in model.named_parameters()})
     del model, optimizer
     torch.cuda.empty_cache()
     return run
@@ -1158,8 +1192,9 @@ def compare_with_cpu_run(what: str, card: dict, cpu: dict) -> None:
 
 def run_train_parity(ops) -> tuple:
     """Phase 11. Returns the launch counts of the card's three steps and
-    their losses and step-1 gradients (phase 32 holds the data-parallel
-    step to them)."""
+    their losses, step-1 gradients and the bytes the model and its
+    optimizer hold after them (``held_bytes``; phases 32, 33 and 35 hold
+    the distributed steps to them)."""
     from vtc_tpu_torch.models.cam import draw_adapter_skip
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.training import train_step
@@ -1175,7 +1210,7 @@ def run_train_parity(ops) -> tuple:
         f"of {PARITY_BATCH}")
     compare_with_cpu_run("train parity", card, cpu)
     launches = card["launches"]
-    steps = {"losses": card["losses"], "grads": card["grads"]}
+    steps = {"losses": card["losses"], "grads": card["grads"], "held": card["held"]}
     del card, cpu
 
     # the frozen config: freeze "all" trains the CAM alone
@@ -1915,6 +1950,21 @@ NVJPEG_RGB_DECODE = {"rgb420_480x360": "1.68/1.28/2.90", "odd_211x97": "3.38/1.8
               "progressive_240x180": "2.50/1.62/3.71", "rgb444_160x120": "0.48-0.51",
               "gray_200x150": "0.0118"}
 YCC_REPS = 200
+YCC_PROFILED = 50  # calls under torch.profiler: the kernel's device time
+
+
+def profiled_kernel_ms(fn, match: str):
+    """Mean device time (ms) of the kernels whose name holds ``match``
+    among those ``YCC_PROFILED`` calls of ``fn`` launch, under
+    ``torch.profiler`` (CUPTI); None where the profiler sees no device
+    time."""
+    try:
+        prof = profile_calls(fn, YCC_PROFILED)
+    except RuntimeError as e:  # no device events: CUPTI did not trace
+        log(f"torch.profiler: {e}")
+        return None
+    times = [ms for name, ms in prof["kernel_ms"].items() if match in name]
+    return sum(times) if times else None
 
 
 def stream_ms(fn, stream, reps: int) -> float:
@@ -1938,13 +1988,22 @@ def check_ycc(smi) -> list:
     against PIL's committed decode, beside nvJPEG's own RGB readings;
     the kernel bit-exact against ``ycc_to_rgb_reference`` on nvJPEG's own
     planes (on the CPU, and the same torch ops on the card); the kernel's
-    and the plain version's ms on the card and the kernel's bytes bound.
+    and the plain version's ms on the card and the kernel's bytes bound;
+    the kernel's device time under ``torch.profiler`` beside an empty
+    kernel's (``torch.cuda._sleep(0)``), the floor of any launch.
     Returns one row per colour fixture."""
     from vtc_tpu_torch.data import image_io
 
     root = Path(__file__).resolve().parent / JPEG_DIR
     ref = np.load(root / "pil_decodes.npz")
     rows = []
+    empty_ms = profiled_kernel_ms(lambda: torch.cuda._sleep(0), "")
+    empty_events_ms = stream_ms(lambda: torch.cuda._sleep(0), torch.cuda.current_stream(),
+                                YCC_REPS)
+    log(f"an empty kernel (torch.cuda._sleep(0)): device time "
+        f"{'not measured' if empty_ms is None else f'{empty_ms * 1e3:.3f} µs'} under "
+        f"torch.profiler, {empty_events_ms * 1e3:.3f} µs a launch between CUDA events over "
+        f"{YCC_REPS}; on {smi}")
     for name in ref.files:
         data = (root / f"{name}.jpg").read_bytes()
         header = image_io.jpeg_header(data)
@@ -1999,12 +2058,20 @@ def check_ycc(smi) -> list:
                    lambda: image_io.planes_to_rgb(planes, factors, transform, reference=True),
                    stream, YCC_REPS // 10),
                "bound_ms": bound(nbytes, 0, torch.float32)[0], "bound_by": "bytes",
-               "library_ms": None}
+               "library_ms": None,
+               "device_ms": profiled_kernel_ms(
+                   lambda: image_io.planes_to_rgb(planes, factors, transform), "ycc_to_rgb"),
+               "empty_kernel_ms": empty_ms}
         rows.append(row)
+        device = row["device_ms"]
         log(f"ycc_to_rgb {name}: planes {row['planes']}, bit-exact vs the plain version "
-            f"(max |d| 0), kernel {row['ms']:.5f} ms, plain version on the card "
-            f"{row['plain_ms']:.5f} ms, bytes bound {row['bound_ms']:.6f} ms "
-            f"({nbytes:,} bytes), share of bound {row['bound_ms'] / row['ms']:.4f}; on {smi}")
+            f"(max |d| 0), kernel {row['ms']:.5f} ms between CUDA events around the wrapper, "
+            f"device time {'not measured' if device is None else f'{device:.5f} ms'} under "
+            f"torch.profiler (an empty kernel's "
+            f"{'not measured' if empty_ms is None else f'{empty_ms:.5f}'}), plain version on "
+            f"the card {row['plain_ms']:.5f} ms, bytes bound {row['bound_ms']:.6f} ms "
+            f"({nbytes:,} bytes), share of bound {row['bound_ms'] / (device or row['ms']):.4f}"
+            f"; on {smi}")
     log("ycc_to_rgb (csrc/jpeg_decode.cu, not a TPU kernel): " + json.dumps(rows))
     return rows
 
@@ -3667,7 +3734,7 @@ def tp_rank(rank: int, world: int, init: str, tmp: str, t0: float) -> None:
     tic = time.perf_counter()
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
     try:
-        create_mesh(1, world)
+        create_mesh(1, world, device=torch.device("cuda", 0))
         seconds["init"] = time.perf_counter() - tic
         tic = time.perf_counter()
         device = torch.device("cuda", 0)
@@ -3801,6 +3868,491 @@ def check_sharded_gallery(smi) -> None:
             f"equal the one-shard index's and the CPU shards'; scores max |d| {err:.3g}")
     require(got[0][:2, :10].tolist() == TIES_EXPECTED, "sharded gallery: not vtc_tpu's tie order")
     log(f"sharded gallery: vtc_tpu's tie order, pad ids -1 past the 30 rows; on {smi}")
+
+
+# ---- phase 35: ZeRO-3 (FSDP2) over the data axis ------------------------------------
+
+FSDP_BENCH = dict(batch=128, iters=4, windows=2, warmup=2)  # phase 12's batch, bf16
+FSDP_TIMEOUT = 420  # s for a spawn: a rank left waiting in a collective never ends
+
+
+def held_bytes(model, optimizer, base: int) -> dict:
+    """The bytes that this rank holds of ``model``'s parameters and of
+    ``optimizer``'s moments (a ZeRO-3 shard's own), and
+    ``torch.cuda.memory_allocated()`` over ``base`` (taken before the model
+    was built; the step's inputs freed first)."""
+    from torch.distributed.tensor import DTensor
+
+    def nbytes(tensors):
+        return sum((t.to_local() if isinstance(t, DTensor) else t).untyped_storage().nbytes()
+                   for t in tensors)
+
+    torch.cuda.synchronize()
+    moments = [v for st in optimizer.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.dim()]
+    return {"param_bytes": nbytes(model.parameters()), "moment_bytes": nbytes(moments),
+            "held": torch.cuda.memory_allocated() - base}
+
+
+def fsdp_steps(device, seconds: dict) -> dict:
+    """Phase 11's three fp32 steps of the flagship config, sharded over the
+    data axis (``fully_shard_model``) on this rank's rows: each loss, the
+    step-1 gradients gathered, the launches, the bytes of parameters and
+    moments that this rank holds (its tensors' storage, and
+    ``torch.cuda.memory_allocated`` after the steps over before the build);
+    then the gathered state (at W = 1 written as a single-card ``.pth`` and
+    read back) loaded into the same sharded model and optimizer, emptied
+    first (parameters zeroed, no moments, the schedule at 0), and gathered
+    again."""
+    import torch.distributed as dist
+
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import fully_shard_model, shard_batch
+    from vtc_tpu_torch.parallel.tensor import (
+        full_optimizer_state,
+        full_state_dict,
+        full_tensors,
+        load_full_state_dict,
+        split_optimizer_state,
+    )
+    from vtc_tpu_torch.training import load_checkpoint, save_checkpoint, train_step
+
+    tic = time.perf_counter()
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+    gen = torch.Generator().manual_seed(6)
+    draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
+             for _ in range(PARITY_STEPS)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = fully_shard_model(model_from_config(TRAIN_CONFIG), device)
+    optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+    grads = {}
+
+    def keep_first_grads(opt, args, kwargs):
+        if not grads:
+            grads.update({n: None if p.grad is None else p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+
+    optimizer.register_step_pre_hook(keep_first_grads)
+    data = [shard_batch(x).to(device) for x in inputs]
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - tic
+    # the sharded path's run: counts from 0 just before, read just after
+    ops.reset_launch_counts()
+    tic = time.perf_counter()
+    losses = [train_step(model, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
+              for d in draws]
+    torch.cuda.synchronize()
+    seconds["steps"] = time.perf_counter() - tic
+    launches = ops.launch_counts()
+    del data
+    out = {"losses": losses, "launches": launches, **held_bytes(model, optimizer, base),
+           "grads": {n: None if g is None else g.cpu()
+                     for n, g in full_tensors(model, grads).items()}}
+    del grads
+    tic = time.perf_counter()
+    state = (full_state_dict(model), full_optimizer_state(model, optimizer))
+    if dist.get_world_size() == 1:  # through a single-card .pth on disk
+        path = Path(os.environ["FSDP_TMP"]) / "fsdp.pth"
+        save_checkpoint(path.parent, path.stem, arch="PretrainedCLIP_finaltf", epoch=1,
+                        state_dict=state[0], optimizer=state[1], lr_scheduler=scheduler)
+        del state
+        ckpt = load_checkpoint(path)
+        out["ckpt_bytes"] = path.stat().st_size
+    else:  # the gathered state in memory
+        ckpt = {"state_dict": state[0], "optimizer": state[1],
+                "lr_scheduler": scheduler.state_dict()}
+    # the same sharded model and optimizer, emptied, take the state back
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+    optimizer.state.clear()
+    scheduler.last_epoch = 0
+    load_full_state_dict(model, ckpt["state_dict"])
+    optimizer.load_state_dict(split_optimizer_state(model, optimizer, ckpt["optimizer"]))
+    scheduler.load_state_dict(ckpt["lr_scheduler"])
+    sd, opt_sd = full_state_dict(model), full_optimizer_state(model, optimizer)
+    out["round_trip"] = (
+        all(torch.equal(sd[n].cpu(), t.cpu()) for n, t in ckpt["state_dict"].items())
+        and all(torch.equal(opt_sd["state"][i][k].cpu(), v.cpu())
+                for i, entry in ckpt["optimizer"]["state"].items() for k, v in entry.items())
+        and scheduler.last_epoch == PARITY_STEPS)
+    seconds["checkpoint"] = time.perf_counter() - tic
+    del model, optimizer, sd, opt_sd, ckpt
+    torch.cuda.empty_cache()
+    return out
+
+
+FSDP_RUNS = (("gloo", 2), ("nccl", 1))  # (backend, W), in this order
+
+
+def fsdp_run(device, backend: str, world: int, rank: int, tmp: str) -> dict:
+    """One group of phase 35: ``world`` ranks over ``backend`` as
+    ``create_mesh(world, 1)`` on the card (``fsdp_steps``); at W = 1 also
+    the bf16 step at batch 128 sharded (samples/s, one step's launches)."""
+    import torch.distributed as dist
+
+    from vtc_tpu_torch.parallel.mesh import create_mesh
+
+    seconds = {}
+    tic = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous_{backend}",
+                            rank=rank, world_size=world)
+    out = {"backend": backend, "seconds": seconds}
+    try:
+        create_mesh(world, 1, device=device)
+        seconds["init"] = time.perf_counter() - tic
+        out.update(fsdp_steps(device, seconds))
+        if world == 1:
+            from vtc_tpu_torch import ops
+            from vtc_tpu_torch.ops.losses import clip_loss
+            from vtc_tpu_torch.scripts import bench_train_step
+            from vtc_tpu_torch.training import train_step
+
+            tic = time.perf_counter()
+            run = bench_train_step.main(**FSDP_BENCH, fsdp=True, log=log)
+            out["rate"] = run["samples_per_s"]
+            # one more step of the sharded model, counted alone
+            model, optimizer, scheduler, data = run["setup"]
+            gen = torch.Generator(device=device).manual_seed(1)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            train_step(model, clip_loss, optimizer, scheduler, data, {}, gen)
+            torch.cuda.synchronize()
+            out["bf16_launches"] = ops.launch_counts()
+            del run, model, optimizer, scheduler, data
+            torch.cuda.empty_cache()
+            seconds["bench"] = time.perf_counter() - tic
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank(rank: int, tmp: str, t0: float) -> None:
+    """One rank of phase 35, in a process of its own on card 0: each group
+    of ``FSDP_RUNS`` that has a place for it (``fsdp_run``), one after the
+    other. ``t0``: the spawn's time, for the rank's own account."""
+    import faulthandler
+
+    faulthandler.enable()  # a crash in a rank prints its stack
+    start = time.time() - t0
+    os.environ.update(LOCAL_RANK="0", FSDP_TMP=tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    out = {}
+    for backend, world in FSDP_RUNS:
+        if rank < world:
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+            out[backend] = fsdp_run(device, backend, world, rank, tmp)
+            out[backend]["seconds"]["start"] = start
+    torch.save(out, Path(tmp) / f"fsdp_rank{rank}.pt")
+
+
+def spawn_fsdp() -> list:
+    """``fsdp_rank`` on the ranks of the largest group; -> each rank's
+    results. The ranks are killed past ``FSDP_TIMEOUT``."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    saved = Path(__file__).resolve().parent / "saved"
+    saved.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_", dir=saved)
+    nprocs = max(world for _, world in FSDP_RUNS)
+    try:
+        context = mp.start_processes(fsdp_rank, args=(tmp, time.time()), nprocs=nprocs,
+                                     join=False, start_method="spawn")
+        deadline = time.monotonic() + FSDP_TIMEOUT
+        while not context.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for process in context.processes:
+                    process.kill()
+                raise RuntimeError(f"chip_smoke: phase 35's ranks did not end within "
+                                   f"{FSDP_TIMEOUT} s")
+        return [torch.load(Path(tmp) / f"fsdp_rank{r}.pt", weights_only=False)
+                for r in range(nprocs)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_fsdp(smi, parity: dict, plain: float) -> dict:
+    """Phase 35: ZeRO-3 at dp2 over gloo on card 0, then W = 1 over NCCL, in
+    one spawn of ranks (``spawn_fsdp``), each against phase 11's card steps
+    (its limits), 3 × (29, 26, 26) launches a rank, the single-card state
+    gathered and taken back bit for bit; at W = 1 the sharded bf16 step's
+    samples/s beside phase 12's plain one (``plain``: the same model,
+    optimizer and batch) and its launches; each rank's bytes of parameters
+    and moments against the unsharded model's of phase 11. -> the W = 1
+    run's launches."""
+    phase_tic = time.perf_counter()
+    want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    result, whole_model = {}, parity["held"]
+    spawned = spawn_fsdp()
+    spawn_s = time.perf_counter() - phase_tic
+    for backend, world in FSDP_RUNS:
+        ranks = [r[backend] for r in spawned[:world]]
+        what = f"ZeRO-3 dp{world} over {backend}"
+        ours = ranks[0]
+        compare_losses(what, ours["losses"], parity["losses"], names=(what, "phase 11"))
+        compare_grads(f"{what} vs phase 11", ours["grads"], parity["grads"])
+        for r, out in enumerate(ranks):
+            log(f"kernel use (rank {r} of {what}, {PARITY_STEPS} fp32 steps): "
+                f"{json.dumps(out['launches'])}")
+            require(out["launches"] == want, f"{what} rank {r} launches {out['launches']}")
+            require(out["losses"] == ours["losses"], f"{what} rank {r} losses {out['losses']}")
+            require(out["round_trip"], f"{what} rank {r}: the single-card .pth did not come "
+                                       f"back bit for bit")
+        whole = whole_model["param_bytes"] + whole_model["moment_bytes"]
+        for r, out in enumerate(ranks):
+            mine = out["param_bytes"] + out["moment_bytes"]
+            log(f"{what} rank {r}: holds {out['param_bytes']:,} bytes of parameters and "
+                f"{out['moment_bytes']:,} of moments, memory_allocated after the steps "
+                f"{out['held']:,}; phase 11's unsharded model "
+                f"{whole_model['param_bytes']:,} + {whole_model['moment_bytes']:,}, "
+                f"memory_allocated {whole_model['held']:,}: parameters + moments "
+                f"{mine / whole:.4f}, memory_allocated "
+                f"{out['held'] / whole_model['held']:.4f} of it")
+            require(mine <= whole / world * 1.01 + 1e6,
+                    f"{what} rank {r} holds {mine} of {whole} bytes")
+        how = (f"a single-card .pth of {ours['ckpt_bytes']:,} bytes written and read back"
+               if world == 1 else "the single-card state gathered on every rank")
+        log(f"{what}: {how}, loaded into the emptied sharded model and gathered again bit "
+            f"for bit; rank 0's seconds "
+            f"{json.dumps({k: round(v, 2) for k, v in ours['seconds'].items()})}; on {smi}")
+        if world == 1:
+            log(f"kernel use (one bf16 step at batch {FSDP_BENCH['batch']}, {what}): "
+                f"{json.dumps(ours['bf16_launches'])}")
+            require(ours["bf16_launches"] == EXPECTED_LAUNCHES,
+                    f"{what} bf16 step launches {ours['bf16_launches']}")
+            log(f"{what}: bf16 step at batch {FSDP_BENCH['batch']}: FSDP2 {ours['rate']:.1f} "
+                f"({FSDP_BENCH['windows']} windows of {FSDP_BENCH['iters']} steps after "
+                f"{FSDP_BENCH['warmup']}), plain {plain:.1f} samples/s (phase 12; FSDP2 / "
+                f"plain {ours['rate'] / plain:.4f}); on {smi}")
+            result = ours["launches"]
+    log(f"phase 35 took {time.perf_counter() - phase_tic:.1f} s (the ranks' spawn "
+        f"{spawn_s:.1f} s)")
+    return result
+
+
+# ---- phase 36: the joint-layout TimeSformer -----------------------------------------
+
+JOINT_BATCH, JOINT_BENCH_BATCH = 2, 16
+JOINT_KEYS = 1 + NFRAMES * 49  # the CLS row's keys at ViT-B/32, 8 frames
+# the cross route's checked sequences: 3.1 M outputs an input (a one-ulp
+# share is a count of flips: at 98,304 outputs one input's reads 2e-5 to 2e-4
+# against the plain version, the plain versions' against each other as
+# widely), the CPU's plain version on the first JOINT_CPU_ROWS of them
+JOINT_CHECK_BATCH, JOINT_CPU_ROWS = 4096, 512
+JOINT_SEEDS = 8
+JOINT_LAYERS = 12
+# ln_pre, 12 ln_time, ln_post; 2 add+LN a block; the time and space groups on
+# the short tile, the CLS row of each on the long route
+JOINT_LAUNCHES = dict(EXPECTED_LAUNCHES, layernorm=JOINT_LAYERS + 2,
+                      add_layernorm=2 * JOINT_LAYERS, fused_mha=2 * JOINT_LAYERS,
+                      fused_mha_long=2 * JOINT_LAYERS)
+
+
+def joint_state() -> dict:
+    """The surgery's state dict from the seeded ViT-B/32 visual tower, its
+    time attention, ``ln_time`` and temporal embedding moved off the
+    no-op init by seeded N(0, TEMPORAL_NOISE) noise."""
+    from vtc_tpu_torch.models.clip_model import CLIP_VARIANTS
+    from vtc_tpu_torch.models.timesformer_joint import (
+        joint_timesformer_params_from_clip_visual,
+    )
+
+    visual = flagship(device="cpu").model.visual.state_dict()
+    sd = joint_timesformer_params_from_clip_visual(visual, CLIP_VARIANTS["ViT-B/32"], NFRAMES)
+    g = torch.Generator().manual_seed(36)
+    for name, t in sd.items():
+        if ".timeattn." in name or ".ln_time." in name or name == "temporal_embed":
+            sd[name] = t + TEMPORAL_NOISE * torch.randn(t.shape, generator=g)
+    return sd
+
+
+def joint_model(sd: dict, device, dtype=torch.float32):
+    from vtc_tpu_torch.models.clip_model import CLIP_VARIANTS
+    from vtc_tpu_torch.models.timesformer_joint import TimeSformerJoint
+
+    model = TimeSformerJoint(CLIP_VARIANTS["ViT-B/32"], NFRAMES, dtype=dtype)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device)
+
+
+def check_cross_route(ops) -> dict:
+    """``fused_mha`` with fewer queries than keys, (Lq, Lk) = (1, 393): the
+    long route's two-pass kernel (its counter moves, the short tile's does
+    not) against ``fused_mha_plain`` on q, k, v views of one qkv tensor:
+    fp32 (2e-5) on one input, bf16 on ``JOINT_SEEDS`` inputs of
+    ``JOINT_CHECK_BATCH`` sequences under phase 26's one-ulp share limit,
+    beside the CPU's plain version's share and P left unrounded's; then
+    timed at the joint forward's shape (batch 16)
+    beside the plain version, SDPA and the bound. -> {"cases", "shares",
+    "headline"}."""
+    import torch.nn.functional as F
+
+    from vtc_tpu_torch.utils.timing import n_sets, time_ms
+
+    dev = torch.device("cuda")
+    e, h = 768, 12
+    out = {"cases": [], "shares": []}
+
+    def views(qkv):
+        q, k, v = qkv.chunk(3, -1)
+        return q[:, :1], k, v
+
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = []
+        for seed in range(1 if dtype == torch.float32 else JOINT_SEEDS):
+            g = torch.Generator(device=dev).manual_seed(3600 + seed)
+            q, k, v = views(torch.randn(JOINT_CHECK_BATCH, JOINT_KEYS, 3 * e, device=dev,
+                                        generator=g).to(dtype))
+            short, long = ops.fused_mha.launches, ops.fused_mha_long.launches
+            o = ops.fused_mha(q, k, v, h)
+            torch.cuda.synchronize()
+            require((ops.fused_mha.launches, ops.fused_mha_long.launches) == (short, long + 1),
+                    "(Lq, Lk) = (1, 393): not the long route")
+            ref = ops.fused_mha_plain(q, k, v, h)
+            errs.append((o.float() - ref.float()).abs().max().item())
+            tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref, 1)
+            require(errs[-1] <= tol, f"fused_mha_long_cross {str(dtype)[6:]} seed {seed}: "
+                                     f"max_abs_err {errs[-1]} > {tol}")
+            if dtype == torch.bfloat16:
+                ulp = bf16_ulp_at_median(ref)
+                n = JOINT_CPU_ROWS
+                cpu = ops.fused_mha_plain(q[:n].cpu(), k[:n].cpu(), v[:n].cpu(), h)
+                out["shares"].append(dict(
+                    seed=seed, share=share_beyond(o, ref, ulp),
+                    cpu_plain=share_beyond(cpu, ref[:n].cpu(), ulp),
+                    p_unrounded=share_beyond(mha_p_unrounded(q, k, v, h, False), ref, ulp)))
+        log(f"kernel fused_mha_long_cross (Lq, Lk) = (1, {JOINT_KEYS}) {str(dtype)[6:]} "
+            f"B={JOINT_CHECK_BATCH} E={e} H={h} (two passes): max_abs_err={max(errs):.3g} "
+            f"over {len(errs)} inputs, tol={tol:.3g}")
+        out["cases"].append(dict(shape=f"1x{JOINT_KEYS}", dtype=str(dtype)[6:],
+                                 max_abs_err=max(errs), tol=tol))
+    for r in out["shares"]:
+        log(f"kernel fused_mha_long_cross (1, {JOINT_KEYS}) bfloat16 seed {r['seed']}: "
+            f"{r['share']:.3g} of outputs beyond one ulp at the median (the CPU's plain "
+            f"version on {JOINT_CPU_ROWS} of the {JOINT_CHECK_BATCH} sequences "
+            f"{r['cpu_plain']:.3g}, P left unrounded {r['p_unrounded']:.3g}), limit "
+            f"{ATTN_BF16_SHARE:g}")
+        require(r["share"] <= ATTN_BF16_SHARE < r["p_unrounded"],
+                f"fused_mha_long_cross bf16 one-ulp share at {r}: limit {ATTN_BF16_SHARE}")
+    del q, k, v, o, ref
+    torch.cuda.empty_cache()
+    dtype, b = torch.bfloat16, JOINT_BENCH_BATCH
+    per = 2 * (2 * b * e + 2 * b * JOINT_KEYS * e)  # q, o: 1 row; k, v: 393; bf16
+    g = torch.Generator(device=dev).manual_seed(3700)
+    sets = [views(torch.randn(b, JOINT_KEYS, 3 * e, device=dev, generator=g).to(dtype))
+            for _ in range(n_sets(per))]
+    dh = e // h
+
+    def sdpa(q, k, v):
+        def heads(t):
+            return t.unflatten(-1, (h, dh)).transpose(1, 2)
+
+        return F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+
+    ms = time_ms(lambda q, k, v: ops.fused_mha(q, k, v, h), sets)
+    plain_ms = time_ms(lambda q, k, v: ops.fused_mha_plain(q, k, v, h), sets)
+    library_ms = time_ms(sdpa, sets)
+    bms, by = bound(per, 4 * b * JOINT_KEYS * e, dtype)
+    o = ops.fused_mha(*sets[0], h)
+    err = (o.float() - ops.fused_mha_plain(*sets[0], h).float()).abs().max().item()
+    case = dict(shape=f"B{b} 1x{JOINT_KEYS}", dtype="bfloat16", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by)
+    log(f"kernel fused_mha_long_cross bfloat16 B={b} Lq=1 Lk={JOINT_KEYS} E={e} H={h}: "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+        f"bound_us={bms * 1e3:.3f} ({by}) share_of_bound={bms / ms:.4f} max_abs_err={err:.3g}")
+    out["cases"].append(case)
+    out["headline"] = case
+    del sets, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_joint(ops, smi) -> tuple:
+    """Phase 36: the joint-layout TimeSformer at ViT-B/32 with 8 frames (L =
+    393), the surgery's weights off the no-op: fp32 batch 2 card against
+    the CPU's plain run (features ≤ 1e-4) with exact launches a forward;
+    the cross route at (1, 393) (``check_cross_route``); a bf16 forward at
+    batch 16 (finite, exact launches, videos/s) and one bf16 train step
+    (finite loss and gradients, parameters moved). -> (the bf16 forward's
+    launches, the cross route's results)."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.training import build_optimizer
+
+    tic = time.perf_counter()
+    sd = joint_state()
+    card, cpu = joint_model(sd, "cuda"), joint_model(sd, "cpu")
+    g = torch.Generator().manual_seed(37)
+    video = torch.randn(JOINT_BATCH, NFRAMES, 3, 224, 224, generator=g)
+    with torch.inference_mode():
+        card(video.cuda())  # warm up
+        torch.cuda.synchronize()
+        # the joint tower's run: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        feats = card(video.cuda())
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        feats_cpu = cpu(video)
+    log(f"kernel use (joint TimeSformer fp32 forward, L = {JOINT_KEYS}): {json.dumps(launches)}")
+    require(launches == JOINT_LAUNCHES, f"joint launches {launches} != {JOINT_LAUNCHES}")
+    require(bool(torch.isfinite(feats).all()), "joint fp32 features not finite")
+    err = (feats.cpu() - feats_cpu).abs().max().item()
+    log(f"joint TimeSformer fp32 {tuple(feats.shape)}: max_abs_err vs CPU {err:.3g} "
+        f"(atol {FEAT_ATOL:g})")
+    require(err <= FEAT_ATOL, f"joint TimeSformer differs from the CPU run by {err}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+    cross = check_cross_route(ops)
+
+    model = joint_model(sd, "cuda", torch.bfloat16)
+    big = torch.randn(JOINT_BENCH_BATCH, NFRAMES, 3, 224, 224, generator=g).cuda()
+    with torch.inference_mode():
+        out = model(big)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = model(big)
+        torch.cuda.synchronize()
+        bf16_launches = ops.launch_counts()
+        require(bool(torch.isfinite(out.float()).all()), "joint bf16 features not finite")
+        cos = cosines(torch.nn.functional.normalize(out.float(), dim=-1)[:JOINT_BATCH],
+                      torch.nn.functional.normalize(
+                          joint_model(sd, "cuda")(big[:JOINT_BATCH]).float(), dim=-1))
+        log(f"kernel use (joint TimeSformer bf16 forward, batch {JOINT_BENCH_BATCH}): "
+            f"{json.dumps(bf16_launches)}; bf16 vs fp32 min cosine {cos.min().item():.6f}")
+        require(bf16_launches == JOINT_LAUNCHES, f"joint bf16 launches {bf16_launches}")
+        require(cos.min().item() > COS_MIN, f"joint bf16 cosine {cos.min().item()}")
+        throughput(f"joint TimeSformer bf16 batch {JOINT_BENCH_BATCH}, 8 frames", model,
+                   [big], JOINT_BENCH_BATCH, 3, 5, 4, "videos/s", smi)
+    optimizer, _ = build_optimizer(model, {"type": "Adam", "args": {"lr": 1e-5}})
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    text = torch.nn.functional.normalize(
+        torch.randn(JOINT_BENCH_BATCH, 512, generator=g), dim=-1).cuda()
+    feats = torch.nn.functional.normalize(model(big).float(), dim=-1)
+    loss = clip_loss((feats, text, 100.0 * feats @ text.T), {})
+    loss.backward()
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+                 if p.grad is not None)
+    optimizer.step()
+    moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    log(f"joint TimeSformer bf16 train step at batch {JOINT_BENCH_BATCH}: loss "
+        f"{loss.item():.6f}, gradients finite {finite}, {moved} of {len(before)} parameters "
+        f"moved")
+    require(math.isfinite(loss.item()) and finite and moved == len(before),
+            "joint bf16 train step: a non-finite loss or gradient, or a parameter unmoved")
+    del model, optimizer, big, before
+    torch.cuda.empty_cache()
+    log(f"phase 36 took {time.perf_counter() - tic:.1f} s; on {smi}")
+    return bf16_launches, cross
 
 
 def main() -> int:
@@ -4070,12 +4622,21 @@ def main() -> int:
     # 34. the sharded gallery against the one-shard index and the CPU's shards
     check_sharded_gallery(smi)
 
+    mark("35")
+    # 35. ZeRO-3 (FSDP2): phase 11's steps at W = 1 over NCCL and dp2 over gloo
+    run_fsdp(smi, parity_steps, plain_rate)
+
+    mark("36")
+    # 36. the joint-layout TimeSformer and the cross route at (1, 393)
+    joint_launches, results["fused_mha_long_cross"] = run_joint(ops, smi)
+
     mark("31")
     # 31. results: each kernel's launches from the path that runs it
     path_launches = dict(launches, fused_attention=video_launches["fused_attention"],
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"],
-                         fused_mha_long=long_launches["fused_mha_long"])
+                         fused_mha_long=long_launches["fused_mha_long"],
+                         fused_mha_long_cross=joint_launches["fused_mha_long"])
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         head = results[name]["headline"]

@@ -17,11 +17,13 @@
   epochs (``test_trainer_matches_jax_trainer``'s tolerance); both write
   their epoch checkpoints.
 * The refusals: ``loader: grain``, ``--multihost`` without the process
-  topology ``torchrun`` exports, ``pp``, ``sp``, ``ep``, ``fsdp`` (also
-  beside ``n_model``, whose axis runs in ``tests/test_torch_tp.py``), the R(2+1)D video datasets, ``--n_devices`` on a machine with
+  topology ``torchrun`` exports, ``pp``, ``sp``, ``ep``, ``slices``, the
+  R(2+1)D video datasets, ``--n_devices`` on a machine with
   the cards but no process group (the ``torchrun`` line); the unsharded
-  warning on one without them; the MSRVTT probe off without its root. The
-  twin on a group's ranks is in ``tests/test_torch_dist.py``.
+  warning on one without them; the MSRVTT probe off without its root.
+  ``fsdp`` (alone and beside ``n_model``) passes the mesh check; its runs
+  on a group are in ``tests/test_torch_fsdp.py``. The twin on a group's
+  ranks is in ``tests/test_torch_dist.py``.
 """
 
 import inspect
@@ -422,12 +424,22 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     ({"sp": 2}, "distribution"),
     ({"ep": 2}, "Queue 1 item 9"),
     ({"slices": 2}, "Queue 1 item 9"),
-    ({"n_model": 2, "fsdp": 1}, "Queue 1 item 9"),  # the model axis runs: test_torch_tp.py
-    ({"fsdp": 1}, "Queue 1 item 9"),
 ])
 def test_twin_refusals(tmp_path, extra, match):
     config = ConfigParser(_config(tmp_path, "x.csv", "x", **extra))
     with pytest.raises(NotImplementedError, match=match):
+        twin.main(config, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [{"fsdp": 1}, {"n_model": 2, "fsdp": 1}])
+def test_twin_fsdp_gets_past_the_mesh_check(tmp_path, extra):
+    """``--fsdp 1``, alone and with the model axis, is no refusal: one
+    process without a group passes ``_check_mesh`` (ZeRO-3 runs under a
+    group: tests/test_torch_fsdp.py) and ``main`` goes on to read its data,
+    here a CSV that is not there."""
+    config = ConfigParser(_config(tmp_path, tmp_path / "x.csv", tmp_path, **extra))
+    twin._check_mesh(config, torch.device("cpu"), logging.getLogger("test"))
+    with pytest.raises(FileNotFoundError):
         twin.main(config, device="cpu")
 
 

@@ -31,11 +31,19 @@ def spawn(fn, world: int, tmp, *args, join: bool = True):
                               join=join, start_method="spawn")
 
 
-def wait(context) -> None:
+def wait(context, timeout=None) -> None:
     """Block until every rank of ``spawn(..., join=False)`` has ended;
-    a rank's error is raised here."""
-    while not context.join():
-        pass
+    a rank's error is raised here. Past ``timeout`` seconds (a rank that
+    waits in a collective its peers never join) the ranks are killed and
+    ``TimeoutError`` raised."""
+    import time
+
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while not context.join(timeout=None if deadline is None else 1.0):
+        if deadline is not None and time.monotonic() > deadline:
+            for process in context.processes:
+                process.kill()
+            raise TimeoutError(f"the ranks did not end within {timeout} s")
 
 
 def _entry(rank, fn, world, tmp, args):
@@ -79,13 +87,16 @@ def step_case(case: dict) -> dict:
     view), the parameters and buffers after, and the last output's
     shapes."""
     from vtc_tpu_torch.ops.losses import clip_loss
-    from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.parallel.mesh import data_parallel, fully_shard_model, shard_batch
     from vtc_tpu_torch.parallel.tensor import full_tensors, shard_model
     from vtc_tpu_torch.training import build_optimizer, train_step
 
-    # split over the model axis where the rank's mesh has one
+    # split over the model axis where the rank's mesh has one, then ZeRO-3
+    # over its data axis where the case asks
     model = shard_model(flagship_port(case["state_dict"], **case.get("model_kw", {})))
-    optimizer, scheduler = build_optimizer(model, OPT, SCHED, **STEP_KW)
+    if case.get("fsdp"):
+        fully_shard_model(model, torch.device("cpu"))
+    optimizer, scheduler = build_optimizer(model, case.get("opt", OPT), SCHED, **STEP_KW)
     grads = {}
 
     def first(opt, args, kwargs):
@@ -108,8 +119,18 @@ def step_case(case: dict) -> dict:
     return {"losses": losses, "grads": full_tensors(model, grads), "shapes": shapes,
             "params": full_tensors(model, {n: p.detach().clone()
                                            for n, p in model.named_parameters()}),
-            "local_params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "local_params": {n: _local(p).detach().clone() for n, p in model.named_parameters()},
+            "local_moments": {n: {k: tuple(_local(v).shape) for k, v in optimizer.state[p].items()
+                                  if torch.is_tensor(v) and v.dim()}
+                              for n, p in model.named_parameters() if p in optimizer.state},
             "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+
+
+def _local(t):
+    """This rank's shard of a ``DTensor`` (ZeRO-3), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def run_steps(rank, world, tmp):
@@ -230,7 +251,7 @@ def run_tp(rank, world, tmp):
     from vtc_tpu_torch.parallel.mesh import create_mesh, current_mesh
     from vtc_tpu_torch.parallel.tensor import shard_model
 
-    create_mesh(world // 2, 2)
+    create_mesh(world // 2, 2, device="cpu")
     spec = torch.load(tmp / "tp.pt", weights_only=False)
     out = {"cases": {name: step_case(case) for name, case in spec["cases"].items()}}
     if "evals" in spec:
@@ -313,3 +334,155 @@ def run_embeddings(rank, world, tmp, argv):
     script.Thumbnails.__getitem__ = count
     stacked = script.main(argv)
     torch.save({"rows": len(encoded), "stacked": stacked}, tmp / f"emb_rank{rank}.pt")
+
+
+# ---- ZeRO-3 (tests/test_torch_fsdp.py) ----------------------------------------------
+
+def run_fsdp(rank, world, tmp):
+    """A ``create_mesh(world // n_model, n_model)`` mesh on the CPU: every
+    step case of ``tmp/fsdp.pt`` through ``step_case``; where the spec has
+    them, the checkpoint round trip of ``fsdp_round_trip``, the train twin
+    at ``--fsdp 1`` (one epoch, then a resume of a single-card ``.pth``),
+    and the strided evaluations of a sharded model."""
+    from vtc_tpu_torch.parallel.mesh import create_mesh
+
+    spec = torch.load(tmp / "fsdp.pt", weights_only=False)
+    create_mesh(world // spec["n_model"], spec["n_model"], device="cpu")
+    out = {"cases": {name: step_case(case) for name, case in spec["cases"].items()}}
+    if "round_trip" in spec:
+        out["round_trip"] = fsdp_round_trip(spec["round_trip"], tmp, rank)
+    if "cli" in spec:
+        out["cli"] = _fsdp_cli(tmp, world, spec["evals"]["videos"])
+    if "evals" in spec:
+        out["evals"] = _fsdp_evals(spec["evals"], tmp)
+    torch.save(out, tmp / f"fsdp_rank{rank}.pt")
+
+
+def _copied(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _copied(v) for k, v in tree.items()}
+    return tree
+
+
+def fsdp_round_trip(spec, tmp, rank):
+    """The flagship (``spec["state_dict"]``) sharded over the data axis takes
+    the single-card checkpoint ``spec["ckpt"]`` (parameters, Adam moments, schedule); its
+    gathered state right after, then a step on this rank's rows and the
+    gathered state that rank 0 writes as ``tmp/fsdp_step.pth``, then one
+    more step: each loss, and the shapes of this rank's shards."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import fully_shard_model, shard_batch
+    from vtc_tpu_torch.parallel.tensor import (
+        full_optimizer_state,
+        full_state_dict,
+        load_full_state_dict,
+        split_optimizer_state,
+    )
+    from vtc_tpu_torch.training import build_optimizer, save_checkpoint, train_step
+
+    ckpt = torch.load(spec["ckpt"], weights_only=True)
+    # built on the weights before the checkpoint's step: the load must move them
+    model = fully_shard_model(flagship_port(spec["state_dict"]), torch.device("cpu"))
+    optimizer, scheduler = build_optimizer(model, OPT, SCHED, **STEP_KW)
+    load_full_state_dict(model, ckpt["state_dict"])
+    optimizer.load_state_dict(split_optimizer_state(model, optimizer, ckpt["optimizer"]))
+    scheduler.load_state_dict(ckpt["lr_scheduler"])
+    out = {"loaded": (_copied(full_state_dict(model)),
+                      _copied(full_optimizer_state(model, optimizer)))}
+    data = [torch.from_numpy(np.ascontiguousarray(shard_batch(a))) for a in spec["data"]]
+    losses = []
+    for step in range(2):
+        loss, _ = train_step(model, clip_loss, optimizer, scheduler, data, {},
+                             draws=spec["draws"][step])
+        losses.append(float(loss))
+        if step == 0:
+            state = (full_state_dict(model), full_optimizer_state(model, optimizer))
+            if rank == 0:
+                save_checkpoint(tmp, "fsdp_step", arch="PretrainedCLIP_finaltf", epoch=1,
+                                state_dict=state[0], optimizer=state[1],
+                                lr_scheduler=scheduler)
+    out["losses"] = losses
+    emb = dict(model.named_parameters())["model.token_embedding.weight"]
+    out["shards"] = {"param": tuple(emb.to_local().shape),
+                     "moments": {k: tuple(v.to_local().shape)
+                                 for k, v in optimizer.state[emb].items() if v.dim()}}
+    return out
+
+
+def _fsdp_cli(tmp, world, videos):
+    """The train twin at ``--fsdp 1 --n_devices world``: one epoch, then a
+    run that resumes the single-card ``tmp/single/single.pth`` for its second;
+    each epoch's gathered state and the state each resume restored. The
+    trainer's per-epoch probe runs ``retrieval_evaluation`` of the sharded
+    model over ``videos`` (an odd number: the ranks' shares differ), as
+    ``train._make_probe``'s does over MSRVTT; each probe's table."""
+    from vtc_tpu_torch import train as twin
+    from vtc_tpu_torch.evaluation.retrieval_eval import retrieval_evaluation
+    from vtc_tpu_torch.parallel.mesh import current_mesh
+    from vtc_tpu_torch.parallel.tensor import full_optimizer_state, full_state_dict
+    from vtc_tpu_torch.training import trainer as trainer_mod
+
+    epochs, resumed, probes = [], [], []
+
+    def make_probe(config):
+        def probe(trainer, branch_override=None):
+            trainer.model.eval()
+            table = retrieval_evaluation(trainer.model, "synthetic", "test", dataset=videos,
+                                         frame_stride=4, branch_override=branch_override,
+                                         mesh=current_mesh(), device=trainer.device)
+            probes.append((branch_override, table.to_numpy()))
+            return {}
+        return probe
+
+    twin._make_probe = make_probe
+    run_epoch = trainer_mod.Trainer._train_epoch
+    resume = trainer_mod.Trainer._resume_checkpoint
+
+    def record(self, epoch):
+        log = run_epoch(self, epoch)
+        epochs.append(_copied(full_state_dict(self.model)))
+        return log
+
+    def record_resume(self, path):
+        resume(self, path)
+        resumed.append((_copied(full_state_dict(self.model)),
+                        _copied(full_optimizer_state(self.model, self.optimizer)),
+                        self.scheduler.last_epoch))
+
+    trainer_mod.Trainer._train_epoch = record
+    trainer_mod.Trainer._resume_checkpoint = record_resume
+    argv = ["-c", str(tmp / "cli_config.json"), "--n_devices", str(world), "--fsdp", "1"]
+    first = twin.cli(argv, device="cpu")
+    again = twin.cli(argv + ["-r", str(tmp / "single" / "single.pth"), "--epochs", "2"],
+                     device="cpu")
+    return {"epochs": epochs, "resumed": resumed, "probes": probes, "start": again.start_epoch,
+            "dirs": [str(first.checkpoint_dir), str(again.checkpoint_dir)],
+            "sharded": all(type(p).__name__ == "DTensor"
+                           for p in again.model.parameters() if p.dim())}
+
+
+def _fsdp_evals(ev, tmp):
+    """The ``eval.py`` twin of an fsdp run's config (the whole model on each
+    data rank) and ``retrieval_evaluation`` of the flagship sharded over the
+    data axis, each over an odd number of items split over the ranks."""
+    import json
+    import types
+
+    from vtc_tpu_torch.config import ConfigParser
+    from vtc_tpu_torch.evaluation import eval as port_eval
+    from vtc_tpu_torch.evaluation.retrieval_eval import retrieval_evaluation
+    from vtc_tpu_torch.parallel.mesh import current_mesh, fully_shard_model
+
+    os.chdir(tmp / "evalrun")
+    written = []
+    port_eval.json = types.SimpleNamespace(
+        dump=lambda obj, f: (written.append(f.name), json.dump(obj, f)))
+    recalls = port_eval.main(ConfigParser(ev["config"]), EvalArgs(), ev["ckpt"], device="cpu")
+    model = fully_shard_model(flagship_port(ev["state_dict"]), torch.device("cpu")).eval()
+    table = retrieval_evaluation(model, "synthetic", "test", dataset=ev["videos"],
+                                 frame_stride=4, mesh=current_mesh(), device="cpu")
+    return {"recalls": recalls, "written": written, "table": table.to_numpy(),
+            "sharded_after": all(type(p).__name__ == "DTensor"
+                                 for p in model.parameters() if p.dim())}

@@ -55,12 +55,14 @@ struct CausalScore {
   }
 };
 
+// L: the query rows (and the output's), Lk: the keys; Lk = L but on the
+// long route with fewer queries than keys
 template <typename T>
 struct Args {
   const T *q, *k, *v;
   T* o;
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
-  int B, L, H, Dh, causal, vec_in, vec_out;
+  int B, L, Lk, H, Dh, causal, vec_in, vec_out;
   float scale;
 };
 
@@ -108,8 +110,8 @@ cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
 template <typename T, int DC>
 __global__ void __launch_bounds__(la::kThreads, la::min_blocks<T>(DC))
 fused_mha_long_kernel(const Args<T> a) {
-  la::attend_long<T, DC>(head(a, blockIdx.x), a.L, a.Dh, a.causal, round_to<T>(a.scale), a.vec_in,
-                         a.vec_out);
+  la::attend_long<T, DC>(head(a, blockIdx.x), a.L, a.Lk, a.Dh, a.causal, round_to<T>(a.scale),
+                         a.vec_in, a.vec_out);
 }
 
 // the one-pass kernel: one block per (sequence, head), pairs of warps
@@ -174,11 +176,12 @@ inline Plan long_plan(int L, int Dh, int dtype) {
           (int)(dtype == 1 ? la::smem_bytes<sa::bf16>(Dh) : la::smem_bytes<float>(Dh))};
 }
 
+// Lq = Lk follows long_plan; fewer queries than keys take the two-pass kernel
 template <typename T>
 cudaError_t launch_long(const Args<T>& a, cudaStream_t stream) {
   if constexpr (std::is_same<T, sa::bf16>::value) {
     const Plan p = long_plan(a.L, a.Dh, 1);
-    if (p.one_pass) {
+    if (p.one_pass && a.L == a.Lk) {
       if (p.key_tiles == 13)
         return a.Dh <= 64 ? launch_one_pass<13, 4>(a, stream) : launch_one_pass<13, 8>(a, stream);
       return a.Dh <= 64 ? launch_one_pass<17, 4>(a, stream) : launch_one_pass<17, 8>(a, stream);
@@ -192,17 +195,18 @@ cudaError_t launch_long(const Args<T>& a, cudaStream_t stream) {
 template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v, void* o, long long q_sb,
                   long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-                  long long v_sl, int B, int L, int H, int Dh, int causal, float scale) {
+                  long long v_sl, int B, int L, int Lk, int H, int Dh, int causal,
+                  float scale) {
   const int es = sizeof(T);
   const bool dh16 = (Dh * es) % 16 == 0;
   const bool vec_in = dh16 && sa::aligned16(q) && sa::aligned16(k) && sa::aligned16(v) &&
                       sa::stride16(q_sb, es, B) && sa::stride16(k_sb, es, B) &&
                       sa::stride16(v_sb, es, B) && sa::stride16(q_sl, es, L) &&
-                      sa::stride16(k_sl, es, L) && sa::stride16(v_sl, es, L);
+                      sa::stride16(k_sl, es, Lk) && sa::stride16(v_sl, es, Lk);
   const bool vec_out = dh16 && sa::aligned16(o);
   return Args<T>{static_cast<const T*>(q), static_cast<const T*>(k),
                  static_cast<const T*>(v), static_cast<T*>(o), q_sb, q_sl, k_sb, k_sl,
-                 v_sb, v_sl, B, L, H, Dh, causal, vec_in, vec_out, scale};
+                 v_sb, v_sl, B, L, Lk, H, Dh, causal, vec_in, vec_out, scale};
 }
 
 }  // namespace
@@ -221,31 +225,34 @@ extern "C" int vtc_fused_mha(const void* q, const void* k, const void* v, void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch(make_args<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B,
-                                        L, H, Dh, causal, scale), st);
+                                        L, L, H, Dh, causal, scale), st);
   if (dtype == 1)
     return (int)launch(make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
-                                           B, L, H, Dh, causal, scale), st);
+                                           B, L, L, H, Dh, causal, scale), st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The long route, the same arguments at any L >= 1 (the wrapper takes it
-// past L = 128): bf16 up to L = 272 on the one-pass kernel, past it and in
-// fp32 on the two-pass kernel, at most 65,535 query tiles of 64 rows.
+// The long route at any Lq >= 1 (the wrapper takes it past L = 128, and for
+// fewer queries than keys): q and o are [B, Lq, H*Dh], k and v [B, Lk, H*Dh],
+// Lq <= Lk, the causal mask at Lq = Lk only. At Lq = Lk bf16 up to L = 272
+// runs on the one-pass kernel, past it and in fp32 on the two-pass kernel;
+// Lq < Lk runs on the two-pass kernel. At most 65,535 query tiles of 64 rows.
 extern "C" int vtc_fused_mha_long(const void* q, const void* k, const void* v, void* o,
                                   long long q_sb, long long q_sl, long long k_sb,
                                   long long k_sl, long long v_sb, long long v_sl, int B,
-                                  int L, int H, int Dh, int causal, float scale, int dtype,
-                                  void* stream) {
-  if (L < 1 || (L + la::kQueryRows - 1) / la::kQueryRows > 65535 || Dh < 1 ||
-      Dh > sa::kMaxDh || B < 1 || H < 1 || (long long)B * H > 0x7fffffffLL)
+                                  int Lq, int Lk, int H, int Dh, int causal, float scale,
+                                  int dtype, void* stream) {
+  if (Lq < 1 || Lk < Lq || (causal && Lq != Lk) ||
+      (Lq + la::kQueryRows - 1) / la::kQueryRows > 65535 || Dh < 1 || Dh > sa::kMaxDh ||
+      B < 1 || H < 1 || (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_long(make_args<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
-                                             B, L, H, Dh, causal, scale), st);
+                                             B, Lq, Lk, H, Dh, causal, scale), st);
   if (dtype == 1)
     return (int)launch_long(make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb,
-                                                v_sl, B, L, H, Dh, causal, scale), st);
+                                                v_sl, B, Lq, Lk, H, Dh, causal, scale), st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -79,6 +79,13 @@
 // Causal: the two-pass kernel skips key tiles past a query tile's diagonal
 // and masks per element; the one-pass kernel masks per element the tiles
 // that hold a masked key.
+//
+// Fewer queries than keys (Lq < Lk, no mask: the joint TimeSformer's CLS row,
+// 1 query over 1 + T·N keys, models/timesformer_joint.py): the two-pass
+// kernel with its query rows to Lq and its keys to Lk (entry
+// vtc_fused_mha_long in fused_mha.cu, at Lq < Lk). At Lq = 1 a block's 4 warps run one
+// real row and three of zeros, which are not stored: a simple kernel, whose
+// work is 2 launches a block of the joint tower.
 
 #pragma once
 
@@ -272,10 +279,12 @@ __device__ __forceinline__ void tile_values(const float* Vs, int rs, int dh_p,
 
 // ---- one block: one (sequence, head), one 64-row query tile ----------------------
 
-// h: the (sequence, head)'s first rows and row strides
+// h: the (sequence, head)'s first rows and row strides; Lq query rows attend
+// over Lk keys (Lq = Lk with `causal`)
 template <typename T, int DC>
-__device__ __forceinline__ void attend_long(const sa::HeadPtrs<T>& h, int L, int dh, int causal,
-                                            float q_scale, bool vec_in, bool vec_out) {
+__device__ __forceinline__ void attend_long(const sa::HeadPtrs<T>& h, int Lq, int Lk, int dh,
+                                            int causal, float q_scale, bool vec_in,
+                                            bool vec_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rs = sa::row_stride<T>(dh), dh_p = sa::padded_dh(dh);
   const int tile = kKeyRows * rs;
@@ -287,21 +296,21 @@ __device__ __forceinline__ void attend_long(const sa::HeadPtrs<T>& h, int L, int
   const int qt0 = kQueryRows * blockIdx.y;  // the block's first query row
   const int q0 = 16 * warp;                  // the warp's first row in the tile
   // the keys: all of them, or with `causal` those up to the tile's last row
-  const int k_end = min(L, causal ? qt0 + kQueryRows : L);
+  const int k_end = min(Lk, causal ? qt0 + kQueryRows : Lk);
   const int n_kt = (k_end + kKeyRows - 1) / kKeyRows;
   auto stage_k = [&](int j) {
     const int k0 = kKeyRows * j;
-    sa::stage(Ks + (j & 1) * tile, rs, h.k + k0 * h.k_sl, h.k_sl, min(kKeyRows, L - k0),
+    sa::stage(Ks + (j & 1) * tile, rs, h.k + k0 * h.k_sl, h.k_sl, min(kKeyRows, Lk - k0),
               kKeyRows, dh, vec_in);
   };
   auto stage_v = [&](int j) {
     const int k0 = kKeyRows * j;
-    sa::stage(Vs + (j & 1) * tile, rs, h.v + k0 * h.v_sl, h.v_sl, min(kKeyRows, L - k0),
+    sa::stage(Vs + (j & 1) * tile, rs, h.v + k0 * h.v_sl, h.v_sl, min(kKeyRows, Lk - k0),
               kKeyRows, dh, vec_in);
   };
 
-  // Q (rows past L zero) and the first K tile
-  sa::stage(Qs, rs, h.q + qt0 * h.q_sl, h.q_sl, min(kQueryRows, L - qt0), kQueryRows, dh,
+  // Q (rows past Lq zero) and the first K tile
+  sa::stage(Qs, rs, h.q + qt0 * h.q_sl, h.q_sl, min(kQueryRows, Lq - qt0), kQueryRows, dh,
             vec_in);
   stage_k(0);
   sa::cp_async_commit();
@@ -333,7 +342,7 @@ __device__ __forceinline__ void attend_long(const sa::HeadPtrs<T>& h, int L, int
     }
     // a step of real keys needs no mask without `causal`
     const int k0 = kKeyRows * j + kStepKeys * st;
-    if (causal || k0 + kStepKeys > L) mask_tile(s, qt0 + q0, k0, L, causal);
+    if (causal || k0 + kStepKeys > Lk) mask_tile(s, qt0 + q0, k0, Lk, causal);
   };
   // a step past the last key (of the tile's last row, with `causal`) is skipped
   auto past_end = [&](int j, int st) { return kKeyRows * j + kStepKeys * st >= k_end; };
@@ -422,7 +431,7 @@ __device__ __forceinline__ void attend_long(const sa::HeadPtrs<T>& h, int L, int
     __syncthreads();
   }
   // the warp's own Q rows stage the output (its Q is no longer read)
-  sa::store_tile<DC>(o, Qs, rs, q0, min(kQueryRows, L - qt0), dh, h.o + qt0 * h.o_sl,
+  sa::store_tile<DC>(o, Qs, rs, q0, min(kQueryRows, Lq - qt0), dh, h.o + qt0 * h.o_sl,
                      h.o_sl, vec_out);
 }
 

@@ -6,12 +6,11 @@ from typing import Optional, Union
 
 import torch
 
-# what a refusal of a distributed mode names: the data and model axes run
-# (one process per card under torchrun), and so do the sharded gallery and
-# encode; fsdp (item 9b) and the pipeline, sequence, expert and multi-slice
+# what a refusal of a distributed mode names: the data and model axes and
+# ZeRO-3 (FSDP2) run (one process per card under torchrun), and so do the
+# sharded gallery and encode; the pipeline, sequence, expert and multi-slice
 # axes (item 9c) do not
 DISTRIBUTION = "ROADMAP: Queue 1 item 9c, the other axes of distribution on torch.distributed"
-FSDP_ITEM = "ROADMAP: Queue 1 item 9b, FSDP2"
 
 # the card's figures (the H100 SXM data sheet), for bounds and MFU: the HBM3
 # rate and the dense peaks, bf16 on the tensor cores and fp32 on the CUDA

@@ -20,7 +20,9 @@ gallery permute together. Rank 0 alone writes the JSON file. With
 ``--n_model M`` (``torchrun --nproc_per_node N·M``) the group is
 ``create_mesh(N, M)``'s: the model is split over each model group
 (``parallel.tensor``), whose ranks encode the same share, and the shares
-merge over the data group.
+merge over the data group. A config with ``fsdp`` (an fsdp run's) is
+evaluated as ``vtc_tpu``'s evaluation does it: the whole model on every
+data rank, from the run's single-card checkpoint.
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ def main(config: ConfigParser, args, checkpoint_path, device=None,
     check_data_devices(config.get("n_devices", 1), device, logger, "evaluating",
                        "vtc_tpu_torch.evaluation.eval", n_model)
     if world() > 1:
-        create_mesh(world() // n_model, n_model)
+        create_mesh(world() // n_model, n_model, device=device)
     pidx, pcount = process_share(process_index, process_count)
 
     dataset = config.init_obj("dataset", module_data, train=False, test=True, device=device)

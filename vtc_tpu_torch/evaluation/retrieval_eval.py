@@ -23,6 +23,14 @@ current ``parallel.mesh.create_mesh``'s, as ``vtc_tpu``'s evaluation takes
 its mesh) splits the videos over its data axis, the model's forward over
 its model axis (the model split by ``parallel.tensor.shard_model``), and
 ranks the queries with ``recall_at_k_sharded`` over the data group.
+
+A model that ZeRO-3 shards (``parallel.mesh.fully_shard_model``: the
+trainer's probe under ``--fsdp``) gathers over the data group at every
+forward, and the strided split gives the ranks different numbers of
+forwards (videos, and chunks per video). So the encode runs on the gathered
+parameters (``parallel.mesh.gathered_parameters``): every unit is gathered
+once before it, its forwards run no collective, and it is sharded again
+after; the ranks then merge and rank as above.
 ``dataset=`` takes any object
 with ``__len__`` and ``__getitem__`` that gives ``(frames, captions,
 comments, meta)`` or ``(frames, captions, meta)`` items, frames as uint8
@@ -43,7 +51,14 @@ from ..data.datasets import clip_preprocess_batch
 from ..data import tokenizer as tk
 from ..device import resolve_device
 from ..ops.retrieval import recall_at_k, recall_at_k_sharded
-from ..parallel.mesh import current_mesh, data_group, model_rank, model_world, process_share
+from ..parallel.mesh import (
+    current_mesh,
+    data_group,
+    gathered_parameters,
+    model_rank,
+    model_world,
+    process_share,
+)
 from ..parallel.tensor import model_axis
 from ..utils.util import all_max, allgather_varlen
 
@@ -293,10 +308,12 @@ def retrieval_evaluation(model, datasetname: str, split: str, out_csv: Optional[
 
     logger.info("Computing joint embeddings")
     indices = range(pidx, len(dataset), pcount)
-    ids, video_means, caption_embs = _encode_local(
-        model, dataset, indices, frame_stride=frame_stride, first_frame_only=first_frame_only,
-        first_chunk_only=first_chunk_only, branch_override=branch_override,
-        needs_comments=needs_comments, image_size=image_size, nframes=nframes, device=device)
+    with gathered_parameters(model):  # ZeRO-3: no collective in the forwards
+        ids, video_means, caption_embs = _encode_local(
+            model, dataset, indices, frame_stride=frame_stride,
+            first_frame_only=first_frame_only, first_chunk_only=first_chunk_only,
+            branch_override=branch_override, needs_comments=needs_comments,
+            image_size=image_size, nframes=nframes, device=device)
     if not ids and pcount == 1:
         raise RuntimeError(
             f"retrieval evaluation produced no embeddings: all {len(indices)} items of "

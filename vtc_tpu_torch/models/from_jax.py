@@ -25,6 +25,11 @@ reference (torch) state-dict names that the port's modules carry:
   bias_proj}`` in their JAX layout: names of the port's own, as the
   reference export has none.
 
+``joint_state_dict_from_jax`` carries a ``vtc_tpu.models.timesformer_joint.
+TimeSformerJoint`` tree (blocks ``transformer_resblocks_{i}`` with
+``timeattn``, ``ln_time``, ``attn``, ``ln_1``, ``mlp``, ``ln_2``) into the
+names of ``models.timesformer_joint.TimeSformerJoint``.
+
 ``plain_state_dict_from_jax`` carries a baseline (``MLP``,
 ``JointEmbedding``, ``CLIP``) across. Every leaf must be consumed: a leaf
 with no place in the port raises instead of being dropped.
@@ -103,6 +108,7 @@ def _block(r: _Reader, src: str, sd: Dict, dst: str) -> None:
         sd[f"{dst}.timeattn.out_proj.bias"] = r.get(f"{src}/timeattn/out_proj/bias")
         sd[f"{dst}.ln_time.weight"] = r.get(f"{src}/ln_time/scale")
         sd[f"{dst}.ln_time.bias"] = r.get(f"{src}/ln_time/bias")
+    if r.has(f"{src}/temporal_fc"):  # the divided TimeSformer's (not the joint's)
         sd[f"{dst}.temporal_fc.weight"] = r.get(f"{src}/temporal_fc/kernel").T
         sd[f"{dst}.temporal_fc.bias"] = r.get(f"{src}/temporal_fc/bias")
 
@@ -157,6 +163,34 @@ def plain_state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
     return _to_torch(sd)
 
 
+def _visual_stem(r: _Reader, src: str, sd: Dict, dst: str) -> None:
+    """A ViT tower's leaves outside its blocks: ``conv1 [width, 3·p·p]`` as
+    the OIHW conv weight, the embeddings, ``proj`` and the two LayerNorms."""
+    conv = r.get(f"{src}conv1")
+    p = int(round((conv.shape[1] / 3) ** 0.5))
+    sd[f"{dst}conv1.weight"] = conv.reshape(conv.shape[0], 3, p, p)
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        sd[f"{dst}{name}"] = r.get(f"{src}{name}")
+    for ln in ("ln_pre", "ln_post"):
+        sd[f"{dst}{ln}.weight"] = r.get(f"{src}{ln}/scale")
+        sd[f"{dst}{ln}.bias"] = r.get(f"{src}{ln}/bias")
+
+
+def joint_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """``TimeSformerJoint`` params (numpy leaves) -> the port's
+    ``TimeSformerJoint`` state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    r = _Reader(params)
+    _visual_stem(r, "", sd, "")
+    sd["temporal_embed"] = r.get("temporal_embed")
+    if _blocks(r, "transformer", sd, "transformer", sep="_") == 0:
+        raise ValueError("no transformer blocks found")
+    leftovers = r.unconsumed()
+    if leftovers:
+        raise ValueError(f"params hold leaves the port has no place for: {leftovers[:8]}")
+    return _to_torch(sd)
+
+
 def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
                         ) -> Dict[str, torch.Tensor]:
     """JAX retrieval-model params (numpy leaves) -> the port's state dict."""
@@ -164,14 +198,7 @@ def state_dict_from_jax(params: Dict, batch_stats: Optional[Dict] = None
         raise ValueError("state_dict_from_jax needs a 'clip' tower")
     sd: Dict[str, np.ndarray] = {}
     rc = _Reader(params["clip"])
-    conv = rc.get("visual/conv1")
-    p = int(round((conv.shape[1] / 3) ** 0.5))
-    sd["model.visual.conv1.weight"] = conv.reshape(conv.shape[0], 3, p, p)
-    for name in ("class_embedding", "positional_embedding", "proj"):
-        sd[f"model.visual.{name}"] = rc.get(f"visual/{name}")
-    for ln in ("ln_pre", "ln_post"):
-        sd[f"model.visual.{ln}.weight"] = rc.get(f"visual/{ln}/scale")
-        sd[f"model.visual.{ln}.bias"] = rc.get(f"visual/{ln}/bias")
+    _visual_stem(rc, "visual/", sd, "model.visual.")
     if rc.has("visual/temporal_embed"):  # a TimeSformer tower
         sd["model.visual.temporal_embed"] = rc.get("visual/temporal_embed")
         n_blocks = _blocks(rc, "visual/transformer", sd, "model.visual.transformer",

@@ -116,10 +116,14 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def qkv(self, x):
+    def qkv_rows(self, x):
+        """The merged qkv GEMM's output ``[..., 3E]`` (q, k, v in turn)."""
         w = self.in_proj_weight.to(self.dtype).to(x.dtype)
         b = self.in_proj_bias.to(self.dtype).to(x.dtype)
-        return F.linear(x, w, b).chunk(3, dim=-1)
+        return F.linear(x, w, b)
+
+    def qkv(self, x):
+        return self.qkv_rows(x).chunk(3, dim=-1)
 
     @property
     def local_heads(self) -> int:

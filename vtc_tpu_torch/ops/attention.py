@@ -10,7 +10,11 @@ the long route (``fused_mha_long``: ``csrc/long_attention.cuh``; bf16 up to
 L = 272 in one pass over the keys, fp32 and longer rows in two; the
 launch's choices are ``long_plan``), where the JAX package runs XLA attention
 (``vtc_tpu/models/layers.py:269-290``: the ViT-B/16 and ViT-L/14 towers, L
-= 197 and 257) with the same math in fp32.
+= 197 and 257) with the same math in fp32. Fewer queries than keys (Lq <
+Lk, no mask: the joint TimeSformer's CLS row, ``vtc_tpu/models/
+timesformer_joint.py:97``) run on the long route's two-pass kernel at any
+lengths (``fused_mha_long``); the plain version and the backward take Lq
+≠ Lk with the same math.
 
 ``fused_attention`` ports ``fused_attention`` (``:131``): attention over
 ``[B·H, L, D]`` (the JAX layout) or over 4-D head views ``[B, H, L, D]``
@@ -86,14 +90,16 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 def fused_mha_plain(q, k, v, heads: int, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Reference math: q scaled in its dtype, fp32 scores and softmax, P
-    rounded to q's dtype, P@V accumulated in fp32, output in q's dtype."""
+    rounded to q's dtype, P@V accumulated in fp32, output in q's dtype.
+    q is ``[B, Lq, E]``, k and v ``[B, Lk, E]``; ``causal`` at Lq = Lk."""
     b, l, e = q.shape
+    lk = k.shape[1]
     d = e // heads
     s = scale if scale is not None else d**-0.5
     acc = acc_dtype(q.dtype)
     qh = (q * torch.tensor(s, dtype=q.dtype)).reshape(b, l, heads, d)
-    kh = k.reshape(b, l, heads, d)
-    vh = v.reshape(b, l, heads, d)
+    kh = k.reshape(b, lk, heads, d)
+    vh = v.reshape(b, lk, heads, d)
     scores = torch.einsum("blhd,bmhd->bhlm", qh.to(acc), kh.to(acc))
     if causal:
         scores = scores + causal_mask(l, q.device).to(acc)
@@ -109,14 +115,15 @@ def _softmax_backward(p, dp_rounded):
 
 def mha_backward(q, k, v, g, heads: int, causal: bool, scale: float):
     """``(dq, dk, dv)`` of ``fused_mha_plain`` for the output cotangent
-    ``g``, each in its input's dtype and shape."""
+    ``g``, each in its input's dtype and shape (Lq and Lk may differ)."""
     b, l, e = q.shape
+    lk = k.shape[1]
     d = e // heads
     acc = acc_dtype(q.dtype)
     s = torch.tensor(scale, dtype=q.dtype)
     qh = (q * s).reshape(b, l, heads, d).to(acc)
-    kh = k.reshape(b, l, heads, d).to(acc)
-    vh = v.reshape(b, l, heads, d).to(acc)
+    kh = k.reshape(b, lk, heads, d).to(acc)
+    vh = v.reshape(b, lk, heads, d).to(acc)
     g32 = g.reshape(b, l, heads, d).to(acc)
     scores = torch.einsum("blhd,bmhd->bhlm", qh, kh)
     if causal:
@@ -127,8 +134,8 @@ def mha_backward(q, k, v, g, heads: int, causal: bool, scale: float):
     ds = _softmax_backward(p, dp)
     dqh = torch.einsum("bhlm,bmhd->blhd", ds, kh).to(q.dtype)
     dk = torch.einsum("bhlm,blhd->bmhd", ds, qh)
-    return ((dqh * s).reshape(b, l, e), dk.reshape(b, l, e).to(k.dtype),
-            dv.reshape(b, l, e).to(v.dtype))
+    return ((dqh * s).reshape(b, l, e), dk.reshape(b, lk, e).to(k.dtype),
+            dv.reshape(b, lk, e).to(v.dtype))
 
 
 class FusedMhaFn(torch.autograd.Function):
@@ -150,26 +157,28 @@ class FusedMhaFn(torch.autograd.Function):
 
 
 def _kernel(entry: str):
-    """``vtc_fused_mha`` (the short tile) or ``vtc_fused_mha_long``: one
-    signature."""
+    """``vtc_fused_mha`` (the short tile; its lengths: L) or
+    ``vtc_fused_mha_long`` (the long route; its lengths: Lq, Lk)."""
     fn = getattr(load_library("fused_mha"), entry)
     if fn.argtypes is None:  # ctypes hands back the same object every time
+        lengths = 1 if entry == "vtc_fused_mha" else 2
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * (4 + lengths) + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
     return fn
 
 
 def _run(entry: str, q, k, v, heads, causal, scale):
     b, l, e = q.shape
+    lengths = (l,) if entry == "vtc_fused_mha" else (l, k.shape[1])
     o = torch.empty((b, l, e), dtype=q.dtype, device=q.device)
     err = _kernel(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1),
-        b, l, heads, e // heads, int(causal), scale, _DTYPES[q.dtype],
+        b, *lengths, heads, e // heads, int(causal), scale, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, entry)
@@ -184,10 +193,11 @@ def _launch(q, k, v, heads, causal, scale):
 
 def fused_mha_long(q, k, v, heads: int, causal: bool, scale: float) -> torch.Tensor:
     """The long route's launch (``fused_mha`` checks q, k and v and sends L
-    > 128 here): ``csrc/long_attention.cuh`` through the C entry
-    ``vtc_fused_mha_long``, which takes any L. Counted apart from the short
-    tile in ``fused_mha_long.launches``. Refuses a host tensor, whose
-    pointer the kernel would read as the card's."""
+    > 128 here, and q with fewer rows than k and v): ``csrc/
+    long_attention.cuh`` through the C entry ``vtc_fused_mha_long``, which
+    takes any Lq <= Lk. Counted apart from the short tile in
+    ``fused_mha_long.launches``. Refuses a host tensor, whose pointer the
+    kernel would read as the card's."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_mha_long launches on cuda tensors, not {q.device}")
     o = _run("vtc_fused_mha_long", q, k, v, heads, causal, scale)
@@ -215,12 +225,18 @@ def _check_cuda_qkv(name, q, k, v):
 def fused_mha(q, k, v, heads: int, causal: bool = False,
               scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention over ``[B, L, E]``, E = heads·Dh: on the card
-    the short tile for L <= 128, the long route above, Dh <= 128 in both."""
+    the short tile for L <= 128, the long route above, Dh <= 128 in both.
+    q may have fewer rows than k and v (``[B, Lq, E]`` against ``[B, Lk,
+    E]``, Lq < Lk, no mask), which the long route's two-pass kernel takes
+    at any length (``fused_mha_long``)."""
     b, l, e = q.shape
     if e % heads:
         raise ValueError(f"E={e} is not a multiple of heads={heads}")
-    if k.shape != q.shape or v.shape != q.shape:
+    cross = k.shape[1] > l and k.shape[::2] == q.shape[::2]
+    if v.shape != k.shape or (k.shape != q.shape and not cross):
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if cross and causal:
+        raise ValueError(f"the causal mask takes Lq = Lk, got {l} and {k.shape[1]}")
     s = scale if scale is not None else (e // heads) ** -0.5
     if q.device.type == "cpu":
         def launch(q_, k_, v_):
@@ -230,7 +246,7 @@ def fused_mha(q, k, v, heads: int, causal: bool = False,
         if e // heads > MAX_HEAD_DIM:
             raise ValueError(f"head dim {e // heads} > {MAX_HEAD_DIM}")
 
-        route = fused_mha_long if l > MAX_LEN else _launch
+        route = fused_mha_long if cross or l > MAX_LEN else _launch
 
         def launch(q_, k_, v_):
             return route(q_, k_, v_, heads, causal, s)

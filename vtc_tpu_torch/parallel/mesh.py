@@ -30,16 +30,47 @@ on the same rows:
   own rows (``models.cam``, ``models.layers.TorchBatchNorm``).
 
 The model axis is ``parallel.tensor``'s (Megatron-style tensor
-parallelism). ZeRO-3 (``fsdp``) and the pipeline, sequence, expert and
-multi-slice axes are refused by ``check_axes``, naming their ROADMAP items.
+parallelism). ZeRO-3 (``fsdp``, ``vtc_tpu``'s ``tree_shardings(...,
+fsdp=True)``) is FSDP2's ``fully_shard`` over the data axis
+(``fully_shard_model``), on top of the model axis's split. The pipeline,
+sequence, expert and multi-slice axes are refused by ``check_axes``, naming
+their ROADMAP item.
+
+**ZeRO-3.** ``fully_shard_model`` shards each residual block (the visual
+and text towers', the CAM's, the TimeSformers') as a unit, then the root,
+over the data dimension of ``create_mesh``'s ``DeviceMesh``: each data rank
+holds dim-0 rows ``⌈n/W⌉`` of every parameter (the last ranks fewer, padded
+inside FSDP2) and, since the optimizer steps the sharded ``DTensor``s, of
+every Adam moment. A unit's parameters are gathered before its forward and
+backward and freed after; the gradients are reduce-scattered as their mean
+over the data ranks, as DDP's mean, so ``all_gather_rows``' ``W`` factor
+still gives the single-device gradient. The layout is not ``vtc_tpu``'s:
+``fsdp_pspec`` shards the largest divisible dimension and keeps leaves under
+``FSDP_MIN_SIZE`` elements replicated, which saves one collective's latency
+per small leaf on a TPU; FSDP2 gathers a whole unit in one all-gather, so
+that rule has no counterpart here. The layout differs; the math does not.
+The mesh's device type is the ranks' device (``create_mesh(device=...)``),
+not the backend's: FSDP2 places the shards on it, so gloo on the card keeps
+them on the card.
+
+Every forward of a sharded model gathers over the data group, so the data
+ranks must run the same forwards. Training and validation do (each rank
+takes its rows of every global batch). The strided evaluation of the
+trainer's probe (``evaluation.retrieval_eval``) does not: a rank may hold
+one video more than another. It runs inside ``gathered_parameters``, which
+gathers every unit once, keeps it whole through the forwards (no
+collective inside them) and shards it again after. The ``eval.py`` twin
+evaluates the whole model on every data rank, as ``vtc_tpu``'s does.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
-from ..device import DISTRIBUTION, FSDP_ITEM
+from ..device import DISTRIBUTION
 from ..utils.util import rank, world
 
 DATA_AXIS = "data"
@@ -47,28 +78,26 @@ MODEL_AXIS = "model"
 _MESH = None  # the newest create_mesh's
 
 
-def check_axes(n_model: int = 1, fsdp: bool = False, **others) -> None:
-    """The axes the port does not shard raise: ``fsdp`` (FSDP2) and the
-    pipeline, sequence, expert and multi-slice axes (``others``: ``pp``,
-    ``sp``, ``ep``, ``slices``). ``n_model`` must be a whole degree."""
+def check_axes(n_model: int = 1, **others) -> None:
+    """The axes the port does not shard raise: the pipeline, sequence,
+    expert and multi-slice axes (``others``: ``pp``, ``sp``, ``ep``,
+    ``slices``). ``n_model`` must be a whole degree."""
     if int(n_model or 1) < 1:
         raise ValueError(f"--n_model {n_model}: the model axis needs 1 rank or more")
-    if fsdp:
-        raise NotImplementedError(
-            f"--fsdp: sharded parameters and moments are not ported; the port shards "
-            f"the data and model axes ({FSDP_ITEM})")
     for key, value in others.items():
         if int(value or 1) > 1:
             raise NotImplementedError(
                 f"--{key} {value}: pipeline, sequence, expert and multi-slice axes are "
-                f"not ported; the port shards the data and model axes ({DISTRIBUTION})")
+                f"not ported; the port shards the data and model axes and ZeRO-3 "
+                f"({DISTRIBUTION})")
 
 
-def create_mesh(n_data=None, n_model: int = 1):
+def create_mesh(n_data=None, n_model: int = 1, *, device):
     """The process group as a ``("data", "model")`` ``DeviceMesh`` of
     ``n_data × n_model`` ranks (``n_data`` by default: the group's size over
     ``n_model``), rank ``d·n_model + m`` at ``(d, m)``, kept as the current
-    mesh. One process without a group: None (no axis to shard)."""
+    mesh. Its device type is ``device``'s, where the ranks compute, whatever
+    the backend. One process without a group: None (no axis to shard)."""
     global _MESH
     n_model = int(n_model or 1)
     if not dist.is_initialized():
@@ -86,8 +115,7 @@ def create_mesh(n_data=None, n_model: int = 1):
                          f"launch {n_data * n_model} (n_devices x n_model)")
     from torch.distributed.device_mesh import DeviceMesh
 
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    _MESH = DeviceMesh(device_type, torch.arange(w).reshape(n_data, n_model),
+    _MESH = DeviceMesh(torch.device(device).type, torch.arange(w).reshape(n_data, n_model),
                        mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
     return _MESH
 
@@ -215,13 +243,14 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
 
 def data_parallel(model: torch.nn.Module, device: torch.device):
     """``model`` in ``DistributedDataParallel`` over the data group under a
-    process group (also of one rank: the same path), else ``model``. The
+    process group (also of one rank: the same path), else ``model``; a
+    model that ``fully_shard_model`` sharded as it is. The
     parameters that take no gradient in a step (``final_linear`` beside
     ``init_from_avg``, a frozen tower) are found each step; the buffers are
     not broadcast, since the BatchNorms take the global batch's statistics
     on every rank. The split parameters of a tensor-parallel model average
     with their own model place's."""
-    if not active():
+    if not active() or is_fully_sharded(model):
         return model
     from torch.nn.parallel import DistributedDataParallel
 
@@ -237,3 +266,96 @@ def unwrap(model: torch.nn.Module) -> torch.nn.Module:
     from torch.nn.parallel import DistributedDataParallel
 
     return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def _block_types() -> tuple:
+    from ..models.layers import ResidualAttentionBlock
+    from ..models.timesformer import TimeSformerBlock
+    from ..models.timesformer_joint import JointBlock
+
+    return ResidualAttentionBlock, TimeSformerBlock, JointBlock
+
+
+def fully_shard_model(model: torch.nn.Module, device) -> torch.nn.Module:
+    """ZeRO-3 of ``model`` over the data axis of the current mesh (without
+    one, the group's: ``create_mesh``), in place (the module docstring):
+    FSDP2's ``fully_shard`` on each residual block, then on the root, after
+    any split over the model axis. Under a process group only; build the
+    optimizer after it, over the sharded parameters.
+    ``data_parallel`` then leaves the model as it is: FSDP2 takes DDP's
+    place on the data group."""
+    if not active():
+        return model
+    from torch.distributed.fsdp import fully_shard
+
+    device = torch.device(device)
+    mesh = current_mesh()
+    if mesh is None:  # the whole group on the data axis
+        mesh = create_mesh(device=device)
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh places its shards on {mesh.device_type}, the ranks "
+                         f"compute on {device}: create_mesh(..., device={device.type!r})")
+    data_mesh = mesh[DATA_AXIS]
+    blocks = _block_types()
+    for module in list(model.modules()):
+        if isinstance(module, blocks):
+            fully_shard(module, mesh=data_mesh)
+    # a scalar (logit_scale) has no dim to shard: it stays whole on every
+    # rank, and its gradient needs no mean, since every rank computes the
+    # loss of the global batch from the gathered features
+    scalars = {p for p in model.parameters() if p.dim() == 0}
+    fully_shard(model, mesh=data_mesh, ignored_params=scalars or None)
+    return model
+
+
+def is_fully_sharded(model: torch.nn.Module) -> bool:
+    """True for a model that ``fully_shard_model`` sharded."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
+def _units(model: torch.nn.Module) -> list:
+    from torch.distributed.fsdp import FSDPModule
+
+    return [m for m in model.modules() if isinstance(m, FSDPModule)]
+
+
+@contextlib.contextmanager
+def no_gradient_sync(model: torch.nn.Module):
+    """A backward whose gradients stay on this rank, to be added to the
+    next one's (the microbatches before the last): DDP's ``no_sync``,
+    FSDP2's ``set_requires_gradient_sync(False)``, else nothing to hold."""
+    if is_fully_sharded(model):
+        model.set_requires_gradient_sync(False)
+        try:
+            yield
+        finally:
+            model.set_requires_gradient_sync(True)
+    elif hasattr(model, "no_sync"):
+        with model.no_sync():
+            yield
+    else:
+        yield
+
+
+@contextlib.contextmanager
+def gathered_parameters(model: torch.nn.Module):
+    """Within the block a sharded model holds every unit whole, so its
+    forwards run no collective and the data ranks may run different
+    numbers of them; after it, sharded again. Every data rank enters and
+    leaves together (the gathers are collectives). Forwards without a
+    graph only. A model that is not sharded: nothing to do."""
+    units = _units(model)
+    if not units:
+        yield
+        return
+    for unit in units:
+        unit.set_reshard_after_forward(False, recurse=False)
+        unit.unshard()
+    try:
+        yield
+    finally:
+        for unit in units:
+            unit.reshard()
+            unit.set_reshard_after_forward(unit is not model, recurse=False)

@@ -30,7 +30,10 @@ parameter is touched, as ``tree_shardings`` and ``qkv_project`` do.
 Checkpoints keep the single-card layout: ``full_state_dict`` and
 ``full_optimizer_state`` gather the split tensors (and their Adam moments)
 over the model group, ``split_state_dict`` and ``split_optimizer_state``
-take rank ``m``'s part of a full one.
+take rank ``m``'s part of a full one. Under ZeRO-3
+(``parallel.mesh.fully_shard_model``) the same four also gather the data
+axis's shards (``DTensor``s) first, and shard a full tensor as its
+parameter is.
 """
 
 from __future__ import annotations
@@ -168,21 +171,58 @@ def model_axis(model: torch.nn.Module) -> Optional[ModelAxis]:
     return getattr(model, "tp_axis", None)
 
 
+def _whole_over_data(t):
+    """A tensor that ZeRO-3 shards over the data axis (a ``DTensor``)
+    gathered whole (a collective of its data group), else ``t``. FSDP2's
+    layout, dim 0 in ``torch.chunk``'s parts (the last ranks hold fewer
+    rows, or none), is gathered with ``dist.all_gather`` of the parts
+    padded to the first's rows: gloo takes that on CUDA tensors, where
+    ``DTensor.full_tensor``'s functional collective crashes."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    group = t.device_mesh.get_group()
+    local = t.to_local()
+    rows = -(-t.shape[0] // dist.get_world_size(group))
+    padded = local.new_zeros((rows,) + tuple(t.shape[1:]))
+    padded[:local.shape[0]] = local
+    parts = [torch.empty_like(padded) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, padded, group=group)
+    whole = torch.cat(parts)
+    # a view would carry the padding's storage into a saved checkpoint
+    return whole if whole.shape[0] == t.shape[0] else whole[:t.shape[0]].clone()
+
+
+def _shard_like(t: torch.Tensor, like):
+    """This data rank's shard of the whole ``t``, laid out as the ``DTensor``
+    ``like`` (no collective: every rank holds ``t``); ``t`` where ``like`` is
+    not sharded."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(like, DTensor):
+        return t
+    return distribute_tensor(t.to(like.device), like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
 def full_tensors(model: torch.nn.Module, named: Dict[str, Optional[torch.Tensor]]) -> dict:
     """``named`` (parameter names to this rank's tensors of their shapes,
-    such as their gradients; None passes through) with the split ones
-    gathered into their single-card form (every model rank must call it,
-    with the same names and Nones)."""
+    such as their gradients; None passes through) in their single-card
+    form: sharded over the data axis (ZeRO-3) gathered, split over the
+    model axis joined (every rank must call it, with the same names and
+    Nones)."""
+    named = {n: None if t is None else _whole_over_data(t) for n, t in named.items()}
     axis = model_axis(model)
     if axis is None or axis.size == 1:
-        return dict(named)
+        return named
     return {n: _gather(t, split_rule(n), axis) if t is not None and split_rule(n) is not None
             else t for n, t in named.items()}
 
 
 def full_state_dict(model: torch.nn.Module) -> dict:
-    """``model``'s state dict in the single-card layout: a split model's
-    parts gathered over the model group (every model rank must call it)."""
+    """``model``'s state dict in the single-card layout: ZeRO-3's shards
+    and a split model's parts gathered (every rank must call it)."""
     return full_tensors(model, model.state_dict())
 
 
@@ -193,40 +233,65 @@ def _param_names(model, optimizer) -> list:
 
 
 def _moments(optimizer_state: dict, model, optimizer, fn) -> dict:
+    """The state with ``fn(value, name)`` for each tensor moment (not the
+    step counts, which have no dimension)."""
     names = _param_names(model, optimizer)
     state = {}
     for index, entry in optimizer_state["state"].items():
-        rule = split_rule(names[int(index)])
-        state[index] = {k: fn(v, rule) if rule is not None and torch.is_tensor(v)
-                        and v.dim() else v for k, v in entry.items()}
+        if int(index) >= len(names):  # the groups changed: load_state_dict's error
+            raise ValueError(f"optimizer state of parameter {index}: the optimizer's "
+                             f"groups hold {len(names)} parameters")
+        name = names[int(index)]
+        state[index] = {k: fn(v, name) if torch.is_tensor(v) and v.dim() else v
+                        for k, v in entry.items()}
     return {"state": state, "param_groups": optimizer_state["param_groups"]}
 
 
 def full_optimizer_state(model: torch.nn.Module, optimizer) -> dict:
-    """``optimizer.state_dict()`` with the split parameters' moments
-    gathered, the state of a single card's run (every model rank must call
-    it)."""
-    sd = optimizer.state_dict()
+    """``optimizer.state_dict()`` with ZeRO-3's shards of the moments and
+    the split parameters' moments gathered, the state of a single card's
+    run (every rank must call it)."""
     axis = model_axis(model)
-    if axis is None or axis.size == 1:
-        return sd
-    return _moments(sd, model, optimizer, lambda v, rule: _gather(v, rule, axis))
+
+    def full(v, name):
+        v, rule = _whole_over_data(v), split_rule(name)
+        if axis is None or axis.size == 1 or rule is None:
+            return v
+        return _gather(v, rule, axis)
+
+    return _moments(optimizer.state_dict(), model, optimizer, full)
 
 
 def split_optimizer_state(model: torch.nn.Module, optimizer, full_state: dict) -> dict:
-    """This model rank's part of a single-card optimizer state."""
+    """This rank's part of a single-card optimizer state: the split
+    parameters' moments cut over the model axis, each moment sharded as
+    its parameter is over the data axis."""
+    from torch.distributed.tensor import DTensor
+
     axis = model_axis(model)
-    if axis is None or axis.size == 1:
-        return full_state
-    return _moments(full_state, model, optimizer,
-                    lambda v, rule: split_tensor(v, rule, axis.rank, axis.size))
+    params = dict(model.named_parameters())
+    if (axis is None or axis.size == 1) and not any(
+            isinstance(p, DTensor) for p in params.values()):
+        return full_state  # a single card's: as it is
+
+    def part(v, name):
+        rule = split_rule(name)
+        if axis is not None and axis.size > 1 and rule is not None:
+            v = split_tensor(v, rule, axis.rank, axis.size)
+        return _shard_like(v, params[name])
+
+    return _moments(full_state, model, optimizer, part)
 
 
 def load_full_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool = True):
-    """Load a single-card state dict into ``model``, split where it is."""
+    """Load a single-card state dict into ``model``: split over the model
+    axis and sharded over the data axis where it is."""
     axis = model_axis(model)
     if axis is not None and axis.size > 1:
         state_dict = split_state_dict(state_dict, axis.rank, axis.size)
+    own = model.state_dict()
+    state_dict = {n: _shard_like(t, own[n]) if n in own else t
+                  for n, t in state_dict.items()}
     return model.load_state_dict(state_dict, strict=strict)
 
 

@@ -148,14 +148,14 @@ def launcher(lib):
     fn = ctypes.CDLL(str(lib)).vtc_fused_mha_long
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
     def run(q, k, v, heads: int, causal: bool):
         b, l, e = q.shape
         o = torch.empty((b, l, e), dtype=q.dtype, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-                 v.stride(1), b, l, heads, e // heads, int(causal), (e // heads) ** -0.5,
+                 v.stride(1), b, l, l, heads, e // heads, int(causal), (e // heads) ** -0.5,
                  1, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{lib}: vtc_fused_mha_long failed with cudaError {err}")

@@ -16,7 +16,10 @@ seeded generator, fresh masks every step, as in training.
 microbatches (``trainer.accum_steps``); ``main(data_parallel=True)`` steps
 through ``DistributedDataParallel`` in a process group (each rank its rows
 of the batch; ``chip_smoke.py`` phase 32 times it beside the plain step on
-one card, the cost of DDP's hooks); ``--moments_dtype bfloat16`` stores
+one card, the cost of DDP's hooks); ``main(fsdp=True)`` shards the model
+and its moments over the data axis first (ZeRO-3, FSDP2's ``fully_shard``,
+``parallel.mesh.fully_shard_model``: phase 35 times it at a data axis of
+one beside the plain step); ``--moments_dtype bfloat16`` stores
 Adam's moments in bf16 (``optimizer.args.moments_dtype``). ``main``'s
 ``model_kwargs`` reach ``create_model`` (``chip_smoke.py`` steps the MoE
 adapter, ``moe_experts=4, moe_top_k=2, freeze="all"``, beside the dense
@@ -52,13 +55,18 @@ SEED = 0
 
 def setup(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf",
           frames: int = 0, moments_dtype=None, model_kwargs=None,
-          model_type: str = "ViT-B/32", device=None):
+          model_type: str = "ViT-B/32", device=None, fsdp: bool = False):
     """``(model, optimizer, scheduler, data)`` on the card, the JAX script's
-    configuration; ``data`` is (uint8 patches, title, comments)."""
+    configuration; ``data`` is (uint8 patches, title, comments). ``fsdp``:
+    the model sharded over the data axis before the optimizer is built."""
     device = resolve_device(device)
     kwargs = dict(model_kwargs or {}, **({"nframes": frames} if frames else {}))
     model = create_model(arch, model_type=model_type, seed=SEED, dtype="bf16",
                          device=device, **kwargs)
+    if fsdp:
+        from ..parallel.mesh import fully_shard_model
+
+        model = fully_shard_model(model, device)
     v = CLIP_VARIANTS[model_type]
     optimizer_cfg = dict(OPTIMIZER, args=dict(OPTIMIZER["args"], moments_dtype=moments_dtype))
     optimizer, scheduler = build_optimizer(
@@ -79,16 +87,16 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
          frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3,
          accum_steps: int = 1, moments_dtype=None, model_kwargs=None,
          model_type: str = "ViT-B/32", device=None, log=print,
-         data_parallel: bool = False) -> dict:
+         data_parallel: bool = False, fsdp: bool = False) -> dict:
     """Runs the benchmark; returns ``{"samples_per_s", "window_rates",
     "losses", "setup"}``: ``losses`` has every step's loss, warm-up
     included, and ``setup`` is what ``setup`` built, for a caller that
     goes on stepping (the profiler windows of ``chip_smoke.py``)."""
     model, optimizer, scheduler, data = built = setup(batch, ntoks, arch, frames,
                                                       moments_dtype, model_kwargs,
-                                                      model_type, device)
+                                                      model_type, device, fsdp)
     device = data[0].device
-    if data_parallel:
+    if data_parallel or fsdp:
         from ..parallel.mesh import data_parallel as wrap, shard_batch
 
         model, data = wrap(model, device), [shard_batch(d) for d in data]
@@ -121,7 +129,8 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
           f"({1e3 * sum(seconds) / (windows * iters):.3f} ms/step, windows "
           f"{[round(r, 1) for r in rates]}), batch {batch}, {ntoks}-token texts, "
           f"arch {arch} {model_kwargs or ''}, accum_steps {accum_steps}, moments "
-          f"{moments_dtype or 'float32'}{', DDP' if data_parallel else ''}")
+          f"{moments_dtype or 'float32'}{', DDP' if data_parallel else ''}"
+          f"{', FSDP2' if fsdp else ''}")
     return {"samples_per_s": rate, "window_rates": rates,
             "losses": [float(x) for x in losses], "setup": built}
 

@@ -93,7 +93,7 @@ def _rank(rank: int, world: int, tp: int, init: str, device_type: str, kw: dict,
     dist.init_process_group("nccl" if nccl else "gloo", init_method=init, rank=rank,
                             world_size=world)
     try:
-        create_mesh(world // tp, tp)
+        create_mesh(world // tp, tp, device=device)
         result = step_once(device, **kw)
         result["backend"] = dist.get_backend()
         if rank == 0:
@@ -113,7 +113,7 @@ def run(tp: int = 2, n_data: int = 1, device=None, **kw) -> dict:
     device = resolve_device(device)
     if launched():
         init_distributed()
-        create_mesh(None, tp)
+        create_mesh(None, tp, device=device)
         return step_once(device, **kw)
     import torch.multiprocessing as mp
 

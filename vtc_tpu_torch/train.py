@@ -32,9 +32,14 @@ lays the ranks out as ``vtc_tpu``'s ``create_mesh(N, M)`` does
 ranks (``parallel.tensor.shard_model``) and steps it at the global
 ``batch_size``, each data place on its ``batch_size / N`` rows.
 
+ZeRO-3 (``--fsdp 1``, alone or with ``--n_model``) shards the parameters
+and the Adam moments over the data axis with FSDP2
+(``parallel.mesh.fully_shard_model``), before the optimizer is built; one
+process without a group has nothing to shard and trains as without it.
+
 What the port cannot do yet raises a ``NotImplementedError`` naming its
-ROADMAP item: the grain loader, and the fsdp, pipeline, sequence, expert
-and multi-slice axes (and the MoE adapter on more than one rank).
+ROADMAP item: the grain loader, and the pipeline, sequence, expert and
+multi-slice axes (and the MoE adapter on more than one rank).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from .parallel.mesh import (
     create_mesh,
     current_mesh,
     data_world,
+    fully_shard_model,
 )
 from .parallel.tensor import shard_model
 from .training import METRICS, Trainer, build_optimizer
@@ -105,7 +111,8 @@ def _make_probe(config):
 def _check_mesh(config, device: torch.device, logger) -> None:
     """The data and model axes run under a process group (``--n_devices``
     names the data axis's size, or is 1; ``--n_model`` the model axis's) or
-    ``--multihost``'s, laid out by ``create_mesh``; the other axes raise.
+    ``--multihost``'s, laid out by ``create_mesh`` on ``device``; ``--fsdp``
+    shards over its data axis; the other axes raise.
     ``--n_devices``/``--n_model`` without a group warn and train unsharded
     where the machine lacks the cards (as the JAX package does), and raise
     with the ``torchrun`` line where it has them."""
@@ -114,8 +121,7 @@ def _check_mesh(config, device: torch.device, logger) -> None:
             "loader 'grain' is not ported; the port's DataLoader runs thread "
             "workers (ROADMAP: Queue 1 item 10, TPU-era opt-ins)")
     n_model = int(config.get("n_model", 1) or 1)
-    check_axes(n_model, bool(config.get("fsdp")),
-               **{key: config.get(key, 1) for key in ("pp", "sp", "ep", "slices")})
+    check_axes(n_model, **{key: config.get(key, 1) for key in ("pp", "sp", "ep", "slices")})
     if world() > 1 and int(config["arch"]["args"].get("moe_experts", 0) or 0):
         raise NotImplementedError(
             f"the mixture-of-experts adapter on {world()} ranks: expert parallelism is "
@@ -129,7 +135,7 @@ def _check_mesh(config, device: torch.device, logger) -> None:
         check_data_devices(n_devices, device, logger, "training", "vtc_tpu_torch.train",
                            n_model)
     if world() > 1:
-        create_mesh(world() // n_model, n_model)
+        create_mesh(world() // n_model, n_model, device=device)
     if not config.get("multihost") and int(config["batch_size"]) % data_world():
         raise ValueError(f"batch_size {config['batch_size']} does not split over "
                          f"{data_world()} data ranks")
@@ -166,6 +172,8 @@ def main(config: ConfigParser, device: Optional[str] = None) -> Trainer:
     model = create_model(arch_cfg["type"], seed=seed_value, device=device,
                          **dict(arch_cfg["args"]))
     shard_model(model)  # over the model axis, where the mesh has one
+    if config.get("fsdp"):  # ZeRO-3 over the data axis, before the optimizer
+        fully_shard_model(model, device)
     logger.info("Model: %s", arch_cfg["type"])
 
     criterion = LOSSES[config["loss"]]

@@ -215,7 +215,9 @@ class Bf16MomentAdam(torch.optim.Optimizer):
     ``vtc_tpu/training/optim.py:340-366``). Per group, in fp32 over its
     tensors (``torch._foreach_*``): load and cast the moments up, update
     them, take this step's update from the unrounded fp32 moments, and cast
-    them down to bf16 (round to nearest even) at the store. Decay is added
+    them down to bf16 (round to nearest even) at the store; a ZeRO-3 shard
+(``DTensor``) updates its local part, since every operation is
+elementwise. Decay is added
     to the gradient (Adam) or to the update as ``upd + wd·p`` (AdamW);
     amsgrad keeps the running max of the uncorrected second moment. The
     state's names are ``torch.optim.Adam``'s."""
@@ -271,18 +273,21 @@ class Bf16MomentAdam(torch.optim.Optimizer):
         bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** counts).tolist()
         sqrt_bc2 = torch.sqrt(1 - torch.tensor(b2, dtype=torch.float32) ** counts).tolist()
 
-        g = [p.grad.float() for p in params]
+        # elementwise throughout: ZeRO-3's shards update on their own
+        g = [_local(p.grad).float() for p in params]
+        params = [_local(p) for p in params]
+        moments = {key: [_local(s[key]) for s in states] for key in MOMENTS if key in states[0]}
         p32 = [p.float() for p in params]
         if wd and not group["decoupled"]:
             g = torch._foreach_add(g, torch._foreach_mul(p32, wd))
-        m = _fp32([s["exp_avg"] for s in states])
+        m = _fp32(moments["exp_avg"])
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
-        v = _fp32([s["exp_avg_sq"] for s in states])
+        v = _fp32(moments["exp_avg_sq"])
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
         if amsgrad:
-            vm = _fp32([s["max_exp_avg_sq"] for s in states])
+            vm = _fp32(moments["max_exp_avg_sq"])
             torch._foreach_maximum_(vm, v)
             denom = torch._foreach_sqrt(vm)
         else:
@@ -295,10 +300,18 @@ class Bf16MomentAdam(torch.optim.Optimizer):
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, [u.to(p.dtype) for u, p in zip(upd, params)])
         # the stores round to bf16 (nearest even), one multi-tensor copy each
-        torch._foreach_copy_([s["exp_avg"] for s in states], m)
-        torch._foreach_copy_([s["exp_avg_sq"] for s in states], v)
+        torch._foreach_copy_(moments["exp_avg"], m)
+        torch._foreach_copy_(moments["exp_avg_sq"], v)
         if amsgrad:
-            torch._foreach_copy_([s["max_exp_avg_sq"] for s in states], vm)
+            torch._foreach_copy_(moments["max_exp_avg_sq"], vm)
+
+
+def _local(t):
+    """This rank's shard of a ``DTensor`` (ZeRO-3, ``parallel.mesh.
+    fully_shard_model``), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _fp32(tensors):

@@ -33,8 +33,10 @@ residual activations, the audio MLP) is refused by the accumulating step.
 
 **Data parallelism.** Under a process group (``torchrun``, one process per
 card) ``model`` is ``parallel.mesh.data_parallel``'s
-``DistributedDataParallel`` and ``data`` this rank's rows of the global
-batch (``parallel.mesh.shard_batch``). The step is the single-device step
+``DistributedDataParallel``, or a model that ``parallel.mesh.fully_shard_model``
+sharded (ZeRO-3: FSDP2 takes DDP's place and its gradients are the same
+mean), and ``data`` this rank's rows of the global batch
+(``parallel.mesh.shard_batch``). The step is the single-device step
 at the global batch, as GSPMD runs ``vtc_tpu``'s:
 
 * the features are gathered over the ranks (``all_gather_rows``) and every
@@ -49,7 +51,8 @@ at the global batch, as GSPMD runs ``vtc_tpu``'s:
 * with ``accum_steps`` k each rank splits its rows with the same strided
   rule, the features of every rank are gathered for the loss, and this
   rank's rows of the feature gradient, times ``W``, drive its second pass;
-  the microbatches before the last do not synchronize (``no_sync``);
+  the microbatches before the last do not synchronize (DDP's ``no_sync``,
+  FSDP2's ``set_requires_gradient_sync(False)``: ``no_gradient_sync``);
 * a MoE model raises at ``W`` > 1: ``vtc_tpu`` routes over the global token
   set (capacity ``ceil(cf·k·T/nE)`` with T global,
   ``vtc_tpu/parallel/expert.py:133``), which a per-rank routing does not
@@ -71,7 +74,14 @@ from ..data.preprocess import normalize_uint8_images
 from ..data.tokenizer import batch_token_need, truncate_batch_tokens
 from ..device import DISTRIBUTION
 from ..parallel.expert import moe_layers
-from ..parallel.mesh import active, all_gather_rows, data_world, shard_rows, unwrap
+from ..parallel.mesh import (
+    active,
+    all_gather_rows,
+    data_world,
+    no_gradient_sync,
+    shard_rows,
+    unwrap,
+)
 from ..utils.util import all_max, world
 
 # the Switch default, as the JAX trainer's ``moe_aux_loss_weight``
@@ -226,7 +236,6 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
             "running stats: per-microbatch statistics change the training "
             "semantics"
         )
-    scale = _logit_scale(module)
     module.train()
     mbs = [[d[i::k] for d in data] for i in range(k)]
     if active():
@@ -250,6 +259,8 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
         if active():
             meta = _global_meta(meta, feats[0].shape[0])
             feats = [all_gather_rows(f) for f in feats]
+    # read after a forward: a sharded model's root then holds it whole
+    scale = _logit_scale(module)
     feats_vis, feats_text = (f.requires_grad_() for f in feats)
     sim = torch.exp(scale) * (feats_vis @ feats_text.T)
     loss = criterion((feats_vis, feats_text, sim), meta)
@@ -271,8 +282,7 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
         loss = loss + aux_weight * torch.stack(auxes).mean()
     for i, (mb, d) in enumerate(zip(mbs, draws)):
         last = i == k - 1
-        sync = last or not hasattr(model, "no_sync")
-        with contextlib.nullcontext() if sync else model.no_sync():
+        with contextlib.nullcontext() if last else no_gradient_sync(model):
             out, aux = _forward(model, mb, draws=d)
             pairs = [(f, full[i::k]) for f, full in zip(out[:2], feat_grads)
                      if f.requires_grad]

@@ -31,6 +31,15 @@ checkpoint semantics (``trainer/base_trainer.py:9-219``,
   the model axis (``parallel.tensor``) gathers its parameters and Adam
   moments into the single-card layout before rank 0 writes them, and
   takes its part of them on resume.
+* ``fsdp`` in the config (ZeRO-3, as ``vtc_tpu``'s ``Trainer`` reads it)
+  takes a model that ``parallel.mesh.fully_shard_model`` sharded over the
+  data axis before its optimizer was built (``train.main`` does both). Its
+  checkpoints are gathered into the single-card ``.pth`` on every rank, as
+  the model axis's; a single-card checkpoint resumes into the shards, and
+  an fsdp run's into a single card. Validation runs every rank on its rows
+  of the same global batches, so every rank runs the same forwards; the
+  probe's strided split runs on the gathered parameters
+  (``parallel.mesh.gathered_parameters``).
 
 The loader's epoch counter is not restored on resume, as in the JAX package:
 a resumed run's first shuffle is that of ``seed + 1``.
@@ -48,10 +57,11 @@ import torch
 
 from ..data.loader import prefetch_to_device
 from ..device import resolve_device
-from ..parallel.mesh import data_parallel
+from ..parallel.mesh import active, data_parallel, is_fully_sharded
 from ..parallel.tensor import (
     full_optimizer_state,
     full_state_dict,
+    full_tensors,
     load_full_state_dict,
     split_optimizer_state,
 )
@@ -121,6 +131,10 @@ class Trainer:
         device=None,
     ):
         self.device = resolve_device(device)
+        self.fsdp = bool(config.get("fsdp", False))
+        if self.fsdp and active() and not is_fully_sharded(model):
+            raise ValueError("fsdp: shard the model with parallel.mesh.fully_shard_model "
+                             "before its optimizer is built")
         self.model = model.to(self.device)
         # the step's model: DistributedDataParallel under a process group
         self.ddp = data_parallel(self.model, self.device)
@@ -163,10 +177,11 @@ class Trainer:
                 self.early_stop = np.inf
 
         self.start_epoch = 1
+        self.tensorboard = bool(cfg_trainer.get("tensorboard", False))
         self.writer = TensorboardWriter(
             config.log_dir if hasattr(config, "log_dir") else ".",
             self.logger,
-            cfg_trainer.get("tensorboard", False) and is_main(),
+            self.tensorboard and is_main(),
         )
 
         self.data_loader = data_loader
@@ -336,10 +351,15 @@ class Trainer:
                 self.logger.warning("Skipping retrieval probe: %s", e)
                 self.probe_fn = None
 
-        # per-parameter histograms (trainer/trainer.py:185-186)
-        if self.writer.writer is not None:
-            for name, p in self.model.named_parameters():
-                self.writer.add_histogram(name, p.detach().cpu().numpy(), bins="auto")
+        # per-parameter histograms (trainer/trainer.py:185-186) of the
+        # single-card parameters: ZeRO-3's shards and the model axis's parts
+        # are gathered on every rank (collectives), rank 0 writes
+        if self.tensorboard:
+            params = full_tensors(self.model, {n: p.detach()
+                                               for n, p in self.model.named_parameters()})
+            if self.writer.writer is not None:
+                for name, p in params.items():
+                    self.writer.add_histogram(name, p.cpu().numpy(), bins="auto")
 
         return self.valid_metrics.result()
 
