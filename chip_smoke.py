@@ -80,11 +80,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     windows of 8 steps after 3 warm-up steps, the peak memory, a loss that
     is finite and falls over the 27 steps on the one repeated batch, the
     kernels' forward launches of one step, and ``torch.profiler`` windows:
-    the device's idle share over 5 plain steps, and device time per step
-    by family and by phase over 5 steps with a synchronize after each
+    the device's idle share over 2 plain steps, and device time per step
+    by family and by phase over 2 steps with a synchronize after each
     phase (forward, backward, optimizer); then the same benchmark with
-    ``--accum_steps 4`` and with ``--moments_dtype bfloat16`` (windows of 4
-    steps), each with its
+    ``--accum_steps 4`` and with ``--moments_dtype bfloat16`` (2 windows of
+    4 steps), each with its
     samples/s, peak memory and falling loss, and the optimizer phase's
     device ms with bf16 moments beside fp32's;
 13. accumulating step: the flagship's config as in phase 11 at
@@ -118,11 +118,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     openai-layout ViT-B/32 CLIP file (605 MB) that ``create_model`` imports
     from ``VTC_CLIP_WEIGHTS`` bit for bit; and ``vtc_tpu_torch.train``
     through its CLI on the flagship config (``--csv_file``, ``--root``,
-    ``--epochs 2``, a temporary ``--save_dir``; fp32, batch 50, the
-    imported weights), with a finite loss each epoch, the monitor's key
-    logged, ``checkpoint-epoch1/2.pth``, launches of ``(steps + validation
-    batches) × (29, 26, 26)``, no call to a plain version, and steps/s
-    beside phase 14's. Phases 15-25 work in a temporary directory under
+    ``--epochs 1`` (phase 14's ``Trainer`` runs the second epoch and the
+    resume), a temporary ``--save_dir``; fp32, batch 50, the imported
+    weights), with a finite loss, the monitor's key logged,
+    ``checkpoint-epoch1.pth``, launches of ``(steps + validation batches) ×
+    (29, 26, 26)``, no call to a plain version, and steps/s beside phase
+    14's. Phases 15-25 work in a temporary directory under
     ``saved/`` that the script removes;
 16. decode repair: each fixture (YCbCr, gray, Adobe RGB, CMYK and YCCK)
     through the card's route against PIL's decode, per channel, beside the
@@ -288,12 +289,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ViT-B/32, 8 frames (L = 393), the surgery's weights with the time
     attention moved off its no-op by seeded noise: fp32 batch 2 card
     against the CPU (features within 1e-4), 14 / 24 / 24 / 24 launches a
-    forward (LN, add+LN, the short tile, the long route); ``fused_mha``
-    at (Lq, Lk) = (1, 393) (``fused_mha_long_cross``: the long route's
-    two-pass kernel) against its plain version, fp32 and 8 bf16 inputs at
-    the one-ulp share, timed at batch 16 beside SDPA and the bound; a bf16
-    forward at batch 16 (launches, videos/s, cosine against fp32) and one
-    bf16 train step (finite, every parameter moved);
+    forward (LN, add+LN, the short tile, the cross route); ``fused_mha``
+    with fewer queries than keys (``fused_mha_cross``: the cross route of
+    ``csrc/cross_attention.cuh``) against its plain version at (1, 393),
+    fp32 and 8 bf16 inputs at the one-ulp share, at 5 more (Lq, Lk) at Dh
+    64, 128 and 20 and a misaligned view, two launches bit-equal, its plan
+    and ptxas lines, timed at batch 16 beside SDPA and the bound; a bf16
+    forward at batch 16 (launches, videos/s, cosine against fp32, device
+    time by kernel family under ``torch.profiler``) and one bf16 train step
+    (finite, every parameter moved);
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -343,7 +347,10 @@ PARITY_BATCH, PARITY_STEPS = 8, 3
 ACCUM_K, ACCUM_RUN_STEPS = 2, 2  # the accumulating step's microbatches and steps
 BENCH_ACCUM_K = 4  # bench_train_step's accumulating run at batch 128
 BENCH_OTHER_ITERS = 4  # its windows' steps, and the bf16-moments run's
+BENCH_OTHER_WINDOWS = 2  # the windows of each
+TRAIN_PROFILED = 2  # phase 12's train steps under torch.profiler, each window
 TRAINER_EPOCHS, TRAINER_ITEMS = 2, (400, 100)  # the Trainer phase: train, val items
+TWIN_EPOCHS = 1  # phase 15's train.py twin (the Trainer's second epoch: phase 14)
 # card vs CPU, full depth fp32, loss ~2.1: the measured spread was 2.38e-7,
 # one ulp (PERF.md, PR 6 run 1); 2e-6 leaves eight
 LOSS_ATOL = 2e-6
@@ -370,12 +377,12 @@ LN_BF16_EDGES = {
 PORT_KERNELS = ("layernorm", "add_layernorm", "fused_mha", "fused_attention")
 EXPECTED_LAUNCHES = {"layernorm": 29, "add_layernorm": 26, "fused_mha": 26,
                      "fused_attention": 0, "ln_mxu": 0, "ln_mxu_bf16": 0,
-                     "fused_mha_long": 0}
+                     "fused_mha_long": 0, "fused_mha_cross": 0}
 # video: 26 LN in the tower (ln_pre, 12 × (ln_time + ln_1), ln_post), 13 in
 # the text tower, 2 in the CAM; add+LN and fused_mha 12 + 12 + 2
 EXPECTED_VIDEO_LAUNCHES = {"layernorm": 41, "add_layernorm": 26, "fused_mha": 26,
                            "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0,
-                           "fused_mha_long": 0}
+                           "fused_mha_long": 0, "fused_mha_cross": 0}
 SOURCES = {
     "layernorm": ("triton", "vtc_tpu_torch/ops/layernorm.py",
                   "vtc_tpu/ops/pallas_layernorm.py:66"),
@@ -393,10 +400,9 @@ SOURCES = {
     "fused_mha_long": ("cuda", "vtc_tpu_torch/csrc/long_attention.cuh",
                        "vtc_tpu/models/layers.py:269"),
     # not a Pallas kernel: the joint TimeSformer's CLS row, XLA attention of 1
-    # query over 1 + T·N keys in vtc_tpu (the long route at Lq < Lk, its
-    # two-pass kernel, counted in fused_mha_long's launches)
-    "fused_mha_long_cross": ("cuda", "vtc_tpu_torch/csrc/long_attention.cuh",
-                             "vtc_tpu/models/timesformer_joint.py:31"),
+    # query over 1 + T·N keys in vtc_tpu (fused_mha's cross route, Lq <= 16)
+    "fused_mha_cross": ("cuda", "vtc_tpu_torch/csrc/cross_attention.cuh",
+                        "vtc_tpu/models/timesformer_joint.py:31"),
 }
 
 
@@ -474,13 +480,14 @@ def bf16_share_check(kernel: str, name: str, out, ref, fault) -> float:
 def kernel_instance(ptxas_line: str) -> str:
     """The kernel and template arguments of a ptxas "Compiling entry
     function" line, e.g. ``fused_mha<bf16, 8, 4>``, ``ln_mxu<fp32>``,
-    ``ln_mxu_bf16<8>``: the ``*_kernel`` name whose length prefix matches
-    it (the anonymous namespace before it ends in a hash of digits)."""
+    ``ln_mxu_bf16<8>``, ``fused_mha_cross<bf16, true>``: the ``*_kernel``
+    name whose length prefix matches it (the anonymous namespace before it
+    ends in a hash of digits)."""
     for m in re.finditer(r"(?=(\d+)([a-z]\w*?_kernel)I(\w+?)EEvNS)", ptxas_line):
         if int(m.group(1)) == len(m.group(2)):
-            args = re.findall(r"13__nv_bfloat16|f(?=Li|$)|(?<=Li)\d+", m.group(3))
-            args = ["bf16" if a.endswith("bfloat16") else "fp32" if a == "f" else a
-                    for a in args]
+            args = ["bf16" if bf else "fp32" if f32 else num or ("false", "true")[flag == "1"]
+                    for bf, f32, num, flag in re.findall(
+                        r"(13__nv_bfloat16)|(f)(?=Li|Lb|$)|Li(\d+)|Lb([01])", m.group(3))]
             return f"{m.group(2)[:-len('_kernel')]}<{', '.join(args)}>"
     return ptxas_line
 
@@ -1369,12 +1376,13 @@ def run_train_bench(ops, smi) -> float:
     require(launches == EXPECTED_LAUNCHES,
             f"train step launches {launches} != {EXPECTED_LAUNCHES}")
     prof = profile_calls(lambda: train_step(model, clip_loss, optimizer, scheduler,
-                                            data, {}, generator), PROFILED)
-    log(f"profile train bf16, {PROFILED} steps: window "
+                                            data, {}, generator), TRAIN_PROFILED)
+    log(f"profile train bf16, {TRAIN_PROFILED} steps: window "
         f"{prof['window_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, idle "
         f"share {prof['idle_share']:.4f}, {prof['launches']:.0f} device events per step, "
         f"device ms per step {sum(prof['family_ms'].values()):.4f}")
-    phases = profile_train_phases(model, optimizer, scheduler, data, generator, PROFILED)
+    phases = profile_train_phases(model, optimizer, scheduler, data, generator,
+                                  TRAIN_PROFILED)
     total = sum(phases["phase_ms"].values())
     for phase, ms in sorted(phases["phase_ms"].items(), key=lambda kv: -kv[1]):
         log(f"profile train device ms per step by phase: {phase} {ms:.4f} "
@@ -1393,12 +1401,13 @@ def run_train_bench(ops, smi) -> float:
     torch.cuda.empty_cache()
 
     # the accumulating step and bf16 moments, one after the other at the same
-    # batch: samples/s and peak memory beside the plain step's above (windows
-    # of BENCH_OTHER_ITERS steps)
+    # batch: samples/s and peak memory beside the plain step's above
+    # (BENCH_OTHER_WINDOWS windows of BENCH_OTHER_ITERS steps)
     for what, kwargs in ((f"accum_steps {BENCH_ACCUM_K}", {"accum_steps": BENCH_ACCUM_K}),
                          ("bf16 moments", {"moments_dtype": "bfloat16"})):
         torch.cuda.reset_peak_memory_stats()
-        res = bench_train_step.main(iters=BENCH_OTHER_ITERS, **kwargs)
+        res = bench_train_step.main(iters=BENCH_OTHER_ITERS, windows=BENCH_OTHER_WINDOWS,
+                                    **kwargs)
         peak_k = torch.cuda.max_memory_allocated()
         losses = res["losses"]
         log(f"train throughput bf16, {what}: {res['samples_per_s']:.1f} samples/s, "
@@ -1411,7 +1420,8 @@ def run_train_bench(ops, smi) -> float:
             model, optimizer, scheduler, data = res["setup"]
             generator = torch.Generator(device="cuda").manual_seed(1)
             optimizer_ms["bfloat16"] = profile_train_phases(
-                model, optimizer, scheduler, data, generator, PROFILED)["phase_ms"]["optimizer"]
+                model, optimizer, scheduler, data, generator,
+                TRAIN_PROFILED)["phase_ms"]["optimizer"]
             del model, optimizer, scheduler, data, generator
         del res
         torch.cuda.empty_cache()
@@ -1903,7 +1913,7 @@ def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
 
     # 4. the train.py twin, through its CLI, on the flagship config
     argv = ["-c", str(root / TRAIN_CONFIG), "--csv_file", str(csv_path),
-            "--root", str(media), "--epochs", "2", "--save_dir", str(tmp / "run")]
+            "--root", str(media), "--epochs", str(TWIN_EPOCHS), "--save_dir", str(tmp / "run")]
     run = run_twin(ops, argv)
     trainer, logs, seconds = run["trainer"], run["logs"], run["seconds"]
     launches, plain_calls, total = run["launches"], run["plain_calls"], run["total"]
@@ -1912,7 +1922,7 @@ def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
     want = {k: (steps + val_batches) * v for k, v in EXPECTED_LAUNCHES.items()}
     log(f"kernel use (train.py twin: {steps} steps + {val_batches} validation "
         f"batches): {json.dumps(launches)}; plain-version calls {plain_calls}")
-    require(len(logs) == 2, f"{len(logs)} epochs ran")
+    require(len(logs) == TWIN_EPOCHS, f"{len(logs)} epochs ran")
     require(launches == want, f"twin launches {launches} != {want}")
     require(not plain_calls, f"the twin called plain versions: {plain_calls}")
     for epoch, (elog, ep_s, val_s) in enumerate(
@@ -1929,9 +1939,9 @@ def run_data_and_train(ops, smi, trainer_rates, tmp: Path):
         require(trainer.mnt_metric in elog,
                 f"twin epoch {epoch}: the monitor's {trainer.mnt_metric} is not logged")
     files = {f.name: f.stat().st_size for f in trainer.checkpoint_dir.glob("*.pth")}
-    require({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(files),
+    require({f"checkpoint-epoch{e}.pth" for e in range(1, TWIN_EPOCHS + 1)} <= set(files),
             f"twin checkpoints: {files}")
-    log(f"twin: 2 epochs in {total:.3f} s (datasets, model with the imported weights, "
+    log(f"twin: {TWIN_EPOCHS} epoch in {total:.3f} s (datasets, model with the imported weights, "
         f"saves included); checkpoints {files} bytes; phase 15 took "
         f"{time.perf_counter() - phase_tic:.1f} s")
     del trainer
@@ -2457,18 +2467,18 @@ def check_video_fixture(smi) -> None:
 ONE_FRAME_CONFIG = "configs/pretrained_clip_1frame_comments_attention.jsonc"
 # 2 steps, 1 validation batch of 50 (cut from 3 steps to keep the script near its time)
 VIDEO_CORPUS_ROWS = {"train": 50, "val": 50}
-VIDEO_CORPUS_CLIPS = 8  # distinct videos, copied to every row
+VIDEO_CORPUS_CLIPS = 4  # distinct videos, copied to every row
 VIDEO_CLIP = dict(frames=90, width=480, height=360)  # 3 s at 30 fps
 PROBE_CLIPS = 4  # the MSRVTT root: one per full-val id, copied from these
 PROBE_CLIP = dict(frames=24, width=128, height=96)
 PROBE_CAPTIONS = 2
-PROBE_HOST_SAMPLE = 50  # probe videos whose host work is timed alone
+PROBE_HOST_SAMPLE = 20  # probe videos whose host work is timed alone
 VIDEO_TWIN_EPOCHS = 1  # two probes after it: the model's branch and the skip
 # the probe's forward of one video: the model's, and with the CAM skipped
 # (2 LN, 2 add+LN and 2 attention fewer: counted on the CPU)
 PROBE_SKIP_LAUNCHES = {"layernorm": 39, "add_layernorm": 24, "fused_mha": 24,
                        "fused_attention": 12, "ln_mxu": 0, "ln_mxu_bf16": 0,
-                       "fused_mha_long": 0}
+                       "fused_mha_long": 0, "fused_mha_cross": 0}
 
 
 def write_clip(path: Path, frames: int, width: int, height: int, seed: int) -> None:
@@ -4152,10 +4162,17 @@ JOINT_CHECK_BATCH, JOINT_CPU_ROWS = 4096, 512
 JOINT_SEEDS = 8
 JOINT_LAYERS = 12
 # ln_pre, 12 ln_time, ln_post; 2 add+LN a block; the time and space groups on
-# the short tile, the CLS row of each on the long route
+# the short tile, the CLS row of each on the cross route
 JOINT_LAUNCHES = dict(EXPECTED_LAUNCHES, layernorm=JOINT_LAYERS + 2,
                       add_layernorm=2 * JOINT_LAYERS, fused_mha=2 * JOINT_LAYERS,
-                      fused_mha_long=2 * JOINT_LAYERS)
+                      fused_mha_cross=2 * JOINT_LAYERS)
+# the cross route's other shapes, (Lq, Lk) at Dh 64, 128 and 20 (rows of 40
+# bytes in bf16: element loads), 4 heads, batch 8
+CROSS_SHAPES = ((1, 2), (5, 9), (16, 17), (16, 393), (1, 1025))
+CROSS_HEAD_DIMS = (64, 128, 20)
+# fewer queries than keys that the cross route leaves to the long route's
+# two-pass kernel, (Lq, Lk, Dh): more than 16 queries; Lk past 8 CTAs
+LONG_CROSS_CASES = ((17, 393, 64), (17, 393, 20), (1, 4097, 128))
 
 
 def joint_state() -> dict:
@@ -4185,27 +4202,58 @@ def joint_model(sd: dict, device, dtype=torch.float32):
     return model.to(device)
 
 
+def cross_launches(ops) -> tuple:
+    return ops.fused_mha.launches, ops.fused_mha_long.launches, ops.fused_mha_cross.launches
+
+
 def check_cross_route(ops) -> dict:
-    """``fused_mha`` with fewer queries than keys, (Lq, Lk) = (1, 393): the
-    long route's two-pass kernel (its counter moves, the short tile's does
-    not) against ``fused_mha_plain`` on q, k, v views of one qkv tensor:
-    fp32 (2e-5) on one input, bf16 on ``JOINT_SEEDS`` inputs of
-    ``JOINT_CHECK_BATCH`` sequences under phase 26's one-ulp share limit,
-    beside the CPU's plain version's share and P left unrounded's; then
-    timed at the joint forward's shape (batch 16)
-    beside the plain version, SDPA and the bound. -> {"cases", "shares",
-    "headline"}."""
+    """``fused_mha`` with fewer queries than keys at Lq <= 16: the cross
+    route (``fused_mha_cross``'s counter moves, the short tile's and the long
+    route's do not) against ``fused_mha_plain`` on q, k, v views of one qkv
+    tensor: at (1, 393) fp32 (2e-5) on one input and bf16 on ``JOINT_SEEDS``
+    inputs of ``JOINT_CHECK_BATCH`` sequences under phase 26's one-ulp share
+    limit, beside the CPU's plain version's share and P left unrounded's;
+    at ``CROSS_SHAPES`` by ``CROSS_HEAD_DIMS`` in both dtypes, and on a view
+    off 16 bytes (element loads); two launches bit-equal; at
+    ``LONG_CROSS_CASES`` in both dtypes the long route's two-pass kernel
+    instead (``fused_mha_long``'s counter moves); then timed at the joint
+    forward's shape (batch 16) beside the plain version, SDPA and the
+    bound, and beside the same kernel held to one CTA a (sequence, head)
+    (``max_cluster`` 1), with the plans and the kernel's ptxas lines. ->
+    {"cases", "shares", "headline"}."""
     import torch.nn.functional as F
 
+    from vtc_tpu_torch.ops import _build
     from vtc_tpu_torch.utils.timing import n_sets, time_ms
 
     dev = torch.device("cuda")
     e, h = 768, 12
     out = {"cases": [], "shares": []}
+    entry = None
+    for line in _build.build_all()["fused_mha"].with_suffix(".so.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel_instance(line)
+        elif entry and entry.startswith("fused_mha_cross") and (
+                "registers" in line or "spill" in line):
+            log(f"ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+    for dtype in (torch.bfloat16, torch.float32):
+        log(f"kernel fused_mha_cross plan (1, {JOINT_KEYS}) Dh 64 {str(dtype)[6:]}: "
+            f"{ops.cross_plan(1, JOINT_KEYS, e // h, dtype)}")
 
-    def views(qkv):
+    def views(qkv, lq=1):
         q, k, v = qkv.chunk(3, -1)
-        return q[:, :1], k, v
+        return q[:, :lq], k, v
+
+    def launch(q, k, v, heads, what, route=2):
+        """fused_mha, which must launch once on ``route``: 1 the long route,
+        2 the cross route (the places in ``cross_launches``)."""
+        before = cross_launches(ops)
+        o = ops.fused_mha(q, k, v, heads)
+        torch.cuda.synchronize()
+        want = tuple(n + (i == route) for i, n in enumerate(before))
+        require(cross_launches(ops) == want,
+                f"{what}: not the {('long', 'cross')[route - 1]} route")
+        return o
 
     for dtype in (torch.float32, torch.bfloat16):
         errs = []
@@ -4213,15 +4261,14 @@ def check_cross_route(ops) -> dict:
             g = torch.Generator(device=dev).manual_seed(3600 + seed)
             q, k, v = views(torch.randn(JOINT_CHECK_BATCH, JOINT_KEYS, 3 * e, device=dev,
                                         generator=g).to(dtype))
-            short, long = ops.fused_mha.launches, ops.fused_mha_long.launches
-            o = ops.fused_mha(q, k, v, h)
-            torch.cuda.synchronize()
-            require((ops.fused_mha.launches, ops.fused_mha_long.launches) == (short, long + 1),
-                    "(Lq, Lk) = (1, 393): not the long route")
+            o = launch(q, k, v, h, f"(Lq, Lk) = (1, {JOINT_KEYS})")
+            if seed == 0:
+                require(torch.equal(o, ops.fused_mha(q, k, v, h)),
+                        f"fused_mha_cross {str(dtype)[6:]}: two launches differ")
             ref = ops.fused_mha_plain(q, k, v, h)
             errs.append((o.float() - ref.float()).abs().max().item())
             tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref, 1)
-            require(errs[-1] <= tol, f"fused_mha_long_cross {str(dtype)[6:]} seed {seed}: "
+            require(errs[-1] <= tol, f"fused_mha_cross {str(dtype)[6:]} seed {seed}: "
                                      f"max_abs_err {errs[-1]} > {tol}")
             if dtype == torch.bfloat16:
                 ulp = bf16_ulp_at_median(ref)
@@ -4231,21 +4278,69 @@ def check_cross_route(ops) -> dict:
                     seed=seed, share=share_beyond(o, ref, ulp),
                     cpu_plain=share_beyond(cpu, ref[:n].cpu(), ulp),
                     p_unrounded=share_beyond(mha_p_unrounded(q, k, v, h, False), ref, ulp)))
-        log(f"kernel fused_mha_long_cross (Lq, Lk) = (1, {JOINT_KEYS}) {str(dtype)[6:]} "
-            f"B={JOINT_CHECK_BATCH} E={e} H={h} (two passes): max_abs_err={max(errs):.3g} "
-            f"over {len(errs)} inputs, tol={tol:.3g}")
+        log(f"kernel fused_mha_cross (Lq, Lk) = (1, {JOINT_KEYS}) {str(dtype)[6:]} "
+            f"B={JOINT_CHECK_BATCH} E={e} H={h}: max_abs_err={max(errs):.3g} over "
+            f"{len(errs)} inputs, tol={tol:.3g}; two launches bit-equal")
         out["cases"].append(dict(shape=f"1x{JOINT_KEYS}", dtype=str(dtype)[6:],
                                  max_abs_err=max(errs), tol=tol))
     for r in out["shares"]:
-        log(f"kernel fused_mha_long_cross (1, {JOINT_KEYS}) bfloat16 seed {r['seed']}: "
+        log(f"kernel fused_mha_cross (1, {JOINT_KEYS}) bfloat16 seed {r['seed']}: "
             f"{r['share']:.3g} of outputs beyond one ulp at the median (the CPU's plain "
             f"version on {JOINT_CPU_ROWS} of the {JOINT_CHECK_BATCH} sequences "
             f"{r['cpu_plain']:.3g}, P left unrounded {r['p_unrounded']:.3g}), limit "
             f"{ATTN_BF16_SHARE:g}")
         require(r["share"] <= ATTN_BF16_SHARE < r["p_unrounded"],
-                f"fused_mha_long_cross bf16 one-ulp share at {r}: limit {ATTN_BF16_SHARE}")
+                f"fused_mha_cross bf16 one-ulp share at {r}: limit {ATTN_BF16_SHARE}")
     del q, k, v, o, ref
     torch.cuda.empty_cache()
+
+    # the other shapes, each against the plain version; a view off 16 bytes
+    g = torch.Generator(device=dev).manual_seed(3650)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk in CROSS_SHAPES:
+            for dh in CROSS_HEAD_DIMS:
+                q, k, v = views(torch.randn(8, lk, 3 * 4 * dh, device=dev, generator=g).to(dtype),
+                                lq)
+                name = f"({lq}, {lk}) Dh {dh}"
+                o = launch(q, k, v, 4, name)
+                ref = ops.fused_mha_plain(q, k, v, 4)
+                err = (o.float() - ref.float()).abs().max().item()
+                tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref, 1)
+                require(err <= tol, f"fused_mha_cross {name} {str(dtype)[6:]}: "
+                                    f"max_abs_err {err} > {tol}")
+                require(torch.equal(o, ops.fused_mha(q, k, v, 4)),
+                        f"fused_mha_cross {name} {str(dtype)[6:]}: two launches differ")
+                out["cases"].append(dict(shape=f"{lq}x{lk} Dh {dh}", dtype=str(dtype)[6:],
+                                         max_abs_err=err, tol=tol))
+        q, k, v = views(torch.randn(16, JOINT_KEYS, 3 * e + 1, device=dev,
+                                    generator=g).to(dtype)[..., 1:])
+        require(k.data_ptr() % 16 != 0, "the misaligned view is aligned")
+        o = launch(q, k, v, h, "a view off 16 bytes")
+        ref = ops.fused_mha_plain(q, k, v, h)
+        err = (o.float() - ref.float()).abs().max().item()
+        tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref, 1)
+        require(err <= tol, f"fused_mha_cross misaligned {str(dtype)[6:]}: {err} > {tol}")
+        out["cases"].append(dict(shape=f"1x{JOINT_KEYS} off 16 bytes", dtype=str(dtype)[6:],
+                                 max_abs_err=err, tol=tol))
+        worst = max((c for c in out["cases"] if c["dtype"] == str(dtype)[6:]),
+                    key=lambda c: c["max_abs_err"] / c["tol"])
+        log(f"kernel fused_mha_cross {str(dtype)[6:]}: {len(CROSS_SHAPES)} (Lq, Lk) by Dh "
+            f"{CROSS_HEAD_DIMS} and a view off 16 bytes against the plain version, two "
+            f"launches bit-equal; worst {worst['shape']} max_abs_err="
+            f"{worst['max_abs_err']:.3g} (tol {worst['tol']:.3g})")
+        for lq, lk, dh in LONG_CROSS_CASES:
+            q, k, v = views(torch.randn(8, lk, 3 * 4 * dh, device=dev, generator=g).to(dtype),
+                            lq)
+            name = f"({lq}, {lk}) Dh {dh}"
+            o = launch(q, k, v, 4, name, route=1)
+            ref = ops.fused_mha_plain(q, k, v, 4)
+            err = (o.float() - ref.float()).abs().max().item()
+            tol = FP32_ATOL if dtype == torch.float32 else bf16_tol(ref, 1)
+            require(err <= tol, f"fused_mha_long {name} {str(dtype)[6:]}: "
+                                f"max_abs_err {err} > {tol}")
+            log(f"kernel fused_mha_long {name} {str(dtype)[6:]} B=8 H=4, fewer queries than "
+                f"keys past the cross route: max_abs_err={err:.3g} (tol {tol:.3g})")
+
     dtype, b = torch.bfloat16, JOINT_BENCH_BATCH
     per = 2 * (2 * b * e + 2 * b * JOINT_KEYS * e)  # q, o: 1 row; k, v: 393; bf16
     g = torch.Generator(device=dev).manual_seed(3700)
@@ -4259,20 +4354,35 @@ def check_cross_route(ops) -> dict:
 
         return F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
 
+    def one_cta(q, k, v):
+        return ops.fused_mha_cross(q, k, v, h, dh ** -0.5, max_cluster=1)
+
     ms = time_ms(lambda q, k, v: ops.fused_mha(q, k, v, h), sets)
     plain_ms = time_ms(lambda q, k, v: ops.fused_mha_plain(q, k, v, h), sets)
     library_ms = time_ms(sdpa, sets)
     bms, by = bound(per, 4 * b * JOINT_KEYS * e, dtype)
     o = ops.fused_mha(*sets[0], h)
-    err = (o.float() - ops.fused_mha_plain(*sets[0], h).float()).abs().max().item()
+    ref = ops.fused_mha_plain(*sets[0], h).float()
+    err = (o.float() - ref).abs().max().item()
     case = dict(shape=f"B{b} 1x{JOINT_KEYS}", dtype="bfloat16", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by)
-    log(f"kernel fused_mha_long_cross bfloat16 B={b} Lq=1 Lk={JOINT_KEYS} E={e} H={h}: "
+    log(f"kernel fused_mha_cross bfloat16 B={b} Lq=1 Lk={JOINT_KEYS} E={e} H={h}: "
         f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
         f"bound_us={bms * 1e3:.3f} ({by}) share_of_bound={bms / ms:.4f} max_abs_err={err:.3g}")
+    # the plan's cluster against one CTA a (sequence, head), in the order
+    # plan, one CTA, one CTA, plan
+    one_err = (one_cta(*sets[0]).float() - ref).abs().max().item()
+    require(one_err <= bf16_tol(ref, 1), f"fused_mha_cross one CTA: max_abs_err {one_err}")
+    pair = [time_ms(one_cta, sets) for _ in range(2)]
+    again = time_ms(lambda q, k, v: ops.fused_mha(q, k, v, h), sets)
+    log(f"kernel fused_mha_cross bfloat16 B={b} (1, {JOINT_KEYS}): the plan "
+        f"{ops.cross_plan(1, JOINT_KEYS, dh, dtype)} kernel_ms={ms:.5f}, {again:.5f}; one CTA "
+        f"{ops.cross_plan(1, JOINT_KEYS, dh, dtype, 1)} kernel_ms={pair[0]:.5f}, "
+        f"{pair[1]:.5f} (max_abs_err={one_err:.3g})")
+    case.update(plan_ms_again=again, one_cta_ms=pair)
     out["cases"].append(case)
     out["headline"] = case
-    del sets, o
+    del sets, o, ref
     torch.cuda.empty_cache()
     return out
 
@@ -4333,6 +4443,8 @@ def run_joint(ops, smi) -> tuple:
         require(cos.min().item() > COS_MIN, f"joint bf16 cosine {cos.min().item()}")
         throughput(f"joint TimeSformer bf16 batch {JOINT_BENCH_BATCH}, 8 frames", model,
                    [big], JOINT_BENCH_BATCH, 3, 5, 4, "videos/s", smi)
+        log_profile(profile_calls(lambda: model(big), PROFILED),
+                    f"joint TimeSformer bf16 batch {JOINT_BENCH_BATCH}")
     optimizer, _ = build_optimizer(model, {"type": "Adam", "args": {"lr": 1e-5}})
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     text = torch.nn.functional.normalize(
@@ -4628,7 +4740,7 @@ def main() -> int:
 
     mark("36")
     # 36. the joint-layout TimeSformer and the cross route at (1, 393)
-    joint_launches, results["fused_mha_long_cross"] = run_joint(ops, smi)
+    joint_launches, results["fused_mha_cross"] = run_joint(ops, smi)
 
     mark("31")
     # 31. results: each kernel's launches from the path that runs it
@@ -4636,7 +4748,7 @@ def main() -> int:
                          ln_mxu=sweep_launches["ln_mxu"],
                          ln_mxu_bf16=sweep_launches["ln_mxu_bf16"],
                          fused_mha_long=long_launches["fused_mha_long"],
-                         fused_mha_long_cross=joint_launches["fused_mha_long"])
+                         fused_mha_cross=joint_launches["fused_mha_cross"])
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         head = results[name]["headline"]

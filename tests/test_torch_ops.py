@@ -183,6 +183,83 @@ def test_long_route_launch_refuses_cpu_tensors():
     assert ops.fused_mha(q, q, q, 4).shape == q.shape
 
 
+def test_cross_route_launch_refuses_cpu_tensors():
+    """The cross route's launch takes CUDA tensors only; on the CPU
+    ``fused_mha`` runs the plain version with fewer queries than keys."""
+    q, k = torch.zeros(1, 1, 64), torch.zeros(1, 9, 64)
+    with pytest.raises(ValueError, match="cuda tensors"):
+        ops.fused_mha_cross(q, k, k, 4, 0.25)
+    assert ops.fused_mha(q, k, k, 4).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,dh,dtype,want", [
+    # the joint TimeSformer's CLS row at ViT-B/32, 8 frames: 2 CTAs of 197
+    # keys, V in registers: K's rows of 128 bytes and in fp32 q, S (padded
+    # to 200), 4 warps' and the CTA's (m, l), the inboxes of 2·2 statistics
+    # and 2·32 outputs: 197·128 + 4·(64 + 200 + 8 + 2 + 4 + 64) = 26,584
+    (1, 393, 64, torch.bfloat16, (2, 197, 128, 26584)),
+    # fp32 keeps V in shared memory: 6 CTAs of 66 keys, rows of 256 bytes
+    (1, 393, 64, torch.float32, (6, 66, 128, 34672)),
+    # the edges: one key past the query; 16 queries over 17 keys (the 4
+    # warps' 16·64 partial outputs, 16 KB, outgrow K's rows); Dh = 20 (rows
+    # of 128 bytes); 16 queries over 393 keys; Dh = 128 (V in shared
+    # memory) over 1,025 keys; past the 40 KB aim, 8 CTAs: 16 fp32 rows
+    # over 1,100 keys
+    (1, 2, 64, torch.bfloat16, (1, 2, 128, 1344)),
+    (16, 17, 64, torch.bfloat16, (1, 17, 128, 22528)),
+    (5, 9, 20, torch.float32, (1, 9, 128, 4832)),
+    (16, 393, 64, torch.bfloat16, (3, 131, 128, 34440)),
+    (1, 1025, 128, torch.bfloat16, (8, 129, 128, 67704)),
+    (16, 1100, 128, torch.float32, (8, 138, 128, 168320)),
+])
+def test_cross_plan(cuda, lq, lk, dh, dtype, want):
+    """The cross route's launch as the C entry reports it: the smallest
+    cluster at which a CTA's shared memory is at most 40 KB, else 8 CTAs
+    (``tests/test_torch_cross.py`` holds its Python copy to it)."""
+    assert ops.cross_plan(lq, lk, dh, dtype) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,dh,dtype,max_cluster,want", [
+    # the joint TimeSformer's CLS row in one CTA (chip_smoke.py times it
+    # beside the plan): 99 keys a warp put V in shared memory, 2·393·128 +
+    # 4·(64 + 396 + 8 + 2 + 2) = 102,496
+    (1, 393, 64, torch.bfloat16, 1, (1, 393, 128, 102496)),
+    # fp32 at most 2 CTAs: 2 of 197 keys past the 40 KB aim
+    (1, 393, 64, torch.float32, 2, (2, 197, 128, 102232)),
+    # no cluster of at most 1 CTA holds 1,025 fp32 rows of Dh = 128
+    (1, 1025, 128, torch.float32, 1, (0, 0, 0, 0)),
+])
+def test_cross_plan_at_a_smaller_cluster(cuda, lq, lk, dh, dtype, max_cluster, want):
+    """The plan at a cap below 8 CTAs, as the C entry reports it: the
+    smallest cluster under the cap at 40 KB a CTA, else the cap where it
+    fits an SM, else no launch."""
+    assert ops.cross_plan(lq, lk, dh, dtype, max_cluster) == want
+
+
+@pytest.mark.cuda
+def test_cross_plan_fits_an_sm_and_a_cluster(cuda):
+    """Every plan for Lk <= 1,100, Lq <= 16 and Dh <= 128 fits an SM's 227
+    KB and a portable cluster of at most 8 CTAs, and gives every CTA a key:
+    every (Lq, Lk) at Dh on each side of the 128-byte row steps (and 20,
+    100), every Dh at the lengths around a step of the cluster."""
+    def check(lq, lk, dh, dtype):
+        p = ops.cross_plan(lq, lk, dh, dtype)
+        assert 1 <= p.cluster <= 8 and p.smem <= 232448, (lq, lk, dh, dtype)
+        assert (p.cluster - 1) * p.keys < lk <= p.cluster * p.keys, (lq, lk, dh, dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (1, 20, 32, 33, 64, 65, 96, 97, 100, 127, 128):
+            for lq in range(1, 17):
+                for lk in range(lq + 1, 1101):
+                    check(lq, lk, dh, dtype)
+        for dh in range(1, 129):
+            for lq in (1, 5, 16):
+                for lk in (lq + 1, 197, 393, 394, 787, 1025, 1100):
+                    check(lq, lk, dh, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("l,dh,dtype,want", [
     # ViT-B/16 and ViT-L/14: one block of 3 pairs of warps per (sequence,
@@ -278,7 +355,7 @@ def test_launch_counters_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "layernorm": 0, "add_layernorm": 0, "fused_mha": 0, "fused_attention": 0,
-        "ln_mxu": 0, "ln_mxu_bf16": 0, "fused_mha_long": 0,
+        "ln_mxu": 0, "ln_mxu_bf16": 0, "fused_mha_long": 0, "fused_mha_cross": 0,
     }
 
 
@@ -354,6 +431,67 @@ def test_fused_mha_long_kernel_on_card(cuda, b, l, e, h, causal, dtype_name):
     torch.cuda.synchronize()
     assert (ops.fused_mha.launches, ops.fused_mha_long.launches) == (n_short, n_long + 1)
     assert_close(out, ops.fused_mha_plain(q, k, v, h, causal), dtype_name, ulps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("dh", [64, 128, 20])
+@pytest.mark.parametrize("lq,lk", [(1, 2), (5, 9), (16, 17), (16, 393), (1, 393), (1, 1025)])
+def test_fused_mha_cross_kernel_on_card(cuda, lq, lk, dh, dtype_name):
+    """Fewer queries than keys at Lq <= 16: ``fused_mha`` launches the
+    cross route (counted on ``fused_mha_cross``, not the long route): q, k
+    and v column views of one qkv tensor against the plain version, at Dh =
+    64, 128 and 20 (rows of 40 bytes in bf16: element loads); two launches
+    give the same bits."""
+    tdt, h = DTYPES[dtype_name], 3
+    qkv = torch.randn(2, lk, 3 * h * dh, generator=torch.Generator().manual_seed(lk))
+    q, k, v = qkv.to(cuda, tdt).chunk(3, dim=-1)
+    q = q[:, :lq]
+    n_long, n_cross = ops.fused_mha_long.launches, ops.fused_mha_cross.launches
+    out = ops.fused_mha(q, k, v, h)
+    again = ops.fused_mha(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (ops.fused_mha_long.launches, ops.fused_mha_cross.launches) == (n_long,
+                                                                           n_cross + 2)
+    assert torch.equal(out, again)
+    assert_close(out, ops.fused_mha_plain(q, k, v, h), dtype_name, ulps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("lq,lk,dh", [(17, 393, 64), (17, 393, 20), (1, 4097, 128)])
+def test_fused_mha_cross_leaves_the_rest_to_the_long_route(cuda, lq, lk, dh, dtype_name):
+    """Fewer queries than keys where the cross route does not take them:
+    more than 16 queries, or Lk past what 8 CTAs hold (1 query over 4,097
+    keys of Dh = 128). ``fused_mha`` launches the long route's two-pass
+    kernel (counted on ``fused_mha_long``, not the cross route), against
+    the plain version."""
+    tdt, h = DTYPES[dtype_name], 3
+    if lq <= 16:
+        assert ops.cross_plan(lq, lk, dh, tdt).cluster == 0
+    qkv = torch.randn(2, lk, 3 * h * dh, generator=torch.Generator().manual_seed(lk + lq))
+    q, k, v = qkv.to(cuda, tdt).chunk(3, dim=-1)
+    q = q[:, :lq]
+    n_long, n_cross = ops.fused_mha_long.launches, ops.fused_mha_cross.launches
+    out = ops.fused_mha(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (ops.fused_mha_long.launches, ops.fused_mha_cross.launches) == (n_long + 1,
+                                                                           n_cross)
+    assert_close(out, ops.fused_mha_plain(q, k, v, h), dtype_name, ulps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+def test_fused_mha_cross_misaligned_views(cuda, dtype_name):
+    """Views whose base is off 16 bytes (a qkv tensor sliced from its
+    second column) take the element-wise loads, against the plain version."""
+    tdt, h, dh, lk = DTYPES[dtype_name], 12, 64, 393
+    e = h * dh
+    qkv = torch.randn(3, lk, 3 * e + 1, generator=torch.Generator().manual_seed(5))
+    q, k, v = qkv.to(cuda, tdt)[..., 1:].chunk(3, dim=-1)
+    assert k.data_ptr() % 16
+    out = ops.fused_mha(q[:, :1], k, v, h)
+    assert_close(out, ops.fused_mha_plain(q[:, :1], k, v, h), dtype_name, ulps=2)
 
 
 @pytest.mark.cuda

@@ -35,10 +35,15 @@
 // Past L = 128 the same contract runs on the long route of
 // long_attention.cuh (entry vtc_fused_mha_long below): bf16 up to L = 272
 // in one pass over the keys with each head's K and V staged once, fp32 and
-// longer rows in two passes over 64-key tiles.
+// longer rows in two passes over 64-key tiles. Few queries over many keys
+// (1 <= Lq <= 16, Lq < Lk, no mask: the joint TimeSformer's CLS row)
+// run on the cross route of cross_attention.cuh (entry vtc_fused_mha_cross):
+// one thread-block cluster per (sequence, head) splits the keys, each CTA
+// reading its K and V rows once.
 //
 // Plain C interface, loaded with ctypes (vtc_tpu_torch/ops/attention.py).
 
+#include "cross_attention.cuh"
 #include "long_attention.cuh"
 #include "short_attention.cuh"
 
@@ -177,6 +182,7 @@ inline Plan long_plan(int L, int Dh, int dtype) {
 }
 
 // Lq = Lk follows long_plan; fewer queries than keys take the two-pass kernel
+// here (the cross route, launch_cross below, is an entry of its own)
 template <typename T>
 cudaError_t launch_long(const Args<T>& a, cudaStream_t stream) {
   if constexpr (std::is_same<T, sa::bf16>::value) {
@@ -188,6 +194,51 @@ cudaError_t launch_long(const Args<T>& a, cudaStream_t stream) {
     }
   }
   return a.Dh <= 64 ? launch_two_pass<T, 4>(a, stream) : launch_two_pass<T, 8>(a, stream);
+}
+
+// ---- the cross route (cross_attention.cuh) -------------------------------------
+
+// one cluster of `cluster` CTAs per (sequence, head), each CTA `keys` keys;
+// VR: V in registers
+template <typename T, bool VR>
+__global__ void __launch_bounds__(ca::kThreads, ca::kMinBlocks)
+fused_mha_cross_kernel(const Args<T> a, int cluster, int keys) {
+  ca::attend_cross<T, VR>(head(a, blockIdx.x / cluster), a.L, a.Lk, a.Dh, keys,
+                          round_to<T>(a.scale), a.vec_in);
+}
+
+// the plan at (Lq, Lk, Dh, dtype) with at most max_cluster CTAs; false
+// outside 1 <= Lq <= 16, Lq < Lk, 1 <= Dh <= 128, 1 <= max_cluster <= 8
+inline bool cross_plan(int Lq, int Lk, int Dh, int dtype, int max_cluster, ca::Plan* p) {
+  if (Lq < 1 || Lq > ca::kMaxQueries || Lk <= Lq || Dh < 1 || Dh > sa::kMaxDh ||
+      (dtype != 0 && dtype != 1) || max_cluster < 1 || max_cluster > ca::kMaxCluster)
+    return false;
+  *p = dtype == 1 ? ca::plan<sa::bf16>(Lq, Lk, Dh, max_cluster)
+                  : ca::plan<float>(Lq, Lk, Dh, max_cluster);
+  return true;
+}
+
+template <typename T, bool VR>
+cudaError_t launch_cross(const Args<T>& a, const ca::Plan& p, cudaStream_t stream) {
+  const auto kernel = fused_mha_cross_kernel<T, VR>;
+  // once per instance: the most a plan asks for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ca::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)p.cluster;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)a.B * a.H * p.cluster));
+  cfg.blockDim = dim3((unsigned)p.threads);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, p.cluster, p.keys);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // the kernel's arguments, with 16-byte copies where every base, the head
@@ -233,10 +284,11 @@ extern "C" int vtc_fused_mha(const void* q, const void* k, const void* v, void* 
 }
 
 // The long route at any Lq >= 1 (the wrapper takes it past L = 128, and for
-// fewer queries than keys): q and o are [B, Lq, H*Dh], k and v [B, Lk, H*Dh],
-// Lq <= Lk, the causal mask at Lq = Lk only. At Lq = Lk bf16 up to L = 272
-// runs on the one-pass kernel, past it and in fp32 on the two-pass kernel;
-// Lq < Lk runs on the two-pass kernel. At most 65,535 query tiles of 64 rows.
+// fewer queries than keys where the cross route does not: Lq > 16, or Lk
+// beyond its plan): q and o are [B, Lq, H*Dh], k and v [B, Lk, H*Dh], Lq <=
+// Lk, the causal mask at Lq = Lk only. At Lq = Lk bf16 up to L = 272 runs on
+// the one-pass kernel, past it and in fp32 on the two-pass kernel; Lq < Lk
+// runs on the two-pass kernel. At most 65,535 query tiles of 64 rows.
 extern "C" int vtc_fused_mha_long(const void* q, const void* k, const void* v, void* o,
                                   long long q_sb, long long q_sl, long long k_sb,
                                   long long k_sl, long long v_sb, long long v_sl, int B,
@@ -254,6 +306,47 @@ extern "C" int vtc_fused_mha_long(const void* q, const void* k, const void* v, v
     return (int)launch_long(make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb,
                                                 v_sl, B, Lq, Lk, H, Dh, causal, scale), st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The cross route: q and o are [B, Lq, H*Dh], k and v [B, Lk, H*Dh], 1 <= Lq
+// <= 16, Lq < Lk, no mask, launched as vtc_fused_mha_cross_plan reports at
+// the same max_cluster (8 on the main path); cudaErrorInvalidValue where the
+// plan has no cluster (Lk beyond max_cluster CTAs' shared memory: the long
+// route's two-pass kernel takes those).
+extern "C" int vtc_fused_mha_cross(const void* q, const void* k, const void* v, void* o,
+                                   long long q_sb, long long q_sl, long long k_sb,
+                                   long long k_sl, long long v_sb, long long v_sl, int B,
+                                   int Lq, int Lk, int H, int Dh, int max_cluster, float scale,
+                                   int dtype, void* stream) {
+  ca::Plan p;
+  if (!cross_plan(Lq, Lk, Dh, dtype, max_cluster, &p) || B < 1 || H < 1 || p.cluster == 0 ||
+      (long long)B * H * p.cluster > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_cross<float, false>(make_args<float>(q, k, v, o, q_sb, q_sl, k_sb, k_sl,
+                                                            v_sb, v_sl, B, Lq, Lk, H, Dh, 0,
+                                                            scale), p, st);
+  const auto args = make_args<sa::bf16>(q, k, v, o, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, B, Lq,
+                                        Lk, H, Dh, 0, scale);
+  return (int)(ca::v_in_registers<sa::bf16>(p.keys, Dh)
+                   ? launch_cross<sa::bf16, true>(args, p, st)
+                   : launch_cross<sa::bf16, false>(args, p, st));
+}
+
+// The plan vtc_fused_mha_cross follows at (Lq, Lk, Dh, dtype, max_cluster):
+// out = {cluster, keys a CTA, threads, smem}, cluster 0 where it takes no
+// launch. Returns 0, or cudaErrorInvalidValue outside 1 <= Lq <= 16, Lq <
+// Lk, 1 <= Dh <= 128, 1 <= max_cluster <= 8.
+extern "C" int vtc_fused_mha_cross_plan(int Lq, int Lk, int Dh, int dtype, int max_cluster,
+                                        int* out) {
+  ca::Plan p;
+  if (!cross_plan(Lq, Lk, Dh, dtype, max_cluster, &p)) return (int)cudaErrorInvalidValue;
+  out[0] = p.cluster;
+  out[1] = p.keys;
+  out[2] = p.threads;
+  out[3] = p.smem;
+  return 0;
 }
 
 // The plan vtc_fused_mha_long follows at (L, Dh, dtype): out = {one_pass,

@@ -1,5 +1,7 @@
 // Heads-packed multi-head attention past the short tile (L > 128), forward:
 // the long route of fused_mha (csrc/fused_mha.cu, entry vtc_fused_mha_long).
+// Few queries over many keys (Lq <= 16, Lq < Lk) run on the cross route of
+// cross_attention.cuh instead.
 //
 // Not a port of a Pallas kernel: the JAX package runs these lengths (the
 // ViT-B/16 tower at L = 197, ViT-L/14 at 257) through XLA attention,
@@ -80,12 +82,13 @@
 // and masks per element; the one-pass kernel masks per element the tiles
 // that hold a masked key.
 //
-// Fewer queries than keys (Lq < Lk, no mask: the joint TimeSformer's CLS row,
-// 1 query over 1 + T·N keys, models/timesformer_joint.py): the two-pass
-// kernel with its query rows to Lq and its keys to Lk (entry
-// vtc_fused_mha_long in fused_mha.cu, at Lq < Lk). At Lq = 1 a block's 4 warps run one
-// real row and three of zeros, which are not stored: a simple kernel, whose
-// work is 2 launches a block of the joint tower.
+// Fewer queries than keys (Lq < Lk, no mask): the two-pass kernel takes its
+// query rows to Lq and its keys to Lk (entry vtc_fused_mha_long in
+// fused_mha.cu, at Lq < Lk) where the cross route does not: past 16
+// queries, or past the keys 8 CTAs of the cross route hold. The joint
+// TimeSformer's CLS row (1 query over 1 + T·N keys) runs on the cross route,
+// cross_attention.cuh; here a block's 4 warps would run one real row and
+// three of zeros (its earlier design: 0.057 ms at the joint tower's batch 16).
 
 #pragma once
 

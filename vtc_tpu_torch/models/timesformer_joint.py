@@ -21,8 +21,9 @@ The attentions run on the port's kernels, where ``vtc_tpu`` runs XLA
 attention (``_attn``, ``:31-35``):
 
 * the CLS row, 1 query over 1 + T·N keys (393 at ViT-B/32 with 8 frames),
-  is ``ops.fused_mha`` with fewer queries than keys: the long route's
-  two-pass kernel (``ops.fused_mha_long``), 2 launches a block;
+  is ``ops.fused_mha`` with fewer queries than keys: the cross route
+  (``ops.fused_mha_cross``, ``csrc/cross_attention.cuh``), 2 launches a
+  block;
 * the groups run on the short tile at Lq = Lk: each group's sequence is the
   CLS token then its T (time) or N (space) tokens, so the CLS key is in
   row 0, as ``vtc_tpu`` prepends it; the CLS query in row 0 comes along and

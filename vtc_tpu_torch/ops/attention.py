@@ -12,9 +12,12 @@ launch's choices are ``long_plan``), where the JAX package runs XLA attention
 (``vtc_tpu/models/layers.py:269-290``: the ViT-B/16 and ViT-L/14 towers, L
 = 197 and 257) with the same math in fp32. Fewer queries than keys (Lq <
 Lk, no mask: the joint TimeSformer's CLS row, ``vtc_tpu/models/
-timesformer_joint.py:97``) run on the long route's two-pass kernel at any
-lengths (``fused_mha_long``); the plain version and the backward take Lq
-≠ Lk with the same math.
+timesformer_joint.py:97``) run on the cross route at Lq <= 16
+(``fused_mha_cross``: ``csrc/cross_attention.cuh``, one thread-block
+cluster per (sequence, head) splitting the keys; the launch's choices are
+``cross_plan``), and on the long route's two-pass kernel past it or where
+the plan has no cluster; the plain version and the backward take Lq ≠ Lk
+with the same math.
 
 ``fused_attention`` ports ``fused_attention`` (``:131``): attention over
 ``[B·H, L, D]`` (the JAX layout) or over 4-D head views ``[B, H, L, D]``
@@ -44,6 +47,7 @@ strides (the q/k/v column views of one qkv GEMM output).
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import torch
@@ -78,6 +82,38 @@ def long_plan(length: int, head_dim: int, dtype: torch.dtype) -> LongPlan:
     out = (ctypes.c_int * 4)()
     check_launch(fn(length, head_dim, _DTYPES[dtype], out), "vtc_fused_mha_long_plan")
     return LongPlan(*out)
+
+
+CROSS_MAX_QUERIES = 16  # csrc/cross_attention.cuh: ca::kMaxQueries
+CROSS_MAX_CLUSTER = 8  # ca::kMaxCluster
+
+
+class CrossPlan(NamedTuple):
+    """How ``vtc_fused_mha_cross`` launches at one (Lq, Lk, Dh, dtype)."""
+
+    cluster: int  # CTAs a (sequence, head); 0: the cross route takes no launch
+    keys: int  # keys a CTA (the last CTA's range may be shorter)
+    threads: int  # a CTA
+    smem: int  # dynamic shared memory a CTA, bytes
+
+
+@lru_cache(maxsize=None)  # fused_mha routes every launch on the card by it
+def cross_plan(queries: int, keys: int, head_dim: int, dtype: torch.dtype,
+               max_cluster: int = CROSS_MAX_CLUSTER) -> CrossPlan:
+    """The cross route's launch at ``(queries, keys, head_dim, dtype)`` as
+    the C entry ``vtc_fused_mha_cross_plan`` reports it (``ca::plan`` in
+    ``csrc/cross_attention.cuh``, which the launch follows), for 1 <= Lq <=
+    16 and Lq < Lk: the smallest cluster of at most ``max_cluster`` CTAs at
+    which a CTA's shared memory is at most 40 KB, else ``max_cluster`` CTAs
+    where they fit an SM, else ``cluster`` 0. Builds the library, so it
+    needs ``nvcc``, though it launches nothing."""
+    fn = load_library("fused_mha").vtc_fused_mha_cross_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    check_launch(fn(queries, keys, head_dim, _DTYPES[dtype], max_cluster, out),
+                 "vtc_fused_mha_cross_plan")
+    return CrossPlan(*out)
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:
@@ -157,8 +193,9 @@ class FusedMhaFn(torch.autograd.Function):
 
 
 def _kernel(entry: str):
-    """``vtc_fused_mha`` (the short tile; its lengths: L) or
-    ``vtc_fused_mha_long`` (the long route; its lengths: Lq, Lk)."""
+    """``vtc_fused_mha`` (the short tile; its lengths: L), ``vtc_fused_mha_long``
+    (the long route) or ``vtc_fused_mha_cross`` (the cross route; their
+    lengths: Lq, Lk)."""
     fn = getattr(load_library("fused_mha"), entry)
     if fn.argtypes is None:  # ctypes hands back the same object every time
         lengths = 1 if entry == "vtc_fused_mha" else 2
@@ -170,7 +207,9 @@ def _kernel(entry: str):
     return fn
 
 
-def _run(entry: str, q, k, v, heads, causal, scale):
+def _run(entry: str, q, k, v, heads, option: int, scale):
+    """One launch; ``option`` is the causal flag of the short tile and the
+    long route, the cross route's ``max_cluster``."""
     b, l, e = q.shape
     lengths = (l,) if entry == "vtc_fused_mha" else (l, k.shape[1])
     o = torch.empty((b, l, e), dtype=q.dtype, device=q.device)
@@ -178,7 +217,7 @@ def _run(entry: str, q, k, v, heads, causal, scale):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1),
-        b, *lengths, heads, e // heads, int(causal), scale, _DTYPES[q.dtype],
+        b, *lengths, heads, e // heads, int(option), scale, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(err, entry)
@@ -193,11 +232,11 @@ def _launch(q, k, v, heads, causal, scale):
 
 def fused_mha_long(q, k, v, heads: int, causal: bool, scale: float) -> torch.Tensor:
     """The long route's launch (``fused_mha`` checks q, k and v and sends L
-    > 128 here, and q with fewer rows than k and v): ``csrc/
-    long_attention.cuh`` through the C entry ``vtc_fused_mha_long``, which
-    takes any Lq <= Lk. Counted apart from the short tile in
-    ``fused_mha_long.launches``. Refuses a host tensor, whose pointer the
-    kernel would read as the card's."""
+    > 128 here, and q with fewer rows than k and v where the cross route
+    does not take them): ``csrc/long_attention.cuh`` through the C entry
+    ``vtc_fused_mha_long``, which takes any Lq <= Lk. Counted apart from the
+    short tile in ``fused_mha_long.launches``. Refuses a host tensor, whose
+    pointer the kernel would read as the card's."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_mha_long launches on cuda tensors, not {q.device}")
     o = _run("vtc_fused_mha_long", q, k, v, heads, causal, scale)
@@ -206,6 +245,24 @@ def fused_mha_long(q, k, v, heads: int, causal: bool, scale: float) -> torch.Ten
 
 
 fused_mha_long.launches = 0
+
+
+def fused_mha_cross(q, k, v, heads: int, scale: float,
+                    max_cluster: int = CROSS_MAX_CLUSTER) -> torch.Tensor:
+    """The cross route's launch (``fused_mha`` checks q, k and v and sends
+    here q of at most 16 rows against more keys, no mask, where
+    ``cross_plan`` has a cluster): ``csrc/cross_attention.cuh`` through the
+    C entry ``vtc_fused_mha_cross``, launched as ``cross_plan`` at
+    ``max_cluster`` says (below 8 only to time a smaller cluster). Counted
+    in ``fused_mha_cross.launches``. Refuses a host tensor."""
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mha_cross launches on cuda tensors, not {q.device}")
+    o = _run("vtc_fused_mha_cross", q, k, v, heads, max_cluster, scale)
+    fused_mha_cross.launches += 1
+    return o
+
+
+fused_mha_cross.launches = 0
 
 
 def _check_cuda_qkv(name, q, k, v):
@@ -227,8 +284,9 @@ def fused_mha(q, k, v, heads: int, causal: bool = False,
     """Multi-head attention over ``[B, L, E]``, E = heads·Dh: on the card
     the short tile for L <= 128, the long route above, Dh <= 128 in both.
     q may have fewer rows than k and v (``[B, Lq, E]`` against ``[B, Lk,
-    E]``, Lq < Lk, no mask), which the long route's two-pass kernel takes
-    at any length (``fused_mha_long``)."""
+    E]``, Lq < Lk, no mask): the cross route at Lq <= 16
+    (``fused_mha_cross``, where ``cross_plan`` has a cluster), else the
+    long route's two-pass kernel (``fused_mha_long``)."""
     b, l, e = q.shape
     if e % heads:
         raise ValueError(f"E={e} is not a multiple of heads={heads}")
@@ -246,10 +304,15 @@ def fused_mha(q, k, v, heads: int, causal: bool = False,
         if e // heads > MAX_HEAD_DIM:
             raise ValueError(f"head dim {e // heads} > {MAX_HEAD_DIM}")
 
-        route = fused_mha_long if cross or l > MAX_LEN else _launch
+        if cross and l <= CROSS_MAX_QUERIES and cross_plan(
+                l, k.shape[1], e // heads, q.dtype).cluster:
+            def launch(q_, k_, v_):
+                return fused_mha_cross(q_, k_, v_, heads, s)
+        else:
+            route = fused_mha_long if cross or l > MAX_LEN else _launch
 
-        def launch(q_, k_, v_):
-            return route(q_, k_, v_, heads, causal, s)
+            def launch(q_, k_, v_):
+                return route(q_, k_, v_, heads, causal, s)
     else:
         raise ValueError(f"fused_mha runs on cpu or cuda, not {q.device}")
     if needs_grad(q, k, v):

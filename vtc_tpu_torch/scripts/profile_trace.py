@@ -31,6 +31,7 @@ KERNEL_FAMILIES = (  # device-kernel name fragments, matched in this order
     ("add_layernorm", ("_addln_kernel",)),
     ("layernorm", ("_ln_kernel",)),
     ("fused_mha_long", ("fused_mha_long_kernel", "fused_mha_long_onepass_kernel")),
+    ("fused_mha_cross", ("fused_mha_cross_kernel",)),
     ("fused_mha", ("fused_mha_kernel",)),
     ("fused_attention", ("fused_attention_kernel",)),
     ("gemm", ("gemm", "Gemm", "gemv", "nvjet", "cutlass", "xmma")),
