@@ -235,9 +235,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     (batch 64 and 32), one bf16 ``train_step`` of ViT-B/16 at batch 32
     (finite, the forward's launches), and ``PretrainedCLIP_TimeSformer_
     finaltf`` at ViT-B/16, batch 2, card against CPU with its launches;
-28. ``vtc_tpu_torch.bench`` at its defaults (the flagship at batch 160,
-    77-token texts, the CPU baseline, the train step, MFU against the
-    card's bf16 peak), its JSON line logged before the results;
+28. ``vtc_tpu_torch.bench`` at its defaults but 32 forwards a window (the
+    flagship at batch 160, 77-token texts, the CPU baseline, the train
+    step, MFU against the card's bf16 peak), its JSON line logged before
+    the results;
 29. ``scripts.profile_eval`` (per-tower ms), ``scripts.bench_video_eval``
     (videos/s) and ``scripts.bench_optim_update`` (per-leaf Adam and
     ``Bf16MomentAdam`` against one merged buffer) at their defaults;
@@ -276,9 +277,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     id -1 past the 30 real rows;
 35. ZeRO-3 (FSDP2, ``parallel.mesh.fully_shard_model``): two ranks spawned
     here on card 0, each group laid out as ``create_mesh(W, 1)`` on the
-    card; at dp2 over gloo, then W = 1 over NCCL, phase 11's three fp32 steps
-    sharded over the data axis at phase 11's limits of phase 11's card
-    steps, 3 × (29, 26, 26) launches a rank, the gathered single-card state
+    card; at dp2 over gloo, then W = 1 over NCCL, the first 2 of phase 11's
+    fp32 steps sharded over the data axis at phase 11's limits of phase 11's
+    card steps, 2 × (29, 26, 26) launches a rank, the gathered single-card state
     (at W = 1 through a ``.pth`` on disk) loaded into the emptied sharded
     model and gathered again bit for bit; at W = 1 the bf16 step at batch
     128 sharded (samples/s, beside phase 12's plain step) and one sharded
@@ -298,6 +299,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     forward at batch 16 (launches, videos/s, cosine against fp32, device
     time by kernel family under ``torch.profiler``) and one bf16 train step
     (finite, every parameter moved);
+37. the MoE config (``pretrained_clip_comments_attn_moe.jsonc``: towers
+    frozen, a CAM of 4 experts, top 2) across ranks over gloo on card 0, in
+    one spawn of 4 ranks shared with phase 38: its 2 fp32 steps at phase
+    11's batch at dp2, dp1×ep2 and dp2×ep2 against one rank's on the card
+    (losses within 2e-6, step-1 gradients within 8× the card's reorder
+    floor of phase 11's step, every MoE layer's expert ids, queue positions
+    and keeps equal, 2 × (29, 26, 26) launches a rank, each expert rank's
+    stacks and moments 0.5000 of one rank's bytes), and the single-card
+    ``.pth`` written at ep2 loaded into one rank's whole model (its
+    features the ep2 model's);
+38. the pipe axis on ranks 2 and 3 of that spawn as
+    ``create_pipeline_mesh(1, 2)``, 2 microbatches: phase 11's three fp32
+    steps (losses within 2e-6, gradients within the same limit and equal on
+    both stages, 3 × (29, 26, 26) launches a stage, 9 stacks pipelined, the
+    2-block CAM among them), the video config's fp32 forward at batch 2
+    against one rank's (within 1e-4; 41 / 26 / 26 / 12 launches, 3 stacks
+    pipelined), and the bf16 step at batch 128 through the pipeline beside
+    phase 12's plain one (a reading, no claim);
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -1140,23 +1159,31 @@ def compare_losses(what: str, ours, ref, names=("card", "CPU")) -> None:
                 f"{what} step {k + 1} loss {a} vs {c}")
 
 
-def compare_grads(what: str, ours: dict, ref: dict) -> None:
-    """Each parameter's gradient within ``GRAD_RTOL`` of its largest
-    |gradient| in ``ref``; a gradient on one side only fails."""
+def grad_share(ours: dict, ref: dict) -> tuple:
+    """``(worst, name, n)``: the largest max|diff| / max|grad| over the
+    parameters' gradients in ``ref`` (a gradient on one side only: inf), at
+    which parameter, over how many gradients."""
     worst, n_grads = (0.0, ""), 0
     for name, r in ref.items():
         o = ours[name]
         if r is None or o is None:
-            require(r is None and o is None, f"{what} {name}: a gradient on one side only")
+            if not (r is None and o is None):
+                worst = max(worst, (math.inf, name))
             continue
         n_grads += 1
         scale = r.abs().max().item()
         err = (o - r).abs().max().item()
-        require(err <= GRAD_RTOL * scale if scale > 0 else err == 0.0,
-                f"{what} {name}: gradient differs by {err} (largest {scale})")
-        worst = max(worst, (err / scale if scale else 0.0, name))
-    log(f"{what}: {n_grads} parameter gradients after step 1 agree; worst "
-        f"max|diff| / max|grad| {worst[0]:.3g} at {worst[1]} (limit {GRAD_RTOL:g})")
+        worst = max(worst, (err / scale if scale else (0.0 if err == 0 else math.inf), name))
+    return worst[0], worst[1], n_grads
+
+
+def compare_grads(what: str, ours: dict, ref: dict, rtol: float = GRAD_RTOL) -> None:
+    """Each parameter's gradient within ``rtol`` (default ``GRAD_RTOL``) of
+    its largest |gradient| in ``ref``; a gradient on one side only fails."""
+    worst, name, n_grads = grad_share(ours, ref)
+    log(f"{what}: {n_grads} parameter gradients after step 1; worst "
+        f"max|diff| / max|grad| {worst:.3g} at {name} (limit {rtol:g})")
+    require(worst <= rtol, f"{what} {name}: gradient differs by {worst:.3g} of its largest")
 
 
 def compare_with_cpu_run(what: str, card: dict, cpu: dict) -> None:
@@ -3318,7 +3345,7 @@ def check_long_route(ops) -> dict:
 # ---- phase 27: ViT-B/16 and ViT-L/14 ------------------------------------------------
 
 VARIANT_BENCH_BATCH = {"ViT-B/16": 64, "ViT-L/14": 32}  # bench.py's rows for them
-VARIANT_BENCH_ITERS = 32
+VARIANT_BENCH_ITERS = 16  # the script's 950 s aim
 VARIANT_FWD_BATCH = 4
 VARIANT_TRAIN_BATCH = 32
 
@@ -3434,16 +3461,20 @@ def run_variants(ops, smi) -> dict:
 
 # ---- phases 28-29: the bench twin and the script twins ------------------------------
 
+BENCH_TWIN_ITERS = 32  # of the bench twin's 96 a window: the script's 950 s aim
+
+
 def run_bench_twins(smi) -> None:
-    """Phase 28: ``vtc_tpu_torch.bench`` at its defaults (its JSON line is
-    logged here, not last); phase 29: ``scripts.profile_eval``,
+    """Phase 28: ``vtc_tpu_torch.bench`` at its defaults but
+    ``BENCH_TWIN_ITERS`` forwards a window (its JSON line is logged here,
+    not last); phase 29: ``scripts.profile_eval``,
     ``scripts.bench_video_eval`` and ``scripts.bench_optim_update`` at
     theirs."""
     from vtc_tpu_torch import bench
     from vtc_tpu_torch.scripts import bench_optim_update, bench_video_eval, profile_eval
 
     tic = time.perf_counter()
-    row = bench.main({})
+    row = bench.main({"BENCH_ITERS": str(BENCH_TWIN_ITERS)})
     for key in ("value", "vs_baseline", "full_context_pairs_per_sec",
                 "train_samples_per_sec", "mfu", "train_mfu"):
         require(row.get(key) is not None and row[key] > 0, f"bench: {key} {row.get(key)}")
@@ -3540,7 +3571,7 @@ def run_remat(ops, smi) -> None:
 
 # phase 12's batch, fp32 weights with bf16 activations; short windows: the
 # plain step and the DDP step are timed one after the other in each rank
-DP_BENCH = dict(batch=128, iters=6, windows=2, warmup=3)
+DP_BENCH = dict(batch=128, iters=4, windows=2, warmup=2)  # the script's 950 s aim
 
 
 def dp_rank(rank: int, world: int, port: int, tmp: str, eval_config: str) -> None:
@@ -3679,7 +3710,7 @@ def run_data_parallel(smi, tmp: Path, parity: dict, eval_run: dict) -> None:
 # ---- phase 33: tensor parallelism on the model axis ---------------------------------
 
 TP_DEGREE = 2
-TP_BENCH = dict(batch=128, steps=3, warmup=1)  # phase 12's batch, bf16
+TP_BENCH = dict(batch=128, steps=2, warmup=1)  # phase 12's batch, bf16
 
 
 def tp_bench(model, optimizer, scheduler, data, steps: int, warmup: int) -> float:
@@ -3883,6 +3914,7 @@ def check_sharded_gallery(smi) -> None:
 # ---- phase 35: ZeRO-3 (FSDP2) over the data axis ------------------------------------
 
 FSDP_BENCH = dict(batch=128, iters=4, windows=2, warmup=2)  # phase 12's batch, bf16
+FSDP_STEPS = 2  # of phase 11's 3: the script's 950 s aim
 FSDP_TIMEOUT = 420  # s for a spawn: a rank left waiting in a collective never ends
 
 
@@ -3905,8 +3937,9 @@ def held_bytes(model, optimizer, base: int) -> dict:
 
 
 def fsdp_steps(device, seconds: dict) -> dict:
-    """Phase 11's three fp32 steps of the flagship config, sharded over the
-    data axis (``fully_shard_model``) on this rank's rows: each loss, the
+    """The first ``FSDP_STEPS`` of phase 11's fp32 steps of the flagship
+    config, sharded over the data axis (``fully_shard_model``) on this
+    rank's rows: each loss, the
     step-1 gradients gathered, the launches, the bytes of parameters and
     moments that this rank holds (its tensors' storage, and
     ``torch.cuda.memory_allocated`` after the steps over before the build);
@@ -3933,7 +3966,7 @@ def fsdp_steps(device, seconds: dict) -> dict:
     inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
     gen = torch.Generator().manual_seed(6)
     draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
-             for _ in range(PARITY_STEPS)]
+             for _ in range(FSDP_STEPS)]
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     model = fully_shard_model(model_from_config(TRAIN_CONFIG), device)
@@ -3988,7 +4021,7 @@ def fsdp_steps(device, seconds: dict) -> dict:
         all(torch.equal(sd[n].cpu(), t.cpu()) for n, t in ckpt["state_dict"].items())
         and all(torch.equal(opt_sd["state"][i][k].cpu(), v.cpu())
                 for i, entry in ckpt["optimizer"]["state"].items() for k, v in entry.items())
-        and scheduler.last_epoch == PARITY_STEPS)
+        and scheduler.last_epoch == FSDP_STEPS)
     seconds["checkpoint"] = time.perf_counter() - tic
     del model, optimizer, sd, opt_sd, ckpt
     torch.cuda.empty_cache()
@@ -4041,59 +4074,84 @@ def fsdp_run(device, backend: str, world: int, rank: int, tmp: str) -> dict:
     return out
 
 
+def spawn_on_card(rank_fn, nprocs: int, tmp: str, timeout: float, what: str) -> list:
+    """``rank_fn(rank, tmp, t0)`` in ``nprocs`` processes of their own (all
+    on card 0), each writing ``tmp/rank{r}.pt``; -> each rank's results."""
+    import torch.multiprocessing as mp
+
+    context = mp.start_processes(rank_fn, args=(tmp, time.time()), nprocs=nprocs,
+                                 join=False, start_method="spawn")
+    return wait_on_card(context, nprocs, tmp, timeout, what)
+
+
+def wait_on_card(context, nprocs: int, tmp: str, timeout: float, what: str) -> list:
+    """The results ``tmp/rank{r}.pt`` of the ``nprocs`` ranks of ``context``
+    once they end; the ranks are killed past ``timeout`` seconds (a rank
+    left waiting in a collective never ends)."""
+    deadline = time.monotonic() + timeout
+    while not context.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for process in context.processes:
+                process.kill()
+            raise RuntimeError(f"chip_smoke: {what}'s ranks did not end within {timeout} s")
+    return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(nprocs)]
+
+
+def rank_setup(rank: int) -> torch.device:
+    """A spawned rank's start: a crash prints its stack, card 0 for every
+    rank (``resolve_device`` reads ``LOCAL_RANK``), full fp32 matmuls."""
+    import faulthandler
+
+    faulthandler.enable()
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0)
+
+
 def fsdp_rank(rank: int, tmp: str, t0: float) -> None:
     """One rank of phase 35, in a process of its own on card 0: each group
     of ``FSDP_RUNS`` that has a place for it (``fsdp_run``), one after the
     other. ``t0``: the spawn's time, for the rank's own account."""
-    import faulthandler
-
-    faulthandler.enable()  # a crash in a rank prints its stack
     start = time.time() - t0
-    os.environ.update(LOCAL_RANK="0", FSDP_TMP=tmp)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    device = torch.device("cuda", 0)
+    device = rank_setup(rank)
+    os.environ["FSDP_TMP"] = tmp
     out = {}
     for backend, world in FSDP_RUNS:
         if rank < world:
             os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
             out[backend] = fsdp_run(device, backend, world, rank, tmp)
             out[backend]["seconds"]["start"] = start
-    torch.save(out, Path(tmp) / f"fsdp_rank{rank}.pt")
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
 
 
 def spawn_fsdp() -> list:
     """``fsdp_rank`` on the ranks of the largest group; -> each rank's
     results. The ranks are killed past ``FSDP_TIMEOUT``."""
     import shutil
-    import tempfile
 
-    import torch.multiprocessing as mp
-
-    saved = Path(__file__).resolve().parent / "saved"
-    saved.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_", dir=saved)
-    nprocs = max(world for _, world in FSDP_RUNS)
+    tmp = saved_tmp("chip_smoke_fsdp_")
     try:
-        context = mp.start_processes(fsdp_rank, args=(tmp, time.time()), nprocs=nprocs,
-                                     join=False, start_method="spawn")
-        deadline = time.monotonic() + FSDP_TIMEOUT
-        while not context.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for process in context.processes:
-                    process.kill()
-                raise RuntimeError(f"chip_smoke: phase 35's ranks did not end within "
-                                   f"{FSDP_TIMEOUT} s")
-        return [torch.load(Path(tmp) / f"fsdp_rank{r}.pt", weights_only=False)
-                for r in range(nprocs)]
+        return spawn_on_card(fsdp_rank, max(world for _, world in FSDP_RUNS), tmp,
+                             FSDP_TIMEOUT, "phase 35")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def saved_tmp(prefix: str) -> str:
+    """A new directory under the checkout's ``saved/`` (the caller removes
+    it)."""
+    import tempfile
+
+    saved = Path(__file__).resolve().parent / "saved"
+    saved.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=saved)
+
+
 def run_fsdp(smi, parity: dict, plain: float) -> dict:
     """Phase 35: ZeRO-3 at dp2 over gloo on card 0, then W = 1 over NCCL, in
-    one spawn of ranks (``spawn_fsdp``), each against phase 11's card steps
+    one spawn of ranks (``spawn_fsdp``), each against phase 11's first card steps
     (its limits), 3 × (29, 26, 26) launches a rank, the single-card state
     gathered and taken back bit for bit; at W = 1 the sharded bf16 step's
     samples/s beside phase 12's plain one (``plain``: the same model,
@@ -4101,7 +4159,7 @@ def run_fsdp(smi, parity: dict, plain: float) -> dict:
     and moments against the unsharded model's of phase 11. -> the W = 1
     run's launches."""
     phase_tic = time.perf_counter()
-    want = {k: PARITY_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    want = {k: FSDP_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
     result, whole_model = {}, parity["held"]
     spawned = spawn_fsdp()
     spawn_s = time.perf_counter() - phase_tic
@@ -4112,7 +4170,7 @@ def run_fsdp(smi, parity: dict, plain: float) -> dict:
         compare_losses(what, ours["losses"], parity["losses"], names=(what, "phase 11"))
         compare_grads(f"{what} vs phase 11", ours["grads"], parity["grads"])
         for r, out in enumerate(ranks):
-            log(f"kernel use (rank {r} of {what}, {PARITY_STEPS} fp32 steps): "
+            log(f"kernel use (rank {r} of {what}, {FSDP_STEPS} fp32 steps): "
                 f"{json.dumps(out['launches'])}")
             require(out["launches"] == want, f"{what} rank {r} launches {out['launches']}")
             require(out["losses"] == ours["losses"], f"{what} rank {r} losses {out['losses']}")
@@ -4467,6 +4525,378 @@ def run_joint(ops, smi) -> tuple:
     return bf16_launches, cross
 
 
+# ---- phases 37 and 38: the MoE adapter across ranks, the pipe axis --------------------
+
+# (name, the second axis, n_data, n_second): ranks 0 and 1 run dp2 and dp1×ep2
+# while ranks 2 and 3 run the pipeline (PP_RANKS), then all four dp2×ep2
+EP_RUNS = (("dp2", "model", 2, 1), ("dp1xep2", "expert", 1, 2), ("dp2xep2", "expert", 2, 2))
+EP_STEPS = 2
+PP_RANKS = (2, 3)
+PP_DEGREE, PP_MICRO = len(PP_RANKS), 2
+PP_VIDEO_BATCH = 2
+PP_BENCH = dict(steps=2, warmup=1)  # the bf16 step at phase 12's batch: a reading
+# the data axis's reorder floor, of each parameter's largest |gradient|: one
+# process whose batch has its two halves swapped moves by up to 3.06e-6 at
+# test-tiny (tests/test_torch_dist.py). On the card the floor of phase 11's
+# step is measured (``reorder_floor``: 5.52e-6 on an H100) and a split step
+# may differ by REORDER_MARGIN times it, never less than the CPU's floor: dp2
+# reads 1.08x it there, the pipe axis, which sums each block's weight
+# gradient over its microbatches, 3.4x it
+REORDER_RTOL = 3.06e-6
+REORDER_MARGIN = 8
+RANKS_TIMEOUT = 420
+
+
+def reorder_floor(ops, parity: dict) -> float:
+    """The card's limit for a split step's gradients: phase 11's first step
+    on one rank with the batch's two halves swapped (the same rows and
+    draws, the loss the same function of them, its sums in another order),
+    the largest max|diff| / max|grad| of a step-1 gradient against phase
+    11's, times ``REORDER_MARGIN``, at least ``REORDER_RTOL``."""
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+    skip = draw_adapter_skip(PARITY_BATCH, torch.Generator().manual_seed(6))
+    half = PARITY_BATCH // 2
+    order = torch.cat([torch.arange(half, PARITY_BATCH), torch.arange(half)])
+    run = train_run(ops, "cuda", [x[order] for x in inputs], [{"adapter_skip": skip[order]}])
+    floor, name, n = grad_share(run["grads"], parity["grads"])
+    log(f"the data axis's reorder floor on the card: phase 11's step 1 with the batch's "
+        f"halves swapped moves {n} gradients by up to {floor:.3g} of their largest (at "
+        f"{name}); a split step may differ by {REORDER_MARGIN}x that, at least "
+        f"{REORDER_RTOL:g}")
+    return max(REORDER_RTOL, REORDER_MARGIN * floor)
+
+
+def moe_steps(device, save_path=None, base=None) -> dict:
+    """``EP_STEPS`` fp32 steps of ``MOE_CONFIG``'s model (towers frozen, a CAM
+    of 4 experts, top 2, off its zero-init; a copy of ``base`` where given)
+    at phase 11's batch, its expert stacks split over the current mesh's
+    expert axis where it has one, on this rank's rows (the whole batch
+    without a group): each loss, the step-1 gradients gathered, the
+    launches, each MoE layer's routing of the last step, the bytes of expert
+    stacks and of their moments this rank holds; then the features of an
+    evaluation of the batch and the gathered state (rank 0 writes it to
+    ``save_path`` as a single-card ``.pth``)."""
+    import copy
+
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.expert import moe_layers, moe_pspec, shard_experts
+    from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.parallel.tensor import full_state_dict, full_tensors
+    from vtc_tpu_torch.training import eval_step, save_checkpoint, train_step
+
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+    gen = torch.Generator().manual_seed(6)
+    draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)} for _ in range(EP_STEPS)]
+    model = copy.deepcopy(base) if base is not None else model_from_config(MOE_CONFIG)
+    model = shard_experts(model)
+    optimizer, scheduler = config_optimizer(model, MOE_CONFIG)
+    grads = {}
+
+    def keep_first_grads(opt, args, kwargs):
+        if not grads:
+            grads.update({n: None if p.grad is None else p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+
+    optimizer.register_step_pre_hook(keep_first_grads)
+    ddp = data_parallel(model, device)
+    data = [shard_batch(x).to(device) for x in inputs]
+    torch.cuda.synchronize()
+    # the path's run: counts from 0 just before, read just after
+    ops.reset_launch_counts()
+    losses = [train_step(ddp, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
+              for d in draws]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    stacks = [p for n, p in model.named_parameters() if moe_pspec(n)]
+    out = {"losses": losses, "launches": launches,
+           "routing": [tuple(t.cpu() for t in m.routing) for m in moe_layers(model)],
+           "stack_bytes": sum(p.untyped_storage().nbytes() for p in stacks),
+           "moment_bytes": sum(v.untyped_storage().nbytes() for p in stacks
+                               for v in optimizer.state[p].values()
+                               if torch.is_tensor(v) and v.dim()),
+           "grads": {n: None if g is None else g.cpu()
+                     for n, g in full_tensors(model, grads).items()}}
+    out["feats"] = [f.cpu() for f in eval_step(ddp, clip_loss, data, {})[1][:2]]
+    state = full_state_dict(model)
+    if save_path is not None:
+        save_checkpoint(Path(save_path).parent, Path(save_path).stem,
+                        arch="PretrainedCLIP_finaltf", epoch=1, state_dict=state)
+    del model, optimizer, ddp, data, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_work(device) -> dict:
+    """Phase 38's work on a stage rank of the current pipe mesh, the stacks'
+    pipeline on (``PP_MICRO`` microbatches): phase 11's three fp32 steps
+    (losses, step-1 gradients, launches, stack counts), the video config's
+    fp32 forward at batch ``PP_VIDEO_BATCH`` (features, launches, stack
+    counts), the bf16 step at phase 12's batch (samples/s)."""
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import data_parallel
+    from vtc_tpu_torch.parallel.stack import reset_stack_counts, stack_counts
+    from vtc_tpu_torch.training import train_step
+
+    seconds = {}
+    tic = time.perf_counter()
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+    gen = torch.Generator().manual_seed(6)
+    draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)}
+             for _ in range(PARITY_STEPS)]
+    model = model_from_config(TRAIN_CONFIG)
+    optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+    grads = {}
+
+    def keep_first_grads(opt, args, kwargs):
+        if not grads:
+            grads.update({n: None if p.grad is None else p.grad.detach().cpu()
+                          for n, p in model.named_parameters()})
+
+    optimizer.register_step_pre_hook(keep_first_grads)
+    ddp = data_parallel(model, device)  # on a pipe mesh: the model as it is
+    data = [x.to(device) for x in inputs]
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - tic
+    # the pipelined path's run: counts from 0 just before, read just after
+    ops.reset_launch_counts()
+    reset_stack_counts()
+    tic = time.perf_counter()
+    losses = [train_step(ddp, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
+              for d in draws]
+    torch.cuda.synchronize()
+    seconds["steps"] = time.perf_counter() - tic
+    out = {"losses": losses, "grads": grads, "launches": ops.launch_counts(),
+           "stacks": dict(stack_counts()), "seconds": seconds, "ddp": type(ddp).__name__}
+    del ddp, model, optimizer, data
+    torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    video = video_model().eval()
+    vin = [x.to(device) for x in bench_inputs(PP_VIDEO_BATCH, 32, seed=3, frames=NFRAMES)]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        reset_stack_counts()
+        feats = video(*vin)
+        torch.cuda.synchronize()
+    out.update(video_feats=[f.cpu() for f in feats[:2]], video_launches=ops.launch_counts(),
+               video_stacks=dict(stack_counts()))
+    seconds["video"] = time.perf_counter() - tic
+    del video, vin, feats
+    torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    out["rate"] = tp_bench(*bench_model(split=False), PP_BENCH["steps"], PP_BENCH["warmup"])
+    seconds["bench"] = time.perf_counter() - tic
+    return out
+
+
+def axes_rank(rank: int, tmp: str, t0: float) -> None:
+    """One rank of phases 37 and 38, in a process of its own on card 0, each
+    group over gloo, one after the other: ranks 0 and 1 the MoE config's
+    steps (``moe_steps``) at dp2 and dp1×ep2 (rank 0 writes ``tmp/ep2.pth``)
+    while ranks 2 and 3 run ``pipe_work`` as ``create_pipeline_mesh(1, 2)``;
+    then all four the MoE config's steps at dp2×ep2. The MoE model is built
+    once a rank, first, and copied for each group."""
+    import torch.distributed as dist
+
+    from vtc_tpu_torch.parallel.expert import create_ep_mesh
+    from vtc_tpu_torch.parallel.mesh import create_mesh
+    from vtc_tpu_torch.parallel.pipeline import create_pipeline_mesh
+    from vtc_tpu_torch.parallel.stack import set_stack_parallel
+
+    out = {"start": time.time() - t0}
+    device = rank_setup(rank)
+    tic = time.perf_counter()
+    base = model_from_config(MOE_CONFIG)
+    out["build"] = time.perf_counter() - tic
+    runs = (("pp", "pipe", 1, PP_DEGREE),) if rank in PP_RANKS else EP_RUNS[:2]
+    for name, axis, n_data, n_second in runs + EP_RUNS[2:]:
+        world = n_data * n_second
+        group_rank = PP_RANKS.index(rank) if axis == "pipe" else rank
+        tic = time.perf_counter()
+        os.environ.update(RANK=str(group_rank), WORLD_SIZE=str(world))
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_{name}",
+                                rank=group_rank, world_size=world)
+        try:
+            if axis == "pipe":
+                mesh = create_pipeline_mesh(n_data, n_second, device=device)
+                set_stack_parallel("pipe", mesh, PP_MICRO)
+                try:
+                    out[name] = pipe_work(device)
+                finally:
+                    set_stack_parallel(None)
+            else:
+                make = create_mesh if axis == "model" else create_ep_mesh
+                make(n_data, n_second, device=device)
+                save = Path(tmp) / "ep2.pth" if name == "dp1xep2" and rank == 0 else None
+                out[name] = moe_steps(device, save, base)
+        finally:
+            dist.destroy_process_group()
+        out[name]["seconds_total"] = time.perf_counter() - tic
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def check_moe_ranks(spawned: list, one: dict, ckpt: dict, rtol: float) -> None:
+    """Phase 37's checks: each EP_RUNS group against the one rank's steps
+    (``one``): the losses within ``LOSS_ATOL``, the step-1 gradients within
+    ``rtol``, each MoE layer's expert ids, queue positions and keeps equal,
+    ``EP_STEPS`` × (29, 26, 26) launches a rank, each expert rank's bytes of
+    expert stacks and of their moments 0.5000 of one rank's; the ``.pth``
+    written at dp1×ep2 loaded into one rank's whole model gives the ep2
+    model's features."""
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.training import eval_step
+
+    want = {k: EP_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    require(one["launches"] == want, f"one rank's MoE launches {one['launches']} != {want}")
+    for name, axis, n_data, n_second in EP_RUNS:
+        ranks = [r[name] for r in spawned[:n_data * n_second]]
+        what = f"MoE config {name} over gloo"
+        compare_losses(what, ranks[0]["losses"], one["losses"], names=(name, "one rank"))
+        compare_grads(f"{what} vs one rank", ranks[0]["grads"], one["grads"], rtol=rtol)
+        for r, out in enumerate(ranks):
+            require(out["losses"] == ranks[0]["losses"], f"{what} rank {r} losses")
+            require(out["launches"] == want, f"{what} rank {r} launches {out['launches']}")
+            for i, (got, ref) in enumerate(zip(out["routing"], one["routing"])):
+                require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                        f"{what} rank {r}: MoE layer {i} routes otherwise than one rank")
+            shares = (out["stack_bytes"] / one["stack_bytes"],
+                      out["moment_bytes"] / one["moment_bytes"])
+            if axis == "expert":
+                require(shares == (0.5, 0.5), f"{what} rank {r} holds {shares} of the "
+                                              f"expert stacks and moments")
+            log(f"{what} rank {r}: launches {json.dumps(out['launches'])}; expert ids, "
+                f"queue positions and keeps of both MoE layers equal one rank's "
+                f"({out['routing'][0][0].shape[0]} tokens); expert stacks "
+                f"{out['stack_bytes']:,} bytes and their moments {out['moment_bytes']:,}: "
+                f"{shares[0]:.4f} and {shares[1]:.4f} of one rank's; "
+                f"{out['seconds_total']:.1f} s")
+    model = model_from_config(MOE_CONFIG)
+    model.load_state_dict(ckpt["state_dict"], strict=True)
+    data = [x.cuda() for x in bench_inputs(PARITY_BATCH, 32, seed=6)]
+    feats = eval_step(model, clip_loss, data, {})[1][:2]
+    ep2 = spawned[0]["dp1xep2"]
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(feats, ep2["feats"]))
+    log(f"MoE config: the single-card .pth written at dp1xep2 ({len(ckpt['state_dict'])} "
+        f"entries) loads strictly into one rank's whole model, whose features are within "
+        f"{err:.3g} of the ep2 model's (atol {FEAT_ATOL:g})")
+    require(err <= FEAT_ATOL, f"the ep2 .pth's features differ by {err}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def pp_stage_launches(per_step: dict, blocks: dict, n_micro: int, stages: int) -> dict:
+    """A stage's launches of a forward whose block stacks (``blocks``: the
+    kernel -> the blocks' launches of one rank's forward) run ``1/stages`` of
+    their blocks on each of ``n_micro`` microbatches; the rest runs whole on
+    every stage."""
+    return {k: v - blocks.get(k, 0) + blocks.get(k, 0) // stages * n_micro
+            for k, v in per_step.items()}
+
+
+# the block launches of one forward: the flagship's 12 + 12 + 2 blocks (ln_1,
+# add+LN, attention each), the video model's 12 TimeSformer blocks (ln_time
+# and ln_1, add+LN, temporal and spatial attention) beside the same text
+# tower and CAM
+PP_BLOCKS = {"layernorm": 26, "add_layernorm": 26, "fused_mha": 26}
+PP_VIDEO_BLOCKS = {"layernorm": 38, "add_layernorm": 26, "fused_mha": 26,
+                   "fused_attention": 12}
+
+
+def check_pipeline(smi, stages: list, parity: dict, video_one: list, plain: float,
+                   rtol: float) -> None:
+    """Phase 38's checks of ``pipe_work`` on dp1×pp2 against phase 11's card
+    steps: the losses within ``LOSS_ATOL``, the gradients within ``rtol`` and
+    equal on both stages; each stage's launches (its blocks on each
+    microbatch), its stacks all pipelined, the 2-block CAM among them; the
+    video config's pipelined fp32 forward against one rank's (``video_one``);
+    the bf16 step through the pipeline beside phase 12's plain one (a
+    reading, no claim)."""
+    what = f"pipeline dp1xpp{PP_DEGREE} (n_micro {PP_MICRO}) over gloo"
+    ours = stages[0]
+    compare_losses(what, ours["losses"], parity["losses"], names=(what, "phase 11"))
+    compare_grads(f"{what} vs phase 11", ours["grads"], parity["grads"], rtol=rtol)
+    want = {k: PARITY_STEPS * v for k, v in pp_stage_launches(
+        EXPECTED_LAUNCHES, PP_BLOCKS, PP_MICRO, PP_DEGREE).items()}
+    want_video = pp_stage_launches(EXPECTED_VIDEO_LAUNCHES, PP_VIDEO_BLOCKS, PP_MICRO,
+                                   PP_DEGREE)
+    for r, out in enumerate(stages):
+        require(out["ddp"] != "DistributedDataParallel", f"stage {r}: DDP on a pipe mesh")
+        require(out["losses"] == ours["losses"], f"{what} stage {r} losses {out['losses']}")
+        for name, g in out["grads"].items():
+            ref = ours["grads"][name]
+            require((g is None) == (ref is None) and (g is None or torch.equal(g, ref)),
+                    f"{what} stage {r}: {name}'s gradient differs from stage 0's")
+        log(f"kernel use (stage {r} of {what}, {PARITY_STEPS} fp32 steps: "
+            f"{PP_BLOCKS['fused_mha'] // PP_DEGREE} of 26 blocks a stage, each on "
+            f"{PP_MICRO} microbatches): {json.dumps(out['launches'])}; stacks "
+            f"{out['stacks']}")
+        require(out["launches"] == want, f"stage {r} launches {out['launches']} != {want}")
+        require(out["stacks"] == {"pipelined": 3 * PARITY_STEPS},
+                f"stage {r}: stacks {out['stacks']} (the towers and the 2-block CAM "
+                f"pipelined at every step)")
+        err = max((a - b).abs().max().item() for a, b in zip(out["video_feats"], video_one))
+        log(f"{what} stage {r}: the video config's fp32 forward at batch {PP_VIDEO_BATCH} "
+            f"within {err:.3g} of one rank's (atol {FEAT_ATOL:g}); launches "
+            f"{json.dumps(out['video_launches'])}, stacks {out['video_stacks']}")
+        require(err <= FEAT_ATOL, f"stage {r}: the pipelined video forward differs by {err}")
+        require(out["video_launches"] == want_video,
+                f"stage {r} video launches {out['video_launches']} != {want_video}")
+        require(out["video_stacks"] == {"pipelined": 3},
+                f"stage {r}: video stacks {out['video_stacks']}")
+    log(f"{what}: bf16 step at batch {TP_BENCH['batch']} through the pipeline "
+        f"{ours['rate']:.1f} samples/s ({PP_BENCH['steps']} steps after "
+        f"{PP_BENCH['warmup']}, beside phase 37's groups on ranks 0 and 1), plain "
+        f"{plain:.1f} (phase 12; pipelined / plain {ours['rate'] / plain:.4f}: a reading of "
+        f"two stages sharing one card over gloo, no claim); stage 0's seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in ours['seconds'].items()})}; on {smi}")
+
+
+def run_axes(ops, smi, parity: dict, plain: float) -> None:
+    """Phases 37 and 38 in one spawn of 4 ranks on card 0 (``axes_rank``):
+    while the ranks run, the one rank's references on the card (the MoE
+    config's steps, the reorder floor of phase 11's step, the video
+    config's forward); then phase 37's checks (``check_moe_ranks``) and
+    phase 38's (``check_pipeline``)."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    phase_tic = time.perf_counter()
+    device = torch.device("cuda", 0)
+    tmp = saved_tmp("chip_smoke_axes_")
+    try:
+        context = mp.start_processes(axes_rank, args=(tmp, time.time()), nprocs=4,
+                                     join=False, start_method="spawn")
+        tic = time.perf_counter()
+        one = moe_steps(device)
+        rtol = reorder_floor(ops, parity)
+        with torch.inference_mode():
+            video = video_model().eval()
+            video_one = [f.cpu() for f in video(*[x.cuda() for x in bench_inputs(
+                PP_VIDEO_BATCH, 32, seed=3, frames=NFRAMES)])[:2]]
+        del video
+        torch.cuda.empty_cache()
+        refs_s = time.perf_counter() - tic
+        spawned = wait_on_card(context, 4, tmp, RANKS_TIMEOUT, "phases 37-38")
+        spawn_s = time.perf_counter() - phase_tic
+        from vtc_tpu_torch.training import load_checkpoint
+
+        ckpt = load_checkpoint(Path(tmp) / "ep2.pth")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_moe_ranks(spawned, one, ckpt, rtol)
+    check_pipeline(smi, [spawned[r]["pp"] for r in PP_RANKS], parity, video_one, plain, rtol)
+    log(f"phases 37-38 took {time.perf_counter() - phase_tic:.1f} s (the ranks' spawn and "
+        f"work {spawn_s:.1f} s, the one rank's references beside them {refs_s:.1f} s; the "
+        f"ranks' start {[round(r['start'], 1) for r in spawned]} s, MoE builds "
+        f"{[round(r['build'], 1) for r in spawned]} s); on {smi}")
+
+
 def main() -> int:
     # wandb, where installed, stays off: nothing here may reach the network
     os.environ["WANDB_MODE"] = "disabled"
@@ -4741,6 +5171,12 @@ def main() -> int:
     mark("36")
     # 36. the joint-layout TimeSformer and the cross route at (1, 393)
     joint_launches, results["fused_mha_cross"] = run_joint(ops, smi)
+
+    mark("37-38")
+    # 37. the MoE config on dp2, dp1xep2 and dp2xep2 over gloo against one rank;
+    # 38. the pipe axis: phase 11's steps and the video forward on dp1xpp2; one
+    # spawn of 4 ranks, within the card's reorder floor of phase 11's step
+    run_axes(ops, smi, parity_steps, plain_rate)
 
     mark("31")
     # 31. results: each kernel's launches from the path that runs it

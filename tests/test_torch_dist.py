@@ -24,23 +24,24 @@ single-process run at the global batch.
   ranks' parameters equal after the steps.
 * The token bucket over ranks of unequal coverage; ``allgather_varlen``
   with a rank of 0 rows; a ``TorchBatchNorm`` on the global batch;
-  ``recall_at_k_sharded`` against ``vtc_tpu``'s; the MoE model refused on
-  2 ranks; the loader's ``shard_by_process`` order and ``len`` against the
+  ``recall_at_k_sharded`` against ``vtc_tpu``'s; the MoE model's step on
+  2 ranks against one process's (the expert axis:
+  ``tests/test_torch_ep.py``); the loader's ``shard_by_process`` order and ``len`` against the
   JAX loader with its process index and count patched.
 * The ``eval.py`` twin and ``retrieval_evaluation`` on 2 processes: the
   single-process recalls and the JAX package's, one result file.
 * The ``train.py`` twin on 2 ranks (``--n_devices 2``) over a tiny corpus:
   one run dir, checkpoints written by rank 0 and loadable by a
   single-process run, equal parameters on both ranks, a resume on both.
-* The refusals that remain (tensor, fsdp, pipeline, sequence, expert and
-  multi-slice axes, the sharded gallery and encode) name ROADMAP Queue 1
-  item 9.
 
-A spawn costs about 7 s, so the ranks run every check of a kind in one
-spawn. Torch runs on one thread in each rank.
+A spawn costs about 7 s, so the ranks run every check of the file in one
+spawn (``torch_dist_ranks.run_dist``), started before the two JAX dp=2 runs,
+which run beside it; the step cases on JAX's draws wait in the ranks for
+their file. Torch runs on one thread in each rank.
 """
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -69,6 +70,7 @@ LOSS_ATOL = 2e-6  # against the port's single-process step
 # swapped moves by up to 3.06e-6 of the largest at test-tiny, 2 ranks by
 # up to 3.6e-6 (4.7e-6 with the bn residual)
 GRAD_RTOL = 1e-5
+TIMEOUT = 300  # s for the spawn: a rank left in a collective never ends
 
 
 def _np_tree(tree):
@@ -134,8 +136,11 @@ def _jax_mesh_run(params, data, accum, steps=2):
     step, evaluate = make_step_fns(module, jax_losses.clip_loss, tx, donate=False,
                                    accum_steps=accum)
     mesh = create_mesh(2, 1)
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                       opt_state=tx.init(params), batch_stats={})
+    # placed on the mesh, so that the second step's state has the first's
+    # layout and reuses its compile
+    state = jax.device_put(TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                      opt_state=tx.init(params), batch_stats={}),
+                           NamedSharding(mesh, P()))
     sharded = tuple(jax.device_put(a, NamedSharding(mesh, P(DATA_AXIS))) for a in data)
     losses, draws = [], []
     with mesh:
@@ -155,28 +160,46 @@ def _bn_state(sd):
 
 @pytest.fixture(scope="module")
 def background(flagship, tmp_path_factory):
-    """The evaluations' and the CLI's spawns, started before the JAX
-    compiles of ``steps_run`` so that they run beside them."""
-    evals = _start_evals(flagship, tmp_path_factory.mktemp("evals"))
-    cli = _start_cli(tmp_path_factory.mktemp("cli"))
-    return {"evals": evals, "cli": cli}
+    """The one spawn of 2 ranks (``R.run_dist``) over the step cases, the
+    collectives, the evaluations and the CLI, started before the JAX
+    compiles of ``steps_run`` so that it runs beside them."""
+    tmp = tmp_path_factory.mktemp("ranks")
+    evals = _start_evals(flagship, tmp / "evals")
+    _start_cli(tmp / "cli")
+    steps = _steps_spec(flagship, tmp / "steps")
+    return {"tmp": tmp, "evals": evals, "steps": steps,
+            "context": R.spawn(R.run_dist, 2, tmp, join=False)}
 
 
 @pytest.fixture(scope="module")
-def steps_run(flagship, background, tmp_path_factory):
-    """The JAX mesh runs, then one spawn of 2 ranks running every step case
-    and the small collectives; returns (spec, JAX runs, rank 0's and rank
-    1's results)."""
-    tmp = tmp_path_factory.mktemp("steps")
+def steps_run(flagship, background):
+    """The JAX mesh runs, whose draws make the step cases that the ranks
+    wait for; then the ranks' end. Returns (spec, JAX runs, rank 0's and
+    rank 1's results)."""
+    tmp = background["tmp"] / "steps"
     sd = state_dict_from_jax(flagship)
     data = _inputs(seed=1)
     jax_runs = {"plain": _jax_mesh_run(flagship, data, 1),
                 "accum": _jax_mesh_run(flagship, data, 2)}
+    later = {"jax_plain": _case(sd, data, jax_runs["plain"][1]),
+             "jax_accum": _case(sd, data, jax_runs["accum"][1], accum=2)}
+    torch.save(later, tmp / "jax_cases.part")
+    os.replace(tmp / "jax_cases.part", tmp / "jax_cases.pt")  # whole when it appears
+    R.wait(background["context"], timeout=TIMEOUT)
+    spec = background["steps"]
+    spec["cases"].update(later)
+    ranks = [torch.load(tmp / f"steps_rank{r}.pt", weights_only=False) for r in (0, 1)]
+    return spec, jax_runs, ranks
+
+
+def _steps_spec(flagship, tmp):
+    """The step cases that need no JAX run and the collectives' inputs,
+    written to ``tmp/steps.pt``."""
+    tmp.mkdir()
+    sd = state_dict_from_jax(flagship)
     gen = torch.Generator().manual_seed(3)
     skip = {"adapter_skip": torch.rand((8, 1), generator=gen) > 0.5}
     cases = {
-        "jax_plain": _case(sd, data, jax_runs["plain"][1]),
-        "jax_accum": _case(sd, data, jax_runs["accum"][1], accum=2),
         "plain": _case(sd, _inputs(seed=2), [skip]),
         "accum": _case(sd, _inputs(seed=2), [skip], accum=2),
         "generator": _case(sd, _inputs(seed=2), seed=11,
@@ -208,9 +231,7 @@ def steps_run(flagship, background, tmp_path_factory):
                     model_kw=dict(moe_experts=4)),
     }
     torch.save(spec, tmp / "steps.pt")
-    R.spawn(R.run_steps, 2, tmp)
-    ranks = [torch.load(tmp / f"steps_rank{r}.pt", weights_only=False) for r in (0, 1)]
-    return spec, jax_runs, ranks
+    return spec
 
 
 @pytest.mark.parametrize("case", ["plain", "accum"])
@@ -298,8 +319,13 @@ def test_collectives_over_two_ranks(steps_run):
     ref = jax_sharded(rec["a"], rec["b"], rec["k"], create_mesh(2, 1), targets=rec["targets"])
     for out in ranks:
         assert out["recall"] == [(k, pytest.approx(v, abs=1e-12)) for k, v in ref]
+    # the MoE model routes over both ranks' tokens: one process's step
+    single = R.step_case(spec["moe"])
     for out in ranks:
-        assert "Queue 1 item 9" in out["refusals"]["moe"]
+        np.testing.assert_allclose(out["moe"]["losses"], single["losses"], atol=LOSS_ATOL,
+                                   rtol=0)
+        for got, ref in zip(out["moe"]["routing"], single["routing"]):
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 # ---- the loader -------------------------------------------------------------------
@@ -387,7 +413,7 @@ def _videos(n=7, seed=0):
 
 def _start_evals(flagship, tmp):
     """One ``.pth`` of the flagship, the eval config over the corpus, the
-    video items; the 2-rank run started."""
+    video items, written to ``tmp`` for the ranks; returns the spec."""
     from vtc_tpu_torch.training import save_checkpoint
 
     csv, root = _write_corpus(tmp)
@@ -407,14 +433,13 @@ def _start_evals(flagship, tmp):
     (tmp / "evalrun").mkdir()
     spec = {"config": config, "ckpt": str(ckpt), "state_dict": sd, "videos": _videos()}
     torch.save(spec, tmp / "evals.pt")
-    return spec, tmp, R.spawn(R.run_evals, 2, tmp, join=False)
+    return spec
 
 
 @pytest.fixture(scope="module")
-def evals_run(background):
+def evals_run(background, steps_run):
     """The 2-rank evaluations' spec, directory and results."""
-    spec, tmp, context = background["evals"]
-    R.wait(context)
+    spec, tmp = background["evals"], background["tmp"] / "evals"
     return spec, tmp, [torch.load(tmp / f"evals_rank{r}.pt", weights_only=False)
                        for r in (0, 1)]
 
@@ -493,8 +518,8 @@ def test_transfer_evaluation_on_two_processes(evals_run, flagship, monkeypatch):
 
 
 def _start_cli(tmp):
-    """The train twin on 2 ranks over the corpus, started: 2 epochs, then a
-    resume."""
+    """The train twin's config for 2 ranks over the corpus, written to
+    ``tmp``: 2 epochs, then a resume."""
     csv, root = _write_corpus(tmp)
     cfg = {
         "name": "cli_twin", "n_gpu": 1, "batch_size": 4, "num_workers": 0,
@@ -515,13 +540,11 @@ def _start_cli(tmp):
                     "early_stop": 10, "tensorboard": False},
     }
     (tmp / "cli_config.json").write_text(json.dumps(cfg))
-    return tmp, R.spawn(R.run_cli, 2, tmp, join=False)
 
 
 @pytest.fixture(scope="module")
-def cli_run(background):
-    tmp, context = background["cli"]
-    R.wait(context)
+def cli_run(background, steps_run):
+    tmp = background["tmp"] / "cli"
     return tmp, [torch.load(tmp / f"cli_rank{r}.pt", weights_only=False) for r in (0, 1)]
 
 

@@ -17,7 +17,7 @@ single-process step at the global batch and against ``vtc_tpu``'s step on
   ``vtc_tpu.parallel.mesh.tree_pspecs`` puts on ``"model"``, for the
   flagship, the video CAM model and the audio CAM model; the split and the
   gather round-trip; a degree that does not divide a head count raises
-  before anything is split, and so does a MoE adapter.
+  before anything is split; a MoE adapter's expert stacks stay whole.
 * The train twin at ``--n_model 2`` (dp1×tp2): rank 0's ``.pth`` loads into
   a single-process model with ``strict=True``, and a dp×tp resume restores
   its parameters and Adam moments bit for bit.
@@ -45,7 +45,6 @@ from test_torch_dist import (
     _bn_state,
     _case,
     _inputs,
-    _np_tree,
     _videos,
     _write_corpus,
     flagship,  # noqa: F401  (the module fixture)
@@ -89,6 +88,8 @@ def _jax_tp_run(params, data, accum, n_data, steps=2):
                                 accum_steps=accum)
         state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
                            opt_state=tx.init(params), batch_stats={})
+        # the whole state laid out, so that the second step reuses the first's compile
+        state = jax.device_put(state, tree_shardings(state, mesh))
         sharded = tuple(jax.device_put(a, NamedSharding(mesh, P(DATA_AXIS))) for a in data)
         losses = []
         with mesh:
@@ -282,15 +283,17 @@ def test_split_parameters_are_tree_pspecs_model_leaves(arch):
     from vtc_tpu.parallel.mesh import MODEL_AXIS, tree_pspecs
 
     name, kw = ARCHS[arch]
-    _, variables = jax_create_model(name, model_type=TINY, seed=0, **kw)
-    params = _np_tree(variables["params"])
-    specs = tree_pspecs(params)
+    # the tree's names and shapes are all the check reads: traced, not run
+    variables = jax.eval_shape(
+        lambda: jax_create_model(name, model_type=TINY, seed=0, **kw)[1])
+    params = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32), variables)
+    specs = tree_pspecs(params["params"])
     marked = jax.tree_util.tree_map(
-        lambda x, s: np.full(x.shape, float(MODEL_AXIS in tuple(s)), np.float32), params,
-        specs, is_leaf=lambda x: isinstance(x, np.ndarray))
+        lambda x, s: np.full(x.shape, float(MODEL_AXIS in tuple(s)), np.float32),
+        params["params"], specs, is_leaf=lambda x: isinstance(x, np.ndarray))
     model = create_model(name, model_type=TINY, device="cpu", **kw)
     names = dict(model.named_parameters())
-    sd = state_dict_from_jax(marked, variables.get("batch_stats")) if arch == "audio" \
+    sd = state_dict_from_jax(marked, params.get("batch_stats")) if arch == "audio" \
         else state_dict_from_jax(marked)
     want = sorted(n for n, t in sd.items() if n in names and bool(t.all()))
     assert sorted(tp.split_names(model)) == want
@@ -303,6 +306,8 @@ def test_split_parameters_are_tree_pspecs_model_leaves(arch):
         rule = tp.split_rule(n)
         dim = 0 if rule == "qkv" else rule
         assert parts[0][n].shape[dim] * 2 == full[n].shape[dim], n
+        # in storage of its own: a view of the whole tensor would hold all of it
+        assert parts[0][n].untyped_storage().nbytes() == parts[0][n].numel() * 4, n
         assert torch.equal(tp.join_tensors([p[n] for p in parts], rule), full[n]), n
     if "model.visual.transformer.resblocks.0.attn.in_proj_weight" in want:
         w = full["model.visual.transformer.resblocks.0.attn.in_proj_weight"]
@@ -323,10 +328,16 @@ def test_degrees_that_do_not_fit_raise_before_the_split():
     assert tp.model_axis(model) is None
     with pytest.raises(ValueError, match="does not divide dim 0"):
         tp.split_state_dict({"model.token_embedding.weight": torch.zeros(10, 4)}, 0, 3)
+    # a MoE adapter: tree_pspecs names c_fc/c_proj, so the expert stacks stay
+    # whole on every model rank
     moe = create_model("PretrainedCLIP_finaltf", model_type=TINY, device="cpu",
                        moe_experts=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
-        tp.shard_model(moe, tp.ModelAxis(None, 0, 2))
+    stacks = {n: p.detach().clone() for n, p in moe.named_parameters() if ".mlp_moe." in n}
+    tp.shard_model(moe, tp.ModelAxis(None, 0, 2))
+    assert stacks and not set(stacks) & set(tp.split_names(moe))
+    for n, p in moe.named_parameters():
+        if n in stacks:
+            assert torch.equal(p, stacks[n]), n
     whole = create_model("PretrainedCLIP_finaltf", model_type=TINY, device="cpu")
     assert tp.shard_model(whole, tp.ModelAxis(None, 0, 1)) is whole
     assert tp.model_axis(whole) is None

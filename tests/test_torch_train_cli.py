@@ -420,12 +420,16 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra, match", [
     ({"loader": "grain"}, "grain"),
-    ({"pp": 2}, "distribution"),
     ({"sp": 2}, "distribution"),
-    ({"ep": 2}, "Queue 1 item 9"),
-    ({"slices": 2}, "Queue 1 item 9"),
+    ({"slices": 2}, "distribution"),
+    ({"fsdp": 1, "pp": 2}, "Queue 1 item 9"),
+    ({"slices": 2, "n_model": 2}, "Queue 1 item 9"),
 ])
 def test_twin_refusals(tmp_path, extra, match):
+    """What the port does not shard raises by name: the sequence and
+    multi-slice axes (also beside the model axis) and ZeRO-3 beside the
+    pipe axis (``--pp`` and ``--ep`` train: tests/test_torch_pipeline.py,
+    tests/test_torch_ep.py)."""
     config = ConfigParser(_config(tmp_path, "x.csv", "x", **extra))
     with pytest.raises(NotImplementedError, match=match):
         twin.main(config, device="cpu")

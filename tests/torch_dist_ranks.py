@@ -1,4 +1,6 @@
-"""What each rank of ``tests/test_torch_dist.py`` runs, in a process of its
+"""What each rank of ``tests/test_torch_dist.py`` (and of the other
+spawned-rank files: ``test_torch_tp.py``, ``test_torch_fsdp.py``,
+``test_torch_ep.py``, ``test_torch_pipeline.py``) runs, in a process of its
 own: a module the spawned children import (they cannot unpickle a test's
 closure), with no JAX, as on the card's machine.
 
@@ -84,18 +86,22 @@ def step_case(case: dict) -> dict:
     each step's draws of the global batch (one dict per microbatch with
     ``accum``), or None: drawn from a generator seeded ``seed + step`` on
     every rank. Returns each loss, the step-1 gradients (the optimizer's
-    view), the parameters and buffers after, and the last output's
-    shapes."""
+    view), the parameters and buffers after, the last output's shapes and
+    each MoE layer's last routing."""
     from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.expert import moe_layers, shard_experts
     from vtc_tpu_torch.parallel.mesh import data_parallel, fully_shard_model, shard_batch
     from vtc_tpu_torch.parallel.tensor import full_tensors, shard_model
     from vtc_tpu_torch.training import build_optimizer, train_step
 
-    # split over the model axis where the rank's mesh has one, then ZeRO-3
-    # over its data axis where the case asks
-    model = shard_model(flagship_port(case["state_dict"], **case.get("model_kw", {})))
+    # on case["device"] (the CPU by default), split over the model or expert
+    # axis where the rank's mesh has one, then ZeRO-3 over its data axis
+    # where the case asks
+    device = torch.device(case.get("device", "cpu"))
+    model = flagship_port(case["state_dict"], **case.get("model_kw", {})).to(device)
+    model = shard_experts(shard_model(model))
     if case.get("fsdp"):
-        fully_shard_model(model, torch.device("cpu"))
+        fully_shard_model(model, device)
     optimizer, scheduler = build_optimizer(model, case.get("opt", OPT), SCHED, **STEP_KW)
     grads = {}
 
@@ -105,12 +111,13 @@ def step_case(case: dict) -> dict:
                           for n, p in model.named_parameters()})
 
     optimizer.register_step_pre_hook(first)
-    ddp = data_parallel(model, torch.device("cpu"))
-    data = [torch.from_numpy(np.ascontiguousarray(shard_batch(a))) for a in case["data"]]
+    ddp = data_parallel(model, device)
+    data = [torch.from_numpy(np.ascontiguousarray(shard_batch(a))).to(device)
+            for a in case["data"]]
     losses, shapes = [], None
     for step in range(case["steps"]):
         draws = case["draws"][step] if case.get("draws") else None
-        gen = torch.Generator().manual_seed(case.get("seed", 0) + step)
+        gen = torch.Generator(device).manual_seed(case.get("seed", 0) + step)
         loss, out = train_step(ddp, clip_loss, optimizer, scheduler, data, {},
                                generator=gen, draws=draws,
                                accum_steps=case.get("accum", 1))
@@ -120,10 +127,13 @@ def step_case(case: dict) -> dict:
             "params": full_tensors(model, {n: p.detach().clone()
                                            for n, p in model.named_parameters()}),
             "local_params": {n: _local(p).detach().clone() for n, p in model.named_parameters()},
+            "storage": {n: _local(p).untyped_storage().nbytes()
+                        for n, p in model.named_parameters()},
             "local_moments": {n: {k: tuple(_local(v).shape) for k, v in optimizer.state[p].items()
                                   if torch.is_tensor(v) and v.dim()}
                               for n, p in model.named_parameters() if p in optimizer.state},
-            "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+            "buffers": {n: b.clone() for n, b in model.named_buffers()},
+            "routing": [tuple(t.clone() for t in m.routing) for m in moe_layers(model)]}
 
 
 def _local(t):
@@ -133,10 +143,33 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def run_dist(rank, world, tmp):
+    """Every check of ``tests/test_torch_dist.py`` in one spawn: the step
+    cases and small collectives of ``tmp/steps`` (``run_steps``), the
+    evaluations of ``tmp/evals`` (``run_evals``), the CLI of ``tmp/cli``
+    (``run_cli``), then the step cases on JAX's draws, which the test
+    process writes to ``tmp/steps/jax_cases.pt`` once its JAX runs end."""
+    import time
+
+    out = run_steps(rank, world, tmp / "steps")
+    run_evals(rank, world, tmp / "evals")
+    run_cli(rank, world, tmp / "cli")
+    later = tmp / "steps" / "jax_cases.pt"
+    deadline = time.monotonic() + 600
+    while not later.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{later} was not written")
+        time.sleep(0.2)
+    out["cases"].update({name: step_case(case)
+                         for name, case in torch.load(later, weights_only=False).items()})
+    torch.save(out, tmp / "steps" / f"steps_rank{rank}.pt")
+
+
 def run_steps(rank, world, tmp):
     """Every case of ``tmp/steps.pt`` through ``step_case``, then the small
     collectives: the token bucket, ``allgather_varlen``, the BatchNorm of
-    the global batch, ``recall_at_k_sharded`` and the refusals."""
+    the global batch, ``recall_at_k_sharded``, and the MoE model's step,
+    which routes over both ranks' tokens. Returns the results."""
     from vtc_tpu_torch.models.layers import TorchBatchNorm
     from vtc_tpu_torch.ops.retrieval import recall_at_k_sharded
     from vtc_tpu_torch.parallel.mesh import all_gather_rows, shard_batch
@@ -169,15 +202,8 @@ def run_steps(rank, world, tmp):
     out["recall"] = recall_at_k_sharded(r["a"], r["b"], r["k"], targets=r["targets"],
                                         device="cpu")
 
-    refusals = {}
-    try:
-        moe = spec["moe"]
-        step_case(moe)
-    except NotImplementedError as e:
-        refusals["moe"] = str(e)
-    out["refusals"] = refusals
-    if rank < 2:
-        torch.save(out, tmp / f"steps_rank{rank}.pt")
+    out["moe"] = step_case(spec["moe"])
+    return out
 
 
 # ---- the evaluations and the train CLI --------------------------------------------
@@ -276,11 +302,15 @@ def run_tp(rank, world, tmp):
             out_csv=str(tmp / "evalrun" / "table.csv"), mesh=current_mesh(),
             device="cpu").to_numpy()
     if "cli" in spec:
-        out.update(_tp_cli(tmp, world))
+        out.update(_twin_cli(tmp, ["--n_devices", str(world // 2), "--n_model", "2"]))
     torch.save(out, tmp / f"tp_rank{rank}.pt")
 
 
-def _tp_cli(tmp, world):
+def _twin_cli(tmp, axes):
+    """The train twin on ``tmp/cli_config.json`` with the mesh flags
+    ``axes``: its epochs, then a resume of the first epoch's checkpoint for
+    a second; each epoch's gathered state, the state the resume restored,
+    the run dirs and this rank's parameters after."""
     from vtc_tpu_torch import train as twin
     from vtc_tpu_torch.parallel.tensor import full_optimizer_state, full_state_dict
     from vtc_tpu_torch.training import trainer as trainer_mod
@@ -308,12 +338,9 @@ def _tp_cli(tmp, world):
 
     trainer_mod.Trainer._train_epoch = record
     trainer_mod.Trainer._resume_checkpoint = record_resume
-    argv = ["-c", str(tmp / "cli_config.json"), "--n_devices", str(world // 2),
-            "--n_model", "2"]
-    first = twin.cli(argv, device="cpu")
+    first = twin.cli(["-c", str(tmp / "cli_config.json")] + axes, device="cpu")
     ckpt = first.checkpoint_dir / "checkpoint-epoch1.pth"
-    again = twin.cli(["-r", str(ckpt), "--n_devices", str(world // 2), "--n_model", "2",
-                      "--epochs", "2"], device="cpu")
+    again = twin.cli(["-r", str(ckpt), "--epochs", "2"] + axes, device="cpu")
     return {"epochs": epochs, "resumed": resumed, "start": again.start_epoch,
             "dirs": [str(first.checkpoint_dir), str(again.checkpoint_dir)],
             "local": {n: p.detach().clone() for n, p in again.model.named_parameters()}}
@@ -486,3 +513,130 @@ def _fsdp_evals(ev, tmp):
     return {"recalls": recalls, "written": written, "table": table.to_numpy(),
             "sharded_after": all(type(p).__name__ == "DTensor"
                                  for p in model.parameters() if p.dim())}
+
+
+# ---- the MoE adapter across ranks (tests/test_torch_ep.py) ----------------------------
+
+def _make_mesh(axis, n_data, n_second, device="cpu"):
+    """``axis``'s mesh creator; ranks on a card share card 0 (a ``DeviceMesh``
+    on CUDA takes its card from ``LOCAL_RANK``)."""
+    from vtc_tpu_torch.parallel.expert import create_ep_mesh
+    from vtc_tpu_torch.parallel.mesh import create_mesh
+    from vtc_tpu_torch.parallel.pipeline import create_pipeline_mesh
+
+    if torch.device(device).type == "cuda":
+        os.environ["LOCAL_RANK"] = "0"
+    make = {"model": create_mesh, "expert": create_ep_mesh, "pipe": create_pipeline_mesh}
+    return make[axis](n_data, n_second, device=device)
+
+
+def moe_layer_case(case: dict) -> dict:
+    """A ``MoEMLP`` (``case["params"]``, split over the expert axis where the
+    mesh has one) on this data rank's rows of ``case["x"]`` [B, L, E] under
+    ``global_routing``, then the backward of ``sum(y · c)`` over its rows:
+    its rows of the output and of the input's gradient, the global routing
+    and aux loss, the parameter gradients in the single-card layout and
+    the shapes this rank holds."""
+    from vtc_tpu_torch.parallel.expert import MoEMLP, global_routing, shard_experts
+    from vtc_tpu_torch.parallel.mesh import shard_batch
+    from vtc_tpu_torch.parallel.tensor import full_tensors
+
+    layer = MoEMLP(*case["layer"])
+    layer.load_state_dict({n: torch.tensor(v) for n, v in case["params"].items()})
+    shard_experts(layer)
+    x = torch.from_numpy(np.ascontiguousarray(shard_batch(case["x"]))).requires_grad_()
+    with global_routing():
+        y = layer(x)
+    (y * torch.from_numpy(np.ascontiguousarray(shard_batch(case["c"])))).sum().backward()
+    return {"y": y.detach(), "x_grad": x.grad, "aux": float(layer.aux_loss.detach()),
+            "routing": layer.routing,
+            "grads": full_tensors(layer, {n: p.grad for n, p in layer.named_parameters()}),
+            "local": {n: tuple(p.shape) for n, p in layer.named_parameters()}}
+
+
+def run_ep(rank, world, tmp):
+    """Each mesh of ``tmp/ep.pt`` in turn (``(name, (axis, n_data,
+    n_second), cases)``), every case on it: a ``MoEMLP`` layer
+    (``moe_layer_case``) or a train step (``step_case``); where the spec has
+    them, the strided evaluations of a model split over the expert axis and
+    the train twin at ``--ep 2`` with a resume."""
+    spec = torch.load(tmp / "ep.pt", weights_only=False)
+    out = {}
+    for name, mesh, cases in spec["meshes"]:
+        _make_mesh(*mesh, device=spec.get("device", "cpu"))
+        for case_name, case in cases.items():
+            out[name, case_name] = moe_layer_case(case) if "layer" in case else step_case(case)
+    if "evals" in spec:
+        out["evals"] = _ep_evals(spec["evals"])
+    if "cli" in spec:
+        out["cli"] = _twin_cli(tmp, ["--n_devices", "1", "--ep", "2"])
+    torch.save(out, tmp / f"ep_rank{rank}.pt")
+
+
+def _ep_evals(ev):
+    """``retrieval_evaluation`` of the MoE flagship split over the expert
+    axis of the current mesh, over an odd number of videos split over the
+    data ranks (each rank's share routes its own tokens, on the experts
+    gathered whole), twice, and whether the stacks are split again after."""
+    from vtc_tpu_torch.evaluation.retrieval_eval import retrieval_evaluation
+    from vtc_tpu_torch.parallel.expert import moe_layers, shard_experts
+    from vtc_tpu_torch.parallel.mesh import current_mesh
+
+    model = shard_experts(flagship_port(ev["state_dict"], **ev["model_kw"])).eval()
+    tables = [retrieval_evaluation(model, "synthetic", "test", dataset=ev["videos"],
+                                   frame_stride=4, mesh=current_mesh(),
+                                   device="cpu").to_numpy() for _ in range(2)]
+    return {"tables": tables,
+            "split_after": all(m.whole is None and m.w_fc.shape[0] * 2 == m.n_experts
+                               for m in moe_layers(model))}
+
+
+# ---- the pipe axis (tests/test_torch_pipeline.py) --------------------------------------
+
+def stack_forward(fwd: dict) -> dict:
+    """One stack (``fwd["kind"]``: a ``layers.Transformer`` or the
+    TimeSformer's, built from ``fwd["args"]`` with ``fwd["state_dict"]``) on
+    the whole ``fwd["x"]`` on every data place, then the backward of
+    ``sum(y · c)`` and ``pipeline.sync_gradients``: the output, the input's
+    gradient and the parameter gradients."""
+    from vtc_tpu_torch.models.layers import Transformer
+    from vtc_tpu_torch.models.timesformer import TimeSformerTransformer
+    from vtc_tpu_torch.parallel.pipeline import sync_gradients
+
+    cls = {"transformer": Transformer, "timesformer": TimeSformerTransformer}[fwd["kind"]]
+    stack = cls(*fwd["args"], **fwd.get("kwargs", {}))
+    stack.load_state_dict({n: torch.as_tensor(v) for n, v in fwd["state_dict"].items()})
+    x = torch.from_numpy(fwd["x"]).requires_grad_()
+    y = stack(x, fwd["extra"])
+    (y * torch.from_numpy(fwd["c"])).sum().backward()
+    sync_gradients(stack)
+    return {"y": y.detach(), "x_grad": x.grad,
+            "grads": {n: p.grad for n, p in stack.named_parameters()}}
+
+
+def run_pp(rank, world, tmp):
+    """A ``create_pipeline_mesh(world // 2, 2)`` mesh with the stacks'
+    pipeline on (``n_micro`` of the spec): each stack forward of
+    ``tmp/pp.pt`` (``stack_forward``) and each train step case
+    (``step_case``), each with the stack counts of its run; where the spec
+    has it, the train twin at ``--pp 2`` with a resume."""
+    from vtc_tpu_torch.parallel.stack import (
+        reset_stack_counts,
+        set_stack_parallel,
+        stack_counts,
+    )
+
+    spec = torch.load(tmp / "pp.pt", weights_only=False)
+    mesh = _make_mesh("pipe", world // 2, 2, spec.get("device", "cpu"))
+    set_stack_parallel("pipe", mesh, spec["n_micro"])
+    out = {}
+    for name, fwd in spec["forwards"].items():
+        reset_stack_counts()
+        out[name] = dict(stack_forward(fwd), counts=stack_counts())
+    for name, case in spec["cases"].items():
+        reset_stack_counts()
+        out[name] = dict(step_case(case), counts=stack_counts())
+    if "cli" in spec:
+        out["cli"] = _twin_cli(tmp, ["--n_devices", str(world // 2), "--pp", "2",
+                                     "--n_micro", str(spec["n_micro"])])
+    torch.save(out, tmp / f"pp_rank{rank}.pt")

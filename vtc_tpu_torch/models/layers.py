@@ -30,8 +30,11 @@ heads, the MLP holds its part of ``c_fc``'s rows and ``c_proj``'s columns;
 forward through the model axis's two collectives, ``out_proj``'s and
 ``c_proj``'s biases added after the all-reduce.
 
+A ``Transformer`` consults ``parallel.stack`` at each forward: under
+``train.py --pp`` its blocks run as a GPipe pipeline over the stage ranks.
+
 TPU-era means are left out: ``seq_fold``, the fused LN->Dense path, the
-per-projection qkv form of GSPMD and stack parallelism (ROADMAP). Where
+per-projection qkv form of GSPMD and the sequence axis (ROADMAP). Where
 the JAX package folds short sequences into one masked attention call
 (``seq_fold=0``, the TimeSformer's temporal attention), the port attends
 each sequence on its own: the masked cross-sequence entries are exactly 0
@@ -224,6 +227,12 @@ class Transformer(nn.Module):
         )
 
     def forward(self, x, causal: bool = False):
+        from ..parallel.stack import stack_parallel_mode, transformer_stack_override
+
+        if stack_parallel_mode() is not None:  # train.py --pp: GPipe over the stages
+            out = transformer_stack_override(self, x, causal)
+            if out is not None:
+                return out
         for block in self.resblocks:
             x = run_block(block, x, causal)
         return x

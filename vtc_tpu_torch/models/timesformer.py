@@ -19,8 +19,9 @@ State-dict names are the reference's: the tower sits at ``visual.*`` with
 blocks at ``transformer.resblocks.{i}`` holding ``timeattn``, ``ln_time``,
 ``temporal_fc``, ``attn``, ``ln_1``, ``mlp``, ``ln_2``, and
 ``temporal_embed`` beside the ViT's parameters. ``VTC_REMAT=1`` runs each
-block under ``torch.utils.checkpoint`` (``layers.run_block``); stack
-parallelism is not ported (ROADMAP).
+block under ``torch.utils.checkpoint`` (``layers.run_block``); under
+``train.py --pp`` the stack runs as a GPipe pipeline over the stage ranks
+(``parallel.stack``).
 """
 
 from __future__ import annotations
@@ -94,6 +95,12 @@ class TimeSformerTransformer(nn.Module):
         )
 
     def forward(self, x, nframes: int):
+        from ..parallel.stack import stack_parallel_mode, timesformer_stack_override
+
+        if stack_parallel_mode() is not None:  # train.py --pp: GPipe over the stages
+            out = timesformer_stack_override(self, x, nframes)
+            if out is not None:
+                return out
         for block in self.resblocks:
             x = run_block(block, x, nframes)
         return x

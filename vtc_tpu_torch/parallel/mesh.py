@@ -29,12 +29,24 @@ on the same rows:
   the statistics of the global batch with one device's ops and keep their
   own rows (``models.cam``, ``models.layers.TorchBatchNorm``).
 
-The model axis is ``parallel.tensor``'s (Megatron-style tensor
-parallelism). ZeRO-3 (``fsdp``, ``vtc_tpu``'s ``tree_shardings(...,
-fsdp=True)``) is FSDP2's ``fully_shard`` over the data axis
-(``fully_shard_model``), on top of the model axis's split. The pipeline,
-sequence, expert and multi-slice axes are refused by ``check_axes``, naming
-their ROADMAP item.
+The second axis is one of three, as in ``vtc_tpu`` (at most one non-data
+axis a run, ``check_axes``):
+
+* ``model`` (``create_mesh``): ``parallel.tensor``'s Megatron-style tensor
+  parallelism;
+* ``expert`` (``parallel.expert.create_ep_mesh``): the MoE expert stacks
+  split over it, each rank running its experts on the dispatched tokens of
+  the whole data group;
+* ``pipe`` (``parallel.pipeline.create_pipeline_mesh``): GPipe over the
+  block stacks (``parallel.stack``), every parameter whole on every rank.
+
+Each creator keeps its ``DeviceMesh`` as the current mesh, rank ``d·n + i``
+at ``(d, i)``; ``axis_group``/``axis_rank``/``axis_world`` read any axis
+(an axis the mesh lacks is this rank alone). ZeRO-3 (``fsdp``,
+``vtc_tpu``'s ``tree_shardings(..., fsdp=True)``) is FSDP2's
+``fully_shard`` over the data axis (``fully_shard_model``), alone or on top
+of the model axis's split. The sequence and multi-slice axes are refused by
+``check_axes``, naming their ROADMAP item.
 
 **ZeRO-3.** ``fully_shard_model`` shards each residual block (the visual
 and text towers', the CAM's, the TimeSformers') as a unit, then the root,
@@ -59,8 +71,9 @@ takes its rows of every global batch). The strided evaluation of the
 trainer's probe (``evaluation.retrieval_eval``) does not: a rank may hold
 one video more than another. It runs inside ``gathered_parameters``, which
 gathers every unit once, keeps it whole through the forwards (no
-collective inside them) and shards it again after. The ``eval.py`` twin
-evaluates the whole model on every data rank, as ``vtc_tpu``'s does.
+collective inside them) and shards it again after; it gathers the expert
+axis's stacks the same way. The ``eval.py`` twin evaluates the whole model
+on every data rank, as ``vtc_tpu``'s does.
 """
 
 from __future__ import annotations
@@ -75,21 +88,70 @@ from ..utils.util import rank, world
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-_MESH = None  # the newest create_mesh's
+EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
+_MESH = None  # the newest mesh creator's
 
 
-def check_axes(n_model: int = 1, **others) -> None:
-    """The axes the port does not shard raise: the pipeline, sequence,
-    expert and multi-slice axes (``others``: ``pp``, ``sp``, ``ep``,
-    ``slices``). ``n_model`` must be a whole degree."""
-    if int(n_model or 1) < 1:
-        raise ValueError(f"--n_model {n_model}: the model axis needs 1 rank or more")
-    for key, value in others.items():
-        if int(value or 1) > 1:
+def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
+               slices: int = 1, moe: bool = True, fsdp: bool = False) -> None:
+    """The axes of a run, checked as ``vtc_tpu``'s ``train.py:121-146``
+    checks them: at most one non-data axis (``n_model``, ``pp``, ``sp``,
+    ``ep``), ``slices`` not beside pp/sp/ep and ``ep`` only for a model with
+    mixture-of-experts layers (``moe``) raise ``ValueError``; the axes the
+    port does not shard (``sp``, ``slices``) and ZeRO-3 beside the expert or
+    pipe axis raise ``NotImplementedError`` naming their ROADMAP item."""
+    n_model, pp, sp, ep, slices = (int(v or 1) for v in (n_model, pp, sp, ep, slices))
+    if min(n_model, pp, sp, ep, slices) < 1:
+        raise ValueError(f"--n_model {n_model} --pp {pp} --sp {sp} --ep {ep} --slices "
+                         f"{slices}: each axis needs 1 rank or more")
+    if sum(n > 1 for n in (n_model, pp, sp, ep)) > 1:
+        raise ValueError(f"pick at most one non-data mesh axis per run: n_model={n_model}, "
+                         f"pp={pp}, sp={sp}, ep={ep}")
+    if slices > 1 and max(pp, sp, ep) > 1:
+        raise ValueError(f"--slices composes with dp/tp/fsdp (replica = data parallelism "
+                         f"across slices), not with pp/sp/ep (got pp={pp}, sp={sp}, ep={ep})")
+    if ep > 1 and not moe:
+        raise ValueError("--ep shards mixture-of-experts stacks over an expert mesh axis, "
+                         "but this arch has no MoE (set arch;args;moe_experts, e.g. "
+                         "configs/pretrained_clip_comments_attn_moe.jsonc)")
+    for key, value in (("sp", sp), ("slices", slices)):
+        if value > 1:
             raise NotImplementedError(
-                f"--{key} {value}: pipeline, sequence, expert and multi-slice axes are "
-                f"not ported; the port shards the data and model axes and ZeRO-3 "
+                f"--{key} {value}: the sequence and multi-slice axes are not ported; the "
+                f"port shards the data, model, expert and pipe axes and ZeRO-3 "
                 f"({DISTRIBUTION})")
+    if fsdp and max(pp, ep) > 1:
+        raise NotImplementedError(
+            f"--fsdp beside --pp {pp} / --ep {ep}: ZeRO-3 composes with the data and "
+            f"model axes in the port ({DISTRIBUTION})")
+
+
+def _make_mesh(n_data, n_second: int, axis: str, device):
+    """The process group as a ``("data", axis)`` ``DeviceMesh`` of
+    ``n_data × n_second`` ranks, rank ``d·n_second + i`` at ``(d, i)``,
+    kept as the current mesh; None for one process without a group."""
+    global _MESH
+    n_second = int(n_second or 1)
+    flag = {MODEL_AXIS: "--n_model", EXPERT_AXIS: "--ep", PIPE_AXIS: "--pp"}[axis]
+    if not dist.is_initialized():
+        if n_second > 1 or int(n_data or 1) > 1:
+            raise RuntimeError(
+                f"a {n_data or 1}x{n_second} mesh runs one process per card: launch "
+                f"`torchrun --nproc_per_node {(n_data or 1) * n_second}` and pass "
+                f"--n_devices {n_data or 1} {flag} {n_second}")
+        _MESH = None
+        return None
+    w = world()
+    n_data = w // n_second if n_data is None else int(n_data)
+    if n_data * n_second != w:
+        raise ValueError(f"a {n_data}x{n_second} mesh over a group of {w} processes: "
+                         f"launch {n_data * n_second} (n_devices x {flag[2:]})")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    _MESH = DeviceMesh(torch.device(device).type, torch.arange(w).reshape(n_data, n_second),
+                       mesh_dim_names=(DATA_AXIS, axis))
+    return _MESH
 
 
 def create_mesh(n_data=None, n_model: int = 1, *, device):
@@ -98,31 +160,31 @@ def create_mesh(n_data=None, n_model: int = 1, *, device):
     ``n_model``), rank ``d·n_model + m`` at ``(d, m)``, kept as the current
     mesh. Its device type is ``device``'s, where the ranks compute, whatever
     the backend. One process without a group: None (no axis to shard)."""
-    global _MESH
-    n_model = int(n_model or 1)
-    if not dist.is_initialized():
-        if n_model > 1 or int(n_data or 1) > 1:
-            raise RuntimeError(
-                f"a {n_data or 1}x{n_model} mesh runs one process per card: launch "
-                f"`torchrun --nproc_per_node {(n_data or 1) * n_model}` and pass "
-                f"--n_devices {n_data or 1} --n_model {n_model}")
-        _MESH = None
-        return None
-    w = world()
-    n_data = w // n_model if n_data is None else int(n_data)
-    if n_data * n_model != w:
-        raise ValueError(f"a {n_data}x{n_model} mesh over a group of {w} processes: "
-                         f"launch {n_data * n_model} (n_devices x n_model)")
-    from torch.distributed.device_mesh import DeviceMesh
-
-    _MESH = DeviceMesh(torch.device(device).type, torch.arange(w).reshape(n_data, n_model),
-                       mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
-    return _MESH
+    return _make_mesh(n_data, n_model, MODEL_AXIS, device)
 
 
 def current_mesh():
-    """The newest ``create_mesh``'s, while its process group lives."""
+    """The newest mesh creator's, while its process group lives."""
     return _MESH if dist.is_initialized() else None
+
+
+def has_axis(axis: str) -> bool:
+    mesh = current_mesh()
+    return mesh is not None and axis in mesh.mesh_dim_names
+
+
+def axis_group(axis: str):
+    """The process group of this rank's ``axis`` (None where the mesh lacks
+    it: the axis is this rank alone)."""
+    return current_mesh().get_group(axis) if has_axis(axis) else None
+
+
+def axis_rank(axis: str) -> int:
+    return rank(axis_group(axis)) if has_axis(axis) else 0
+
+
+def axis_world(axis: str) -> int:
+    return world(axis_group(axis)) if has_axis(axis) else 1
 
 
 def data_group():
@@ -140,35 +202,34 @@ def data_world() -> int:
 
 
 def model_group():
-    """The process group of this rank's model axis; None without a mesh,
-    where the model axis is this rank alone."""
-    mesh = current_mesh()
-    return None if mesh is None else mesh.get_group(MODEL_AXIS)
+    """The process group of this rank's model axis; None without one, where
+    the model axis is this rank alone."""
+    return axis_group(MODEL_AXIS)
 
 
 def model_rank() -> int:
-    return 0 if current_mesh() is None else rank(model_group())
+    return axis_rank(MODEL_AXIS)
 
 
 def model_world() -> int:
-    return 1 if current_mesh() is None else world(model_group())
+    return axis_world(MODEL_AXIS)
 
 
 def check_data_devices(n_devices, device: torch.device, logger, what: str,
-                       module: str, n_model: int = 1) -> None:
-    """``--n_devices N`` (and ``--n_model M``) of an entry point: under a
-    process group the data axis is the group over M, whose size N must name
-    (1 leaves it to the group); without one, a machine with N·M cards or
-    more raises with the ``torchrun`` line that runs them, and one with
-    fewer warns and runs unsharded on one device, as the JAX package
-    does."""
+                       module: str, n_model: int = 1, flag: str = "--n_model") -> None:
+    """``--n_devices N`` (and the second axis's ``flag M``: ``--n_model``,
+    ``--ep`` or ``--pp``) of an entry point: under a process group the data
+    axis is the group over M, whose size N must name (1 leaves it to the
+    group); without one, a machine with N·M cards or more raises with the
+    ``torchrun`` line that runs them, and one with fewer warns and runs
+    unsharded on one device, as the JAX package does."""
     n, m = int(n_devices or 1), int(n_model or 1)
     if world() > 1:
         if world() % m:
-            raise ValueError(f"--n_model {m} does not divide the group of {world()} "
+            raise ValueError(f"{flag} {m} does not divide the group of {world()} "
                              f"processes")
         if n not in (1, world() // m):
-            raise ValueError(f"--n_devices {n} --n_model {m} in a group of {world()} "
+            raise ValueError(f"--n_devices {n} {flag} {m} in a group of {world()} "
                              f"processes: launch `torchrun --nproc_per_node {n * m}`")
         return
     if n * m <= 1:
@@ -176,9 +237,9 @@ def check_data_devices(n_devices, device: torch.device, logger, what: str,
     have = torch.cuda.device_count() if device.type == "cuda" else 1
     if have >= n * m:
         raise RuntimeError(
-            f"--n_devices {n} --n_model {m} on a machine with {have} devices: the mesh "
+            f"--n_devices {n} {flag} {m} on a machine with {have} devices: the mesh "
             f"runs one process per card; launch `torchrun --nproc_per_node {n * m} -m "
-            f"{module} ... --n_devices {n} --n_model {m}`")
+            f"{module} ... --n_devices {n} {flag} {m}`")
     logger.warning(
         "Requested a 1x%dx%d (slices x data x second-axis) mesh but only %d "
         "device(s) are available; %s UNSHARDED on one device.", n, m, have, what)
@@ -249,9 +310,13 @@ def data_parallel(model: torch.nn.Module, device: torch.device):
     ``init_from_avg``, a frozen tower) are found each step; the buffers are
     not broadcast, since the BatchNorms take the global batch's statistics
     on every rank. The split parameters of a tensor-parallel model average
-    with their own model place's."""
-    if not active() or is_fully_sharded(model):
-        return model
+    with their own model place's, an expert rank's stacks with its expert
+    place's. On a pipe mesh the model stays as it is: the step sums the
+    stages' gradients and averages the data ranks' itself
+    (``parallel.pipeline.sync_gradients``), since a stage's blocks take
+    their gradients inside the schedule's own backward."""
+    if not active() or is_fully_sharded(model) or axis_world(PIPE_AXIS) > 1:
+        return model  # the pipe axis syncs its own (``pipeline.sync_gradients``)
     from torch.nn.parallel import DistributedDataParallel
 
     ids = [device.index if device.index is not None else torch.cuda.current_device()] \
@@ -341,21 +406,26 @@ def no_gradient_sync(model: torch.nn.Module):
 
 @contextlib.contextmanager
 def gathered_parameters(model: torch.nn.Module):
-    """Within the block a sharded model holds every unit whole, so its
-    forwards run no collective and the data ranks may run different
-    numbers of them; after it, sharded again. Every data rank enters and
-    leaves together (the gathers are collectives). Forwards without a
-    graph only. A model that is not sharded: nothing to do."""
+    """Within the block a sharded model holds every unit whole, and a model
+    split over the expert axis every expert stack, so its forwards run no
+    collective and the data ranks may run different numbers of them (a MoE
+    layer routes each call's own tokens there); after it, sharded again.
+    Every rank enters and leaves together (the gathers are collectives).
+    Forwards without a graph only. A model that is not sharded: nothing to
+    do."""
+    from .expert import gathered_experts
+
     units = _units(model)
-    if not units:
-        yield
-        return
-    for unit in units:
-        unit.set_reshard_after_forward(False, recurse=False)
-        unit.unshard()
-    try:
-        yield
-    finally:
+    with gathered_experts(model):
+        if not units:
+            yield
+            return
         for unit in units:
-            unit.reshard()
-            unit.set_reshard_after_forward(unit is not model, recurse=False)
+            unit.set_reshard_after_forward(False, recurse=False)
+            unit.unshard()
+        try:
+            yield
+        finally:
+            for unit in units:
+                unit.reshard()
+                unit.set_reshard_after_forward(unit is not model, recurse=False)

@@ -33,7 +33,13 @@ over the model group, ``split_state_dict`` and ``split_optimizer_state``
 take rank ``m``'s part of a full one. Under ZeRO-3
 (``parallel.mesh.fully_shard_model``) the same four also gather the data
 axis's shards (``DTensor``s) first, and shard a full tensor as its
-parameter is.
+parameter is; on the expert axis (``parallel.expert.shard_experts``) they
+gather and cut the expert stacks and their moments over dim 0.
+
+A mixture-of-experts layer is not split on the model axis: ``tree_pspecs``'
+rules name ``c_fc``/``c_proj``, not the expert stacks, so its leaves stay
+whole on every model rank and the experts compute redundantly there, as
+GSPMD's replicated layout does.
 """
 
 from __future__ import annotations
@@ -130,12 +136,19 @@ def _check(name: str, shape, rule, size: int) -> None:
             f"count (ViT-B/32: tp in {{2, 4}})")
 
 
+def own_part(t: torch.Tensor, rank: int, size: int, dim: int = 0) -> torch.Tensor:
+    """Rank ``rank`` of ``size``'s chunk of ``t`` along ``dim``, in storage
+    of its own (a chunk of dim 0 is a view that would keep the whole
+    tensor's storage alive)."""
+    return t.chunk(size, dim=dim)[rank].clone(memory_format=torch.contiguous_format)
+
+
 def split_tensor(t: torch.Tensor, rule, rank: int, size: int) -> torch.Tensor:
     """Rank ``rank`` of ``size``'s part of the full tensor ``t``."""
     if rule == "qkv":
         parts = t.unflatten(0, (3, size, -1))[:, rank]
         return parts.flatten(0, 1).contiguous()
-    return t.chunk(size, dim=rule)[rank].contiguous()
+    return own_part(t, rank, size, rule)
 
 
 def join_tensors(parts, rule) -> torch.Tensor:
@@ -206,13 +219,26 @@ def _shard_like(t: torch.Tensor, like):
                              src_data_rank=None)
 
 
+def _expert_split(model):
+    """``(axis, moe_pspec)`` of a model split over the expert axis, else
+    ``(None, None)``."""
+    from .expert import expert_axis, moe_pspec
+
+    axis = expert_axis(model)
+    return (axis, moe_pspec) if axis is not None and axis.size > 1 else (None, None)
+
+
 def full_tensors(model: torch.nn.Module, named: Dict[str, Optional[torch.Tensor]]) -> dict:
     """``named`` (parameter names to this rank's tensors of their shapes,
     such as their gradients; None passes through) in their single-card
     form: sharded over the data axis (ZeRO-3) gathered, split over the
-    model axis joined (every rank must call it, with the same names and
-    Nones)."""
+    model axis joined, the expert stacks joined over the expert axis (every
+    rank must call it, with the same names and Nones)."""
     named = {n: None if t is None else _whole_over_data(t) for n, t in named.items()}
+    experts, moe = _expert_split(model)
+    if experts is not None:
+        return {n: _gather(t, 0, experts) if t is not None and moe(n) else t
+                for n, t in named.items()}
     axis = model_axis(model)
     if axis is None or axis.size == 1:
         return named
@@ -252,9 +278,12 @@ def full_optimizer_state(model: torch.nn.Module, optimizer) -> dict:
     the split parameters' moments gathered, the state of a single card's
     run (every rank must call it)."""
     axis = model_axis(model)
+    experts, moe = _expert_split(model)
 
     def full(v, name):
         v, rule = _whole_over_data(v), split_rule(name)
+        if experts is not None and moe(name):
+            return _gather(v, 0, experts)
         if axis is None or axis.size == 1 or rule is None:
             return v
         return _gather(v, rule, axis)
@@ -269,12 +298,15 @@ def split_optimizer_state(model: torch.nn.Module, optimizer, full_state: dict) -
     from torch.distributed.tensor import DTensor
 
     axis = model_axis(model)
+    experts, moe = _expert_split(model)
     params = dict(model.named_parameters())
-    if (axis is None or axis.size == 1) and not any(
+    if (axis is None or axis.size == 1) and experts is None and not any(
             isinstance(p, DTensor) for p in params.values()):
         return full_state  # a single card's: as it is
 
     def part(v, name):
+        if experts is not None and moe(name):
+            return own_part(v, experts.rank, experts.size)
         rule = split_rule(name)
         if axis is not None and axis.size > 1 and rule is not None:
             v = split_tensor(v, rule, axis.rank, axis.size)
@@ -289,6 +321,10 @@ def load_full_state_dict(model: torch.nn.Module, state_dict: dict, strict: bool 
     axis = model_axis(model)
     if axis is not None and axis.size > 1:
         state_dict = split_state_dict(state_dict, axis.rank, axis.size)
+    experts, moe = _expert_split(model)
+    if experts is not None:
+        state_dict = {n: own_part(t, experts.rank, experts.size) if moe(n) else t
+                      for n, t in state_dict.items()}
     own = model.state_dict()
     state_dict = {n: _shard_like(t, own[n]) if n in own else t
                   for n, t in state_dict.items()}
@@ -304,11 +340,10 @@ def shard_model(model: torch.nn.Module, axis: Optional[ModelAxis] = None) -> tor
     parts), and the attentions, MLPs and text embeddings run their split
     forward. ``axis`` defaults to ``parallel.mesh``'s current model axis;
     of size 1 the model is left whole. Raises before anything is split
-    where the degree does not divide a head count or a split dimension, or
-    where the model has mixture-of-experts layers."""
+    where the degree does not divide a head count or a split dimension.
+    Mixture-of-experts layers stay whole (the module docstring)."""
     from ..models.layers import MLPBlock, MultiHeadAttention
     from ..models.clip_model import TextTransformer
-    from .expert import moe_layers
     from .mesh import model_group, model_rank, model_world
 
     if axis is None:
@@ -317,10 +352,6 @@ def shard_model(model: torch.nn.Module, axis: Optional[ModelAxis] = None) -> tor
         return model
     if model_axis(model) is not None:
         raise ValueError("the model is split already")
-    if moe_layers(model):
-        raise NotImplementedError(
-            "a mixture-of-experts model on the model axis: the expert-parallel axis is "
-            "not ported (ROADMAP: Queue 1 item 9c)")
     for name, module in model.named_modules():
         if isinstance(module, MultiHeadAttention) and module.num_heads % axis.size:
             raise ValueError(

@@ -37,9 +37,26 @@ and the Adam moments over the data axis with FSDP2
 (``parallel.mesh.fully_shard_model``), before the optimizer is built; one
 process without a group has nothing to shard and trains as without it.
 
+The expert axis (``--ep X``, a MoE arch only) and the pipe axis (``--pp S``
+with ``--n_micro``, default 4) take the second axis's place:
+
+    torchrun --nproc_per_node N·X -m vtc_tpu_torch.train \
+        -c configs/pretrained_clip_comments_attn_moe.jsonc --n_devices N --ep X
+    torchrun --nproc_per_node N·S -m vtc_tpu_torch.train -c <config> \
+        --n_devices N --pp S --n_micro 4
+
+``--ep`` splits the MoE expert stacks over each group of X consecutive
+ranks (``parallel.expert.shard_experts``); ``--pp`` runs every eligible
+block stack as a GPipe pipeline over each group of S (``parallel.stack``),
+the whole model on every rank. A MoE model routes over the global batch's
+tokens on any mesh. At most one of ``--n_model``, ``--ep``, ``--pp`` and
+``--sp`` a run, ``--ep`` only for a MoE arch and ``--slices`` not beside
+pp/sp/ep, as ``vtc_tpu``'s ``train.py`` checks. Without a group they warn
+and train unsharded where the machine lacks the cards.
+
 What the port cannot do yet raises a ``NotImplementedError`` naming its
-ROADMAP item: the grain loader, and the pipeline, sequence, expert and
-multi-slice axes (and the MoE adapter on more than one rank).
+ROADMAP item: the grain loader, the sequence and multi-slice axes
+(``--sp``, ``--slices``) and ZeRO-3 beside ``--ep`` or ``--pp``.
 """
 
 from __future__ import annotations
@@ -57,9 +74,10 @@ import torch
 from . import data as module_data
 from .config import ConfigParser, CustomArgs
 from .data import DataLoader
-from .device import DISTRIBUTION, resolve_device
+from .device import resolve_device
 from .models import create_model
 from .ops.losses import LOSSES
+from .parallel.expert import create_ep_mesh, shard_experts
 from .parallel.mesh import (
     check_axes,
     check_data_devices,
@@ -68,6 +86,8 @@ from .parallel.mesh import (
     data_world,
     fully_shard_model,
 )
+from .parallel.pipeline import create_pipeline_mesh
+from .parallel.stack import set_stack_parallel
 from .parallel.tensor import shard_model
 from .training import METRICS, Trainer, build_optimizer
 from .utils.util import init_distributed, is_main, launched, world
@@ -109,33 +129,42 @@ def _make_probe(config):
 
 
 def _check_mesh(config, device: torch.device, logger) -> None:
-    """The data and model axes run under a process group (``--n_devices``
-    names the data axis's size, or is 1; ``--n_model`` the model axis's) or
-    ``--multihost``'s, laid out by ``create_mesh`` on ``device``; ``--fsdp``
-    shards over its data axis; the other axes raise.
-    ``--n_devices``/``--n_model`` without a group warn and train unsharded
-    where the machine lacks the cards (as the JAX package does), and raise
-    with the ``torchrun`` line where it has them."""
+    """The data axis and one second axis (``--n_model``, ``--ep`` or
+    ``--pp``) run under a process group (``--n_devices`` names the data
+    axis's size, or is 1) or ``--multihost``'s, laid out on ``device`` by
+    ``create_mesh``, ``create_ep_mesh`` or ``create_pipeline_mesh`` (which
+    also turns the stacks' pipeline on); ``--fsdp`` shards over its data
+    axis; ``check_axes`` raises for the rest. Without a group the axes warn
+    and train unsharded where the machine lacks the cards (as the JAX
+    package does), and raise with the ``torchrun`` line where it has
+    them."""
     if config.get("loader", "threads") == "grain":
         raise NotImplementedError(
             "loader 'grain' is not ported; the port's DataLoader runs thread "
             "workers (ROADMAP: Queue 1 item 10, TPU-era opt-ins)")
-    n_model = int(config.get("n_model", 1) or 1)
-    check_axes(n_model, **{key: config.get(key, 1) for key in ("pp", "sp", "ep", "slices")})
-    if world() > 1 and int(config["arch"]["args"].get("moe_experts", 0) or 0):
-        raise NotImplementedError(
-            f"the mixture-of-experts adapter on {world()} ranks: expert parallelism is "
-            f"not ported ({DISTRIBUTION})")
+    axes = {key: int(config.get(key, 1) or 1) for key in ("n_model", "pp", "sp", "ep", "slices")}
+    check_axes(axes["n_model"], pp=axes["pp"], sp=axes["sp"], ep=axes["ep"],
+               slices=axes["slices"], fsdp=bool(config.get("fsdp")),
+               moe=bool(int(config["arch"]["args"].get("moe_experts", 0) or 0)))
+    set_stack_parallel(None)  # the newest run wins over any earlier one in the process
+    flag, n_second = next(((f"--{k}", axes[k]) for k in ("ep", "pp") if axes[k] > 1),
+                          ("--n_model", axes["n_model"]))
     n_devices = int(config.get("n_devices", config.get("n_gpu", 1)) or 1)
     if config.get("multihost"):
-        if world() % n_model or n_devices not in (1, world() // n_model):
-            raise ValueError(f"--n_devices {n_devices} --n_model {n_model} with "
+        if world() % n_second or n_devices not in (1, world() // n_second):
+            raise ValueError(f"--n_devices {n_devices} {flag} {n_second} with "
                              f"--multihost on {world()} processes: one process per card")
     else:
         check_data_devices(n_devices, device, logger, "training", "vtc_tpu_torch.train",
-                           n_model)
+                           n_second, flag)
     if world() > 1:
-        create_mesh(world() // n_model, n_model, device=device)
+        if flag == "--ep":
+            create_ep_mesh(world() // n_second, n_second, device=device)
+        elif flag == "--pp":
+            mesh = create_pipeline_mesh(world() // n_second, n_second, device=device)
+            set_stack_parallel("pipe", mesh, int(config.get("n_micro", 4) or 4))
+        else:
+            create_mesh(world() // n_second, n_second, device=device)
     if not config.get("multihost") and int(config["batch_size"]) % data_world():
         raise ValueError(f"batch_size {config['batch_size']} does not split over "
                          f"{data_world()} data ranks")
@@ -172,6 +201,7 @@ def main(config: ConfigParser, device: Optional[str] = None) -> Trainer:
     model = create_model(arch_cfg["type"], seed=seed_value, device=device,
                          **dict(arch_cfg["args"]))
     shard_model(model)  # over the model axis, where the mesh has one
+    shard_experts(model)  # the expert stacks over the expert axis, likewise
     if config.get("fsdp"):  # ZeRO-3 over the data axis, before the optimizer
         fully_shard_model(model, device)
     logger.info("Model: %s", arch_cfg["type"])

@@ -53,10 +53,19 @@ at the global batch, as GSPMD runs ``vtc_tpu``'s:
   rank's rows of the feature gradient, times ``W``, drive its second pass;
   the microbatches before the last do not synchronize (DDP's ``no_sync``,
   FSDP2's ``set_requires_gradient_sync(False)``: ``no_gradient_sync``);
-* a MoE model raises at ``W`` > 1: ``vtc_tpu`` routes over the global token
-  set (capacity ``ceil(cf·k·T/nE)`` with T global,
-  ``vtc_tpu/parallel/expert.py:133``), which a per-rank routing does not
-  reproduce (ROADMAP Queue 1 item 9, its expert-parallel part).
+* a MoE model routes over the global token set, as GSPMD traces
+  ``vtc_tpu``'s layer on the global batch (capacity ``ceil(cf·k·T/nE)``
+  with T global, ``vtc_tpu/parallel/expert.py:133``): the steps run their
+  forwards inside ``parallel.expert.global_routing``, where each MoE layer
+  gathers the router probabilities over the data group and sums the
+  dispatched tokens over it (with ``accum_steps`` k, microbatch i's global
+  tokens, in ``make_step_fns``' order), and on the expert axis runs its
+  rank's experts (``parallel.expert``);
+* on a pipe mesh (``parallel.pipeline``, ``train.py --pp``) the model is
+  not wrapped: each stage's block gradients accumulate inside the
+  schedule's backward, and ``parallel.pipeline.sync_gradients`` sums them
+  over the stages and averages every gradient over the data ranks before
+  the update.
 
 ``global_truncate_tokens(multihost=True)`` buckets on the largest coverage
 over the ranks, so every rank runs the same text lengths.
@@ -73,16 +82,18 @@ import torch
 from ..data.preprocess import normalize_uint8_images
 from ..data.tokenizer import batch_token_need, truncate_batch_tokens
 from ..device import DISTRIBUTION
-from ..parallel.expert import moe_layers
+from ..parallel.expert import global_routing, moe_layers
 from ..parallel.mesh import (
+    PIPE_AXIS,
     active,
     all_gather_rows,
+    axis_world,
     data_world,
     no_gradient_sync,
     shard_rows,
     unwrap,
 )
-from ..utils.util import all_max, world
+from ..utils.util import all_max
 
 # the Switch default, as the JAX trainer's ``moe_aux_loss_weight``
 MOE_AUX_LOSS_WEIGHT = 0.01
@@ -116,18 +127,17 @@ def _forward(model, args, **kwargs):
     return out, (sum(aux) if aux else None)
 
 
-def _update(optimizer, scheduler) -> None:
+def _update(model, optimizer, scheduler) -> None:
+    if active() and axis_world(PIPE_AXIS) > 1:
+        from ..parallel.pipeline import sync_gradients
+
+        sync_gradients(unwrap(model))
     optimizer.step()
     scheduler.step()
     optimizer.zero_grad(set_to_none=True)
 
 
 def _check_data_parallel(module) -> None:
-    if world() > 1 and moe_layers(module):
-        raise NotImplementedError(
-            f"a mixture-of-experts model on {world()} ranks: vtc_tpu routes over the "
-            f"global token set, which per-rank routing does not reproduce; the "
-            f"expert-parallel axis is not ported ({DISTRIBUTION})")
     if not hasattr(module, "_sim"):
         raise NotImplementedError(
             f"{type(module).__name__} under a process group: the data-parallel step "
@@ -188,13 +198,20 @@ def train_step(model: torch.nn.Module, criterion: Callable, optimizer,
     ``accum_steps`` k: of its k strided microbatches), and ``out`` that of
     the global batch."""
     data = [normalize_uint8_images(d) for d in data]
-    module = unwrap(model)
     if active():
-        _check_data_parallel(module)
-    if accum_steps > 1:
-        return _accumulating_step(model, criterion, optimizer, scheduler, data,
-                                  meta, generator, draws, int(accum_steps),
-                                  moe_aux_loss_weight)
+        _check_data_parallel(unwrap(model))
+    with global_routing(active()):
+        if accum_steps > 1:
+            return _accumulating_step(model, criterion, optimizer, scheduler, data,
+                                      meta, generator, draws, int(accum_steps),
+                                      moe_aux_loss_weight)
+        return _plain_step(model, criterion, optimizer, scheduler, data, meta,
+                           generator, draws, moe_aux_loss_weight)
+
+
+def _plain_step(model, criterion, optimizer, scheduler, data, meta, generator, draws,
+                moe_aux_loss_weight):
+    module = unwrap(model)
     module.train()
     if active():
         draws = _rank_draws(module, data, generator, draws)
@@ -205,7 +222,7 @@ def train_step(model: torch.nn.Module, criterion: Callable, optimizer,
     if aux is not None:
         loss = loss + moe_aux_loss_weight * aux
     loss.backward()
-    _update(optimizer, scheduler)
+    _update(model, optimizer, scheduler)
     return loss.detach(), out
 
 
@@ -292,7 +309,7 @@ def _accumulating_step(model, criterion, optimizer, scheduler, data, meta,
                 pairs.append((scale, scale_grad))
             if pairs:
                 torch.autograd.backward(*zip(*pairs))
-    _update(optimizer, scheduler)
+    _update(model, optimizer, scheduler)
     return loss.detach(), (feats_vis.detach(), feats_text.detach(), sim.detach())
 
 
@@ -308,7 +325,7 @@ def eval_step(model: torch.nn.Module, criterion: Callable, data, meta=None,
     if branch_override is not None and (
             "branch_override" in inspect.signature(model.forward).parameters):
         kwargs["branch_override"] = branch_override
-    with torch.no_grad():
+    with torch.no_grad(), global_routing(active()):
         out = model(*[normalize_uint8_images(d) for d in data], **kwargs)
         if active():
             out, meta = _global(model, out, meta)
