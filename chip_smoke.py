@@ -317,6 +317,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     against one rank's (within 1e-4; 41 / 26 / 26 / 12 launches, 3 stacks
     pipelined), and the bf16 step at batch 128 through the pipeline beside
     phase 12's plain one (a reading, no claim);
+39. the sequence axis in that spawn, ring attention over the stacks'
+    sequence shards: phase 11's first 2 fp32 steps at dp1×sp2 (ranks 0 and
+    1, beside phase 38) and dp2×sp2 (all four) against phase 11's (losses
+    within 2e-6, gradients within the card's reorder floor and equal on
+    every rank), every stack on the ring (3 a forward: the ViT at L = 50,
+    the text tower at its EOT bucket, the CAM at L = 6), 2 × (29, 26, 0)
+    launches a rank (no ``fused_mha``: the ring attends in its place); at
+    dp1×sp2 the video config's fp32 forward at batch 2 against one rank's
+    (the TimeSformer sequential: 41 / 26 / 12 / 12 launches, 2 stacks on
+    the ring) and the bf16 step at 128 on the ring beside phase 12's plain
+    one (a reading, no claim);
+40. multi-slice in that spawn, the replica axis of 2: phase 11's first 2
+    fp32 steps at replica2×dp1×tp2 and, under ZeRO-3 (HSDP: sharded over
+    data, whole over replica), at replica2×dp2, against phase 11's at the
+    same limits, 2 × (29, 26, 26) launches a rank; under HSDP each rank's
+    bytes of parameters and moments against phase 11's unsharded model's
+    (predicted 0.5000) and the single-card state gathered and loaded back
+    bit for bit;
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -4695,17 +4713,21 @@ def pipe_work(device) -> dict:
 
 
 def axes_rank(rank: int, tmp: str, t0: float) -> None:
-    """One rank of phases 37 and 38, in a process of its own on card 0, each
+    """One rank of phases 37 to 40, in a process of its own on card 0, each
     group over gloo, one after the other: ranks 0 and 1 the MoE config's
     steps (``moe_steps``) at dp2 and dp1×ep2 (rank 0 writes ``tmp/ep2.pth``)
-    while ranks 2 and 3 run ``pipe_work`` as ``create_pipeline_mesh(1, 2)``;
-    then all four the MoE config's steps at dp2×ep2. The MoE model is built
-    once a rank, first, and copied for each group."""
+    and phase 39's ``sp_work`` at dp1×sp2, while ranks 2 and 3 run
+    ``pipe_work`` as ``create_pipeline_mesh(1, 2)``; then all four the MoE
+    config's steps at dp2×ep2, phase 39's steps at dp2×sp2, and phase 40's
+    at replica2×dp1×tp2 (``axis_steps``) and replica2×dp2 under ZeRO-3
+    (``fsdp_steps``: HSDP). The MoE model is built once a rank, first, and
+    copied for each group."""
     import torch.distributed as dist
 
     from vtc_tpu_torch.parallel.expert import create_ep_mesh
     from vtc_tpu_torch.parallel.mesh import create_mesh
     from vtc_tpu_torch.parallel.pipeline import create_pipeline_mesh
+    from vtc_tpu_torch.parallel.sequence import create_sp_mesh
     from vtc_tpu_torch.parallel.stack import set_stack_parallel
 
     out = {"start": time.time() - t0}
@@ -4713,9 +4735,9 @@ def axes_rank(rank: int, tmp: str, t0: float) -> None:
     tic = time.perf_counter()
     base = model_from_config(MOE_CONFIG)
     out["build"] = time.perf_counter() - tic
-    runs = (("pp", "pipe", 1, PP_DEGREE),) if rank in PP_RANKS else EP_RUNS[:2]
-    for name, axis, n_data, n_second in runs + EP_RUNS[2:]:
-        world = n_data * n_second
+    runs = (("pp", "pipe", 1, PP_DEGREE),) if rank in PP_RANKS else EP_RUNS[:2] + SP_RUNS[:1]
+    for name, axis, n_data, n_second in runs + EP_RUNS[2:] + SP_RUNS[1:] + SLICE_RUNS:
+        world = n_data * n_second * (N_REPLICA if axis == "replica" else 1)
         group_rank = PP_RANKS.index(rank) if axis == "pipe" else rank
         tic = time.perf_counter()
         os.environ.update(RANK=str(group_rank), WORLD_SIZE=str(world))
@@ -4729,6 +4751,16 @@ def axes_rank(rank: int, tmp: str, t0: float) -> None:
                     out[name] = pipe_work(device)
                 finally:
                     set_stack_parallel(None)
+            elif axis == "seq":
+                set_stack_parallel("seq", create_sp_mesh(n_data, n_second, device=device))
+                try:
+                    out[name] = sp_work(device, extras=n_data == 1)
+                finally:
+                    set_stack_parallel(None)
+            elif axis == "replica":
+                create_mesh(n_data, n_second, n_replica=N_REPLICA, device=device)
+                out[name] = fsdp_steps(device, {}) if name.endswith("fsdp") \
+                    else axis_steps(device)
             else:
                 make = create_mesh if axis == "model" else create_ep_mesh
                 make(n_data, n_second, device=device)
@@ -4856,12 +4888,194 @@ def check_pipeline(smi, stages: list, parity: dict, video_one: list, plain: floa
         f"{json.dumps({k: round(v, 2) for k, v in ours['seconds'].items()})}; on {smi}")
 
 
-def run_axes(ops, smi, parity: dict, plain: float) -> None:
-    """Phases 37 and 38 in one spawn of 4 ranks on card 0 (``axes_rank``):
+# ---- phases 39 and 40: the sequence axis, multi-slice (in phases 37-38's spawn) ------
+
+# (name, axis, n_data, n_second); ranks 0 and 1 run dp1xsp2 after their MoE
+# groups, then all four dp2xsp2 and phase 40's replica2 meshes (the replica
+# axis is 2: rank r·D·M + d·M + m)
+SP_RUNS = (("dp1xsp2", "seq", 1, 2), ("dp2xsp2", "seq", 2, 2))
+SLICE_RUNS = (("r2xdp1xtp2", "replica", 1, 2), ("r2xdp2_fsdp", "replica", 2, 1))
+N_REPLICA = 2
+SP_STEPS = 2  # of phase 11's 3
+# one forward of the video model with its text tower and CAM on the ring: the
+# TimeSformer's 12 spatial fused_mha stay, the text's 12 and the CAM's 2 go
+SP_VIDEO_LAUNCHES = dict(EXPECTED_VIDEO_LAUNCHES, fused_mha=12)
+
+
+def axis_steps(device) -> dict:
+    """The first ``SP_STEPS`` of phase 11's fp32 steps of the flagship
+    config on the current mesh (split over its model axis where it has one,
+    DDP over its batch axis, each rank its rows; the stacks on the ring on
+    a seq mesh): each loss, the step-1 gradients gathered, the launches and
+    the stack counts of the steps."""
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.models.cam import draw_adapter_skip
+    from vtc_tpu_torch.ops.losses import clip_loss
+    from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.parallel.stack import reset_stack_counts, stack_counts
+    from vtc_tpu_torch.parallel.tensor import full_tensors, shard_model
+    from vtc_tpu_torch.training import train_step
+
+    inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
+    gen = torch.Generator().manual_seed(6)
+    draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)} for _ in range(SP_STEPS)]
+    model = shard_model(model_from_config(TRAIN_CONFIG))
+    optimizer, scheduler = config_optimizer(model, TRAIN_CONFIG)
+    grads = {}
+
+    def keep_first_grads(opt, args, kwargs):
+        if not grads:
+            grads.update({n: None if p.grad is None else p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+
+    optimizer.register_step_pre_hook(keep_first_grads)
+    ddp = data_parallel(model, device)
+    data = [shard_batch(x).to(device) for x in inputs]
+    torch.cuda.synchronize()
+    # the path's run: counts from 0 just before, read just after
+    ops.reset_launch_counts()
+    reset_stack_counts()
+    tic = time.perf_counter()
+    losses = [train_step(ddp, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
+              for d in draws]
+    torch.cuda.synchronize()
+    out = {"losses": losses, "launches": ops.launch_counts(), "stacks": dict(stack_counts()),
+           "steps_s": time.perf_counter() - tic,
+           "grads": {n: None if g is None else g.cpu()
+                     for n, g in full_tensors(model, grads).items()}}
+    del ddp, model, optimizer, data, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_work(device, extras: bool) -> dict:
+    """Phase 39's work on a rank of the current seq mesh, the stacks' ring
+    on: ``axis_steps``; with ``extras`` also the video config's fp32 forward
+    at batch ``PP_VIDEO_BATCH`` (features, launches, stack counts) and the
+    bf16 step at phase 12's batch (samples/s)."""
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.parallel.stack import reset_stack_counts, stack_counts
+
+    out = axis_steps(device)
+    if not extras:
+        return out
+    tic = time.perf_counter()
+    video = video_model().eval()
+    vin = [x.to(device) for x in bench_inputs(PP_VIDEO_BATCH, 32, seed=3, frames=NFRAMES)]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        reset_stack_counts()
+        feats = video(*vin)
+        torch.cuda.synchronize()
+    out.update(video_feats=[f.cpu() for f in feats[:2]], video_launches=ops.launch_counts(),
+               video_stacks=dict(stack_counts()), video_s=time.perf_counter() - tic)
+    del video, vin, feats
+    torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    out["rate"] = tp_bench(*bench_model(split=False), PP_BENCH["steps"], PP_BENCH["warmup"])
+    out["bench_s"] = time.perf_counter() - tic
+    return out
+
+
+def check_sequence(smi, spawned: list, parity: dict, video_one: list, plain: float,
+                   rtol: float) -> None:
+    """Phase 39's checks: each ``SP_RUNS`` group's steps against phase 11's
+    card steps (the losses within ``LOSS_ATOL``, the step-1 gradients within
+    ``rtol`` and equal on every rank), every stack of every forward on the
+    ring (3 a forward: the ViT at L = 50, the text tower at its EOT bucket,
+    the CAM at L = 6), the launches a rank (``layernorm`` and
+    ``add_layernorm`` as one rank's, no ``fused_mha``: the ring attends in
+    its place); at dp1xsp2 the video config's forward against one rank's
+    (its TimeSformer sequential, so its ``fused_attention`` and spatial
+    ``fused_mha`` launch) and the bf16 ring step beside phase 12's plain one
+    (a reading, no claim)."""
+    want = {k: SP_STEPS * v for k, v in dict(EXPECTED_LAUNCHES, fused_mha=0).items()}
+    for name, _, n_data, n_seq in SP_RUNS:
+        ranks = [r[name] for r in spawned[:n_data * n_seq]]
+        what = f"sequence axis {name} over gloo"
+        ours = ranks[0]
+        compare_losses(what, ours["losses"], parity["losses"], names=(name, "phase 11"))
+        compare_grads(f"{what} vs phase 11", ours["grads"], parity["grads"], rtol=rtol)
+        for r, out in enumerate(ranks):
+            require(out["losses"] == ours["losses"], f"{what} rank {r} losses {out['losses']}")
+            for n, g in out["grads"].items():
+                ref = ours["grads"][n]
+                require((g is None) == (ref is None) and (g is None or torch.equal(g, ref)),
+                        f"{what} rank {r}: {n}'s gradient differs from rank 0's")
+            log(f"kernel use (rank {r} of {what}, {SP_STEPS} fp32 steps): "
+                f"{json.dumps(out['launches'])}; stacks {out['stacks']}; steps "
+                f"{out['steps_s']:.2f} s, the group {out['seconds_total']:.1f} s")
+            require(out["launches"] == want, f"{what} rank {r} launches {out['launches']}")
+            require(out["stacks"] == {"ring": 3 * SP_STEPS},
+                    f"{what} rank {r}: stacks {out['stacks']} (the ViT, text and CAM stacks "
+                    f"on the ring at every step)")
+        if name != "dp1xsp2":
+            continue
+        for r, out in enumerate(ranks):
+            err = max((a - b).abs().max().item() for a, b in zip(out["video_feats"], video_one))
+            log(f"{what} rank {r}: the video config's fp32 forward at batch {PP_VIDEO_BATCH} "
+                f"within {err:.3g} of one rank's (atol {FEAT_ATOL:g}); launches "
+                f"{json.dumps(out['video_launches'])}, stacks {out['video_stacks']}")
+            require(err <= FEAT_ATOL, f"{what} rank {r}: the video forward differs by {err}")
+            require(out["video_launches"] == SP_VIDEO_LAUNCHES,
+                    f"{what} rank {r} video launches {out['video_launches']}")
+            require(out["video_stacks"] == {"ring": 2, "sequential": 1},
+                    f"{what} rank {r}: video stacks {out['video_stacks']}")
+        log(f"{what}: bf16 step at batch {TP_BENCH['batch']} on the ring {ours['rate']:.1f} "
+            f"samples/s ({PP_BENCH['steps']} steps after {PP_BENCH['warmup']}, beside phase "
+            f"38's stages on ranks 2 and 3), plain {plain:.1f} (phase 12; ring / plain "
+            f"{ours['rate'] / plain:.4f}: a reading of two ranks sharing one card over gloo, "
+            f"no claim); video {ours['video_s']:.1f} s, bench {ours['bench_s']:.1f} s; on {smi}")
+
+
+def check_slices(smi, spawned: list, parity: dict, rtol: float) -> None:
+    """Phase 40's checks: replica2xdp1xtp2's steps and replica2xdp2's under
+    ZeRO-3 (HSDP) against phase 11's card steps (the losses within
+    ``LOSS_ATOL``, the step-1 gradients within ``rtol``), ``SP_STEPS`` ×
+    (29, 26, 26) launches a rank; under HSDP each rank's bytes of
+    parameters and moments against phase 11's unsharded model's (a half:
+    sharded over data, whole over replica) and the single-card state
+    gathered and taken back bit for bit."""
+    want = {k: SP_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    whole_model = parity["held"]
+    whole = whole_model["param_bytes"] + whole_model["moment_bytes"]
+    for name, _, n_data, n_model in SLICE_RUNS:
+        ranks = [r[name] for r in spawned[:N_REPLICA * n_data * n_model]]
+        what = f"multi-slice {name} over gloo"
+        ours = ranks[0]
+        compare_losses(what, ours["losses"], parity["losses"], names=(name, "phase 11"))
+        compare_grads(f"{what} vs phase 11", ours["grads"], parity["grads"], rtol=rtol)
+        for r, out in enumerate(ranks):
+            require(out["losses"] == ours["losses"], f"{what} rank {r} losses {out['losses']}")
+            log(f"kernel use (rank {r} of {what}, {SP_STEPS} fp32 steps): "
+                f"{json.dumps(out['launches'])}; the group {out['seconds_total']:.1f} s")
+            require(out["launches"] == want, f"{what} rank {r} launches {out['launches']}")
+            if "param_bytes" not in out:
+                continue
+            mine = out["param_bytes"] + out["moment_bytes"]
+            log(f"{what} rank {r}: holds {out['param_bytes']:,} bytes of parameters and "
+                f"{out['moment_bytes']:,} of moments, memory_allocated after the steps "
+                f"{out['held']:,}; phase 11's unsharded model {whole_model['param_bytes']:,} "
+                f"+ {whole_model['moment_bytes']:,}: parameters + moments {mine / whole:.4f} "
+                f"of it (sharded over {n_data} data ranks, whole over {N_REPLICA} replicas)")
+            require(mine <= whole / n_data * 1.01 + 1e6,
+                    f"{what} rank {r} holds {mine} of {whole} bytes")
+            require(mine == ranks[r % n_data]["param_bytes"] + ranks[r % n_data]["moment_bytes"],
+                    f"{what} rank {r}: its bytes differ from its other replica's")
+            require(out["round_trip"], f"{what} rank {r}: the single-card state did not come "
+                                       f"back bit for bit")
+    log(f"multi-slice: the HSDP state gathered into the single-card layout and loaded back "
+        f"into the emptied sharded model bit for bit on every rank; on {smi}")
+
+
+def run_axes(ops, smi, parity: dict, plain: float) -> dict:
+    """Phases 37 to 40 in one spawn of 4 ranks on card 0 (``axes_rank``):
     while the ranks run, the one rank's references on the card (the MoE
     config's steps, the reorder floor of phase 11's step, the video
-    config's forward); then phase 37's checks (``check_moe_ranks``) and
-    phase 38's (``check_pipeline``)."""
+    config's forward); then phase 37's checks (``check_moe_ranks``), phase
+    38's (``check_pipeline``), phase 39's (``check_sequence``) and phase
+    40's (``check_slices``). -> the seconds of phase 39's and phase 40's
+    groups on rank 0."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -4882,7 +5096,7 @@ def run_axes(ops, smi, parity: dict, plain: float) -> None:
         del video
         torch.cuda.empty_cache()
         refs_s = time.perf_counter() - tic
-        spawned = wait_on_card(context, 4, tmp, RANKS_TIMEOUT, "phases 37-38")
+        spawned = wait_on_card(context, 4, tmp, RANKS_TIMEOUT, "phases 37-40")
         spawn_s = time.perf_counter() - phase_tic
         from vtc_tpu_torch.training import load_checkpoint
 
@@ -4891,10 +5105,18 @@ def run_axes(ops, smi, parity: dict, plain: float) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     check_moe_ranks(spawned, one, ckpt, rtol)
     check_pipeline(smi, [spawned[r]["pp"] for r in PP_RANKS], parity, video_one, plain, rtol)
-    log(f"phases 37-38 took {time.perf_counter() - phase_tic:.1f} s (the ranks' spawn and "
+    check_sequence(smi, spawned, parity, video_one, plain, rtol)
+    check_slices(smi, spawned, parity, rtol)
+    groups = {name: round(spawned[0][name]["seconds_total"], 1)
+              for name, *_ in EP_RUNS + SP_RUNS + SLICE_RUNS}
+    groups["pp"] = round(spawned[PP_RANKS[0]]["pp"]["seconds_total"], 1)
+    log(f"phases 37-40 took {time.perf_counter() - phase_tic:.1f} s (the ranks' spawn and "
         f"work {spawn_s:.1f} s, the one rank's references beside them {refs_s:.1f} s; the "
         f"ranks' start {[round(r['start'], 1) for r in spawned]} s, MoE builds "
-        f"{[round(r['build'], 1) for r in spawned]} s); on {smi}")
+        f"{[round(r['build'], 1) for r in spawned]} s; each group's seconds on its first "
+        f"rank {json.dumps(groups)}); on {smi}")
+    return {"39": groups["dp1xsp2"] + groups["dp2xsp2"],
+            "40": sum(groups[name] for name, *_ in SLICE_RUNS)}
 
 
 def main() -> int:
@@ -5172,11 +5394,13 @@ def main() -> int:
     # 36. the joint-layout TimeSformer and the cross route at (1, 393)
     joint_launches, results["fused_mha_cross"] = run_joint(ops, smi)
 
-    mark("37-38")
+    mark("37-40")
     # 37. the MoE config on dp2, dp1xep2 and dp2xep2 over gloo against one rank;
-    # 38. the pipe axis: phase 11's steps and the video forward on dp1xpp2; one
-    # spawn of 4 ranks, within the card's reorder floor of phase 11's step
-    run_axes(ops, smi, parity_steps, plain_rate)
+    # 38. the pipe axis: phase 11's steps and the video forward on dp1xpp2;
+    # 39. the sequence axis: phase 11's steps on dp1xsp2 and dp2xsp2, the video
+    # forward; 40. multi-slice: replica2xdp1xtp2, replica2xdp2 under ZeRO-3 (HSDP);
+    # one spawn of 4 ranks, within the card's reorder floor of phase 11's step
+    group_seconds = run_axes(ops, smi, parity_steps, plain_rate)
 
     mark("31")
     # 31. results: each kernel's launches from the path that runs it
@@ -5197,8 +5421,10 @@ def main() -> int:
             "library_ms": head["library_ms"],
         })
     mark("end")
-    log("phase seconds (from each start to the next): " + json.dumps(
-        {p: round(t1 - t0, 1) for (p, t0), (_, t1) in zip(marks, marks[1:])}))
+    seconds = {p: round(t1 - t0, 1) for (p, t0), (_, t1) in zip(marks, marks[1:])}
+    # phases 39 and 40 run inside 37-40's spawn: their groups' own seconds
+    seconds.update({f"{p} (groups in 37-40)": t for p, t in group_seconds.items()})
+    log("phase seconds (from each start to the next): " + json.dumps(seconds))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,24 @@ def _bench_py_keys():
     return keys
 
 
-def test_bench_line_has_bench_py_keys(capsys):
+def test_bench_line_has_bench_py_keys(capsys, monkeypatch):
+    """Every branch of ``bench.main``; its train companion and full-context
+    pass run through the real code at batch 4 and 1 iteration, since their
+    sizes are the card's, not ``BENCH_BATCH``'s."""
+    from vtc_tpu_torch.scripts import bench_train_step
+
+    run, train = bench.run, bench_train_step.main
+
+    def small_run(batch, iters, warmup, dtype_name, ntoks=16, **kw):
+        if ntoks == 77:  # the full-context pass
+            batch, iters, warmup, kw["windows"] = 4, 1, 0, 1
+        return run(batch, iters, warmup, dtype_name, ntoks, **kw)
+
+    def small_train(batch, ntoks, **kw):
+        return train(4, ntoks, **dict(kw, iters=1, warmup=0, windows=1))
+
+    monkeypatch.setattr(bench, "run", small_run)
+    monkeypatch.setattr(bench_train_step, "main", small_train)
     env = {"BENCH_BATCH": "4", "BENCH_ITERS": "1"}
     result = bench.main(env, device="cpu", flagship=TINY)
     line = capsys.readouterr().out.strip().splitlines()

@@ -20,7 +20,8 @@ and against the sequential stack.
   every rank's parameters equal after.
 * The train twin at ``--n_devices 2 --pp 2``: a single-card ``.pth`` that a
   whole model loads strictly, a resume that restores it.
-* ``--sp``, ``--slices`` and the ``"seq"`` mode refused by name.
+* ``--slices`` beside the pipe and sequence axes and ZeRO-3 beside the
+  pipe and expert axes refused by name.
 * On the card (``-m cuda``): the flagship's dp1×pp2 step over gloo against
   one rank.
 
@@ -303,19 +304,27 @@ def test_twin_at_pp2_writes_single_card_checkpoints(pp_runs):
 
 
 def test_sp_slices_and_seq_are_refused_by_name():
+    """What stays refused beside the pipe and sequence axes: ``--slices``
+    beside pp/sp/ep (as ``vtc_tpu``'s ``train.py``), ZeRO-3 beside the pipe
+    and expert axes (naming its ROADMAP item), the ``"seq"`` mode without
+    its mesh axis."""
     from vtc_tpu_torch.parallel.mesh import check_axes
     from vtc_tpu_torch.parallel.stack import set_stack_parallel, stack_parallel_mode
 
-    for kw in ({"sp": 2}, {"slices": 2}, {"sp": 4}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
-            check_axes(1, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
+    for kw in ({"sp": 2}, {"pp": 2}, {"sp": 4}):
+        with pytest.raises(ValueError, match="composes with dp/tp/fsdp"):
+            check_axes(1, slices=2, **kw)
+    with pytest.raises(ValueError, match="needs the mesh"):
         set_stack_parallel("seq", None)
     with pytest.raises(ValueError, match="at most one non-data mesh axis"):
         check_axes(2, pp=2)
     with pytest.raises(NotImplementedError, match="ZeRO-3"):
         check_axes(1, pp=2, fsdp=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
+        check_axes(1, ep=2, fsdp=True)
     check_axes(1, pp=2)
+    check_axes(1, sp=2, fsdp=True)
+    check_axes(2, slices=2, fsdp=True)
     assert stack_parallel_mode() is None
 
 

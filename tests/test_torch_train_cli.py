@@ -17,8 +17,8 @@
   epochs (``test_trainer_matches_jax_trainer``'s tolerance); both write
   their epoch checkpoints.
 * The refusals: ``loader: grain``, ``--multihost`` without the process
-  topology ``torchrun`` exports, ``pp``, ``sp``, ``ep``, ``slices``, the
-  R(2+1)D video datasets, ``--n_devices`` on a machine with
+  topology ``torchrun`` exports, ``slices`` beside ``sp``, ``pp`` and
+  ``ep``, ``fsdp`` beside ``pp`` and ``ep``, the R(2+1)D video datasets, ``--n_devices`` on a machine with
   the cards but no process group (the ``torchrun`` line); the unsharded
   warning on one without them; the MSRVTT probe off without its root.
   ``fsdp`` (alone and beside ``n_model``) passes the mesh check; its runs
@@ -418,21 +418,32 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
     assert str(config.save_dir).startswith(str(tmp_path / "s"))
 
 
-@pytest.mark.parametrize("extra, match", [
-    ({"loader": "grain"}, "grain"),
-    ({"sp": 2}, "distribution"),
-    ({"slices": 2}, "distribution"),
-    ({"fsdp": 1, "pp": 2}, "Queue 1 item 9"),
-    ({"slices": 2, "n_model": 2}, "Queue 1 item 9"),
+@pytest.mark.parametrize("extra, error, match", [
+    pytest.param({"loader": "grain"}, NotImplementedError, "grain", id="extra0-grain"),
+    pytest.param({"slices": 2, "sp": 2}, ValueError, "composes with dp/tp/fsdp",
+                 id="extra1-distribution"),
+    pytest.param({"slices": 2, "pp": 2}, ValueError, "composes with dp/tp/fsdp",
+                 id="extra2-distribution"),
+    pytest.param({"fsdp": 1, "pp": 2}, NotImplementedError, "Queue 1 item 9",
+                 id="extra3-Queue 1 item 9"),
+    pytest.param({"fsdp": 1, "ep": 2, "arch": {"args": {"moe_experts": 4}}},
+                 NotImplementedError, "Queue 1 item 9", id="extra4-Queue 1 item 9"),
+    pytest.param({"slices": 2, "ep": 2}, ValueError, "composes with dp/tp/fsdp",
+                 id="slices-beside-ep"),
 ])
-def test_twin_refusals(tmp_path, extra, match):
-    """What the port does not shard raises by name: the sequence and
-    multi-slice axes (also beside the model axis) and ZeRO-3 beside the
-    pipe axis (``--pp`` and ``--ep`` train: tests/test_torch_pipeline.py,
-    tests/test_torch_ep.py)."""
-    config = ConfigParser(_config(tmp_path, "x.csv", "x", **extra))
-    with pytest.raises(NotImplementedError, match=match):
-        twin.main(config, device="cpu")
+def test_twin_refusals(tmp_path, extra, error, match):
+    """What stays refused raises by name: ``--slices`` beside the sequence,
+    pipe and expert axes (``ValueError``, as ``vtc_tpu``'s ``train.py``) and
+    ZeRO-3 beside the pipe and expert axes (naming its ROADMAP item; the
+    axes train: tests/test_torch_sequence.py, tests/test_torch_slices.py,
+    tests/test_torch_pipeline.py, tests/test_torch_ep.py)."""
+    extra = dict(extra)
+    arch = extra.pop("arch", None)
+    cfg = _config(tmp_path, "x.csv", "x", **extra)
+    if arch:
+        cfg["arch"]["args"].update(arch["args"])
+    with pytest.raises(error, match=match):
+        twin.main(ConfigParser(cfg), device="cpu")
 
 
 @pytest.mark.parametrize("extra", [{"fsdp": 1}, {"n_model": 2, "fsdp": 1}])

@@ -1,6 +1,7 @@
 """What each rank of ``tests/test_torch_dist.py`` (and of the other
 spawned-rank files: ``test_torch_tp.py``, ``test_torch_fsdp.py``,
-``test_torch_ep.py``, ``test_torch_pipeline.py``) runs, in a process of its
+``test_torch_ep.py``, ``test_torch_pipeline.py``, ``test_torch_sequence.py``,
+``test_torch_slices.py``) runs, in a process of its
 own: a module the spawned children import (they cannot unpickle a test's
 closure), with no JAX, as on the card's machine.
 
@@ -526,7 +527,10 @@ def _make_mesh(axis, n_data, n_second, device="cpu"):
 
     if torch.device(device).type == "cuda":
         os.environ["LOCAL_RANK"] = "0"
-    make = {"model": create_mesh, "expert": create_ep_mesh, "pipe": create_pipeline_mesh}
+    from vtc_tpu_torch.parallel.sequence import create_sp_mesh
+
+    make = {"model": create_mesh, "expert": create_ep_mesh, "pipe": create_pipeline_mesh,
+            "seq": create_sp_mesh}
     return make[axis](n_data, n_second, device=device)
 
 
@@ -597,11 +601,13 @@ def stack_forward(fwd: dict) -> dict:
     """One stack (``fwd["kind"]``: a ``layers.Transformer`` or the
     TimeSformer's, built from ``fwd["args"]`` with ``fwd["state_dict"]``) on
     the whole ``fwd["x"]`` on every data place, then the backward of
-    ``sum(y · c)`` and ``pipeline.sync_gradients``: the output, the input's
-    gradient and the parameter gradients."""
+    ``sum(y · c)``, ``pipeline.sync_gradients`` and
+    ``sequence.sync_ring_gradients``: the output, the input's gradient and
+    the parameter gradients."""
     from vtc_tpu_torch.models.layers import Transformer
     from vtc_tpu_torch.models.timesformer import TimeSformerTransformer
     from vtc_tpu_torch.parallel.pipeline import sync_gradients
+    from vtc_tpu_torch.parallel.sequence import sync_ring_gradients
 
     cls = {"transformer": Transformer, "timesformer": TimeSformerTransformer}[fwd["kind"]]
     stack = cls(*fwd["args"], **fwd.get("kwargs", {}))
@@ -610,6 +616,7 @@ def stack_forward(fwd: dict) -> dict:
     y = stack(x, fwd["extra"])
     (y * torch.from_numpy(fwd["c"])).sum().backward()
     sync_gradients(stack)
+    sync_ring_gradients(stack)
     return {"y": y.detach(), "x_grad": x.grad,
             "grads": {n: p.grad for n, p in stack.named_parameters()}}
 
@@ -640,3 +647,101 @@ def run_pp(rank, world, tmp):
         out["cli"] = _twin_cli(tmp, ["--n_devices", str(world // 2), "--pp", "2",
                                      "--n_micro", str(spec["n_micro"])])
     torch.save(out, tmp / f"pp_rank{rank}.pt")
+
+
+# ---- the sequence axis (tests/test_torch_sequence.py) ----------------------------------
+
+def video_forward(spec: dict) -> dict:
+    """The test-tiny video model (``spec["state_dict"]``, 4 frames) in eval
+    on the whole ``spec["inputs"]``: its features and the stack counts."""
+    from vtc_tpu_torch.models.retrieval import PretrainedCLIP_TimeSformer_finaltf
+    from vtc_tpu_torch.parallel.stack import reset_stack_counts, stack_counts
+
+    model = PretrainedCLIP_TimeSformer_finaltf(model_type=TINY, nframes=spec["nframes"])
+    model.load_state_dict(spec["state_dict"], strict=True)
+    reset_stack_counts()
+    with torch.no_grad():
+        out = model.eval()(*[torch.from_numpy(a) for a in spec["inputs"]])
+    return {"feats": [o.clone() for o in out[:2]], "counts": stack_counts()}
+
+
+def _seq_work(spec, mesh_spec, name):
+    """The stack forwards and step cases of ``spec[name]`` on a fresh
+    ``("data", "seq")`` mesh of ``mesh_spec``, the ring on: each with its
+    stack counts."""
+    from vtc_tpu_torch.parallel.stack import (
+        reset_stack_counts,
+        set_stack_parallel,
+        stack_counts,
+    )
+
+    set_stack_parallel("seq", _make_mesh("seq", *mesh_spec))
+    out = {}
+    try:
+        for key, fwd in spec.get(name, {}).get("forwards", {}).items():
+            reset_stack_counts()
+            out[key] = dict(stack_forward(fwd), counts=stack_counts())
+        for key, case in spec.get(name, {}).get("cases", {}).items():
+            reset_stack_counts()
+            out[key] = dict(step_case(case), counts=stack_counts())
+        if "video" in spec.get(name, {}):
+            out["video"] = video_forward(spec[name]["video"])
+    finally:
+        set_stack_parallel(None)
+    return out
+
+
+def run_sp(rank, world, tmp):
+    """Every check of ``tests/test_torch_sequence.py`` in one spawn of 4:
+    on the 4-rank group, the spec's ``"sp4"`` work on
+    ``create_sp_mesh(1, 4)``, then its ``"dp2xsp2"`` work on
+    ``create_sp_mesh(2, 2)``; then the group is left for two of 2 ranks,
+    each ``create_sp_mesh(1, 2)``: ranks 0 and 1 the ``"dp1xsp2"`` work,
+    ranks 2 and 3 the train twin at ``--sp 2`` with a resume."""
+    import torch.distributed as dist
+
+    spec = torch.load(tmp / "sp.pt", weights_only=False)
+    out = {"sp4": _seq_work(spec, (1, 4), "sp4"),
+           "dp2xsp2": _seq_work(spec, (2, 2), "dp2xsp2")}
+    dist.destroy_process_group()
+    pair, pair_rank = rank // 2, rank % 2
+    os.environ.update(RANK=str(pair_rank), WORLD_SIZE="2")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_pair{pair}",
+                            rank=pair_rank, world_size=2)
+    if pair == 0:
+        out["dp1xsp2"] = _seq_work(spec, (1, 2), "dp1xsp2")
+    elif spec.get("cli"):
+        out["cli"] = _twin_cli(tmp, ["--n_devices", "1", "--sp", "2"])
+    torch.save(out, tmp / f"sp_rank{rank}.pt")
+
+
+# ---- the replica axis (tests/test_torch_slices.py) --------------------------------------
+
+def run_slices(rank, world, tmp):
+    """Each mesh of ``tmp/slices.pt`` in turn (``(name, (n_replica, n_data,
+    n_model), cases)``) as ``create_mesh(n_data, n_model,
+    n_replica=n_replica)``: its axes as this rank sees them, then every
+    step case on it; where the spec has it, the train twin at ``--slices 2
+    --n_devices 2 --fsdp 1`` with a resume."""
+    from vtc_tpu_torch.parallel import mesh as M
+
+    spec = torch.load(tmp / "slices.pt", weights_only=False)
+    out = {}
+    for name, (n_replica, n_data, n_model), cases in spec["meshes"]:
+        mesh = M.create_mesh(n_data, n_model, n_replica=n_replica, device="cpu")
+        out[name] = {"axes": {"names": mesh.mesh_dim_names, "ranks": mesh.mesh.clone(),
+                              "data": (M.data_rank(), M.data_world()),
+                              "model": (M.model_rank(), M.model_world()),
+                              "data_ranks": dist_ranks(M.data_group())}}
+        for case_name, case in cases.items():
+            out[name][case_name] = step_case(case)
+    if spec.get("cli"):
+        out["cli"] = _twin_cli(tmp, ["--slices", "2", "--n_devices", "2", "--fsdp", "1"])
+    torch.save(out, tmp / f"slices_rank{rank}.pt")
+
+
+def dist_ranks(group) -> list:
+    """The global ranks of ``group``, in its rank order."""
+    import torch.distributed as dist
+
+    return [dist.get_global_rank(group, i) for i in range(dist.get_world_size(group))]

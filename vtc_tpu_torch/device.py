@@ -6,10 +6,10 @@ from typing import Optional, Union
 
 import torch
 
-# what a refusal of a distributed mode names: the data, model, expert and
-# pipe axes and ZeRO-3 (FSDP2) run (one process per card under torchrun), and
-# so do the sharded gallery and encode; the sequence and multi-slice axes
-# (item 9c) do not
+# what a refusal of a distributed mode names: the data, model, expert, pipe,
+# sequence and replica axes and ZeRO-3 (FSDP2, HSDP over replicas) run (one
+# process per card under torchrun), and so do the sharded gallery and encode;
+# ZeRO-3 beside the expert or pipe axis (item 9c) does not
 DISTRIBUTION = "ROADMAP: Queue 1 item 9c, the other axes of distribution on torch.distributed"
 
 # the card's figures (the H100 SXM data sheet), for bounds and MFU: the HBM3

@@ -31,10 +31,12 @@ forward through the model axis's two collectives, ``out_proj``'s and
 ``c_proj``'s biases added after the all-reduce.
 
 A ``Transformer`` consults ``parallel.stack`` at each forward: under
-``train.py --pp`` its blocks run as a GPipe pipeline over the stage ranks.
+``train.py --pp`` its blocks run as a GPipe pipeline over the stage ranks,
+under ``--sp`` each block on its sequence shard with ring attention
+(``parallel.sequence``).
 
-TPU-era means are left out: ``seq_fold``, the fused LN->Dense path, the
-per-projection qkv form of GSPMD and the sequence axis (ROADMAP). Where
+TPU-era means are left out: ``seq_fold``, the fused LN->Dense path and the
+per-projection qkv form of GSPMD (ROADMAP). Where
 the JAX package folds short sequences into one masked attention call
 (``seq_fold=0``, the TimeSformer's temporal attention), the port attends
 each sequence on its own: the masked cross-sequence entries are exactly 0
@@ -133,9 +135,15 @@ class MultiHeadAttention(nn.Module):
         """The heads this rank attends over."""
         return self.num_heads // (1 if self.tp is None else self.tp.size)
 
-    def forward(self, x, causal: bool = False):
+    def forward(self, x, causal=False):
+        """``causal``: a bool, or the ring of a sequence shard
+        (``parallel.sequence.Ring``), which attends in ``fused_mha``'s
+        stead over every shard's keys."""
         q, k, v = self.qkv(into_split(x, self.tp))
-        out = fused_mha(q, k, v, self.local_heads, causal)
+        if isinstance(causal, bool):
+            out = fused_mha(q, k, v, self.local_heads, causal)
+        else:
+            out = causal.attend(q, k, v, self.local_heads)
         return row_parallel_dense(out, self.out_proj, self.dtype, self.tp)
 
 
@@ -229,7 +237,7 @@ class Transformer(nn.Module):
     def forward(self, x, causal: bool = False):
         from ..parallel.stack import stack_parallel_mode, transformer_stack_override
 
-        if stack_parallel_mode() is not None:  # train.py --pp: GPipe over the stages
+        if stack_parallel_mode() is not None:  # train.py --pp or --sp
             out = transformer_stack_override(self, x, causal)
             if out is not None:
                 return out

@@ -29,7 +29,7 @@ on the same rows:
   the statistics of the global batch with one device's ops and keep their
   own rows (``models.cam``, ``models.layers.TorchBatchNorm``).
 
-The second axis is one of three, as in ``vtc_tpu`` (at most one non-data
+The second axis is one of four, as in ``vtc_tpu`` (at most one non-data
 axis a run, ``check_axes``):
 
 * ``model`` (``create_mesh``): ``parallel.tensor``'s Megatron-style tensor
@@ -38,15 +38,28 @@ axis a run, ``check_axes``):
   split over it, each rank running its experts on the dispatched tokens of
   the whole data group;
 * ``pipe`` (``parallel.pipeline.create_pipeline_mesh``): GPipe over the
-  block stacks (``parallel.stack``), every parameter whole on every rank.
+  block stacks (``parallel.stack``), every parameter whole on every rank;
+* ``seq`` (``parallel.sequence.create_sp_mesh``): ring attention over
+  the block stacks' sequence shards (``parallel.stack``), every parameter
+  whole on every rank.
 
 Each creator keeps its ``DeviceMesh`` as the current mesh, rank ``d·n + i``
 at ``(d, i)``; ``axis_group``/``axis_rank``/``axis_world`` read any axis
 (an axis the mesh lacks is this rank alone). ZeRO-3 (``fsdp``,
 ``vtc_tpu``'s ``tree_shardings(..., fsdp=True)``) is FSDP2's
 ``fully_shard`` over the data axis (``fully_shard_model``), alone or on top
-of the model axis's split. The sequence and multi-slice axes are refused by
-``check_axes``, naming their ROADMAP item.
+of the model axis's split or beside the sequence axis.
+
+**Multi-slice.** ``create_mesh(n_data, n_model, n_replica=R)`` lays the
+group out as ``vtc_tpu``'s ``("replica", "data", "model")`` mesh, rank
+``r·D·M + d·M + m`` at ``(r, d, m)``. The batch is split over replica and
+data together (``vtc_tpu``'s ``batch_pspec``, ``P(("replica", "data"))``):
+``data_group`` is then the flattened replica × data group of this rank's
+model place, ranked ``r·D + d``, so ``shard_batch``, DDP, the gathers and
+the evaluations' split run on it unchanged. Under ``--fsdp`` the replica
+axis replicates and the data axis shards (FSDP2's HSDP on the 2-D
+``("replica", "data")`` mesh): each rank holds ``1/D`` of each parameter and
+moment, as ``vtc_tpu``'s ``tree_shardings`` shards over ``data`` alone.
 
 **ZeRO-3.** ``fully_shard_model`` shards each residual block (the visual
 and text towers', the CAM's, the TimeSformers') as a unit, then the root,
@@ -90,7 +103,10 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
 PIPE_AXIS = "pipe"
+SEQ_AXIS = "seq"
+REPLICA_AXIS = "replica"
 _MESH = None  # the newest mesh creator's
+_BATCH_GROUP = None  # the flattened replica × data group of a replica mesh
 
 
 def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
@@ -98,9 +114,9 @@ def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
     """The axes of a run, checked as ``vtc_tpu``'s ``train.py:121-146``
     checks them: at most one non-data axis (``n_model``, ``pp``, ``sp``,
     ``ep``), ``slices`` not beside pp/sp/ep and ``ep`` only for a model with
-    mixture-of-experts layers (``moe``) raise ``ValueError``; the axes the
-    port does not shard (``sp``, ``slices``) and ZeRO-3 beside the expert or
-    pipe axis raise ``NotImplementedError`` naming their ROADMAP item."""
+    mixture-of-experts layers (``moe``) raise ``ValueError``; ZeRO-3 beside
+    the expert or pipe axis raises ``NotImplementedError`` naming its
+    ROADMAP item."""
     n_model, pp, sp, ep, slices = (int(v or 1) for v in (n_model, pp, sp, ep, slices))
     if min(n_model, pp, sp, ep, slices) < 1:
         raise ValueError(f"--n_model {n_model} --pp {pp} --sp {sp} --ep {ep} --slices "
@@ -115,52 +131,63 @@ def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
         raise ValueError("--ep shards mixture-of-experts stacks over an expert mesh axis, "
                          "but this arch has no MoE (set arch;args;moe_experts, e.g. "
                          "configs/pretrained_clip_comments_attn_moe.jsonc)")
-    for key, value in (("sp", sp), ("slices", slices)):
-        if value > 1:
-            raise NotImplementedError(
-                f"--{key} {value}: the sequence and multi-slice axes are not ported; the "
-                f"port shards the data, model, expert and pipe axes and ZeRO-3 "
-                f"({DISTRIBUTION})")
     if fsdp and max(pp, ep) > 1:
         raise NotImplementedError(
-            f"--fsdp beside --pp {pp} / --ep {ep}: ZeRO-3 composes with the data and "
-            f"model axes in the port ({DISTRIBUTION})")
+            f"--fsdp beside --pp {pp} / --ep {ep}: ZeRO-3 composes with the data, model, "
+            f"sequence and replica axes in the port ({DISTRIBUTION})")
 
 
-def _make_mesh(n_data, n_second: int, axis: str, device):
+def _make_mesh(n_data, n_second: int, axis: str, device, n_replica: int = 1):
     """The process group as a ``("data", axis)`` ``DeviceMesh`` of
-    ``n_data × n_second`` ranks, rank ``d·n_second + i`` at ``(d, i)``,
-    kept as the current mesh; None for one process without a group."""
-    global _MESH
-    n_second = int(n_second or 1)
-    flag = {MODEL_AXIS: "--n_model", EXPERT_AXIS: "--ep", PIPE_AXIS: "--pp"}[axis]
+    ``n_data × n_second`` ranks, rank ``d·n_second + i`` at ``(d, i)``
+    (with ``n_replica`` R > 1, ``("replica", "data", axis)`` of ``R ×
+    n_data × n_second``, rank ``r·n_data·n_second + d·n_second + i``), kept
+    as the current mesh; None for one process without a group."""
+    global _MESH, _BATCH_GROUP
+    n_second, n_replica = int(n_second or 1), int(n_replica or 1)
+    flag = {MODEL_AXIS: "--n_model", EXPERT_AXIS: "--ep", PIPE_AXIS: "--pp",
+            SEQ_AXIS: "--sp"}[axis]
+    slices = f" --slices {n_replica}" if n_replica > 1 else ""
     if not dist.is_initialized():
-        if n_second > 1 or int(n_data or 1) > 1:
+        if n_second * n_replica > 1 or int(n_data or 1) > 1:
             raise RuntimeError(
-                f"a {n_data or 1}x{n_second} mesh runs one process per card: launch "
-                f"`torchrun --nproc_per_node {(n_data or 1) * n_second}` and pass "
-                f"--n_devices {n_data or 1} {flag} {n_second}")
-        _MESH = None
+                f"a {n_replica}x{n_data or 1}x{n_second} mesh runs one process per card: "
+                f"launch `torchrun --nproc_per_node "
+                f"{n_replica * (n_data or 1) * n_second}` and pass --n_devices "
+                f"{n_data or 1} {flag} {n_second}{slices}")
+        _MESH = _BATCH_GROUP = None
         return None
     w = world()
-    n_data = w // n_second if n_data is None else int(n_data)
-    if n_data * n_second != w:
-        raise ValueError(f"a {n_data}x{n_second} mesh over a group of {w} processes: "
-                         f"launch {n_data * n_second} (n_devices x {flag[2:]})")
+    n_data = w // (n_second * n_replica) if n_data is None else int(n_data)
+    if n_replica * n_data * n_second != w:
+        raise ValueError(f"a {n_replica}x{n_data}x{n_second} mesh over a group of {w} "
+                         f"processes: launch {n_replica * n_data * n_second} (slices x "
+                         f"n_devices x {flag[2:]})")
     from torch.distributed.device_mesh import DeviceMesh
 
-    _MESH = DeviceMesh(torch.device(device).type, torch.arange(w).reshape(n_data, n_second),
-                       mesh_dim_names=(DATA_AXIS, axis))
+    ranks = torch.arange(w).reshape(n_replica, n_data, n_second)
+    _BATCH_GROUP = None
+    if n_replica > 1:
+        # every rank makes every model place's replica × data group, in order
+        _BATCH_GROUP, _ = dist.new_subgroups_by_enumeration(
+            [ranks[:, :, i].flatten().tolist() for i in range(n_second)])
+        _MESH = DeviceMesh(torch.device(device).type, ranks,
+                           mesh_dim_names=(REPLICA_AXIS, DATA_AXIS, axis))
+    else:
+        _MESH = DeviceMesh(torch.device(device).type, ranks[0],
+                           mesh_dim_names=(DATA_AXIS, axis))
     return _MESH
 
 
-def create_mesh(n_data=None, n_model: int = 1, *, device):
+def create_mesh(n_data=None, n_model: int = 1, *, n_replica: int = 1, device):
     """The process group as a ``("data", "model")`` ``DeviceMesh`` of
     ``n_data × n_model`` ranks (``n_data`` by default: the group's size over
-    ``n_model``), rank ``d·n_model + m`` at ``(d, m)``, kept as the current
-    mesh. Its device type is ``device``'s, where the ranks compute, whatever
-    the backend. One process without a group: None (no axis to shard)."""
-    return _make_mesh(n_data, n_model, MODEL_AXIS, device)
+    ``n_model`` and ``n_replica``), rank ``d·n_model + m`` at ``(d, m)``,
+    kept as the current mesh; with ``n_replica`` R > 1 the
+    ``("replica", "data", "model")`` mesh of the module docstring. Its
+    device type is ``device``'s, where the ranks compute, whatever the
+    backend. One process without a group: None (no axis to shard)."""
+    return _make_mesh(n_data, n_model, MODEL_AXIS, device, n_replica)
 
 
 def current_mesh():
@@ -187,10 +214,25 @@ def axis_world(axis: str) -> int:
     return world(axis_group(axis)) if has_axis(axis) else 1
 
 
+def axis_place(axis: str, mesh=None):
+    """This rank's place on ``axis`` of ``mesh`` (default: the current mesh;
+    an axis the mesh lacks is this rank alone) as a
+    ``parallel.tensor.ModelAxis``."""
+    from .tensor import ModelAxis
+
+    if mesh is None:
+        return ModelAxis(axis_group(axis), axis_rank(axis), axis_world(axis))
+    group = mesh.get_group(axis)
+    return ModelAxis(group, dist.get_rank(group), dist.get_world_size(group))
+
+
 def data_group():
-    """The process group of this rank's data axis (None: the whole group)."""
+    """The process group of this rank's batch axis (None: the whole group):
+    its data axis, or on a replica mesh its replica × data group."""
     mesh = current_mesh()
-    return None if mesh is None else mesh.get_group(DATA_AXIS)
+    if mesh is None:
+        return None
+    return _BATCH_GROUP if REPLICA_AXIS in mesh.mesh_dim_names else mesh.get_group(DATA_AXIS)
 
 
 def data_rank() -> int:
@@ -216,33 +258,36 @@ def model_world() -> int:
 
 
 def check_data_devices(n_devices, device: torch.device, logger, what: str,
-                       module: str, n_model: int = 1, flag: str = "--n_model") -> None:
+                       module: str, n_model: int = 1, flag: str = "--n_model",
+                       n_replica: int = 1) -> None:
     """``--n_devices N`` (and the second axis's ``flag M``: ``--n_model``,
-    ``--ep`` or ``--pp``) of an entry point: under a process group the data
-    axis is the group over M, whose size N must name (1 leaves it to the
-    group); without one, a machine with N·M cards or more raises with the
-    ``torchrun`` line that runs them, and one with fewer warns and runs
-    unsharded on one device, as the JAX package does."""
-    n, m = int(n_devices or 1), int(n_model or 1)
+    ``--ep``, ``--pp`` or ``--sp``; ``--slices R``) of an entry point: under
+    a process group the data axis is the group over M·R, whose size N must
+    name (1 leaves it to the group); without one, a machine with R·N·M cards
+    or more raises with the ``torchrun`` line that runs them, and one with
+    fewer warns and runs unsharded on one device, as the JAX package
+    does."""
+    n, m, r = int(n_devices or 1), int(n_model or 1), int(n_replica or 1)
+    slices = f" --slices {r}" if r > 1 else ""
     if world() > 1:
-        if world() % m:
-            raise ValueError(f"{flag} {m} does not divide the group of {world()} "
+        if world() % (m * r):
+            raise ValueError(f"{flag} {m}{slices} does not divide the group of {world()} "
                              f"processes")
-        if n not in (1, world() // m):
-            raise ValueError(f"--n_devices {n} {flag} {m} in a group of {world()} "
-                             f"processes: launch `torchrun --nproc_per_node {n * m}`")
+        if n not in (1, world() // (m * r)):
+            raise ValueError(f"--n_devices {n} {flag} {m}{slices} in a group of {world()} "
+                             f"processes: launch `torchrun --nproc_per_node {r * n * m}`")
         return
-    if n * m <= 1:
+    if r * n * m <= 1:
         return
     have = torch.cuda.device_count() if device.type == "cuda" else 1
-    if have >= n * m:
+    if have >= r * n * m:
         raise RuntimeError(
-            f"--n_devices {n} {flag} {m} on a machine with {have} devices: the mesh "
-            f"runs one process per card; launch `torchrun --nproc_per_node {n * m} -m "
-            f"{module} ... --n_devices {n} {flag} {m}`")
+            f"--n_devices {n} {flag} {m}{slices} on a machine with {have} devices: the "
+            f"mesh runs one process per card; launch `torchrun --nproc_per_node "
+            f"{r * n * m} -m {module} ... --n_devices {n} {flag} {m}{slices}`")
     logger.warning(
-        "Requested a 1x%dx%d (slices x data x second-axis) mesh but only %d "
-        "device(s) are available; %s UNSHARDED on one device.", n, m, have, what)
+        "Requested a %dx%dx%d (slices x data x second-axis) mesh but only %d "
+        "device(s) are available; %s UNSHARDED on one device.", r, n, m, have, what)
 
 
 def active() -> bool:
@@ -343,7 +388,8 @@ def _block_types() -> tuple:
 
 def fully_shard_model(model: torch.nn.Module, device) -> torch.nn.Module:
     """ZeRO-3 of ``model`` over the data axis of the current mesh (without
-    one, the group's: ``create_mesh``), in place (the module docstring):
+    one, the group's: ``create_mesh``), replicated over its replica axis
+    where it has one (HSDP), in place (the module docstring):
     FSDP2's ``fully_shard`` on each residual block, then on the root, after
     any split over the model axis. Under a process group only; build the
     optimizer after it, over the sharded parameters.
@@ -360,7 +406,8 @@ def fully_shard_model(model: torch.nn.Module, device) -> torch.nn.Module:
     if mesh.device_type != device.type:
         raise ValueError(f"the mesh places its shards on {mesh.device_type}, the ranks "
                          f"compute on {device}: create_mesh(..., device={device.type!r})")
-    data_mesh = mesh[DATA_AXIS]
+    data_mesh = mesh[REPLICA_AXIS, DATA_AXIS] if REPLICA_AXIS in mesh.mesh_dim_names \
+        else mesh[DATA_AXIS]
     blocks = _block_types()
     for module in list(model.modules()):
         if isinstance(module, blocks):

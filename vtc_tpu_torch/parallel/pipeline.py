@@ -43,15 +43,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .mesh import (
-    PIPE_AXIS,
-    _make_mesh,
-    axis_group,
-    axis_rank,
-    axis_world,
-    data_group,
-    data_world,
-)
+from .mesh import PIPE_AXIS, _make_mesh, axis_place, data_group, data_world
 from .tensor import ModelAxis
 
 
@@ -65,10 +57,7 @@ def create_pipeline_mesh(n_data=None, n_pipe: int = 1, *, device):
 def pipe_axis(mesh=None) -> ModelAxis:
     """This rank's place on the pipe axis of ``mesh`` (default: the current
     mesh; without a pipe axis, this rank alone)."""
-    if mesh is None:
-        return ModelAxis(axis_group(PIPE_AXIS), axis_rank(PIPE_AXIS), axis_world(PIPE_AXIS))
-    group = mesh.get_group(PIPE_AXIS)
-    return ModelAxis(group, dist.get_rank(group), dist.get_world_size(group))
+    return axis_place(PIPE_AXIS, mesh)
 
 
 def _via_host(t: torch.Tensor, group) -> bool:

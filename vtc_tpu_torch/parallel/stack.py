@@ -1,5 +1,5 @@
-"""The switch that routes the models' block stacks through the pipe axis,
-the port of ``vtc_tpu/parallel/stack.py``'s ``"pipe"`` mode.
+"""The switch that routes the models' block stacks through the pipe or the
+sequence axis, the port of ``vtc_tpu/parallel/stack.py``.
 
 ``train.py --pp S`` creates the pipe mesh and calls
 ``set_stack_parallel("pipe", mesh, n_micro)``; from then on every
@@ -7,17 +7,21 @@ the port of ``vtc_tpu/parallel/stack.py``'s ``"pipe"`` mode.
 adapter) and the divided space-time stack of ``models.timesformer`` run
 through ``pipeline.pipeline_blocks`` instead of their sequential loop, as
 ``vtc_tpu/models/layers.py:588-597`` and ``timesformer.py:179-191`` consult
-it. No model definition or checkpoint changes.
+it. ``train.py --sp S`` creates the sequence mesh and calls
+``set_stack_parallel("seq", mesh)``: every ``Transformer`` then runs
+``sequence.sp_transformer``, ring attention over its sequence shards. No
+model definition or checkpoint changes.
 
-A stack runs sequentially where ``vtc_tpu``'s does: one with MoE layers,
-one whose layer count the stages do not divide, and a non-3-D input. The
-pipe axis is a layout, never a change of result, so such a stack gives the
-same numbers on every stage. The joint TimeSformer has no hook in
-``vtc_tpu`` and none here. ``n_micro`` is clamped per call to a divisor of
-the rank's batch (``_pick_n_micro``). ``stack_counts()`` counts the stack
-forwards of this process that ran pipelined and those that ran
-sequentially under the mode. ``vtc_tpu``'s ``"seq"`` mode (ring attention,
-``--sp``) is not ported.
+A stack runs sequentially where ``vtc_tpu``'s does: one with MoE layers and
+a non-3-D input under either mode, one whose layer count the stages do not
+divide under ``"pipe"``, and the TimeSformer's divided space-time stack
+under ``"seq"`` (its token layout alternates between temporal and spatial
+groups, so the video tower runs data-parallel). The axes are layouts,
+never a change of result, so such a stack gives the same numbers on every
+rank. The joint TimeSformer has no hook in ``vtc_tpu`` and none here.
+``n_micro`` is clamped per call to a divisor of the rank's batch
+(``_pick_n_micro``). ``stack_counts()`` counts the stack forwards of this
+process that ran pipelined, on the ring and sequentially under a mode.
 """
 
 from __future__ import annotations
@@ -25,31 +29,29 @@ from __future__ import annotations
 from collections import Counter
 from typing import Optional
 
-from ..device import DISTRIBUTION
-from .mesh import PIPE_AXIS
+from .mesh import PIPE_AXIS, SEQ_AXIS
 
-_CTX: Optional[tuple] = None  # None | ("pipe", mesh, n_micro)
+_CTX: Optional[tuple] = None  # None | ("pipe", mesh, n_micro) | ("seq", mesh, None)
 _COUNTS: Counter = Counter()
 
 
 def set_stack_parallel(mode: Optional[str] = None, mesh=None, n_micro: int = 4) -> None:
-    """Select how the stacks run from now on: None (sequentially) or
+    """Select how the stacks run from now on: None (sequentially),
     ``"pipe"`` (GPipe over ``mesh``'s ``pipe`` axis, ``n_micro``
-    microbatches asked for)."""
+    microbatches asked for) or ``"seq"`` (ring attention over its ``seq``
+    axis)."""
     global _CTX
     if mode is None:
         _CTX = None
         return
-    if mode == "seq":
-        raise NotImplementedError(f"stack-parallel mode 'seq' (ring attention, --sp) is not "
-                                  f"ported ({DISTRIBUTION})")
-    if mode != "pipe":
+    if mode not in ("pipe", "seq"):
         raise ValueError(f"unknown stack-parallel mode {mode!r}")
     if mesh is None:
         raise ValueError("set_stack_parallel needs the mesh for the mode")
-    if PIPE_AXIS not in (mesh.mesh_dim_names or ()):
-        raise ValueError(f"mode 'pipe' needs a 'pipe' mesh axis; got {mesh}")
-    _CTX = ("pipe", mesh, int(n_micro))
+    axis = {"pipe": PIPE_AXIS, "seq": SEQ_AXIS}[mode]
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mode {mode!r} needs a {axis!r} mesh axis; got {mesh}")
+    _CTX = (mode, mesh, int(n_micro) if mode == "pipe" else None)
 
 
 def stack_parallel_mode() -> Optional[str]:
@@ -57,9 +59,9 @@ def stack_parallel_mode() -> Optional[str]:
 
 
 def stack_counts() -> Counter:
-    """``{"pipelined": n, "sequential": m}``: the stack forwards since the
-    last ``reset_stack_counts`` that ran on the schedule, and those that ran
-    their sequential loop under the ``"pipe"`` mode."""
+    """``{"pipelined": n, "ring": r, "sequential": m}``: the stack forwards
+    since the last ``reset_stack_counts`` that ran on the pipe schedule, on
+    the ring, and those that ran their sequential loop under a mode."""
     return Counter(_COUNTS)
 
 
@@ -90,19 +92,38 @@ def _pipelined(stack, x, moe: bool, *args):
                            n_micro=_pick_n_micro(n_micro, x.shape[0]))
 
 
+def _ring(stack, x, moe: bool, causal: bool):
+    """``stack``'s blocks on ``x`` with ring attention over the sequence
+    shards, or None where it runs sequentially (the module docstring)."""
+    from .sequence import seq_axis, sp_transformer
+
+    if moe or x.dim() != 3:
+        _COUNTS["sequential"] += 1
+        return None
+    _COUNTS["ring"] += 1
+    stack.ring = True  # its block gradients are summed over the seq group
+    return sp_transformer(stack, x, causal, axis=seq_axis(_CTX[1]))
+
+
 def transformer_stack_override(stack, x, causal: bool):
-    """Called by ``models.layers.Transformer.forward``: the pipelined
-    stack's output, or None when the mode is off or the stack runs its
-    sequential loop."""
+    """Called by ``models.layers.Transformer.forward``: the pipelined or
+    ring-sharded stack's output, or None when the mode is off or the stack
+    runs its sequential loop."""
     if _CTX is None:
         return None
     moe = any(hasattr(block, "mlp_moe") for block in stack.resblocks)
+    if _CTX[0] == "seq":
+        return _ring(stack, x, moe, causal)
     return _pipelined(stack, x, moe, causal)
 
 
 def timesformer_stack_override(stack, x, nframes: int):
     """Called by ``models.timesformer.TimeSformerTransformer.forward``: the
-    divided space-time stack pipelined, or None (as above)."""
+    divided space-time stack pipelined, or None (as above; under ``"seq"``
+    always: the video tower runs data-parallel)."""
     if _CTX is None:
+        return None
+    if _CTX[0] == "seq":
+        _COUNTS["sequential"] += 1
         return None
     return _pipelined(stack, x, False, nframes)

@@ -186,7 +186,8 @@ def model_axis(model: torch.nn.Module) -> Optional[ModelAxis]:
 
 def _whole_over_data(t):
     """A tensor that ZeRO-3 shards over the data axis (a ``DTensor``)
-    gathered whole (a collective of its data group), else ``t``. FSDP2's
+    gathered whole (a collective of its data group; under HSDP of the data
+    axis, the replica places holding the same shard), else ``t``. FSDP2's
     layout, dim 0 in ``torch.chunk``'s parts (the last ranks hold fewer
     rows, or none), is gathered with ``dist.all_gather`` of the parts
     padded to the first's rows: gloo takes that on CUDA tensors, where
@@ -195,7 +196,9 @@ def _whole_over_data(t):
 
     if not isinstance(t, DTensor):
         return t
-    group = t.device_mesh.get_group()
+    # HSDP's (Replicate, Shard(0)) gathers over its shard dim alone
+    dim = next(i for i, p in enumerate(t.placements) if p.is_shard())
+    group = t.device_mesh.get_group(dim)
     local = t.to_local()
     rows = -(-t.shape[0] // dist.get_world_size(group))
     padded = local.new_zeros((rows,) + tuple(t.shape[1:]))
@@ -205,6 +208,14 @@ def _whole_over_data(t):
     whole = torch.cat(parts)
     # a view would carry the padding's storage into a saved checkpoint
     return whole if whole.shape[0] == t.shape[0] else whole[:t.shape[0]].clone()
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (ZeRO-3; the same storage), else
+    ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _shard_like(t: torch.Tensor, like):

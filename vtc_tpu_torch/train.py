@@ -48,15 +48,31 @@ with ``--n_micro``, default 4) take the second axis's place:
 ``--ep`` splits the MoE expert stacks over each group of X consecutive
 ranks (``parallel.expert.shard_experts``); ``--pp`` runs every eligible
 block stack as a GPipe pipeline over each group of S (``parallel.stack``),
-the whole model on every rank. A MoE model routes over the global batch's
-tokens on any mesh. At most one of ``--n_model``, ``--ep``, ``--pp`` and
-``--sp`` a run, ``--ep`` only for a MoE arch and ``--slices`` not beside
-pp/sp/ep, as ``vtc_tpu``'s ``train.py`` checks. Without a group they warn
-and train unsharded where the machine lacks the cards.
+the whole model on every rank. The sequence axis takes the same place:
+
+    torchrun --nproc_per_node N·S -m vtc_tpu_torch.train -c <config> \
+        --n_devices N --sp S
+
+runs every eligible block stack (the text and ViT towers, the CAM) on its
+sequence shard with ring attention over each group of S consecutive ranks
+(``parallel.sequence``), the whole model on every rank (sharded over the data axis with
+``--fsdp``); the TimeSformer runs data-parallel. Multi-slice adds the replica axis outside the data
+axis:
+
+    torchrun --nproc_per_node R·N·M -m vtc_tpu_torch.train -c <config> \
+        --slices R --n_devices N [--n_model M] [--fsdp 1]
+
+lays the ranks out as ``vtc_tpu``'s ``create_mesh(N, M, n_replica=R)``
+and splits the batch over the R·N replica × data places; ``--fsdp`` then
+shards over the data axis and replicates over the replicas (HSDP). A MoE
+model routes over the global batch's tokens on any mesh. At most one of
+``--n_model``, ``--ep``, ``--pp`` and ``--sp`` a run, ``--ep`` only for a
+MoE arch and ``--slices`` not beside pp/sp/ep, as ``vtc_tpu``'s
+``train.py`` checks. Without a group they warn and train unsharded where
+the machine lacks the cards.
 
 What the port cannot do yet raises a ``NotImplementedError`` naming its
-ROADMAP item: the grain loader, the sequence and multi-slice axes
-(``--sp``, ``--slices``) and ZeRO-3 beside ``--ep`` or ``--pp``.
+ROADMAP item: the grain loader and ZeRO-3 beside ``--ep`` or ``--pp``.
 """
 
 from __future__ import annotations
@@ -87,6 +103,7 @@ from .parallel.mesh import (
     fully_shard_model,
 )
 from .parallel.pipeline import create_pipeline_mesh
+from .parallel.sequence import create_sp_mesh
 from .parallel.stack import set_stack_parallel
 from .parallel.tensor import shard_model
 from .training import METRICS, Trainer, build_optimizer
@@ -129,14 +146,15 @@ def _make_probe(config):
 
 
 def _check_mesh(config, device: torch.device, logger) -> None:
-    """The data axis and one second axis (``--n_model``, ``--ep`` or
-    ``--pp``) run under a process group (``--n_devices`` names the data
-    axis's size, or is 1) or ``--multihost``'s, laid out on ``device`` by
-    ``create_mesh``, ``create_ep_mesh`` or ``create_pipeline_mesh`` (which
-    also turns the stacks' pipeline on); ``--fsdp`` shards over its data
-    axis; ``check_axes`` raises for the rest. Without a group the axes warn
-    and train unsharded where the machine lacks the cards (as the JAX
-    package does), and raise with the ``torchrun`` line where it has
+    """The data axis and one second axis (``--n_model``, ``--ep``, ``--pp``
+    or ``--sp``), with ``--slices`` beside the model axis, run under a
+    process group (``--n_devices`` names the data axis's size, or is 1) or
+    ``--multihost``'s, laid out on ``device`` by ``create_mesh``,
+    ``create_ep_mesh``, ``create_pipeline_mesh`` or ``create_sp_mesh`` (the
+    last two also turn the stacks' pipeline or ring on); ``--fsdp`` shards
+    over its data axis; ``check_axes`` raises for the rest. Without a group
+    the axes warn and train unsharded where the machine lacks the cards (as
+    the JAX package does), and raise with the ``torchrun`` line where it has
     them."""
     if config.get("loader", "threads") == "grain":
         raise NotImplementedError(
@@ -147,24 +165,30 @@ def _check_mesh(config, device: torch.device, logger) -> None:
                slices=axes["slices"], fsdp=bool(config.get("fsdp")),
                moe=bool(int(config["arch"]["args"].get("moe_experts", 0) or 0)))
     set_stack_parallel(None)  # the newest run wins over any earlier one in the process
-    flag, n_second = next(((f"--{k}", axes[k]) for k in ("ep", "pp") if axes[k] > 1),
+    flag, n_second = next(((f"--{k}", axes[k]) for k in ("ep", "pp", "sp") if axes[k] > 1),
                           ("--n_model", axes["n_model"]))
+    n_replica = axes["slices"]
     n_devices = int(config.get("n_devices", config.get("n_gpu", 1)) or 1)
     if config.get("multihost"):
-        if world() % n_second or n_devices not in (1, world() // n_second):
-            raise ValueError(f"--n_devices {n_devices} {flag} {n_second} with "
-                             f"--multihost on {world()} processes: one process per card")
+        per = n_second * n_replica
+        if world() % per or n_devices not in (1, world() // per):
+            raise ValueError(f"--n_devices {n_devices} {flag} {n_second} --slices "
+                             f"{n_replica} with --multihost on {world()} processes: one "
+                             f"process per card")
     else:
         check_data_devices(n_devices, device, logger, "training", "vtc_tpu_torch.train",
-                           n_second, flag)
+                           n_second, flag, n_replica)
     if world() > 1:
+        n_data = world() // (n_second * n_replica)
         if flag == "--ep":
-            create_ep_mesh(world() // n_second, n_second, device=device)
+            create_ep_mesh(n_data, n_second, device=device)
         elif flag == "--pp":
-            mesh = create_pipeline_mesh(world() // n_second, n_second, device=device)
+            mesh = create_pipeline_mesh(n_data, n_second, device=device)
             set_stack_parallel("pipe", mesh, int(config.get("n_micro", 4) or 4))
+        elif flag == "--sp":
+            set_stack_parallel("seq", create_sp_mesh(n_data, n_second, device=device))
         else:
-            create_mesh(world() // n_second, n_second, device=device)
+            create_mesh(n_data, n_second, n_replica=n_replica, device=device)
     if not config.get("multihost") and int(config["batch_size"]) % data_world():
         raise ValueError(f"batch_size {config['batch_size']} does not split over "
                          f"{data_world()} data ranks")

@@ -65,7 +65,16 @@ at the global batch, as GSPMD runs ``vtc_tpu``'s:
   not wrapped: each stage's block gradients accumulate inside the
   schedule's backward, and ``parallel.pipeline.sync_gradients`` sums them
   over the stages and averages every gradient over the data ranks before
-  the update.
+  the update;
+* on a seq mesh (``parallel.sequence``, ``train.py --sp``) the ranks of a
+  seq group hold the same rows and each ring-sharded stack runs on its
+  sequence shard. The data group's mean stays DDP's (the model wrapped
+  over the data axis, as on the model axis); before the update
+  ``parallel.sequence.sync_ring_gradients`` sums the ring-sharded stacks'
+  block gradients over the seq group, each rank's being its shard's share.
+  Every other gradient is whole and equal on the seq ranks already (the
+  embeddings above the stacks' scatter, what follows their gather, the
+  TimeSformer, the loss), and is not summed.
 
 ``global_truncate_tokens(multihost=True)`` buckets on the largest coverage
 over the ranks, so every rank runs the same text lengths.
@@ -85,6 +94,7 @@ from ..device import DISTRIBUTION
 from ..parallel.expert import global_routing, moe_layers
 from ..parallel.mesh import (
     PIPE_AXIS,
+    SEQ_AXIS,
     active,
     all_gather_rows,
     axis_world,
@@ -128,10 +138,18 @@ def _forward(model, args, **kwargs):
 
 
 def _update(model, optimizer, scheduler) -> None:
+    """The gradients made the one device's, then the update: on a pipe mesh
+    ``sync_gradients``; on a seq mesh the ring-sharded stacks' block
+    gradients summed over the seq group (DDP or FSDP2 has averaged the
+    data ranks' already)."""
     if active() and axis_world(PIPE_AXIS) > 1:
         from ..parallel.pipeline import sync_gradients
 
         sync_gradients(unwrap(model))
+    elif active() and axis_world(SEQ_AXIS) > 1:
+        from ..parallel.sequence import sync_ring_gradients
+
+        sync_ring_gradients(unwrap(model))
     optimizer.step()
     scheduler.step()
     optimizer.zero_grad(set_to_none=True)
