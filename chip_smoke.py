@@ -86,10 +86,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``--accum_steps 4`` and with ``--moments_dtype bfloat16`` (2 windows of
     4 steps), each with its
     samples/s, peak memory and falling loss, and the optimizer phase's
-    device ms with bf16 moments beside fp32's;
+    device ms with bf16 moments beside fp32's; the accumulating step's
+    setup then takes the script's ``VTC_TRACE=1`` window (``trace_window``:
+    one warm-up step, 2 steps under ``torch.profiler``, the top kernels, the
+    device time per family and the idle share);
 13. accumulating step: the flagship's config as in phase 11 at
-    ``accum_steps`` 2 (GradCache), 2 steps card vs CPU with the same
-    per-microbatch draws, held to phase 11's limits, with 2 × 2k × (29, 26,
+    ``accum_steps`` 2 (GradCache), 1 step card vs CPU with the same
+    per-microbatch draws, held to phase 11's limits, with 2k × (29, 26,
     26) launches; and on the card against the plain step on the same batch
     with the draws off (loss within 2e-6, gradients within 1e-3 of each
     parameter's largest);
@@ -206,7 +209,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     equal, its load-balance loss within 1e-6, 29/26/26 launches; the bf16
     train step (``bench_train_step``) at the config's batch of 128 with the
     towers frozen, dense CAM and MoE CAM in turn: samples/s and peak
-    memory; the twin on the config for an epoch at batch 50;
+    memory, the MoE CAM's setup then traced as in phase 12; the twin on the
+    config for an epoch at batch 50;
 25. R(2+1)D-34 (``R2Plus1D_34_IG65M_32frames``) at 32 × 112², fp32 batch 4
     card against CPU (1e-4 of the largest |feature|), bf16 cosine > 0.995
     and clips/s at batch 32 with its peak memory; ``VideoDatasetFirst32``
@@ -225,7 +229,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     tile; the route's time at ViT-B/16 ``[64, 197, 768]`` and ViT-L/14
     ``[32, 257, 1024]`` (bf16, held to the one-ulp share too) beside the
     plain version, SDPA and the bound;
-27. ViT-B/16 and ViT-L/14: ``PretrainedCLIP_finaltf`` fp32 at batch 4 card
+27. ViT-B/16 and ViT-L/14: ``PretrainedCLIP_finaltf`` fp32 at batch 2 card
     against CPU (``FEAT_ATOL``) with the exact launches of a forward (the
     image tower's blocks on the long route, the text tower's and the CAM's
     on the short tile), bf16 against fp32 (cosine > 0.995), a
@@ -245,7 +249,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 30. ``VTC_REMAT=1``: the flagship config's fp32 train step at batch 8 with
     and without it, gradients within 1e-6 of each parameter's largest and
     a remat step's launches (each block's kernels twice); the video model's
-    bf16 train step at batch 50, videos/s and peak memory with and without;
+    bf16 train step at batch 50, videos/s and peak memory with and without,
+    the step without traced as in phase 12;
 32. data parallelism (run right after phase 25, in its directory): W =
     ``torch.cuda.device_count()`` ranks, each a process spawned with
     ``torch.multiprocessing`` that joins an NCCL group at
@@ -281,7 +286,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     fp32 steps sharded over the data axis at phase 11's limits of phase 11's
     card steps, 2 × (29, 26, 26) launches a rank, the gathered single-card state
     (at W = 1 through a ``.pth`` on disk) loaded into the emptied sharded
-    model and gathered again bit for bit; at W = 1 the bf16 step at batch
+    model, each rank's state back bit for bit; at W = 1 the bf16 step at batch
     128 sharded (samples/s, beside phase 12's plain step) and one sharded
     step's launches; each rank's bytes of parameters and moments (and
     ``memory_allocated``) against phase 11's unsharded model's. A failure
@@ -335,6 +340,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     bytes of parameters and moments against phase 11's unsharded model's
     (predicted 0.5000) and the single-card state gathered and loaded back
     bit for bit;
+41. the multi-chip dry run's twin in that spawn (all four ranks, as
+    ``create_mesh(2, 2)``): ``vtc_tpu_torch.scripts.dryrun_multichip``'s
+    checks at N = 4 on the card at test-tiny, each at the JAX function's
+    limits (they raise), every rank's closing line, each check's launches
+    of the four model kernels a rank (every kernel of the flagship steps,
+    exact ones for the stacks and the MoE layer);
+42. ZeRO-3 beside the expert and pipe axes in that spawn: the MoE config's
+    2 fp32 steps at dp2×ep2 under ``fsdp`` against phase 37's one rank and
+    phase 11's first 2 steps at dp2×pp2 (``n_micro`` 2) against phase 11,
+    at phases 37's and 38's limits; each rank's bytes (the expert stacks
+    0.5000 of one rank's: split over expert, whole over data; every other
+    leaf, and the pipe ranks' whole state, 0.5000: sharded over data); each
+    unit reduce-scattered once a step; the MoE state through a single-card
+    ``.pth``, the pipe state in memory, loaded back bit for bit;
 31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
@@ -343,6 +362,7 @@ no result, where CUDA is missing or the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -381,11 +401,12 @@ LN_SWEEP = (8000, 768)  # scripts/bench_ln_kernel.py's default rows
 TRAIN_CONFIG = "configs/pretrained_clip_comments_attention.jsonc"
 FROZEN_CONFIG = "configs/pretrained_clip_comments_attn_frozen.jsonc"
 PARITY_BATCH, PARITY_STEPS = 8, 3
-ACCUM_K, ACCUM_RUN_STEPS = 2, 2  # the accumulating step's microbatches and steps
+ACCUM_K, ACCUM_RUN_STEPS = 2, 1  # the accumulating step's microbatches and steps
 BENCH_ACCUM_K = 4  # bench_train_step's accumulating run at batch 128
 BENCH_OTHER_ITERS = 4  # its windows' steps, and the bf16-moments run's
 BENCH_OTHER_WINDOWS = 2  # the windows of each
 TRAIN_PROFILED = 2  # phase 12's train steps under torch.profiler, each window
+TRACE_ITERS = 2  # the bench twin's VTC_TRACE=1 window (phases 12, 24, 30): steps
 TRAINER_EPOCHS, TRAINER_ITEMS = 2, (400, 100)  # the Trainer phase: train, val items
 TWIN_EPOCHS = 1  # phase 15's train.py twin (the Trainer's second epoch: phase 14)
 # card vs CPU, full depth fp32, loss ~2.1: the measured spread was 2.38e-7,
@@ -1195,12 +1216,27 @@ def grad_share(ours: dict, ref: dict) -> tuple:
     return worst[0], worst[1], n_grads
 
 
+def leaf_shares(ours: dict, ref: dict) -> dict:
+    """Each parameter's max|diff| / max|grad| of its gradient in ``ours``
+    against ``ref`` (the gradients on both sides, of a nonzero largest)."""
+    out = {}
+    for name, r in ref.items():
+        o = ours.get(name)
+        if r is not None and o is not None and r.abs().max().item():
+            out[name] = (o - r).abs().max().item() / r.abs().max().item()
+    return out
+
+
 def compare_grads(what: str, ours: dict, ref: dict, rtol: float = GRAD_RTOL) -> None:
     """Each parameter's gradient within ``rtol`` (default ``GRAD_RTOL``) of
-    its largest |gradient| in ``ref``; a gradient on one side only fails."""
+    its largest |gradient| in ``ref``; a gradient on one side only fails.
+    Where ``reorder_floor`` has run, the worst leaf's own floor is logged
+    beside it."""
     worst, name, n_grads = grad_share(ours, ref)
+    beside = "".join(f"; that leaf's own floor ({kind}) {floors.get(name, math.nan):.3g}"
+                     for kind, floors in LEAF_FLOORS.items())
     log(f"{what}: {n_grads} parameter gradients after step 1; worst "
-        f"max|diff| / max|grad| {worst:.3g} at {name} (limit {rtol:g})")
+        f"max|diff| / max|grad| {worst:.3g} at {name} (limit {rtol:g}){beside}")
     require(worst <= rtol, f"{what} {name}: gradient differs by {worst:.3g} of its largest")
 
 
@@ -1285,6 +1321,35 @@ def run_train_parity(ops) -> tuple:
     del model, optimizer
     torch.cuda.empty_cache()
     return launches, steps
+
+
+def trace_window(what: str, smi, res: dict, **kwargs) -> dict:
+    """``bench_train_step.main`` under ``VTC_TRACE=1`` on the setup that
+    ``res`` (a timed run's) built: one warm-up step, then one window of
+    ``TRACE_ITERS`` steps under ``torch.profiler``, printed by the script
+    (top kernels, device time per family, idle share); -> its profile."""
+    from vtc_tpu_torch.scripts import bench_train_step
+
+    saved = os.environ.get("VTC_TRACE")
+    os.environ["VTC_TRACE"] = "1"
+    try:
+        out = bench_train_step.main(iters=TRACE_ITERS, warmup=1, built=res["setup"], log=log,
+                                    **kwargs)
+    finally:
+        if saved is None:
+            os.environ.pop("VTC_TRACE", None)
+        else:
+            os.environ["VTC_TRACE"] = saved
+    prof = out["profile"]
+    require("samples_per_s" not in out and prof["busy_ms"] > 0,
+            f"{what}: VTC_TRACE=1 returned {sorted(out)}")
+    require(all(math.isfinite(x) for x in out["losses"]), f"{what}: a non-finite loss")
+    device_ms = sum(prof["family_ms"].values())
+    log(f"trace window ({what}; VTC_TRACE=1, {TRACE_ITERS} steps): device ms per step "
+        f"{device_ms:.4f} ({json.dumps({f: round(ms, 4) for f, ms in prof['family_ms'].items()})}), "
+        f"idle share {prof['idle_share']:.4f}, window {prof['window_ms'] / TRACE_ITERS:.3f} ms "
+        f"a step; on {smi}")
+    return prof
 
 
 def run_accum_parity(ops) -> None:
@@ -1461,6 +1526,8 @@ def run_train_bench(ops, smi) -> float:
         require(all(math.isfinite(x) for x in losses), f"{what}: a non-finite train loss")
         require(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
                 f"{what}: the loss did not fall")
+        if "accum_steps" in kwargs:
+            trace_window(f"the accumulating step, {what}", smi, res, **kwargs)
         if "moments_dtype" in kwargs:
             model, optimizer, scheduler, data = res["setup"]
             generator = torch.Generator(device="cuda").manual_seed(1)
@@ -3112,6 +3179,9 @@ def run_moe_config(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
             f"samples/s at batch {MOE_BENCH_BATCH}, windows "
             f"{['%.1f' % r for r in res['window_rates']]}; peak memory allocated "
             f"{peak / 2**30:.3f} GiB; on {smi}")
+        if "moe_experts" in kwargs:
+            trace_window(f"the MoE step, towers frozen, batch {MOE_BENCH_BATCH}", smi, res,
+                         batch=MOE_BENCH_BATCH)
         del res
         torch.cuda.empty_cache()
     log(f"train throughput bf16, towers frozen: MoE / dense "
@@ -3364,7 +3434,7 @@ def check_long_route(ops) -> dict:
 
 VARIANT_BENCH_BATCH = {"ViT-B/16": 64, "ViT-L/14": 32}  # bench.py's rows for them
 VARIANT_BENCH_ITERS = 16  # the script's 950 s aim
-VARIANT_FWD_BATCH = 4
+VARIANT_FWD_BATCH = 2
 VARIANT_TRAIN_BATCH = 32
 
 
@@ -3580,6 +3650,10 @@ def run_remat(ops, smi) -> None:
             f"{res['samples_per_s']:.2f} videos/s (windows "
             f"{['%.2f' % r for r in res['window_rates']]}), peak memory {peak:.3f} GiB; "
             f"on {smi}")
+        if not on:
+            with_remat(False, lambda: trace_window(
+                f"the video step, batch {REMAT_VIDEO_BATCH}, {NFRAMES} frames", smi, res,
+                batch=REMAT_VIDEO_BATCH))
         del res
         torch.cuda.empty_cache()
     log(f"phase 30 took {time.perf_counter() - tic:.1f} s")
@@ -3936,21 +4010,23 @@ FSDP_STEPS = 2  # of phase 11's 3: the script's 950 s aim
 FSDP_TIMEOUT = 420  # s for a spawn: a rank left waiting in a collective never ends
 
 
+def local_bytes(tensors) -> int:
+    """The bytes of ``tensors``' storage on this rank (a ZeRO-3 shard's own)."""
+    from torch.distributed.tensor import DTensor
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).untyped_storage().nbytes()
+               for t in tensors)
+
+
 def held_bytes(model, optimizer, base: int) -> dict:
     """The bytes that this rank holds of ``model``'s parameters and of
     ``optimizer``'s moments (a ZeRO-3 shard's own), and
     ``torch.cuda.memory_allocated()`` over ``base`` (taken before the model
     was built; the step's inputs freed first)."""
-    from torch.distributed.tensor import DTensor
-
-    def nbytes(tensors):
-        return sum((t.to_local() if isinstance(t, DTensor) else t).untyped_storage().nbytes()
-                   for t in tensors)
-
     torch.cuda.synchronize()
     moments = [v for st in optimizer.state.values() for v in st.values()
                if torch.is_tensor(v) and v.dim()]
-    return {"param_bytes": nbytes(model.parameters()), "moment_bytes": nbytes(moments),
+    return {"param_bytes": local_bytes(model.parameters()), "moment_bytes": local_bytes(moments),
             "held": torch.cuda.memory_allocated() - base}
 
 
@@ -3971,14 +4047,8 @@ def fsdp_steps(device, seconds: dict) -> dict:
     from vtc_tpu_torch.models.cam import draw_adapter_skip
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.parallel.mesh import fully_shard_model, shard_batch
-    from vtc_tpu_torch.parallel.tensor import (
-        full_optimizer_state,
-        full_state_dict,
-        full_tensors,
-        load_full_state_dict,
-        split_optimizer_state,
-    )
-    from vtc_tpu_torch.training import load_checkpoint, save_checkpoint, train_step
+    from vtc_tpu_torch.parallel.tensor import full_tensors
+    from vtc_tpu_torch.training import train_step
 
     tic = time.perf_counter()
     inputs = bench_inputs(PARITY_BATCH, 32, seed=6)
@@ -4003,29 +4073,101 @@ def fsdp_steps(device, seconds: dict) -> dict:
     # the sharded path's run: counts from 0 just before, read just after
     ops.reset_launch_counts()
     tic = time.perf_counter()
-    losses = [train_step(model, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
-              for d in draws]
+    losses, scatters = [], []
+    for d in draws:
+        with reduce_scatters() as units:
+            losses.append(train_step(model, clip_loss, optimizer, scheduler, data, {},
+                                     draws=d)[0].item())
+        scatters.append(None if units is None else (len(units), len(set(units))))
     torch.cuda.synchronize()
     seconds["steps"] = time.perf_counter() - tic
     launches = ops.launch_counts()
     del data
     out = {"losses": losses, "launches": launches, **held_bytes(model, optimizer, base),
+           "reduce_scatters": scatters,
            "grads": {n: None if g is None else g.cpu()
                      for n, g in full_tensors(model, grads).items()}}
     del grads
     tic = time.perf_counter()
+    # at W = 1 through a single-card .pth on disk, else the gathered state in memory
+    path = Path(os.environ["FSDP_TMP"]) / "fsdp.pth" if dist.get_world_size() == 1 else None
+    out.update(state_round_trip(model, optimizer, scheduler, FSDP_STEPS, path))
+    seconds["checkpoint"] = time.perf_counter() - tic
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def reduce_scatters():
+    """Within the block each of FSDP2's gradient reductions appends the
+    identity of the unit it reduces (its first parameter's) to the list
+    yielded, so a unit that reduce-scatters twice in a step shows twice;
+    None where this torch's FSDP2 names its reduction otherwise."""
+    from torch.distributed.fsdp._fully_shard import _fsdp_param_group as group
+
+    real = getattr(group, "foreach_reduce", None)
+    if real is None:
+        yield None
+        return
+    units = []
+
+    def counted(fsdp_params, *args, **kwargs):
+        units.append(id(fsdp_params[0]))
+        return real(fsdp_params, *args, **kwargs)
+
+    group.foreach_reduce = counted
+    try:
+        yield units
+    finally:
+        group.foreach_reduce = real
+
+
+def state_round_trip(model, optimizer, scheduler, steps: int, path=None) -> dict:
+    """The gathered single-card state of a sharded ``model`` (parameters,
+    Adam moments, schedule) loaded back into the same model and optimizer,
+    emptied first (parameters zeroed, no moments, the schedule at 0):
+    ``{"round_trip": every rank's shards and moments bit for bit the ones
+    it held before}``. With ``path`` the state goes through a ``.pth``
+    there (rank 0 writes it, every rank reads it; ``"ckpt_bytes"``), else
+    it stays in memory."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from vtc_tpu_torch.parallel.tensor import (
+        full_optimizer_state,
+        full_state_dict,
+        load_full_state_dict,
+        split_optimizer_state,
+    )
+    from vtc_tpu_torch.training import load_checkpoint, save_checkpoint
+
+    def held():
+        def local(t):
+            return (t.to_local() if isinstance(t, DTensor) else t).detach().clone()
+
+        return ({n: local(p) for n, p in model.named_parameters()},
+                {n: {k: local(v) for k, v in optimizer.state[p].items()}
+                 for n, p in model.named_parameters() if p in optimizer.state})
+
+    for unit in model.modules():  # a root a forward left whole holds its shards again
+        if isinstance(unit, FSDPModule):
+            unit.reshard()
+    out, before = {}, held()
     state = (full_state_dict(model), full_optimizer_state(model, optimizer))
-    if dist.get_world_size() == 1:  # through a single-card .pth on disk
-        path = Path(os.environ["FSDP_TMP"]) / "fsdp.pth"
-        save_checkpoint(path.parent, path.stem, arch="PretrainedCLIP_finaltf", epoch=1,
-                        state_dict=state[0], optimizer=state[1], lr_scheduler=scheduler)
+    if path is not None:
+        if dist.get_rank() == 0:
+            save_checkpoint(path.parent, path.stem, arch="PretrainedCLIP_finaltf", epoch=1,
+                            state_dict=state[0], optimizer=state[1], lr_scheduler=scheduler)
         del state
+        dist.barrier()
         ckpt = load_checkpoint(path)
         out["ckpt_bytes"] = path.stat().st_size
-    else:  # the gathered state in memory
-        ckpt = {"state_dict": state[0], "optimizer": state[1],
-                "lr_scheduler": scheduler.state_dict()}
-    # the same sharded model and optimizer, emptied, take the state back
+    else:  # copies: a leaf left whole is the parameter itself, zeroed below
+        ckpt = copy.deepcopy({"state_dict": state[0], "optimizer": state[1],
+                              "lr_scheduler": scheduler.state_dict()})
+        del state
     with torch.no_grad():
         for p in model.parameters():
             p.zero_()
@@ -4034,15 +4176,14 @@ def fsdp_steps(device, seconds: dict) -> dict:
     load_full_state_dict(model, ckpt["state_dict"])
     optimizer.load_state_dict(split_optimizer_state(model, optimizer, ckpt["optimizer"]))
     scheduler.load_state_dict(ckpt["lr_scheduler"])
-    sd, opt_sd = full_state_dict(model), full_optimizer_state(model, optimizer)
+    (params, moments), (params0, moments0) = held(), before
     out["round_trip"] = (
-        all(torch.equal(sd[n].cpu(), t.cpu()) for n, t in ckpt["state_dict"].items())
-        and all(torch.equal(opt_sd["state"][i][k].cpu(), v.cpu())
-                for i, entry in ckpt["optimizer"]["state"].items() for k, v in entry.items())
-        and scheduler.last_epoch == FSDP_STEPS)
-    seconds["checkpoint"] = time.perf_counter() - tic
-    del model, optimizer, sd, opt_sd, ckpt
-    torch.cuda.empty_cache()
+        all(torch.equal(params[n], t) for n, t in params0.items())
+        and moments.keys() == moments0.keys()
+        and all(entry.keys() == moments[n].keys()
+                and all(torch.equal(moments[n][k].cpu(), v.cpu()) for k, v in entry.items())
+                for n, entry in moments0.items())
+        and scheduler.last_epoch == steps)
     return out
 
 
@@ -4208,8 +4349,8 @@ def run_fsdp(smi, parity: dict, plain: float) -> dict:
                     f"{what} rank {r} holds {mine} of {whole} bytes")
         how = (f"a single-card .pth of {ours['ckpt_bytes']:,} bytes written and read back"
                if world == 1 else "the single-card state gathered on every rank")
-        log(f"{what}: {how}, loaded into the emptied sharded model and gathered again bit "
-            f"for bit; rank 0's seconds "
+        log(f"{what}: {how}, loaded into the emptied sharded model, each rank's state back "
+            f"bit for bit; rank 0's seconds "
             f"{json.dumps({k: round(v, 2) for k, v in ours['seconds'].items()})}; on {smi}")
         if world == 1:
             log(f"kernel use (one bf16 step at batch {FSDP_BENCH['batch']}, {what}): "
@@ -4562,7 +4703,13 @@ PP_BENCH = dict(steps=2, warmup=1)  # the bf16 step at phase 12's batch: a readi
 # gradient over its microbatches, 3.4x it
 REORDER_RTOL = 3.06e-6
 REORDER_MARGIN = 8
-RANKS_TIMEOUT = 420
+# each leaf's own reorder floors (``reorder_floor``: "swap", the batch's
+# halves swapped; "halves", two microbatches of half the rows), beside which
+# a split step's worst leaf is read: the CAM's last LayerNorm weight was the
+# worst of every group of phases 39 and 40
+LEAF_FLOORS: dict = {}
+CAM_LAST_LN = "final_transformer.resblocks.1.ln_2.weight"
+RANKS_TIMEOUT = 600
 
 
 def reorder_floor(ops, parity: dict) -> float:
@@ -4579,30 +4726,45 @@ def reorder_floor(ops, parity: dict) -> float:
     order = torch.cat([torch.arange(half, PARITY_BATCH), torch.arange(half)])
     run = train_run(ops, "cuda", [x[order] for x in inputs], [{"adapter_skip": skip[order]}])
     floor, name, n = grad_share(run["grads"], parity["grads"])
+    LEAF_FLOORS["swap"] = leaf_shares(run["grads"], parity["grads"])
     log(f"the data axis's reorder floor on the card: phase 11's step 1 with the batch's "
         f"halves swapped moves {n} gradients by up to {floor:.3g} of their largest (at "
         f"{name}); a split step may differ by {REORDER_MARGIN}x that, at least "
         f"{REORDER_RTOL:g}")
+    # the same step in two microbatches of half the rows (GradCache at k = 2),
+    # whose GEMMs see a data rank's shapes: each leaf's share, logged beside
+    split = train_run(ops, "cuda", inputs, [[{"adapter_skip": skip[i::2]} for i in range(2)]],
+                      accum_steps=2)
+    LEAF_FLOORS["halves"] = leaf_shares(split["grads"], parity["grads"])
+    for kind, what in (("swap", "the batch's halves swapped"),
+                       ("halves", "two microbatches of half the rows")):
+        top = sorted(LEAF_FLOORS[kind].items(), key=lambda kv: -kv[1])[:5]
+        log(f"the reorder floor per leaf, {what}: the largest " + ", ".join(
+            f"{n} {share:.3g}" for n, share in top) + f"; {CAM_LAST_LN} "
+            f"{LEAF_FLOORS[kind].get(CAM_LAST_LN, math.nan):.3g}")
     return max(REORDER_RTOL, REORDER_MARGIN * floor)
 
 
-def moe_steps(device, save_path=None, base=None) -> dict:
+def moe_steps(device, save_path=None, base=None, fsdp: bool = False) -> dict:
     """``EP_STEPS`` fp32 steps of ``MOE_CONFIG``'s model (towers frozen, a CAM
     of 4 experts, top 2, off its zero-init; a copy of ``base`` where given)
     at phase 11's batch, its expert stacks split over the current mesh's
-    expert axis where it has one, on this rank's rows (the whole batch
-    without a group): each loss, the step-1 gradients gathered, the
+    expert axis where it has one, with ``fsdp`` everything else sharded
+    over its data axis (ZeRO-3, phase 42), on this rank's rows (the whole
+    batch without a group): each loss, the step-1 gradients gathered, the
     launches, each MoE layer's routing of the last step, the bytes of expert
-    stacks and of their moments this rank holds; then the features of an
-    evaluation of the batch and the gathered state (rank 0 writes it to
-    ``save_path`` as a single-card ``.pth``)."""
+    stacks and of their moments this rank holds and those of every other
+    leaf, each step's reduce-scatters; then the features of an evaluation
+    of the batch and the gathered state (rank 0 writes it to ``save_path``
+    as a single-card ``.pth``; with ``fsdp`` every rank loads it back into
+    the emptied sharded model, ``state_round_trip``)."""
     import copy
 
     from vtc_tpu_torch import ops
     from vtc_tpu_torch.models.cam import draw_adapter_skip
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.parallel.expert import moe_layers, moe_pspec, shard_experts
-    from vtc_tpu_torch.parallel.mesh import data_parallel, shard_batch
+    from vtc_tpu_torch.parallel.mesh import data_parallel, fully_shard_model, shard_batch
     from vtc_tpu_torch.parallel.tensor import full_state_dict, full_tensors
     from vtc_tpu_torch.training import eval_step, save_checkpoint, train_step
 
@@ -4611,6 +4773,8 @@ def moe_steps(device, save_path=None, base=None) -> dict:
     draws = [{"adapter_skip": draw_adapter_skip(PARITY_BATCH, gen)} for _ in range(EP_STEPS)]
     model = copy.deepcopy(base) if base is not None else model_from_config(MOE_CONFIG)
     model = shard_experts(model)
+    if fsdp:
+        fully_shard_model(model, device)
     optimizer, scheduler = config_optimizer(model, MOE_CONFIG)
     grads = {}
 
@@ -4625,25 +4789,37 @@ def moe_steps(device, save_path=None, base=None) -> dict:
     torch.cuda.synchronize()
     # the path's run: counts from 0 just before, read just after
     ops.reset_launch_counts()
-    losses = [train_step(ddp, clip_loss, optimizer, scheduler, data, {}, draws=d)[0].item()
-              for d in draws]
+    losses, scatters = [], []
+    for d in draws:
+        with reduce_scatters() as units:
+            losses.append(train_step(ddp, clip_loss, optimizer, scheduler, data, {},
+                                     draws=d)[0].item())
+        scatters.append(None if units is None else (len(units), len(set(units))))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     stacks = [p for n, p in model.named_parameters() if moe_pspec(n)]
-    out = {"losses": losses, "launches": launches,
+    rest = [p for n, p in model.named_parameters() if not moe_pspec(n)]
+
+    def moments(params):
+        return [v for p in params for v in optimizer.state.get(p, {}).values()
+                if torch.is_tensor(v) and v.dim()]
+
+    out = {"losses": losses, "launches": launches, "reduce_scatters": scatters,
            "routing": [tuple(t.cpu() for t in m.routing) for m in moe_layers(model)],
-           "stack_bytes": sum(p.untyped_storage().nbytes() for p in stacks),
-           "moment_bytes": sum(v.untyped_storage().nbytes() for p in stacks
-                               for v in optimizer.state[p].values()
-                               if torch.is_tensor(v) and v.dim()),
+           "stack_bytes": local_bytes(stacks), "moment_bytes": local_bytes(moments(stacks)),
+           "rest_bytes": local_bytes(rest) + local_bytes(moments(rest)),
            "grads": {n: None if g is None else g.cpu()
                      for n, g in full_tensors(model, grads).items()}}
     out["feats"] = [f.cpu() for f in eval_step(ddp, clip_loss, data, {})[1][:2]]
-    state = full_state_dict(model)
-    if save_path is not None:
-        save_checkpoint(Path(save_path).parent, Path(save_path).stem,
-                        arch="PretrainedCLIP_finaltf", epoch=1, state_dict=state)
-    del model, optimizer, ddp, data, state
+    if fsdp:
+        out.update(state_round_trip(model, optimizer, scheduler, EP_STEPS, Path(save_path)))
+    else:
+        state = full_state_dict(model)
+        if save_path is not None:
+            save_checkpoint(Path(save_path).parent, Path(save_path).stem,
+                            arch="PretrainedCLIP_finaltf", epoch=1, state_dict=state)
+        del state
+    del model, optimizer, ddp, data
     torch.cuda.empty_cache()
     return out
 
@@ -4713,22 +4889,29 @@ def pipe_work(device) -> dict:
 
 
 def axes_rank(rank: int, tmp: str, t0: float) -> None:
-    """One rank of phases 37 to 40, in a process of its own on card 0, each
+    """One rank of phases 37 to 42, in a process of its own on card 0, each
     group over gloo, one after the other: ranks 0 and 1 the MoE config's
     steps (``moe_steps``) at dp2 and dp1×ep2 (rank 0 writes ``tmp/ep2.pth``)
     and phase 39's ``sp_work`` at dp1×sp2, while ranks 2 and 3 run
     ``pipe_work`` as ``create_pipeline_mesh(1, 2)``; then all four the MoE
-    config's steps at dp2×ep2, phase 39's steps at dp2×sp2, and phase 40's
-    at replica2×dp1×tp2 (``axis_steps``) and replica2×dp2 under ZeRO-3
-    (``fsdp_steps``: HSDP). The MoE model is built once a rank, first, and
-    copied for each group."""
+    config's steps at dp2×ep2, phase 39's steps at dp2×sp2, phase 40's at
+    replica2×dp1×tp2 (``axis_steps``) and replica2×dp2 under ZeRO-3
+    (``fsdp_steps``: HSDP), phase 41's dry run (``dryrun_work``) and phase
+    42's ZeRO-3 groups: the MoE config's steps at dp2×ep2 (``moe_steps``
+    with ``fsdp``) and phase 11's at dp2×pp2 (``fsdp_steps`` on the pipe
+    mesh). The MoE model is built once a rank, first, and copied for each
+    group."""
     import torch.distributed as dist
 
     from vtc_tpu_torch.parallel.expert import create_ep_mesh
     from vtc_tpu_torch.parallel.mesh import create_mesh
     from vtc_tpu_torch.parallel.pipeline import create_pipeline_mesh
     from vtc_tpu_torch.parallel.sequence import create_sp_mesh
-    from vtc_tpu_torch.parallel.stack import set_stack_parallel
+    from vtc_tpu_torch.parallel.stack import (
+        reset_stack_counts,
+        set_stack_parallel,
+        stack_counts,
+    )
 
     out = {"start": time.time() - t0}
     device = rank_setup(rank)
@@ -4736,19 +4919,27 @@ def axes_rank(rank: int, tmp: str, t0: float) -> None:
     base = model_from_config(MOE_CONFIG)
     out["build"] = time.perf_counter() - tic
     runs = (("pp", "pipe", 1, PP_DEGREE),) if rank in PP_RANKS else EP_RUNS[:2] + SP_RUNS[:1]
-    for name, axis, n_data, n_second in runs + EP_RUNS[2:] + SP_RUNS[1:] + SLICE_RUNS:
+    for name, axis, n_data, n_second in (runs + EP_RUNS[2:] + SP_RUNS[1:] + SLICE_RUNS
+                                         + DRYRUN_RUNS + ZERO3_RUNS):
         world = n_data * n_second * (N_REPLICA if axis == "replica" else 1)
-        group_rank = PP_RANKS.index(rank) if axis == "pipe" else rank
+        group_rank = PP_RANKS.index(rank) if name == "pp" else rank
         tic = time.perf_counter()
         os.environ.update(RANK=str(group_rank), WORLD_SIZE=str(world))
         dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_{name}",
                                 rank=group_rank, world_size=world)
         try:
-            if axis == "pipe":
+            if axis == "dryrun":
+                out[name] = dryrun_work(device)
+            elif axis == "pipe":
                 mesh = create_pipeline_mesh(n_data, n_second, device=device)
                 set_stack_parallel("pipe", mesh, PP_MICRO)
                 try:
-                    out[name] = pipe_work(device)
+                    if name.endswith("fsdp"):
+                        reset_stack_counts()
+                        out[name] = fsdp_steps(device, {})
+                        out[name]["stacks"] = dict(stack_counts())
+                    else:
+                        out[name] = pipe_work(device)
                 finally:
                     set_stack_parallel(None)
             elif axis == "seq":
@@ -4761,6 +4952,9 @@ def axes_rank(rank: int, tmp: str, t0: float) -> None:
                 create_mesh(n_data, n_second, n_replica=N_REPLICA, device=device)
                 out[name] = fsdp_steps(device, {}) if name.endswith("fsdp") \
                     else axis_steps(device)
+            elif name.endswith("fsdp"):  # phase 42: ZeRO-3 beside the expert axis
+                create_ep_mesh(n_data, n_second, device=device)
+                out[name] = moe_steps(device, Path(tmp) / "ep_fsdp.pth", base, fsdp=True)
             else:
                 make = create_mesh if axis == "model" else create_ep_mesh
                 make(n_data, n_second, device=device)
@@ -4770,6 +4964,156 @@ def axes_rank(rank: int, tmp: str, t0: float) -> None:
             dist.destroy_process_group()
         out[name]["seconds_total"] = time.perf_counter() - tic
     torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+# ---- phases 41 and 42: the multi-chip dry run, ZeRO-3 beside the expert and pipe axes --
+
+DRYRUN_N = 4  # scripts.dryrun_multichip's N: the JAX function's 2x2 dp x tp mesh
+DRYRUN_RUNS = (("dryrun", "dryrun", DRYRUN_N, 1),)
+# ZeRO-3 at dp2xep2 (the MoE config's steps) and dp2xpp2 (phase 11's), the
+# four ranks' last groups
+ZERO3_RUNS = (("dp2xep2_fsdp", "expert", 2, 2), ("dp2xpp2_fsdp", "pipe", 2, 2))
+ZERO3_SHARE_ATOL = 5e-5  # a data rank's bytes against half of one rank's (0.5000 to 4 digits)
+# the launches of the dry run's checks a rank: its flagship steps run all
+# four model kernels (the MoE flagship's no fused_attention); the text
+# stack's 2 blocks on 4 rows launch 2 LN, 2 add+LN and 2 fused_mha
+# sequentially, a pipe stage its 1 block on 2 microbatches alike, the ring
+# no fused_mha; the MoE layer none
+DRYRUN_STEPS = ("dp_tp", "fsdp", "slices", "pp", "sp", "plain", "accum")
+DRYRUN_STACK_LAUNCHES = {
+    "stack": {"layernorm": 2, "add_layernorm": 2, "fused_mha": 2, "fused_attention": 0},
+    "pp_stack": {"layernorm": 2, "add_layernorm": 2, "fused_mha": 2, "fused_attention": 0},
+    "sp_stack": {"layernorm": 2, "add_layernorm": 2, "fused_mha": 0, "fused_attention": 0},
+    "ep_layer": {"layernorm": 0, "add_layernorm": 0, "fused_mha": 0, "fused_attention": 0},
+}
+
+
+def dryrun_work(device) -> dict:
+    """Phase 41 on a rank of the group of ``DRYRUN_N``:
+    ``scripts.dryrun_multichip``'s checks on the card (they raise where one
+    fails), the four model kernels' launches counted from 0 just before and
+    read just after, and the seconds."""
+    from vtc_tpu_torch import ops
+    from vtc_tpu_torch.scripts import dryrun_multichip
+
+    tic = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = dryrun_multichip.checks(device, DRYRUN_N)
+    torch.cuda.synchronize()
+    out["total_launches"] = {k: v for k, v in ops.launch_counts().items() if k in PORT_KERNELS}
+    out["seconds"] = time.perf_counter() - tic
+    return out
+
+
+def check_dryrun(smi, spawned: list) -> None:
+    """Phase 41's checks: every rank's dry run ended with the JAX function's
+    line (its checks raise at the JAX limits), the ranks' losses alike, and
+    each check's launches of the four model kernels a rank: every kernel of
+    the flagship steps, none of ``fused_attention`` in the MoE flagship's,
+    ``DRYRUN_STACK_LAUNCHES`` for the stacks and the MoE layer."""
+    ranks = [r["dryrun"] for r in spawned]
+    keys = [k for k in ranks[0] if k.endswith("_loss") or k == "loss"]
+    for r, out in enumerate(ranks):
+        require(out["line"].startswith(f"dryrun_multichip({DRYRUN_N}) ok: "),
+                f"dry run rank {r}: {out.get('line')}")
+        require(all(out[k] == ranks[0][k] for k in keys), f"dry run rank {r}: losses differ")
+        for check, launches in out["launches"].items():
+            if check in DRYRUN_STACK_LAUNCHES:
+                want = DRYRUN_STACK_LAUNCHES[check]
+                require(launches == want, f"dry run rank {r} {check}: {launches} != {want}")
+            elif check == "moe_ep":
+                require(launches["fused_attention"] == 0 and all(
+                    launches[k] > 0 for k in PORT_KERNELS[:3]),
+                    f"dry run rank {r} {check}: {launches}")
+            else:
+                require(check in DRYRUN_STEPS and all(launches[k] > 0 for k in PORT_KERNELS),
+                        f"dry run rank {r} {check}: {launches}")
+        log(f"phase 41 rank {r}: {out['line']}; {out['seconds']:.1f} s; launches of the whole "
+            f"run {json.dumps(out['total_launches'])}, by check "
+            f"{json.dumps(out['launches'])}")
+    log("phase 41: " + ", ".join(f"{k} {ranks[0][k]:.7f}" for k in keys)
+        + f"; stacks pp {ranks[0]['pp_stack_err']:.3g}, sp {ranks[0]['sp_stack_err']:.3g}, "
+        f"ep layer {ranks[0]['ep_layer_err']:.3g} (atol 2e-5); token embedding shard "
+        f"{ranks[0]['emb_shard'][0]:,} of {ranks[0]['emb_shard'][1]:,}; on {smi}")
+
+
+def check_scatters(what: str, scatters: list, units=None) -> None:
+    """Each step's reduce-scatters: every unit once (``units`` of them where
+    given); none counted where this torch's FSDP2 names its reduction
+    otherwise."""
+    if any(s is None for s in scatters):
+        log(f"{what}: reduce-scatters not counted (FSDP2 has no foreach_reduce here)")
+        return
+    for k, (calls, distinct) in enumerate(scatters):
+        require(calls == distinct > 0 and units in (None, calls),
+                f"{what} step {k + 1}: {calls} reduce-scatters of {distinct} units "
+                f"({units} expected)")
+
+
+def check_zero3(smi, spawned: list, one: dict, parity: dict, rtol: float) -> None:
+    """Phase 42's checks. The MoE config's steps at dp2×ep2 under ZeRO-3
+    against the one rank's (phase 37's limits): losses within ``LOSS_ATOL``,
+    step-1 gradients within ``rtol``, the routing equal, ``EP_STEPS`` × (29,
+    26, 26) launches, each rank's expert stacks and their moments 0.5000 of
+    one rank's (split over expert, whole over data), every other leaf and
+    its moments 0.5000 (sharded over data), each unit reduce-scattered once
+    a step, the state through a single-card ``.pth`` bit for bit. Phase
+    11's first ``FSDP_STEPS`` steps at dp2×pp2 under ZeRO-3 (phase 38's
+    limits): losses, gradients, each stage's launches and pipelined stacks,
+    each rank's bytes of parameters and moments 0.5000 of phase 11's
+    unsharded model's, each of a stage's units (its blocks and the root)
+    reduce-scattered once a step, the state gathered and loaded back bit for
+    bit."""
+    want = {k: EP_STEPS * v for k, v in EXPECTED_LAUNCHES.items()}
+    name = ZERO3_RUNS[0][0]
+    ranks = [r[name] for r in spawned]
+    what = f"ZeRO-3 MoE config {name} over gloo"
+    compare_losses(what, ranks[0]["losses"], one["losses"], names=(name, "one rank"))
+    compare_grads(f"{what} vs one rank", ranks[0]["grads"], one["grads"], rtol=rtol)
+    for r, out in enumerate(ranks):
+        require(out["losses"] == ranks[0]["losses"], f"{what} rank {r} losses")
+        require(out["launches"] == want, f"{what} rank {r} launches {out['launches']}")
+        for i, (got, ref) in enumerate(zip(out["routing"], one["routing"])):
+            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                    f"{what} rank {r}: MoE layer {i} routes otherwise than one rank")
+        shares = [out[k] / one[k] for k in ("stack_bytes", "moment_bytes", "rest_bytes")]
+        log(f"{what} rank {r}: launches {json.dumps(out['launches'])}; routing equal one "
+            f"rank's; expert stacks {shares[0]:.4f}, their moments {shares[1]:.4f}, every "
+            f"other leaf and its moments {shares[2]:.4f} of one rank's bytes "
+            f"({out['rest_bytes']:,} of {one['rest_bytes']:,}); reduce-scatters a step "
+            f"{out['reduce_scatters']}; the .pth ({out['ckpt_bytes']:,} bytes) back bit for "
+            f"bit: {out['round_trip']}; {out['seconds_total']:.1f} s")
+        require(shares[:2] == [0.5, 0.5], f"{what} rank {r}: stacks {shares[:2]}")
+        # dim 0 in torch.chunk's parts: the last data rank may hold a row less
+        require(abs(shares[2] - 0.5) <= ZERO3_SHARE_ATOL, f"{what} rank {r}: the rest {shares[2]}")
+        require(out["round_trip"], f"{what} rank {r}: the .pth did not come back bit for bit")
+        check_scatters(f"{what} rank {r}", out["reduce_scatters"])
+
+    name = ZERO3_RUNS[1][0]
+    ranks = [r[name] for r in spawned]
+    what = f"ZeRO-3 pipeline {name} (n_micro {PP_MICRO}) over gloo"
+    compare_losses(what, ranks[0]["losses"], parity["losses"][:FSDP_STEPS],
+                   names=(name, "phase 11"))
+    compare_grads(f"{what} vs phase 11", ranks[0]["grads"], parity["grads"], rtol=rtol)
+    want = {k: FSDP_STEPS * v for k, v in pp_stage_launches(
+        EXPECTED_LAUNCHES, PP_BLOCKS, PP_MICRO, PP_DEGREE).items()}
+    whole = parity["held"]["param_bytes"] + parity["held"]["moment_bytes"]
+    units = PP_BLOCKS["fused_mha"] // PP_DEGREE + 1  # a stage's blocks and the root
+    for r, out in enumerate(ranks):
+        mine = out["param_bytes"] + out["moment_bytes"]
+        log(f"{what} rank {r}: launches {json.dumps(out['launches'])}, stacks "
+            f"{out['stacks']}; parameters + moments {mine:,} bytes, {mine / whole:.4f} of "
+            f"phase 11's unsharded {whole:,}; reduce-scatters a step {out['reduce_scatters']} "
+            f"({units} units a stage); the state back bit for bit: {out['round_trip']}; "
+            f"{out['seconds_total']:.1f} s")
+        require(out["losses"] == ranks[0]["losses"], f"{what} rank {r} losses")
+        require(out["launches"] == want, f"{what} rank {r} launches {out['launches']} != {want}")
+        require(out["stacks"] == {"pipelined": 3 * FSDP_STEPS}, f"{what} rank {r} stacks")
+        require(abs(mine / whole - 0.5) <= ZERO3_SHARE_ATOL, f"{what} rank {r} holds {mine / whole}")
+        require(out["round_trip"], f"{what} rank {r}: the state did not come back bit for bit")
+        check_scatters(f"{what} rank {r}", out["reduce_scatters"], units)
+    log(f"phase 42: ZeRO-3 beside the expert and pipe axes held; on {smi}")
 
 
 def check_moe_ranks(spawned: list, one: dict, ckpt: dict, rtol: float) -> None:
@@ -5096,7 +5440,7 @@ def run_axes(ops, smi, parity: dict, plain: float) -> dict:
         del video
         torch.cuda.empty_cache()
         refs_s = time.perf_counter() - tic
-        spawned = wait_on_card(context, 4, tmp, RANKS_TIMEOUT, "phases 37-40")
+        spawned = wait_on_card(context, 4, tmp, RANKS_TIMEOUT, "phases 37-42")
         spawn_s = time.perf_counter() - phase_tic
         from vtc_tpu_torch.training import load_checkpoint
 
@@ -5107,16 +5451,19 @@ def run_axes(ops, smi, parity: dict, plain: float) -> dict:
     check_pipeline(smi, [spawned[r]["pp"] for r in PP_RANKS], parity, video_one, plain, rtol)
     check_sequence(smi, spawned, parity, video_one, plain, rtol)
     check_slices(smi, spawned, parity, rtol)
+    check_dryrun(smi, spawned)
+    check_zero3(smi, spawned, one, parity, rtol)
     groups = {name: round(spawned[0][name]["seconds_total"], 1)
-              for name, *_ in EP_RUNS + SP_RUNS + SLICE_RUNS}
+              for name, *_ in EP_RUNS + SP_RUNS + SLICE_RUNS + DRYRUN_RUNS + ZERO3_RUNS}
     groups["pp"] = round(spawned[PP_RANKS[0]]["pp"]["seconds_total"], 1)
-    log(f"phases 37-40 took {time.perf_counter() - phase_tic:.1f} s (the ranks' spawn and "
+    log(f"phases 37-42 took {time.perf_counter() - phase_tic:.1f} s (the ranks' spawn and "
         f"work {spawn_s:.1f} s, the one rank's references beside them {refs_s:.1f} s; the "
         f"ranks' start {[round(r['start'], 1) for r in spawned]} s, MoE builds "
         f"{[round(r['build'], 1) for r in spawned]} s; each group's seconds on its first "
         f"rank {json.dumps(groups)}); on {smi}")
     return {"39": groups["dp1xsp2"] + groups["dp2xsp2"],
-            "40": sum(groups[name] for name, *_ in SLICE_RUNS)}
+            "40": sum(groups[name] for name, *_ in SLICE_RUNS),
+            "41": groups["dryrun"], "42": sum(groups[name] for name, *_ in ZERO3_RUNS)}
 
 
 def main() -> int:
@@ -5394,12 +5741,14 @@ def main() -> int:
     # 36. the joint-layout TimeSformer and the cross route at (1, 393)
     joint_launches, results["fused_mha_cross"] = run_joint(ops, smi)
 
-    mark("37-40")
+    mark("37-42")
     # 37. the MoE config on dp2, dp1xep2 and dp2xep2 over gloo against one rank;
     # 38. the pipe axis: phase 11's steps and the video forward on dp1xpp2;
     # 39. the sequence axis: phase 11's steps on dp1xsp2 and dp2xsp2, the video
     # forward; 40. multi-slice: replica2xdp1xtp2, replica2xdp2 under ZeRO-3 (HSDP);
-    # one spawn of 4 ranks, within the card's reorder floor of phase 11's step
+    # 41. the multi-chip dry run's twin at N = 4; 42. ZeRO-3 at dp2xep2 and
+    # dp2xpp2; one spawn of 4 ranks, within the card's reorder floor of phase
+    # 11's step
     group_seconds = run_axes(ops, smi, parity_steps, plain_rate)
 
     mark("31")
@@ -5422,8 +5771,8 @@ def main() -> int:
         })
     mark("end")
     seconds = {p: round(t1 - t0, 1) for (p, t0), (_, t1) in zip(marks, marks[1:])}
-    # phases 39 and 40 run inside 37-40's spawn: their groups' own seconds
-    seconds.update({f"{p} (groups in 37-40)": t for p, t in group_seconds.items()})
+    # phases 39 to 42 run inside 37-42's spawn: their groups' own seconds
+    seconds.update({f"{p} (groups in 37-42)": t for p, t in group_seconds.items()})
     log("phase seconds (from each start to the next): " + json.dumps(seconds))
     log(smi)
     print(json.dumps({"kernels": kernels}))

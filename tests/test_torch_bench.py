@@ -2,6 +2,8 @@
 bench`` (its FLOP count against ``torch.utils.flop_counter.FlopCounterMode``,
 its JSON line against ``bench.py``'s keys), ``scripts.profile_eval``,
 ``scripts.bench_video_eval`` and ``scripts.bench_optim_update`` once each,
+the trace window (``VTC_TRACE=1``) of ``bench_train_step`` and
+``bench_video_eval``,
 the video pipeline's ``VTC_REMAT`` default, and the checkpoint refusal. No
 number here is a device metric: the card's come from ``chip_smoke.py``.
 """
@@ -23,6 +25,15 @@ from vtc_tpu_torch.training import load_checkpoint
 
 TINY = "test-tiny"
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread in the test process, as in the spawned ranks."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("batch,ntoks", [(3, 16), (5, 77)])
@@ -123,6 +134,37 @@ def test_bench_video_eval_runs():
     out = bench_video_eval.main(batch=2, frames=2, iters=1, warmup=1, model_type=TINY,
                                 device="cpu", log=lambda m: None)
     assert out["videos_per_s"] > 0 and len(out["window_rates"]) == 3
+
+
+@pytest.mark.parametrize("script", ["bench_train_step", "bench_video_eval"])
+def test_bench_twins_trace_one_window(monkeypatch, script):
+    """``VTC_TRACE=1``: after the warm-up one window of ``iters`` calls runs
+    under the profiler (the CPU's operators standing in for the card's
+    kernels), printed as ``profile_trace`` prints it (top kernels, families,
+    idle share), and its profile comes back in place of the rates."""
+    from vtc_tpu_torch.scripts import bench_train_step, profile_trace
+
+    monkeypatch.setenv("VTC_TRACE", "1")
+    lines = []
+    if script == "bench_train_step":
+        out = bench_train_step.main(batch=4, iters=2, warmup=1, model_type=TINY,
+                                    device="cpu", log=lines.append)
+        assert len(out["losses"]) == 3 and "samples_per_s" not in out
+        what = "train step batch 4, accum_steps 1"
+    else:
+        out = bench_video_eval.main(batch=2, frames=2, iters=2, warmup=1, model_type=TINY,
+                                    device="cpu", log=lines.append)
+        assert "videos_per_s" not in out
+        what = "video eval batch 2, 2 frames"
+    prof = out["profile"]
+    assert prof["family_ms"] and all(ms >= 0 for ms in prof["family_ms"].values())
+    assert 0 < len(prof["kernel_ms"]) <= profile_trace.TOP
+    assert 0 <= prof["idle_share"] < 1 and prof["launches"] > 0
+    assert lines[0] == f"top {len(prof['kernel_ms'])} kernels by self device time, ms per " \
+                       f"call ({what}):"
+    assert any(line.startswith(f"profile {what}, 2 forwards") for line in lines)
+    assert sum(line.startswith("profile device ms per forward:") for line in lines) == len(
+        prof["family_ms"])
 
 
 def test_bench_optim_update_runs():

@@ -11,13 +11,19 @@ process beside them, and against the port's one-process step.
   factor 0.5 the global capacity drops tokens that a per-rank routing would
   keep, and the ranks drop exactly the global ones.
 * ``configs/pretrained_clip_comments_attn_moe.jsonc`` at test-tiny: its
-  train step on dp2 (also under ZeRO-3), dp1×tp2, dp1×ep2 and dp2×ep2,
+  train step on dp2 (also under ZeRO-3), dp1×tp2, dp1×ep2 and dp2×ep2 (also
+  under ZeRO-3, ``--fsdp 1 --ep 2``),
   plain and at ``accum_steps`` 2, against the one-rank step (which
   ``tests/test_torch_expert.py`` holds to ``make_step_fns``): losses within
   2e-6, gradients within ``GRAD_RTOL`` of each parameter's largest
   (``TP_GRAD_RTOL`` on the model axis), the routing equal; each expert rank
   holds half of the expert stacks and of their Adam moments, in storage of
-  its own.
+  its own. Under ZeRO-3 beside the expert axis every other leaf is split
+  over the data ranks (half of its bytes a rank) while the expert stacks
+  stay whole over data, as ``vtc_tpu``'s ``moe_pspec`` overrides the fsdp
+  spec (``vtc_tpu``'s step gives the same loss with and without
+  ``fsdp=True`` on its expert mesh); each unit reduce-scatters once a
+  step.
 * The train twin at ``--ep 2``: a single-card ``.pth`` that a whole model
   loads strictly, a resume that restores it bit for bit; the strided
   ``retrieval_evaluation`` of a model split at dp2×ep2 over an odd number
@@ -61,7 +67,16 @@ MESHES = {2: [("dp2", ("model", 2, 1)), ("dp1xtp2", ("model", 1, 2)),
 LAYER_MESHES = ["dp2", "dp1xep2", "dp2xep2"]
 STEP_CASES = [("dp2", "plain"), ("dp2", "accum"), ("dp2", "fsdp"), ("dp1xtp2", "plain"),
               ("dp1xep2", "plain"), ("dp1xep2", "accum"), ("dp2xep2", "plain"),
-              ("dp2xep2", "accum")]
+              ("dp2xep2", "accum"), ("dp2xep2", "fsdp")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread in the test process, as in the spawned ranks."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _model_kw():
@@ -95,7 +110,10 @@ def _state_dict():
 
 def _step_cases(sd):
     step = dict(state_dict=sd, data=_inputs(), steps=2, model_kw=_model_kw())
-    return {"plain": step, "accum": dict(step, accum=2), "fsdp": dict(step, fsdp=True)}
+    # ZeRO-3 with torch's multi-tensor Adam, the card's default: its groups
+    # mix shards (DTensors) and the expert stacks FSDP2 leaves out
+    return {"plain": step, "accum": dict(step, accum=2),
+            "fsdp": dict(step, fsdp=True, foreach=True)}
 
 
 def _layer_params(seed=0):
@@ -319,6 +337,37 @@ def test_each_expert_rank_holds_half_the_stacks_and_moments(ep_runs, mesh):
                 assert tuple(p.shape) == shapes[n], n  # the router and the rest whole
 
 
+def test_zero3_beside_ep_splits_the_rest_over_data(ep_runs):
+    """dp2×ep2 under ZeRO-3: each rank holds its expert place's half of the
+    expert stacks (whole over its data group, in storage of its own) and
+    its data rank's ⌈n/2⌉ (or the rest) dim-0 rows of every other leaf,
+    each with Adam moments of its shape: half of the other leaves' bytes;
+    each unit with a gradient (the CAM's blocks, the root) reduce-scatters
+    once a step."""
+    from vtc_tpu_torch.parallel.expert import moe_pspec
+
+    _, _, _, ranks = ep_runs
+    held = whole = 0
+    for r, out in enumerate(ranks["dp2xep2", "fsdp"]):
+        d, x = divmod(r, 2)  # rank d·2 + x of create_ep_mesh(2, 2)
+        calls, units = zip(*out["reduce_scatters"])
+        assert calls == units and min(calls) > 0, out["reduce_scatters"]
+        for n, full in out["params"].items():
+            local = out["local_params"][n]
+            if moe_pspec(n):
+                assert torch.equal(local, full.chunk(2)[x]), n
+                assert out["storage"][n] == 4 * local.numel(), n
+            elif full.dim():
+                rows = -(-full.shape[0] // 2)
+                want = rows if d == 0 else full.shape[0] - rows
+                assert torch.equal(local, full[d * rows:d * rows + want]), n
+                held += local.numel()
+                whole += full.numel()
+            for k, shape in out["local_moments"].get(n, {}).items():
+                assert shape == tuple(local.shape), (n, k)
+    assert 0.5 <= held / whole <= 0.5005
+
+
 def test_twin_at_ep2_writes_single_card_checkpoints(ep_runs):
     """Rank 0's ``.pth`` holds a single card's keys and shapes (the stacks
     gathered), loads strictly into a whole model, equals the gathered state
@@ -381,6 +430,9 @@ def test_refusals(tmp_path):
         assert torch.equal(p, before[n]), n
     assert shard_experts(model, ModelAxis(None, 0, 1)) is model
     moe = {"moe_experts": N_EXP, "moe_top_k": TOP_K}
+    cfg = _config(tmp_path, "x.csv", "x", ep=2, fsdp=1)  # ZeRO-3 beside --ep: no refusal
+    cfg["arch"]["args"].update(moe)
+    twin._check_mesh(ConfigParser(cfg), torch.device("cpu"), logging.getLogger("test"))
     for extra, arch, match in [
             ({"ep": 2, "n_model": 2}, moe, "at most one non-data mesh axis"),
             ({"ep": 2, "pp": 2}, moe, "at most one non-data mesh axis"),

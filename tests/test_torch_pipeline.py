@@ -18,10 +18,16 @@ and against the sequential stack.
   the MoE config's (its CAM sequential): the one-rank step's losses within
   2e-6 and gradients within ``GRAD_RTOL`` of each parameter's largest,
   every rank's parameters equal after.
+* The same plain and accumulating steps under ZeRO-3 (``--fsdp 1 --pp
+  2``): the same limits against the one-rank step (``vtc_tpu``'s step
+  gives the same loss with and without ``fsdp=True`` on its pipe mesh);
+  each unit of a stage (its blocks and the root) reduce-scatters once a
+  step, and each rank holds its data rank's rows of every parameter and
+  moment, half of the bytes.
 * The train twin at ``--n_devices 2 --pp 2``: a single-card ``.pth`` that a
   whole model loads strictly, a resume that restores it.
-* ``--slices`` beside the pipe and sequence axes and ZeRO-3 beside the
-  pipe and expert axes refused by name.
+* ``--slices`` beside the pipe and sequence axes refused by name; ZeRO-3
+  beside the pipe and expert axes no longer refused.
 * On the card (``-m cuda``): the flagship's dp1×pp2 step over gloo against
   one rank.
 
@@ -55,6 +61,15 @@ FORWARDS = {
     "moe_stack": ("transformer", LAYERS, False, (4, 5, WIDTH), MOE),
     "three_layers": ("transformer", 3, False, (4, 5, WIDTH), {}),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread in the test process, as in the spawned ranks."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,7 +166,13 @@ def _step_cases():
                                         for i in range(2)] for d in skip])
     moe = dict(state_dict=_state_dict(freeze="all", **MOE), data=_inputs(seed=4), steps=1,
                model_kw=dict(freeze="all", **MOE))
-    return {"plain": step, "accum": accum, "moe": moe}
+    return {"plain": step, "accum": accum, "moe": moe, "fsdp": dict(step, fsdp=True),
+            "fsdp_accum": dict(accum, fsdp=True)}
+
+
+def _one_rank(case):
+    """The one-rank reference of a step case (ZeRO-3's is the plain step's)."""
+    return case.replace("fsdp_", "").replace("fsdp", "plain")
 
 
 def _cli_config(tmp):
@@ -181,7 +202,8 @@ def pp_runs(tmp_path_factory):
     refs = {name: _jax_pipeline(name, jax_params[name], specs[name]["x"])
             for name in ("text", "vit", "timesformer")}
     refs.update({("sequential", name): R.stack_forward(spec) for name, spec in specs.items()})
-    refs.update({("single", name): R.step_case(case) for name, case in cases.items()})
+    refs.update({("single", name): R.step_case(case) for name, case in cases.items()
+                 if _one_rank(name) == name})
     R.wait(context, timeout=TIMEOUT)
     ranks = [torch.load(tmp / f"pp_rank{r}.pt", weights_only=False) for r in range(4)]
     return specs, cases, refs, ranks
@@ -263,15 +285,16 @@ def test_ineligible_stacks_run_sequentially(pp_runs, name):
         assert torch.equal(out[name]["x_grad"], seq["x_grad"])
 
 
-@pytest.mark.parametrize("case", ["plain", "accum", "moe"])
+@pytest.mark.parametrize("case", ["plain", "accum", "moe", "fsdp", "fsdp_accum"])
 def test_dp2_pp2_step_matches_one_rank(pp_runs, case):
     """The flagship's visual, text and CAM stacks run pipelined (3 a
-    forward; 2 passes of 2 microbatches with ``accum_steps`` 2); the MoE
-    config's CAM runs sequentially beside its pipelined towers."""
+    forward; 2 passes of 2 microbatches with ``accum_steps`` 2), under
+    ZeRO-3 too; the MoE config's CAM runs sequentially beside its pipelined
+    towers."""
     _, _, refs, ranks = pp_runs
-    single = refs["single", case]
+    single = refs["single", _one_rank(case)]
     counts = {"plain": {"pipelined": 3 * 2}, "accum": {"pipelined": 3 * 2 * 2 * 2},
-              "moe": {"pipelined": 2, "sequential": 1}}[case]
+              "moe": {"pipelined": 2, "sequential": 1}}[_one_rank(case)]
     for out in ranks:
         res = out[case]
         assert res["counts"] == counts
@@ -284,6 +307,35 @@ def test_dp2_pp2_step_matches_one_rank(pp_runs, case):
                 assert err <= GRAD_RTOL * float(g.abs().max()), (name, err)
         for name, p in res["params"].items():  # every stage and data rank alike
             assert torch.equal(p, ranks[0][case]["params"][name]), name
+
+
+@pytest.mark.parametrize("case", ["fsdp", "fsdp_accum"])
+def test_zero3_stage_reduce_scatters_once_and_holds_half(pp_runs, case):
+    """Under ZeRO-3 a stage's units (its block of each of the 3 stacks and
+    the root) reduce-scatter once a step, the accumulating step's
+    microbatches and the schedule's included; each rank holds its data
+    rank's ⌈n/2⌉ (or the rest) dim-0 rows of every parameter, its Adam
+    moments alike, and a pipe group's two stages the same rows."""
+    _, _, _, ranks = pp_runs
+    held = whole = 0
+    for r, out in enumerate(ranks):
+        res = out[case]
+        assert res["reduce_scatters"] == [(4, 4)] * 2, (r, res["reduce_scatters"])
+        d = r // 2  # rank d·2 + s of create_pipeline_mesh(2, 2)
+        for n, full in res["params"].items():
+            local = res["local_params"][n]
+            if full.dim() == 0:  # logit_scale stays whole
+                assert local.shape == full.shape, n
+                continue
+            rows = -(-full.shape[0] // 2)
+            want = rows if d == 0 else full.shape[0] - rows
+            assert torch.equal(local, full[d * rows:d * rows + want]), n
+            assert torch.equal(local, ranks[r ^ 1][case]["local_params"][n]), n
+            for k, shape in res["local_moments"].get(n, {}).items():
+                assert shape == tuple(local.shape), (n, k)
+            held += local.numel()
+            whole += full.numel()
+    assert 0.5 <= held / whole <= 0.5005
 
 
 def test_twin_at_pp2_writes_single_card_checkpoints(pp_runs):
@@ -303,11 +355,12 @@ def test_twin_at_pp2_writes_single_card_checkpoints(pp_runs):
         assert opt["state"].keys() == ckpt["optimizer"]["state"].keys()
 
 
-def test_sp_slices_and_seq_are_refused_by_name():
+def test_sp_slices_and_seq_are_refused_by_name(pp_runs):
     """What stays refused beside the pipe and sequence axes: ``--slices``
-    beside pp/sp/ep (as ``vtc_tpu``'s ``train.py``), ZeRO-3 beside the pipe
-    and expert axes (naming its ROADMAP item), the ``"seq"`` mode without
-    its mesh axis."""
+    beside pp/sp/ep (as ``vtc_tpu``'s ``train.py``), the ``"seq"`` mode
+    without its mesh axis. ZeRO-3 beside the pipe and expert axes passes
+    the check, as ``vtc_tpu``'s ``tree_shardings`` composes them, and the
+    dp2×pp2 groups built and stepped under it."""
     from vtc_tpu_torch.parallel.mesh import check_axes
     from vtc_tpu_torch.parallel.stack import set_stack_parallel, stack_parallel_mode
 
@@ -318,10 +371,11 @@ def test_sp_slices_and_seq_are_refused_by_name():
         set_stack_parallel("seq", None)
     with pytest.raises(ValueError, match="at most one non-data mesh axis"):
         check_axes(2, pp=2)
-    with pytest.raises(NotImplementedError, match="ZeRO-3"):
-        check_axes(1, pp=2, fsdp=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
-        check_axes(1, ep=2, fsdp=True)
+    check_axes(1, pp=2, fsdp=True)
+    check_axes(1, ep=2, fsdp=True)
+    for out in pp_runs[3]:
+        for case in ("fsdp", "fsdp_accum"):
+            assert len(out[case]["losses"]) == 2 and np.isfinite(out[case]["losses"]).all()
     check_axes(1, pp=2)
     check_axes(1, sp=2, fsdp=True)
     check_axes(2, slices=2, fsdp=True)

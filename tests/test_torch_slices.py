@@ -19,6 +19,12 @@ the port's one-process step, computed in the test process beside them.
 * The train twin at ``--slices 2 --n_devices 2 --fsdp 1``: a single-card
   ``.pth`` gathered from the HSDP shards that a whole model loads strictly,
   and a resume that restores it.
+* The multi-chip dry run's twin (``vtc_tpu_torch.scripts.dryrun_multichip``,
+  ``__graft_entry__.dryrun_multichip``) at N = 4 in the same spawn, fed the
+  weights and the adapter-skip draws of JAX's one-device ``make_step_fns``
+  step of the TimeSformer flagship: its dp×tp loss within rtol 2e-5 of
+  JAX's, each of its checks at the JAX function's limits, the current mesh
+  and the stacks' switch left as it found them.
 """
 
 import math
@@ -30,6 +36,7 @@ import torch
 
 import torch_dist_ranks as R
 from test_torch_pipeline import _cli_config, _inputs, _state_dict
+from vtc_tpu_torch.scripts import dryrun_multichip as D
 
 GRAD_RTOL = 1e-5  # the model axis's reorder floor (tests/test_torch_tp.py)
 LOSS_ATOL = 2e-6
@@ -37,10 +44,21 @@ TIMEOUT = 300
 MESHES = {"replica2xdp1xtp2": (2, 1, 2), "replica2xdp2": (2, 2, 1)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread in the test process, as in the spawned ranks."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def slices_runs(tmp_path_factory):
-    """The spawn of 4 ranks (``R.run_slices``) beside the one-process step;
-    returns (the one-process step, each rank's results)."""
+    """The spawn of 4 ranks (``R.run_slices``) beside the one-process step
+    and JAX's step of the dry run, whose weights and draws the ranks wait
+    for after their own groups; returns (the one-process step, each rank's
+    results, JAX's dry-run step)."""
     tmp = tmp_path_factory.mktemp("slices")
     gen = torch.Generator().manual_seed(3)
     skip = [{"adapter_skip": torch.rand((8, 1), generator=gen) > 0.5} for _ in range(2)]
@@ -49,12 +67,55 @@ def slices_runs(tmp_path_factory):
     torch.save({"meshes": [("replica2xdp1xtp2", MESHES["replica2xdp1xtp2"], {"plain": case}),
                            ("replica2xdp2", MESHES["replica2xdp2"],
                             {"fsdp": dict(case, fsdp=True)})],
-                "cli": True}, tmp / "slices.pt")
+                "cli": True, "dryrun": True}, tmp / "slices.pt")
     context = R.spawn(R.run_slices, 4, tmp, join=False)
     single = R.step_case(case)
+    jax_run = _jax_dryrun_step()
+    torch.save(jax_run, tmp / "dryrun.part")
+    (tmp / "dryrun.part").replace(tmp / "dryrun.pt")  # whole when it appears
     R.wait(context, timeout=TIMEOUT)
     return single, [torch.load(tmp / f"slices_rank{r}.pt", weights_only=False)
-                    for r in range(4)]
+                    for r in range(4)], jax_run
+
+
+def _jax_dryrun_step():
+    """``__graft_entry__.dryrun_multichip``'s dp×tp step on one device:
+    ``make_step_fns``' step of the test-tiny TimeSformer flagship (4 frames)
+    on the dry run's batch at N = 4 with its optimizer and
+    ``PRNGKey(0)``, on the port's seeded weights brought over by
+    ``vtc_tpu``'s ``import_vtc_state_dict`` (no JAX init to compile): its
+    loss, and the weights (``state_dict_from_jax`` of its params) and
+    adapter-skip draws (read from its output) for the port's dry run."""
+    import jax
+    import jax.numpy as jnp
+
+    from test_torch_training import _skipped_rows
+    from vtc_tpu.models.factory import ARCHS
+    from vtc_tpu.models.torch_import import import_vtc_state_dict
+    from vtc_tpu.ops.losses import clip_loss
+    from vtc_tpu.training.optim import build_optimizer
+    from vtc_tpu.training.trainer import TrainState, make_step_fns
+    from vtc_tpu_torch.models import create_model
+    from vtc_tpu_torch.models.from_jax import state_dict_from_jax
+
+    port = create_model("PretrainedCLIP_TimeSformer_finaltf", model_type=R.TINY,
+                        nframes=D.NFRAMES, device="cpu").state_dict()
+    params = import_vtc_state_dict({k: v.numpy() for k, v in port.items()},
+                                   timesformer=True)["params"]
+    module = ARCHS["PretrainedCLIP_TimeSformer_finaltf"](model_type=R.TINY,
+                                                         nframes=D.NFRAMES)
+    tx = build_optimizer(params, D.OPTIMIZER, D.SCHEDULER, steps_per_epoch=4,
+                         adapter_lr=1e-2, time_lr=1e-4)
+    step, evaluate = make_step_fns(module, clip_loss, tx, donate=False)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=jparams,
+                       opt_state=tx.init(jparams), batch_stats={})
+    data = D._Checks("cpu", 4, None, None).data  # default_rng(0)'s, as the JAX function's
+    title = evaluate(state, data, {}, branch_override="skip")[1][1]
+    _, loss, out = step(state, data, {}, jax.random.PRNGKey(0))
+    draws = {"adapter_skip": _skipped_rows(out[1], title)}
+    return {"loss": float(loss), "draws": draws,
+            "state_dict": state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))}
 
 
 @pytest.mark.parametrize("name", list(MESHES))
@@ -66,7 +127,7 @@ def test_replica_mesh_lays_ranks_out_as_vtc_tpu(slices_runs, name):
     n_replica, n_data, n_model = MESHES[name]
     jax_mesh = jax_create_mesh(n_data, n_model, devices=jax.devices()[:4], n_replica=n_replica)
     ids = np.vectorize(lambda d: d.id)(jax_mesh.devices)
-    _, ranks = slices_runs
+    _, ranks, _ = slices_runs
     for r, out in enumerate(ranks):
         axes = out[name]["axes"]
         assert axes["names"] == tuple(jax_mesh.axis_names) == ("replica", "data", "model")
@@ -81,7 +142,7 @@ def test_replica_mesh_lays_ranks_out_as_vtc_tpu(slices_runs, name):
 @pytest.mark.parametrize("name, case", [("replica2xdp1xtp2", "plain"),
                                         ("replica2xdp2", "fsdp")])
 def test_slices_step_matches_one_rank(slices_runs, name, case):
-    single, ranks = slices_runs
+    single, ranks, _ = slices_runs
     for out in ranks:
         res = out[name][case]
         np.testing.assert_allclose(res["losses"], single["losses"], atol=LOSS_ATOL, rtol=0)
@@ -99,7 +160,7 @@ def test_hsdp_rank_holds_half_of_each_parameter_and_moment(slices_runs):
     """Each rank holds its data rank's ⌈n/2⌉ (or the rest) dim-0 rows of
     every parameter and moment, whichever replica it sits in, and about
     half of the bytes; ``logit_scale`` (0-dim) stays whole."""
-    _, ranks = slices_runs
+    _, ranks, _ = slices_runs
     held = whole = 0
     for r, out in enumerate(ranks):
         res = out["replica2xdp2"]["fsdp"]
@@ -125,7 +186,7 @@ def test_hsdp_rank_holds_half_of_each_parameter_and_moment(slices_runs):
 def test_twin_at_slices2_fsdp_writes_single_card_checkpoints(slices_runs):
     from vtc_tpu_torch.training import load_checkpoint
 
-    _, ranks = slices_runs
+    _, ranks, _ = slices_runs
     outs = [out["cli"] for out in ranks]
     assert all(o["dirs"] == outs[0]["dirs"] and o["start"] == 2 for o in outs)
     ckpt = load_checkpoint(Path(outs[0]["dirs"][0]) / "checkpoint-epoch1.pth")
@@ -154,3 +215,64 @@ def test_slices_compose_with_dp_tp_and_fsdp(caplog):
     assert "2x2x1 (slices x data x second-axis)" in caplog.text
     with pytest.raises(RuntimeError, match="--slices 2"):
         create_mesh(2, 1, n_replica=2, device="cpu")
+
+
+# (the dry run's number, its limit against the reference): the losses at
+# rtol 2e-5 of step 1's, the stacks and the MoE layer at atol 2e-5
+DRYRUN_CHECKS = {"fsdp_loss": "loss", "slices_loss": "loss", "pp_loss": "loss",
+                 "sp_loss": "loss", "moe_ep_loss": "moe_ref_loss",
+                 "accum_loss": "plain_loss", "pp_stack_err": None, "sp_stack_err": None,
+                 "ep_layer_err": None}
+
+
+def test_dryrun_multichip_dp_tp_step_matches_jax(slices_runs):
+    """The twin's dp×tp step (2×2 ranks), fed JAX's weights and draws, gives
+    JAX's one-device loss within rtol 2e-5 on every rank; the CAM probe
+    moved (or the twin would have raised) and R@1 is 1; the closing line is
+    the JAX function's; the mesh and the switch are as the twin found
+    them."""
+    _, ranks, jax_run = slices_runs
+    for out in ranks:
+        run = out["dryrun"]
+        np.testing.assert_allclose(run["loss"], jax_run["loss"], rtol=D.RTOL)
+        assert dict(run["recalls"])[1] == 1.0
+        assert run["line"].startswith("dryrun_multichip(4) ok: mesh=DeviceMesh(")
+        assert run["line"].endswith("accum2 loss exact on the dp mesh")
+        assert run["kept"]
+        # every rank of a group the same numbers (the launches: none on the CPU)
+        assert {k: v for k, v in run.items() if k not in ("kept",)} == {
+            k: v for k, v in ranks[0]["dryrun"].items() if k not in ("kept",)}
+        assert all(not any(c.values()) for c in run["launches"].values())
+
+
+@pytest.mark.parametrize("key", list(DRYRUN_CHECKS))
+def test_dryrun_multichip_checks_hold_the_jax_limits(slices_runs, key):
+    _, ranks, _ = slices_runs
+    for out in ranks:
+        run, ref = out["dryrun"], DRYRUN_CHECKS[key]
+        if ref is None:
+            assert 0 <= run[key] <= D.ATOL, (key, run[key])
+        else:
+            np.testing.assert_allclose(run[key], run[ref], rtol=D.RTOL, err_msg=key)
+
+
+def test_dryrun_multichip_embedding_shard(slices_runs):
+    """ZeRO-3 on the 2×2 mesh: the token embedding's local shard is a
+    quarter of the table (a half over model, a half of that over data)."""
+    _, ranks, _ = slices_runs
+    for out in ranks:
+        shard, table = out["dryrun"]["emb_shard"]
+        assert shard * 4 == table
+
+
+def test_dryrun_multichip_cli_needs_a_card_or_the_cpu(monkeypatch, capsys):
+    """Without a card and without ``--device cpu`` the twin raises, never
+    dropping to the CPU; ``main`` prints the checks' closing line."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal needs a machine without a card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        D.run(4)
+    monkeypatch.setattr(D, "run", lambda n, device: {"line": f"dryrun_multichip({n}) ok: x",
+                                                     "backend": "gloo"})
+    D.main(["4", "--device", "cpu"])
+    assert capsys.readouterr().out.startswith("dryrun_multichip(4) ok: x; gloo ")

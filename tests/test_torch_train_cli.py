@@ -424,18 +424,21 @@ def test_twin_cli_overrides(corpus, tmp_path, monkeypatch):
                  id="extra1-distribution"),
     pytest.param({"slices": 2, "pp": 2}, ValueError, "composes with dp/tp/fsdp",
                  id="extra2-distribution"),
-    pytest.param({"fsdp": 1, "pp": 2}, NotImplementedError, "Queue 1 item 9",
+    # ZeRO-3 beside the pipe and expert axes (the ROADMAP item these ids
+    # name, now done) is no refusal: the twin goes on to read its data
+    pytest.param({"fsdp": 1, "pp": 2}, FileNotFoundError, "x.csv",
                  id="extra3-Queue 1 item 9"),
     pytest.param({"fsdp": 1, "ep": 2, "arch": {"args": {"moe_experts": 4}}},
-                 NotImplementedError, "Queue 1 item 9", id="extra4-Queue 1 item 9"),
+                 FileNotFoundError, "x.csv", id="extra4-Queue 1 item 9"),
     pytest.param({"slices": 2, "ep": 2}, ValueError, "composes with dp/tp/fsdp",
                  id="slices-beside-ep"),
 ])
 def test_twin_refusals(tmp_path, extra, error, match):
     """What stays refused raises by name: ``--slices`` beside the sequence,
-    pipe and expert axes (``ValueError``, as ``vtc_tpu``'s ``train.py``) and
-    ZeRO-3 beside the pipe and expert axes (naming its ROADMAP item; the
-    axes train: tests/test_torch_sequence.py, tests/test_torch_slices.py,
+    pipe and expert axes (``ValueError``, as ``vtc_tpu``'s ``train.py``).
+    ZeRO-3 beside the pipe and expert axes passes the mesh check, as
+    ``vtc_tpu``'s does, and the twin goes on to its (missing) CSV (the axes
+    train: tests/test_torch_sequence.py, tests/test_torch_slices.py,
     tests/test_torch_pipeline.py, tests/test_torch_ep.py)."""
     extra = dict(extra)
     arch = extra.pop("arch", None)

@@ -89,6 +89,7 @@ def step_case(case: dict) -> dict:
     every rank. Returns each loss, the step-1 gradients (the optimizer's
     view), the parameters and buffers after, the last output's shapes and
     each MoE layer's last routing."""
+    from chip_smoke import reduce_scatters  # each FSDP2 reduction a step, by unit
     from vtc_tpu_torch.ops.losses import clip_loss
     from vtc_tpu_torch.parallel.expert import moe_layers, shard_experts
     from vtc_tpu_torch.parallel.mesh import data_parallel, fully_shard_model, shard_batch
@@ -104,6 +105,9 @@ def step_case(case: dict) -> dict:
     if case.get("fsdp"):
         fully_shard_model(model, device)
     optimizer, scheduler = build_optimizer(model, case.get("opt", OPT), SCHED, **STEP_KW)
+    if case.get("foreach"):  # torch's multi-tensor Adam, its default on a card
+        for group in optimizer.param_groups:
+            group["foreach"] = True
     grads = {}
 
     def first(opt, args, kwargs):
@@ -115,16 +119,19 @@ def step_case(case: dict) -> dict:
     ddp = data_parallel(model, device)
     data = [torch.from_numpy(np.ascontiguousarray(shard_batch(a))).to(device)
             for a in case["data"]]
-    losses, shapes = [], None
+    losses, shapes, scatters = [], None, []
     for step in range(case["steps"]):
         draws = case["draws"][step] if case.get("draws") else None
         gen = torch.Generator(device).manual_seed(case.get("seed", 0) + step)
-        loss, out = train_step(ddp, clip_loss, optimizer, scheduler, data, {},
-                               generator=gen, draws=draws,
-                               accum_steps=case.get("accum", 1))
+        with reduce_scatters() as units:
+            loss, out = train_step(ddp, clip_loss, optimizer, scheduler, data, {},
+                                   generator=gen, draws=draws,
+                                   accum_steps=case.get("accum", 1))
+        scatters.append((len(units), len(set(units))))
         losses.append(float(loss))
         shapes = [tuple(o.shape) for o in out]
     return {"losses": losses, "grads": full_tensors(model, grads), "shapes": shapes,
+            "reduce_scatters": scatters,
             "params": full_tensors(model, {n: p.detach().clone()
                                            for n, p in model.named_parameters()}),
             "local_params": {n: _local(p).detach().clone() for n, p in model.named_parameters()},
@@ -722,8 +729,16 @@ def run_slices(rank, world, tmp):
     n_model), cases)``) as ``create_mesh(n_data, n_model,
     n_replica=n_replica)``: its axes as this rank sees them, then every
     step case on it; where the spec has it, the train twin at ``--slices 2
-    --n_devices 2 --fsdp 1`` with a resume."""
+    --n_devices 2 --fsdp 1`` with a resume; then, once the test process has
+    written ``tmp/dryrun.pt`` (JAX's weights and draws), the multi-chip dry
+    run's checks (``scripts.dryrun_multichip.checks``) on these ranks, and
+    whether they left the current mesh and the stacks' switch as they found
+    them."""
+    import time
+
     from vtc_tpu_torch.parallel import mesh as M
+    from vtc_tpu_torch.parallel.stack import stack_parallel_mode
+    from vtc_tpu_torch.scripts import dryrun_multichip
 
     spec = torch.load(tmp / "slices.pt", weights_only=False)
     out = {}
@@ -737,6 +752,18 @@ def run_slices(rank, world, tmp):
             out[name][case_name] = step_case(case)
     if spec.get("cli"):
         out["cli"] = _twin_cli(tmp, ["--slices", "2", "--n_devices", "2", "--fsdp", "1"])
+    if spec.get("dryrun"):
+        later = tmp / "dryrun.pt"
+        deadline = time.monotonic() + 600
+        while not later.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{later} was not written")
+            time.sleep(0.2)
+        jax_run = torch.load(later, weights_only=False)
+        mesh = M.current_mesh()
+        out["dryrun"] = dryrun_multichip.checks("cpu", world, jax_run["state_dict"],
+                                                jax_run["draws"])
+        out["dryrun"]["kept"] = M.current_mesh() is mesh and stack_parallel_mode() is None
     torch.save(out, tmp / f"slices_rank{rank}.pt")
 
 

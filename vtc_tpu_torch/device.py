@@ -6,11 +6,12 @@ from typing import Optional, Union
 
 import torch
 
-# what a refusal of a distributed mode names: the data, model, expert, pipe,
-# sequence and replica axes and ZeRO-3 (FSDP2, HSDP over replicas) run (one
-# process per card under torchrun), and so do the sharded gallery and encode;
-# ZeRO-3 beside the expert or pipe axis (item 9c) does not
-DISTRIBUTION = "ROADMAP: Queue 1 item 9c, the other axes of distribution on torch.distributed"
+# what a refusal of a distributed mode names: every axis and ZeRO-3 beside
+# each (one process per card under torchrun) runs the contrastive models;
+# the data-parallel step of a model without a ``_sim`` (the MLP and
+# JointEmbedding baselines) does not
+DISTRIBUTION = ("ROADMAP: Queue 1 item 15, the data-parallel step of the models without "
+                "a _sim (the MLP and JointEmbedding baselines)")
 
 # the card's figures (the H100 SXM data sheet), for bounds and MFU: the HBM3
 # rate and the dense peaks, bf16 on the tensor cores and fp32 on the CUDA

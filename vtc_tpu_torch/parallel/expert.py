@@ -71,6 +71,15 @@ layer needs its experts whole: ``gathered_experts`` (entered by
 ``parallel.mesh.gathered_parameters``) gathers them for forwards without a
 graph, where each call routes its own tokens, as a process of ``vtc_tpu``'s
 strided evaluation routes its own batch.
+
+**ZeRO-3 beside the expert axis** (``--fsdp 1 --ep X``): ``vtc_tpu``'s
+``tree_shardings(..., fsdp=True)`` shards every leaf over data but lets
+``moe_pspec`` override the expert stacks' spec with ``P("expert")``. So
+``parallel.mesh.fully_shard_model`` hands FSDP2 every parameter but the
+split stacks (``split_stacks``), which stay whole over the data group, and
+the step averages their gradients over it (``sync_expert_gradients``), as
+DDP does without ZeRO-3. The optimizer steps the local shards and the
+stacks alike; checkpoints gather both (``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -298,6 +307,34 @@ def shard_experts(model: nn.Module, axis: Optional[ModelAxis] = None) -> nn.Modu
             layer.ep = axis
     model.ep_axis = axis
     return model
+
+
+def split_stacks(model: nn.Module) -> set:
+    """The expert-stack parameters of ``model``'s layers split over an
+    expert axis of more than one rank (empty for any other model)."""
+    return {getattr(m, leaf) for m in moe_layers(model) if m.ep is not None and m.ep.size > 1
+            for leaf in EXPERT_LEAVES}
+
+
+def sync_expert_gradients(model: nn.Module) -> None:
+    """Under ZeRO-3 beside the expert axis: the split expert stacks'
+    gradients (which ``parallel.mesh.fully_shard_model`` leaves out of
+    FSDP2) averaged over the data group, the mean DDP gives them otherwise;
+    a stack without a gradient takes zeros. Each data rank of an expert
+    place holds the same experts, so the mean is their one-device
+    gradient."""
+    from .pipeline import _all_reduce
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    stacks = sorted(split_stacks(model), key=lambda p: names[id(p)])  # one order a rank
+    if data_world() == 1 or not stacks:
+        return
+    for p in stacks:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    _all_reduce([p.grad for p in stacks], data_group())
+    for p in stacks:
+        p.grad.div_(data_world())
 
 
 @contextlib.contextmanager

@@ -47,8 +47,8 @@ Each creator keeps its ``DeviceMesh`` as the current mesh, rank ``d·n + i``
 at ``(d, i)``; ``axis_group``/``axis_rank``/``axis_world`` read any axis
 (an axis the mesh lacks is this rank alone). ZeRO-3 (``fsdp``,
 ``vtc_tpu``'s ``tree_shardings(..., fsdp=True)``) is FSDP2's
-``fully_shard`` over the data axis (``fully_shard_model``), alone or on top
-of the model axis's split or beside the sequence axis.
+``fully_shard`` over the data axis (``fully_shard_model``), alone, on top
+of the model axis's split, or beside the sequence, expert or pipe axis.
 
 **Multi-slice.** ``create_mesh(n_data, n_model, n_replica=R)`` lays the
 group out as ``vtc_tpu``'s ``("replica", "data", "model")`` mesh, rank
@@ -78,6 +78,17 @@ The mesh's device type is the ranks' device (``create_mesh(device=...)``),
 not the backend's: FSDP2 places the shards on it, so gloo on the card keeps
 them on the card.
 
+Beside the expert axis FSDP2 leaves out the stacks that
+``parallel.expert.shard_experts`` split, as ``vtc_tpu``'s ``moe_pspec``
+overrides the fsdp spec of those leaves: a rank holds its expert place's
+stacks whole over the data group and its data rank's shard of every other
+leaf. FSDP2 gives the stacks no mean over the data ranks, so the step takes
+it (``parallel.expert.sync_expert_gradients``). Beside the pipe axis every
+rank holds its data rank's shard of every block, its stage's and the
+others'; a stage gathers only its own blocks, inside the GPipe schedule, and
+reduce-scatters each of them once a step (``parallel.pipeline``); the sum
+over the stages then runs on the shards.
+
 Every forward of a sharded model gathers over the data group, so the data
 ranks must run the same forwards. Training and validation do (each rank
 takes its rows of every global batch). The strided evaluation of the
@@ -96,7 +107,6 @@ import contextlib
 import torch
 import torch.distributed as dist
 
-from ..device import DISTRIBUTION
 from ..utils.util import rank, world
 
 DATA_AXIS = "data"
@@ -107,6 +117,8 @@ SEQ_AXIS = "seq"
 REPLICA_AXIS = "replica"
 _MESH = None  # the newest mesh creator's
 _BATCH_GROUP = None  # the flattened replica × data group of a replica mesh
+_ONE_PROCESS = False  # inside as_one_process()
+_SYNC = True  # False inside no_gradient_sync() of a sharded model
 
 
 def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
@@ -114,9 +126,8 @@ def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
     """The axes of a run, checked as ``vtc_tpu``'s ``train.py:121-146``
     checks them: at most one non-data axis (``n_model``, ``pp``, ``sp``,
     ``ep``), ``slices`` not beside pp/sp/ep and ``ep`` only for a model with
-    mixture-of-experts layers (``moe``) raise ``ValueError``; ZeRO-3 beside
-    the expert or pipe axis raises ``NotImplementedError`` naming its
-    ROADMAP item."""
+    mixture-of-experts layers (``moe``) raise ``ValueError``. ZeRO-3
+    (``fsdp``) composes with each of them, as ``tree_shardings`` does."""
     n_model, pp, sp, ep, slices = (int(v or 1) for v in (n_model, pp, sp, ep, slices))
     if min(n_model, pp, sp, ep, slices) < 1:
         raise ValueError(f"--n_model {n_model} --pp {pp} --sp {sp} --ep {ep} --slices "
@@ -131,10 +142,6 @@ def check_axes(n_model: int = 1, *, pp: int = 1, sp: int = 1, ep: int = 1,
         raise ValueError("--ep shards mixture-of-experts stacks over an expert mesh axis, "
                          "but this arch has no MoE (set arch;args;moe_experts, e.g. "
                          "configs/pretrained_clip_comments_attn_moe.jsonc)")
-    if fsdp and max(pp, ep) > 1:
-        raise NotImplementedError(
-            f"--fsdp beside --pp {pp} / --ep {ep}: ZeRO-3 composes with the data, model, "
-            f"sequence and replica axes in the port ({DISTRIBUTION})")
 
 
 def _make_mesh(n_data, n_second: int, axis: str, device, n_replica: int = 1):
@@ -191,8 +198,38 @@ def create_mesh(n_data=None, n_model: int = 1, *, n_replica: int = 1, device):
 
 
 def current_mesh():
-    """The newest mesh creator's, while its process group lives."""
-    return _MESH if dist.is_initialized() else None
+    """The newest mesh creator's, while its process group lives (None
+    inside ``as_one_process``)."""
+    return _MESH if dist.is_initialized() and not _ONE_PROCESS else None
+
+
+@contextlib.contextmanager
+def kept_mesh():
+    """Within the block mesh creators and ``parallel.stack``'s switch may
+    change; after it the current mesh and the switch are as they were
+    before it."""
+    from . import stack
+
+    global _MESH, _BATCH_GROUP
+    kept = _MESH, _BATCH_GROUP, stack._CTX
+    try:
+        yield
+    finally:
+        _MESH, _BATCH_GROUP, stack._CTX = kept
+
+
+@contextlib.contextmanager
+def as_one_process():
+    """Within the block this process runs as a process without a group: no
+    mesh, one data rank, no collective in a step (the one-device references
+    of a check that runs inside a spawn of ranks, as
+    ``scripts.dryrun_multichip``'s)."""
+    global _ONE_PROCESS
+    before, _ONE_PROCESS = _ONE_PROCESS, True
+    try:
+        yield
+    finally:
+        _ONE_PROCESS = before
 
 
 def has_axis(axis: str) -> bool:
@@ -236,11 +273,11 @@ def data_group():
 
 
 def data_rank() -> int:
-    return rank(data_group())
+    return 0 if _ONE_PROCESS else rank(data_group())
 
 
 def data_world() -> int:
-    return world(data_group())
+    return 1 if _ONE_PROCESS else world(data_group())
 
 
 def model_group():
@@ -291,8 +328,9 @@ def check_data_devices(n_devices, device: torch.device, logger, what: str,
 
 
 def active() -> bool:
-    """True under a process group: the step gathers, DDP averages."""
-    return dist.is_initialized()
+    """True under a process group (outside ``as_one_process``): the step
+    gathers, DDP averages."""
+    return dist.is_initialized() and not _ONE_PROCESS
 
 
 def shard_rows(n: int) -> slice:
@@ -391,7 +429,8 @@ def fully_shard_model(model: torch.nn.Module, device) -> torch.nn.Module:
     one, the group's: ``create_mesh``), replicated over its replica axis
     where it has one (HSDP), in place (the module docstring):
     FSDP2's ``fully_shard`` on each residual block, then on the root, after
-    any split over the model axis. Under a process group only; build the
+    any split over the model axis or of the expert stacks over the expert
+    axis (those stacks left out). Under a process group only; build the
     optimizer after it, over the sharded parameters.
     ``data_parallel`` then leaves the model as it is: FSDP2 takes DDP's
     place on the data group."""
@@ -408,15 +447,21 @@ def fully_shard_model(model: torch.nn.Module, device) -> torch.nn.Module:
                          f"compute on {device}: create_mesh(..., device={device.type!r})")
     data_mesh = mesh[REPLICA_AXIS, DATA_AXIS] if REPLICA_AXIS in mesh.mesh_dim_names \
         else mesh[DATA_AXIS]
+    from .expert import split_stacks
+
+    # the expert stacks split over the expert axis stay whole over data, as
+    # vtc_tpu's moe_pspec overrides the fsdp spec (their mean over data:
+    # expert.sync_expert_gradients)
+    experts = split_stacks(model)
     blocks = _block_types()
     for module in list(model.modules()):
         if isinstance(module, blocks):
-            fully_shard(module, mesh=data_mesh)
+            fully_shard(module, mesh=data_mesh, ignored_params=experts or None)
     # a scalar (logit_scale) has no dim to shard: it stays whole on every
     # rank, and its gradient needs no mean, since every rank computes the
     # loss of the global batch from the gathered features
     scalars = {p for p in model.parameters() if p.dim() == 0}
-    fully_shard(model, mesh=data_mesh, ignored_params=scalars or None)
+    fully_shard(model, mesh=data_mesh, ignored_params=(scalars | experts) or None)
     return model
 
 
@@ -437,18 +482,28 @@ def _units(model: torch.nn.Module) -> list:
 def no_gradient_sync(model: torch.nn.Module):
     """A backward whose gradients stay on this rank, to be added to the
     next one's (the microbatches before the last): DDP's ``no_sync``,
-    FSDP2's ``set_requires_gradient_sync(False)``, else nothing to hold."""
+    FSDP2's ``set_requires_gradient_sync(False)`` (which the pipeline's
+    schedule reads from ``gradient_sync``), else nothing to hold."""
+    global _SYNC
     if is_fully_sharded(model):
         model.set_requires_gradient_sync(False)
+        _SYNC = False
         try:
             yield
         finally:
             model.set_requires_gradient_sync(True)
+            _SYNC = True
     elif hasattr(model, "no_sync"):
         with model.no_sync():
             yield
     else:
         yield
+
+
+def gradient_sync() -> bool:
+    """False inside ``no_gradient_sync`` of a sharded model: its units keep
+    their gradients for the next backward."""
+    return _SYNC
 
 
 @contextlib.contextmanager

@@ -32,7 +32,26 @@ gradient: the train step takes them with ``backward``.
 
 ``vtc_tpu`` keeps every parameter replicated on a pipe mesh
 (``tree_shardings``), and so does the port: each rank holds the whole model
-and ``.pth`` checkpoints need no gathering. The point-to-point messages go
+and ``.pth`` checkpoints need no gathering.
+
+**ZeRO-3 beside the pipe axis** (``--fsdp 1 --pp S``, ``tree_shardings(...,
+fsdp=True)`` on the ``("data", "pipe")`` mesh): each block is an FSDP2 unit
+over the data group of its stage, each rank holding its data rank's shard
+of every block. A stage's units gather inside the schedule: the forward
+calls each block per microbatch, and ``_Pipeline.backward`` runs
+``torch.autograd.backward`` per microbatch, so FSDP2's pre- and
+post-backward hooks fire inside those nested runs (its root's final
+callback is queued by the outer backward, which reaches the root's outputs
+first, and runs once at its end). The microbatches before the last one of
+the backward keep their gradients unsharded (``set_requires_gradient_sync``
+off, unless the step holds them already: ``parallel.mesh.gradient_sync``),
+so each unit reduce-scatters once a step, as the mean over the data ranks.
+The blocks of the other stages never gather, and a data group's ranks sit
+on one stage, so every collective has all its ranks. ``sync_gradients``
+then sums the block gradients' local shards over the pipe group (a pipe
+group's ranks share a data rank, hence a shard) and divides nothing: FSDP2
+has averaged over the data ranks. Checkpoints gather the shards
+(``parallel.tensor``). The point-to-point messages go
 through the host where the backend is gloo and the tensor is on a card:
 gloo's send and receive abort on CUDA tensors (its collectives take them),
 NCCL takes them on the card.
@@ -43,8 +62,16 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .mesh import PIPE_AXIS, _make_mesh, axis_place, data_group, data_world
-from .tensor import ModelAxis
+from .mesh import (
+    PIPE_AXIS,
+    _make_mesh,
+    axis_place,
+    data_group,
+    data_world,
+    gradient_sync,
+    is_fully_sharded,
+)
+from .tensor import ModelAxis, local_part
 
 
 def create_pipeline_mesh(n_data=None, n_pipe: int = 1, *, device):
@@ -112,7 +139,7 @@ def _run(stage_fn, x: torch.Tensor, n_micro: int, axis: ModelAxis, graph: bool):
 class _Pipeline(torch.autograd.Function):
     @staticmethod
     def forward(ctx, plan, x, *params):
-        stage_fn, n_micro, axis = plan
+        stage_fn, n_micro, axis, ctx.units = plan
         out, ctx.saved = _run(stage_fn, x, n_micro, axis, graph=True)
         ctx.axis, ctx.n_micro = axis, n_micro
         return out
@@ -126,6 +153,10 @@ class _Pipeline(torch.autograd.Function):
         for m in reversed(range(ctx.n_micro)):
             h, y = saved[m]
             g = grads[m] if s == last else _recv(y, axis, s + 1)
+            # ZeRO-3: the stage's units reduce-scatter in the last backward
+            # (m = 0) what every microbatch's left them
+            for unit in ctx.units:
+                unit.set_requires_gradient_sync(m == 0 and gradient_sync())
             torch.autograd.backward(y, g)
             if s > 0:
                 _send(h.grad, axis, s - 1)
@@ -159,8 +190,9 @@ def pipeline_blocks(blocks, x: torch.Tensor, *args, n_micro: int, axis: ModelAxi
         return h
 
     params = [p for block in blocks for p in block.parameters() if p.requires_grad]
+    units = [block for block in mine if is_fully_sharded(block)]
     if torch.is_grad_enabled() and (x.requires_grad or params):
-        return _Pipeline.apply((stage_fn, n_micro, axis), x, *params)
+        return _Pipeline.apply((stage_fn, n_micro, axis, units), x, *params)
     return _run(stage_fn, x, n_micro, axis, graph=False)[0]
 
 
@@ -177,8 +209,9 @@ def _all_reduce(tensors, group) -> None:
 def sync_gradients(model: torch.nn.Module) -> None:
     """The gradients of a model on a pipe mesh made the one device's (the
     module docstring): each pipelined stack's block gradients summed over
-    the pipe group (a stage that ran none of a block holds zeros for it),
-    then every gradient averaged over the data group. A parameter without a
+    the pipe group (a stage that ran none of a block holds zeros for it; a
+    ZeRO-3 shard its local part), then every gradient averaged over the data
+    group, which FSDP2 has done for a sharded model. A parameter without a
     gradient keeps none."""
     axis = pipe_axis()
     if axis.size > 1:
@@ -187,8 +220,8 @@ def sync_gradients(model: torch.nn.Module) -> None:
         for p in blocks:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        _all_reduce([p.grad for p in blocks], axis.group)
-    if data_world() > 1:
+        _all_reduce([local_part(p.grad) for p in blocks], axis.group)
+    if data_world() > 1 and not is_fully_sharded(model):
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         _all_reduce(grads, data_group())
         for g in grads:

@@ -27,7 +27,12 @@ one with the same freeze).
 
 After ``warmup`` steps it times ``windows`` windows of ``iters`` steps, with
 ``torch.cuda.synchronize()`` around each, and prints samples/s over all of
-them with each window's rate. It needs a card and raises without one,
+them with each window's rate. With ``VTC_TRACE=1`` (the JAX script's
+switch) it runs one window of ``iters`` steps under ``torch.profiler``
+instead (``profile_trace.profile_calls``), prints the top kernels, the
+device time per kernel family and the idle share
+(``profile_trace.report``) and returns that profile in place of the
+rates. It needs a card and raises without one,
 unless ``main`` is told ``device="cpu"`` (``model_type`` picks the CLIP
 variant: ``vtc_tpu_torch.bench``'s tests run it at test-tiny).
 """
@@ -35,6 +40,7 @@ variant: ``vtc_tpu_torch.bench``'s tests run it at test-tiny).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -87,14 +93,17 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
          frames: int = 0, iters: int = 8, warmup: int = 3, windows: int = 3,
          accum_steps: int = 1, moments_dtype=None, model_kwargs=None,
          model_type: str = "ViT-B/32", device=None, log=print,
-         data_parallel: bool = False, fsdp: bool = False) -> dict:
+         data_parallel: bool = False, fsdp: bool = False, built=None) -> dict:
     """Runs the benchmark; returns ``{"samples_per_s", "window_rates",
-    "losses", "setup"}``: ``losses`` has every step's loss, warm-up
-    included, and ``setup`` is what ``setup`` built, for a caller that
-    goes on stepping (the profiler windows of ``chip_smoke.py``)."""
-    model, optimizer, scheduler, data = built = setup(batch, ntoks, arch, frames,
-                                                      moments_dtype, model_kwargs,
-                                                      model_type, device, fsdp)
+    "losses", "setup"}`` (under ``VTC_TRACE=1`` ``{"profile", "losses",
+    "setup"}``): ``losses`` has every step's loss, warm-up included, and
+    ``setup`` is what ``setup`` built, for a caller that goes on stepping
+    (the profiler windows of ``chip_smoke.py``). ``built``: such a setup to
+    step instead of building one (its batch is ``batch``)."""
+    if built is None:
+        built = setup(batch, ntoks, arch, frames, moments_dtype, model_kwargs, model_type,
+                      device, fsdp)
+    model, optimizer, scheduler, data = built
     device = data[0].device
     if data_parallel or fsdp:
         from ..parallel.mesh import data_parallel as wrap, shard_batch
@@ -116,6 +125,12 @@ def main(batch: int = 128, ntoks: int = 16, arch: str = "PretrainedCLIP_finaltf"
     for _ in range(warmup):
         step()
     sync()
+    if os.environ.get("VTC_TRACE") == "1":  # one window under the profiler
+        from .profile_trace import profile_calls, report
+
+        prof = profile_calls(step, iters, device)
+        report(prof, f"train step batch {batch}, accum_steps {accum_steps}", iters, log)
+        return {"profile": prof, "losses": [float(x) for x in losses], "setup": built}
     seconds = []
     for _ in range(windows):
         tic = time.perf_counter()

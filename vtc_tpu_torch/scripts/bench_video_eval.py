@@ -9,12 +9,18 @@ patch frames (``extract_patches`` of seeded 224² frames), a title and 5
 comments of ``ntoks`` tokens. Videos/s: the median of three windows of
 ``iters`` forwards after ``warmup``, each window its work over its time
 (CUDA events). ``main`` returns the rate and the windows';
-``device="cpu"`` (the tests) runs on the host.
+``device="cpu"`` (the tests) runs on the host. With ``VTC_TRACE=1`` (the
+JAX script's switch) one window of ``iters`` forwards after the warm-up
+runs under ``torch.profiler`` instead (``profile_trace.profile_calls``):
+it prints the top kernels, the device time per kernel family and the idle
+share (``profile_trace.report``) and returns that profile in place of the
+rates.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 
 import numpy as np
@@ -29,7 +35,8 @@ from ..utils.timing import windows_ms
 def main(batch: int = 32, frames: int = 8, ntoks: int = 16, iters: int = 32,
          warmup: int = 2, windows: int = 3, model_type: str = "ViT-B/32", device=None,
          log=print) -> dict:
-    """-> ``{"videos_per_s", "window_rates"}``."""
+    """-> ``{"videos_per_s", "window_rates"}`` (under ``VTC_TRACE=1``
+    ``{"profile"}``)."""
     device = resolve_device(device)
     model = create_model("PretrainedCLIP_TimeSformer_finaltf", model_type=model_type,
                          nframes=frames, seed=0, dtype="bf16", device=device).eval()
@@ -44,6 +51,16 @@ def main(batch: int = 32, frames: int = 8, ntoks: int = 16, iters: int = 32,
     inputs = [torch.from_numpy(a).to(device) for a in (vis, title, comments)]
 
     with torch.inference_mode():
+        if os.environ.get("VTC_TRACE") == "1":  # one window under the profiler
+            from .profile_trace import profile_calls, report
+
+            for _ in range(warmup):
+                model(*inputs)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            prof = profile_calls(lambda: model(*inputs), iters, device)
+            report(prof, f"video eval batch {batch}, {frames} frames", iters, log)
+            return {"profile": prof}
         rates = [batch * 1e3 / ms
                  for ms in windows_ms(lambda: model(*inputs), device, iters, warmup, windows)]
     rate = statistics.median(rates)

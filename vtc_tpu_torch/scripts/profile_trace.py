@@ -15,7 +15,8 @@ to the synchronize after the last forward.
 
 ``profile_calls`` and ``log_profile`` are the profile that ``chip_smoke.py``
 prints in its phases 7, 8 and 27, and ``KERNEL_FAMILIES`` the families that
-its phase 12 charges. On the CPU (``device="cpu"``: the tests) the events
+its phase 12 charges; ``report`` is also what ``bench_train_step`` and
+``bench_video_eval`` print under ``VTC_TRACE=1``. On the CPU (``device="cpu"``: the tests) the events
 are the CPU's operators, their self times standing in for device time.
 """
 
@@ -118,6 +119,15 @@ def log_profile(prof: dict, what: str, n: int, log=print) -> None:
         log(f"profile other: {us / 1e3 / n:.4f} ms per forward: {kname[:120]}")
 
 
+def report(prof: dict, what: str, n: int, log=print) -> None:
+    """The profile of ``n`` calls as this script prints it: the top kernels
+    by self device time, then ``log_profile``'s lines."""
+    log(f"top {len(prof['kernel_ms'])} kernels by self device time, ms per call ({what}):")
+    for name, ms in prof["kernel_ms"].items():
+        log(f"{ms:10.4f}  [{family(name)}] {name[:110]}")
+    log_profile(prof, what, n, log)
+
+
 def main(batch: int = 160, ntoks: int = 16, iters: int = ITERS,
          model_type: str = "ViT-B/32", device=None, log=print) -> dict:
     """Trace ``iters`` bf16 eval forwards and print the top kernels, the
@@ -147,11 +157,7 @@ def main(batch: int = 160, ntoks: int = 16, iters: int = ITERS,
         if device.type == "cuda":
             torch.cuda.synchronize()
         prof = profile_calls(lambda: model(vis, title, comments), iters, device)
-    log(f"top {len(prof['kernel_ms'])} kernels by self device time, ms per forward "
-        f"(batch {batch}, {ntoks} tokens, {device}):")
-    for name, ms in prof["kernel_ms"].items():
-        log(f"{ms:10.4f}  [{family(name)}] {name[:110]}")
-    log_profile(prof, f"bf16 batch {batch}", iters, log)
+    report(prof, f"bf16 batch {batch}", iters, log)
     return prof
 
 

@@ -36,6 +36,8 @@ and ``mean_center_bn.*``.
 
 from __future__ import annotations
 
+import contextlib
+
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -186,21 +188,47 @@ class _ZeroGradients:
             p.grad = None
 
 
+@contextlib.contextmanager
+def _one_kind_a_group(optimizer):
+    """Within the block a group that holds ZeRO-3 shards (``DTensor``s)
+    beside plain tensors (the expert stacks that
+    ``parallel.mesh.fully_shard_model`` leaves out beside the expert axis)
+    is two groups of its settings, one of each kind: torch's multi-tensor
+    Adam, its default on a card, takes no mix of the two. The moments are
+    kept by parameter, so they are the same either way."""
+    from torch.distributed.tensor import DTensor
+
+    groups, split = optimizer.param_groups, []
+    for group in groups:
+        kinds = {}
+        for p in group["params"]:
+            kinds.setdefault(isinstance(p, DTensor), []).append(p)
+        split += [dict(group, params=ps) for ps in kinds.values()] if len(kinds) > 1 \
+            else [group]
+    optimizer.param_groups = split
+    try:
+        yield
+    finally:
+        optimizer.param_groups = groups
+
+
 class Adam(torch.optim.Adam):
     """``torch.optim.Adam`` that steps a parameter without a gradient as
-    one with a zero gradient (the module docstring)."""
+    one with a zero gradient (the module docstring), and ZeRO-3's shards
+    apart from the plain tensors beside them."""
 
     def step(self, closure=None):
-        with _ZeroGradients(self):
+        with _ZeroGradients(self), _one_kind_a_group(self):
             return super().step(closure)
 
 
 class AdamW(torch.optim.AdamW):
     """``torch.optim.AdamW`` that steps a parameter without a gradient as
-    one with a zero gradient (the module docstring)."""
+    one with a zero gradient (the module docstring), and ZeRO-3's shards
+    apart from the plain tensors beside them."""
 
     def step(self, closure=None):
-        with _ZeroGradients(self):
+        with _ZeroGradients(self), _one_kind_a_group(self):
             return super().step(closure)
 
 

@@ -74,7 +74,12 @@ at the global batch, as GSPMD runs ``vtc_tpu``'s:
   block gradients over the seq group, each rank's being its shard's share.
   Every other gradient is whole and equal on the seq ranks already (the
   embeddings above the stacks' scatter, what follows their gather, the
-  TimeSformer, the loss), and is not summed.
+  TimeSformer, the loss), and is not summed;
+* under ZeRO-3 (``parallel.mesh.fully_shard_model``) FSDP2 averages the
+  gradients over the data ranks on every mesh; beside the expert axis it
+  leaves the split expert stacks out, whose mean
+  ``parallel.expert.sync_expert_gradients`` takes before the update, and
+  beside the pipe axis ``sync_gradients`` sums the stages' shards.
 
 ``global_truncate_tokens(multihost=True)`` buckets on the largest coverage
 over the ranks, so every rank runs the same text lengths.
@@ -91,7 +96,7 @@ import torch
 from ..data.preprocess import normalize_uint8_images
 from ..data.tokenizer import batch_token_need, truncate_batch_tokens
 from ..device import DISTRIBUTION
-from ..parallel.expert import global_routing, moe_layers
+from ..parallel.expert import global_routing, moe_layers, sync_expert_gradients
 from ..parallel.mesh import (
     PIPE_AXIS,
     SEQ_AXIS,
@@ -99,6 +104,7 @@ from ..parallel.mesh import (
     all_gather_rows,
     axis_world,
     data_world,
+    is_fully_sharded,
     no_gradient_sync,
     shard_rows,
     unwrap,
@@ -141,7 +147,10 @@ def _update(model, optimizer, scheduler) -> None:
     """The gradients made the one device's, then the update: on a pipe mesh
     ``sync_gradients``; on a seq mesh the ring-sharded stacks' block
     gradients summed over the seq group (DDP or FSDP2 has averaged the
-    data ranks' already)."""
+    data ranks' already); under ZeRO-3 on an expert mesh the expert stacks'
+    mean over the data ranks, which FSDP2 leaves to the step."""
+    if active() and is_fully_sharded(model):
+        sync_expert_gradients(model)
     if active() and axis_world(PIPE_AXIS) > 1:
         from ..parallel.pipeline import sync_gradients
 
