@@ -158,7 +158,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``vtc_tpu_torch.scripts.bench_serving`` at its defaults (encode + rank
     ms per batch of 16, HTTP p50/p99 of ``/search/text`` at 1 and 16
     queries and of ``/search/image`` with one base64 JPEG); a JPEG whose
-    frame header claims 20000 x 20000 pixels is a 400;
+    frame header claims 20000 x 20000 pixels is a 400; a lossless WebP
+    query and its PNG twin (the same pixels) answered with 200 and the same
+    top-10, and a lossy WebP query's floats equal to ``clip_preprocess`` of
+    its committed PIL decode;
 19. video decode: the committed ``tests/data/video/clip_160x120.mp4``
     through ``read_video_segment`` (full, a seek to 1.3 s, ``subsample_to``
     8) and ``video_duration_sec`` on the running machine's OpenCV, against the
@@ -188,7 +191,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     ``torch.cuda.memory_allocated()`` unmoved; ``ycc_to_rgb`` bit-exact on
     seeded 4:1:1 and 4:1:0 planes, on seeded R, G, B planes (no colour
     matrix) and with a K plane as CMYK and YCCK (the 4:1:1, Adobe-RGB, CMYK
-    and YCCK fixtures run in phases 15 and 16); serving's top-10 on a gallery of duplicated rows equals
+    and YCCK fixtures run in phases 15 and 16); ``ycc_to_rgb`` bit-exact
+    on seeded planes at each sampling libjpeg-turbo upsamples plane by plane
+    (``SAMPLINGS``), and the committed fixtures of those samplings through
+    nvJPEG within ``DECODE_MEAN_MAX`` of PIL's decodes, or refused by name
+    with nvJPEG's status; every committed WebP through ``decode_rgb`` equal
+    to PIL's decode, a bomb-sized WebP header refused, and the host decode
+    time of the 480 x 360 lossy and lossless WebPs beside the JPEG route's
+    for the same picture; serving's top-10 on a gallery of duplicated rows equals
     ``vtc_tpu``'s order (``TIES_EXPECTED``);
 23. the audio config: ``PretrainedCLIP_finaltf`` from the ``arch`` block
     of ``configs/pretrained_clip_comments_attention_audio.jsonc`` (ViT-B/32,
@@ -354,7 +364,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     leaf, and the pipe ranks' whole state, 0.5000: sharded over data); each
     unit reduce-scattered once a step; the MoE state through a single-card
     ``.pth``, the pipe state in memory, loaded back bit for bit;
-31. the kernels line (JSON) and, last, ``{"ok": true, "device": ...}``.
+31. the kernels line (JSON: the ports of the TPU kernels, the long and
+    cross routes, and the decode's ``ycc_to_rgb``, its launches the eval
+    twin's) and, last, ``{"ok": true, "device": ...}``.
 
 It needs one card, builds everything it runs, and exits non-zero, printing
 no result, where CUDA is missing or the package is not beside it.
@@ -1736,6 +1748,12 @@ def run_trainer(ops, smi) -> list:
 # ---- phase 15: the data path and the train.py twin ---------------------------
 
 JPEG_DIR = "tests/data/jpeg"
+# the fixtures libjpeg-turbo wrote at samplings PIL's and OpenCV's encoders do
+# not write (each plane upsampled by its own ratio): phase 22 holds them, and
+# phases 15 and 16 and the corpus keep the fixtures they held before
+SAMPLING_JPEGS = ("sampling_y1x4_96x61", "sampling_y3x1_97x40", "sampling_cb_cr_apart_99x65",
+                  "sampling_luma_below_93x61", "sampling_no_full_plane_90x58",
+                  "cmyk_k1x1_97x63")
 # the card's decode (nvJPEG's planes, then libjpeg-turbo's chroma upsampling
 # and colour conversion in the ycc_to_rgb kernel) against PIL's decode of the
 # same file, in levels: the mean |Δ| of each channel, and of the luma 0.299 R
@@ -1769,7 +1787,7 @@ def check_decode(model, smi) -> None:
 
     root = Path(__file__).resolve().parent / JPEG_DIR
     ref = np.load(root / "pil_decodes.npz")
-    for i, name in enumerate(ref.files):
+    for i, name in enumerate(n for n in ref.files if n not in SAMPLING_JPEGS):
         path = root / f"{name}.jpg"
         header = image_io.jpeg_header(path.read_bytes())
         tic = time.perf_counter()
@@ -1823,7 +1841,8 @@ def write_corpus(tmp: Path):
 
     from vtc_tpu_torch.data.partition import DIGIT_SPLIT
 
-    fixtures = sorted((Path(__file__).resolve().parent / JPEG_DIR).glob("*.jpg"))
+    fixtures = sorted(p for p in (Path(__file__).resolve().parent / JPEG_DIR).glob("*.jpg")
+                      if p.stem not in SAMPLING_JPEGS)
     root = tmp / "media"
     root.mkdir(parents=True)
     rows, i = [], 0
@@ -2126,7 +2145,7 @@ def check_ycc(smi) -> list:
         f"{'not measured' if empty_ms is None else f'{empty_ms * 1e3:.3f} µs'} under "
         f"torch.profiler, {empty_events_ms * 1e3:.3f} µs a launch between CUDA events over "
         f"{YCC_REPS}; on {smi}")
-    for name in ref.files:
+    for name in (n for n in ref.files if n not in SAMPLING_JPEGS):
         data = (root / f"{name}.jpg").read_bytes()
         header = image_io.jpeg_header(data)
         # the card's route for one image: counts from 0 just before, read just after
@@ -2320,7 +2339,7 @@ def run_evaluation(ops, smi, tmp: Path, csv_path: Path, media: Path) -> dict:
         eval_recall_gaps("eval twin", feats_card, feats_cpu)
     written = json.loads((tmp / "zero_shot_res_None.json").read_text())
     require(written == out_cpu, "eval twin: the JSON file is not the last run's recalls")
-    twin_run = {"config": cfg_path, "recalls": out_card}
+    twin_run = {"config": cfg_path, "recalls": out_card, "ycc_launches": ycc}
 
     # the transfer evaluation of the video model
     ds = SyntheticVideos(**VIDEO_EVAL)
@@ -2391,6 +2410,23 @@ def _http(port: int, path: str, payload=None, raw=None):
             return resp.status, json.loads(resp.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
+
+
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """A PNG of the uint8 RGB image ``rgb`` (no row filter), written with
+    zlib: the card's machine has no PIL."""
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (len(payload).to_bytes(4, "big") + kind + payload
+                + zlib.crc32(kind + payload).to_bytes(4, "big"))
+
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
 
 
 def run_serving(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
@@ -2498,6 +2534,29 @@ def run_serving(ops, smi, tmp: Path, csv_path: Path, media: Path) -> None:
         require(codes == [400] * len(codes), f"serving refusals: {codes}")
         require("decompression bomb" in bomb_body.get("error", ""),
                 f"the bomb-sized JPEG: {bomb_body}")
+        # WebP queries (decoded on the host by csrc/host/webp_decode.cpp): a
+        # lossless one and its PNG twin, the same pixels, give the same top-10;
+        # a lossy one's floats are clip_preprocess of its committed PIL decode
+        webp_ref = np.load(root / WEBP_DIR / "pil_decodes.npz")
+        lossless = webp_ref["lossless_480x360_webp"]
+        twins = {"lossless WebP": (root / WEBP_DIR / "lossless_480x360.webp").read_bytes(),
+                 "its PNG twin": png_bytes(lossless)}
+        webp_answers = {kind: _http(server.port, "/search/image", {
+            "images_b64": [base64.b64encode(b).decode()], "k": 10}) for kind, b in twins.items()}
+        ids, scores = svc.search_image(clip_preprocess(lossless, 224)[None], k=10)
+        for kind, (status, body) in webp_answers.items():
+            require(status == 200, f"{kind}: HTTP {status} {body}")
+            err = float(np.abs(np.asarray(body["scores"]) - scores).max())
+            require(body["ids"] == ids.tolist() and err <= 1e-5,
+                    f"{kind}: ids or scores (err {err}) differ from the in-process service's")
+        lossy = (root / WEBP_DIR / "lossy_480x360.webp").read_bytes()
+        lossy_floats = server.decode_b64_images([base64.b64encode(lossy).decode()])
+        require(np.array_equal(lossy_floats[0],
+                               clip_preprocess(webp_ref["lossy_480x360_webp"], 224)),
+                "the lossy WebP's floats differ from clip_preprocess of PIL's decode")
+        log(f"serving WebP: the lossless query and its PNG twin answered 200 with the same "
+            f"top-10 ids {ids.tolist()[0]} (the in-process service's); the lossy query's "
+            f"floats equal clip_preprocess of the committed PIL decode")
     finally:
         server.shutdown()
     del server, svc
@@ -2874,6 +2933,21 @@ def bomb_jpeg() -> bytes:
 
 
 GIF_BMP_DIR = "tests/data/gif_bmp"
+WEBP_DIR = "tests/data/webp"
+# each component's (h, v) sampling factors at which the ycc_to_rgb kernel is
+# held against its plain version: the samplings of SAMPLING_JPEGS and more,
+# each plane upsampled by its own whole ratio (tests/test_torch_decode.py)
+SAMPLINGS = [[(1, 4), (1, 1), (1, 1)], [(3, 1), (1, 1), (1, 1)], [(2, 2), (1, 1), (2, 1)],
+             [(1, 1), (2, 2), (2, 2)], [(2, 1), (1, 2), (1, 2)], [(4, 2), (2, 1), (1, 2)],
+             [(2, 2), (1, 1), (1, 1), (1, 1)], [(1, 1), (1, 1), (1, 1), (2, 2)]]
+WEBP_REPS = 20  # host decodes timed for each 480 x 360 WebP and its JPEG twin
+
+
+def bomb_webp() -> bytes:
+    """A lossless WebP whose header says 16384 x 16384 pixels."""
+    head = (0x2F | (16383 << 8) | (16383 << 22)).to_bytes(5, "little") + bytes(7)
+    return (b"RIFF" + (4 + 8 + len(head)).to_bytes(4, "little") + b"WEBPVP8L"
+            + len(head).to_bytes(4, "little") + head)
 
 
 def bomb_header(head: bytes) -> bytes:
@@ -2926,6 +3000,107 @@ def check_repairs(smi) -> None:
         what = (("CMYK", "YCCK") if k else ("RGB planes", "YCbCr"))[transform]
         log(f"ycc_to_rgb at {factors}, {what}: bit-exact against its plain version on "
             f"seeded planes {SEEDED_PLANES}")
+
+    # every sampling libjpeg-turbo upsamples, each plane by its own ratio
+    for sampling in SAMPLINGS:
+        factors = image_io.upsampling_factors(sampling)
+        for w, h in SEEDED_PLANES:
+            shapes = image_io.plane_shapes({"width": w, "height": h}, factors)
+            planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)) for s in shapes]
+            for transform in (True, False):
+                before = image_io.ycc_to_rgb.launches
+                out = image_io.planes_to_rgb([p.cuda() for p in planes], factors, transform,
+                                             size=(h, w)).cpu()
+                require(image_io.ycc_to_rgb.launches == before + 1, "ycc_to_rgb did not launch")
+                ref = image_io.planes_to_rgb(planes, factors, transform, reference=True,
+                                             size=(h, w))
+                err = int((out.int() - ref.int()).abs().max())
+                require(err == 0, f"ycc_to_rgb at {sampling}, {w}x{h}: max |d| {err}")
+        log(f"ycc_to_rgb at sampling {sampling} (planes upsampled by {factors}): bit-exact "
+            f"against its plain version on seeded planes {SEEDED_PLANES}, with the colour "
+            f"matrix and without")
+    # the fixtures of those samplings through nvJPEG: PIL's decode within the
+    # bound, or refused by name with nvJPEG's status
+    root = Path(__file__).resolve().parent
+    jref = np.load(root / JPEG_DIR / "pil_decodes.npz")
+    for name in SAMPLING_JPEGS:
+        data = (root / JPEG_DIR / f"{name}.jpg").read_bytes()
+        header = image_io.jpeg_header(data)
+        try:
+            ours = image_io.decode_rgb(data)
+        except image_io.JpegDecodeError as e:
+            require("nvJPEG" in str(e), f"{name}: refused otherwise than by nvJPEG: {e}")
+            log(f"sampling fixture {name} (sampling {header['sampling']}): nvJPEG refuses it: "
+                f"{e}; on {smi}")
+            continue
+        pil = jref[name]
+        require(ours.shape == pil.shape, f"{name}: decoded {ours.shape}, PIL {pil.shape}")
+        d = np.abs(ours.astype(np.int16) - pil.astype(np.int16))
+        per_channel = d.reshape(-1, 3).mean(0)
+        d_luma = float(np.abs(luma(ours) - luma(pil)).mean())
+        # the kernel alone on nvJPEG's planes of this sampling: its device time
+        planes, factors, transform = image_io.decode_jpeg_planes(data)
+        size = (header["height"], header["width"])
+        stream = image_io._local.stream
+        with torch.cuda.stream(stream):
+            device = profiled_kernel_ms(
+                lambda: image_io.planes_to_rgb(planes, factors, transform, size=size),
+                "ycc_to_rgb")
+        log(f"sampling fixture {name} (sampling {header['sampling']}, planes upsampled by "
+            f"{factors}): card vs PIL mean |d| per channel "
+            f"{[round(float(c), 4) for c in per_channel]}, luma {d_luma:.4f}, max |d| "
+            f"{int(d.max())}; held: each channel and the luma <= {DECODE_MEAN_MAX}; "
+            f"ycc_to_rgb's device time on its planes "
+            f"{'not measured' if device is None else f'{device:.5f} ms'} under torch.profiler; "
+            f"on {smi}")
+        require(max(float(per_channel.max()), d_luma) <= DECODE_MEAN_MAX,
+                f"{name}: mean |d| per channel {per_channel}, luma {d_luma} > "
+                f"{DECODE_MEAN_MAX}")
+
+    # WebP on the card's route: the host decoder, PIL's pixels exactly
+    from vtc_tpu_torch.data import webp
+
+    tic = time.perf_counter()
+    webp._lib()  # g++ here unless phase 18's queries built it
+    build_s = time.perf_counter() - tic
+    wref = np.load(root / WEBP_DIR / "pil_decodes.npz")
+    webps = sorted((root / WEBP_DIR).glob("*.webp"))
+    tic = time.perf_counter()
+    for path in webps:
+        rgb = image_io.decode_rgb(path.read_bytes(), None, str(path))
+        want = wref[path.name.replace(".", "_")]
+        require(rgb.shape == want.shape and np.array_equal(rgb, want),
+                f"{path.name}: the host decode differs from PIL's")
+    first_s = time.perf_counter() - tic
+    try:
+        image_io.decode_rgb(bomb_webp())
+        refused = None
+    except image_io.ImageInputError as e:
+        refused = str(e)
+    require(refused is not None and "decompression bomb" in refused,
+            f"the bomb-sized WebP header was not refused: {refused}")
+    log(f"WebP on the card's route: {len(webps)} committed files equal PIL's decodes pixel "
+        f"for pixel in {first_s:.3f} s (csrc/host/webp_decode.cpp loaded in {build_s:.2f} s, "
+        f"built by g++ unless an earlier phase built it); the 16384x16384 header refused: "
+        f"{refused}")
+    import cv2
+
+    for name in ("lossy_480x360", "lossless_480x360"):
+        data = (root / WEBP_DIR / f"{name}.webp").read_bytes()
+        ok, jpeg = cv2.imencode(".jpg", np.ascontiguousarray(wref[f"{name}_webp"][..., ::-1]),
+                                [cv2.IMWRITE_JPEG_QUALITY, 90])
+        require(ok, "OpenCV could not write the JPEG twin")
+        jpeg = jpeg.tobytes()
+        image_io.decode_rgb(jpeg)  # warm: the stream, nvJPEG's state
+        times = {}
+        for what, blob in (("WebP on the host", data), ("JPEG on the card", jpeg)):
+            tic = time.perf_counter()
+            for _ in range(WEBP_REPS):
+                image_io.decode_rgb(blob)
+            times[what] = (time.perf_counter() - tic) / WEBP_REPS * 1e3
+        log(f"decode {name} (480x360, {len(data)} bytes; its JPEG twin at quality 90, "
+            f"{len(jpeg)} bytes): " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f" per image, decode_rgb to a host array, mean of {WEBP_REPS}; on {smi}")
 
     # GIF and BMP on the card's route: the host decoders, PIL's pixels exactly
     ref = np.load(Path(__file__).resolve().parent / GIF_BMP_DIR / "pil_decodes.npz")
@@ -5658,7 +5833,7 @@ def main() -> int:
 
         mark("16")
         # 16. libjpeg-turbo's chroma upsampling and colour conversion on the card
-        check_ycc(smi)
+        ycc_rows = check_ycc(smi)
 
         mark("17")
         # 17. evaluation: the eval.py twin, the transfer evaluation
@@ -5769,6 +5944,16 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
         })
+    # the decode's kernel (not a TPU port: the JAX package decodes with PIL), timed
+    # on the 480x360 4:2:0 fixture, its launches the eval twin's (phase 17)
+    head = next(r for r in ycc_rows if r["name"] == "rgb420_480x360")
+    kernels.append({
+        "name": "ycc_to_rgb", "route": "cuda", "source": "vtc_tpu_torch/csrc/jpeg_decode.cu",
+        "replaces": "vtc_tpu/data/datasets.py:592", "launches": eval_run["ycc_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ycc_rows), "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    })
     mark("end")
     seconds = {p: round(t1 - t0, 1) for (p, t0), (_, t1) in zip(marks, marks[1:])}
     # phases 39 to 42 run inside 37-42's spawn: their groups' own seconds

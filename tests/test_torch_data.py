@@ -22,9 +22,11 @@
   ``test_on_over_k_comms`` with ``test_set_limit``, cached vision and audio
   features, an over-long title (RAKE); ``FeaturesDataset`` items; the
   loader's batches over both datasets.
-* The JPEG fixtures of ``tests/data/jpeg`` (made by ``make_jpeg_fixtures``)
-  and their committed PIL decodes; ``read_rgb`` on the card against them
-  (``cuda``-marked) at ``chip_smoke.py``'s bound.
+* The JPEG fixtures of ``tests/data/jpeg`` (made by ``make_jpeg_fixtures``:
+  PIL's and OpenCV's encoders, and libjpeg-turbo's through a shim built at
+  run time for six samplings they do not write) and their committed PIL
+  decodes; ``read_rgb`` on the card against them (``cuda``-marked) at
+  ``chip_smoke.py``'s bound.
 
 Exact equality throughout, but for nvJPEG on the card (the bound below).
 """
@@ -85,7 +87,181 @@ JPEG_FIXTURES = {  # name: (width, height, PIL save options, mode)
     # and YCCK, which no encoder here writes: a CMYK one's transform set to 2
     "cmyk_96x64": (96, 64, {"quality": 90}, "CMYK"),
     "ycck_96x64": (96, 64, {"quality": 90, "ycck": True}, "CMYK"),
+    # written by libjpeg-turbo itself (jpeg_set_defaults, then each
+    # component's sampling factors): samplings PIL's and OpenCV's encoders do
+    # not write, each decoded by PIL through jinit_upsampler's per-plane rule
+    "sampling_y1x4_96x61": (96, 61, {"quality": 90, "libjpeg_sampling": [(1, 4), (1, 1),
+                                                                        (1, 1)]}, "RGB"),
+    "sampling_y3x1_97x40": (97, 40, {"quality": 90, "libjpeg_sampling": [(3, 1), (1, 1),
+                                                                        (1, 1)]}, "RGB"),
+    # Cb upsampled 2 x 2, Cr 1 x 2
+    "sampling_cb_cr_apart_99x65": (99, 65, {"quality": 90, "libjpeg_sampling": [
+        (2, 2), (1, 1), (2, 1)]}, "RGB"),
+    # the luma upsampled 2 x 2 under full-size chroma
+    "sampling_luma_below_93x61": (93, 61, {"quality": 90, "libjpeg_sampling": [
+        (1, 1), (2, 2), (2, 2)]}, "RGB"),
+    # no plane full size: the luma 1 x 2, the chroma 2 x 1
+    "sampling_no_full_plane_90x58": (90, 58, {"quality": 90, "libjpeg_sampling": [
+        (2, 1), (1, 2), (1, 2)]}, "RGB"),
+    # K at 1 x 1 under C at 2 x 2: K and M, Y upsampled 2 x 2
+    "cmyk_k1x1_97x63": (97, 63, {"quality": 90, "libjpeg_sampling": [
+        (2, 2), (1, 1), (1, 1), (1, 1)]}, "CMYK"),
 }
+# libjpeg-turbo, through a shim compiled at run time: a writer with each
+# component's sampling factors set, and the raw planes of a decode
+# (jpeg_read_raw_data: the IDCT's output before upsampling)
+LIBJPEG_SHIM = r"""
+#include <setjmp.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+struct guard { struct jpeg_error_mgr pub; jmp_buf jump; };
+static void on_error(j_common_ptr c) { longjmp(((struct guard*)c->err)->jump, 1); }
+
+int shim_write(const unsigned char* pix, int w, int h, int ncomp, const int* hv, int quality,
+               unsigned char** out, unsigned long* size) {
+  struct jpeg_compress_struct c;
+  struct guard g;
+  int i;
+  c.err = jpeg_std_error(&g.pub);
+  g.pub.error_exit = on_error;
+  if (setjmp(g.jump)) { jpeg_destroy_compress(&c); return -1; }
+  jpeg_create_compress(&c);
+  *out = NULL;
+  *size = 0;
+  jpeg_mem_dest(&c, out, size);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = ncomp;
+  c.in_color_space = ncomp == 4 ? JCS_CMYK : JCS_RGB;
+  jpeg_set_defaults(&c);
+  jpeg_set_quality(&c, quality, TRUE);
+  for (i = 0; i < ncomp; ++i) {
+    c.comp_info[i].h_samp_factor = hv[2 * i];
+    c.comp_info[i].v_samp_factor = hv[2 * i + 1];
+  }
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = (JSAMPROW)(pix + (size_t)c.next_scanline * w * ncomp);
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  return 0;
+}
+
+/* Each component's plane, cropped to its downsampled size, one after the
+   other into `planes`; `dims` gets each one's width and height. */
+int shim_raw(const unsigned char* data, unsigned long n, unsigned char* planes, int* dims,
+             int capacity) {
+  struct jpeg_decompress_struct d;
+  struct guard g;
+  JSAMPARRAY rows[4];
+  JSAMPIMAGE image = rows;
+  int ci, total = 0, done = 0;
+  d.err = jpeg_std_error(&g.pub);
+  g.pub.error_exit = on_error;
+  if (setjmp(g.jump)) { jpeg_destroy_decompress(&d); return -1; }
+  jpeg_create_decompress(&d);
+  jpeg_mem_src(&d, data, n);
+  jpeg_read_header(&d, TRUE);
+  d.raw_data_out = TRUE;
+  jpeg_start_decompress(&d);
+  int mcu_rows = d.max_v_samp_factor * DCTSIZE;
+  for (ci = 0; ci < d.num_components; ++ci) {
+    jpeg_component_info* comp = &d.comp_info[ci];
+    int stride = comp->width_in_blocks * DCTSIZE;
+    rows[ci] = (*d.mem->alloc_sarray)((j_common_ptr)&d, JPOOL_IMAGE, stride,
+                                      comp->v_samp_factor * DCTSIZE);
+    dims[2 * ci] = comp->downsampled_width;
+    dims[2 * ci + 1] = comp->downsampled_height;
+    total += comp->downsampled_width * comp->downsampled_height;
+  }
+  if (total > capacity) { jpeg_destroy_decompress(&d); return -2; }
+  while (d.output_scanline < d.output_height) {
+    jpeg_read_raw_data(&d, image, mcu_rows);
+    unsigned char* dst = planes;
+    for (ci = 0; ci < d.num_components; ++ci) {
+      jpeg_component_info* comp = &d.comp_info[ci];
+      int r, rows_here = comp->v_samp_factor * DCTSIZE;
+      int first = done / d.max_v_samp_factor * comp->v_samp_factor;
+      for (r = 0; r < rows_here && first + r < (int)comp->downsampled_height; ++r) {
+        memcpy(dst + (size_t)(first + r) * comp->downsampled_width, rows[ci][r],
+               comp->downsampled_width);
+      }
+      dst += (size_t)comp->downsampled_width * comp->downsampled_height;
+    }
+    done += mcu_rows;
+  }
+  jpeg_finish_decompress(&d);
+  jpeg_destroy_decompress(&d);
+  return d.num_components;
+}
+
+void shim_free(void* p) { free(p); }
+"""
+
+
+def libjpeg_shim(build_dir):
+    """The shim built against the system's libjpeg-turbo (``jpeglib.h``,
+    ``-ljpeg``), or None where either is missing."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        return None
+    src, lib = Path(build_dir) / "jpeg_shim.c", Path(build_dir) / "libjpeg_shim.so"
+    src.write_text(LIBJPEG_SHIM)
+    if subprocess.run([gcc, "-O2", "-shared", "-fPIC", "-o", str(lib), str(src), "-ljpeg"],
+                      capture_output=True).returncode != 0:
+        return None
+    shim = ctypes.CDLL(str(lib))
+    shim.shim_write.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_ulong)]
+    shim.shim_raw.argtypes = [ctypes.c_char_p, ctypes.c_ulong, ctypes.c_void_p,
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    shim.shim_free.argtypes = [ctypes.c_void_p]
+    return shim
+
+
+def libjpeg_write(shim, pixels: np.ndarray, sampling, quality: int) -> bytes:
+    """``pixels`` (RGB or CMYK, uint8 ``[h, w, c]``) as a JPEG of each
+    component's ``(h, v)`` sampling factors."""
+    import ctypes
+
+    h, w, c = pixels.shape
+    hv = (ctypes.c_int * 8)(*[f for pair in sampling for f in pair])
+    out, size = ctypes.c_void_p(), ctypes.c_ulong()
+    rc = shim.shim_write(np.ascontiguousarray(pixels).tobytes(), w, h, c, hv, quality,
+                         ctypes.byref(out), ctypes.byref(size))
+    assert rc == 0, f"libjpeg-turbo refused sampling {sampling}"
+    data = ctypes.string_at(out.value, size.value)
+    shim.shim_free(out)
+    return data
+
+
+def libjpeg_raw_planes(shim, data: bytes):
+    """libjpeg-turbo's planes of ``data`` before upsampling, each at its
+    downsampled size."""
+    import ctypes
+
+    capacity = 4 * 65536 * 64
+    buf = np.empty(capacity, np.uint8)
+    dims = (ctypes.c_int * 8)()
+    n = shim.shim_raw(data, len(data), buf.ctypes.data, dims, capacity)
+    assert n > 0, "libjpeg-turbo could not read the raw planes"
+    planes, at = [], 0
+    for ci in range(n):
+        w, h = dims[2 * ci], dims[2 * ci + 1]
+        planes.append(buf[at:at + w * h].reshape(h, w).copy())
+        at += w * h
+    return planes
 # an APP14 "Adobe" segment: version 100, no flags, colour transform 0 (RGB)
 ADOBE_RGB_SEGMENT = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
 
@@ -127,9 +303,13 @@ def make_jpeg_fixtures(out_dir, seed=9):
     import cv2
     from PIL import ImageDraw
 
+    import tempfile
+
     rng = np.random.default_rng(seed)
     out_dir = Path(out_dir)
     decodes = {}
+    shim_dir = tempfile.TemporaryDirectory()
+    shim = libjpeg_shim(shim_dir.name)
     for name, (w, h, opts, mode) in JPEG_FIXTURES.items():
         y, x = np.mgrid[0:h, 0:w].astype(np.float32)
         a, b = rng.uniform(0.2, 1.0, 2)
@@ -149,7 +329,12 @@ def make_jpeg_fixtures(out_dir, seed=9):
         if mode in ("L", "CMYK"):
             img = img.convert(mode)
         path = out_dir / f"{name}.jpg"
-        if "opencv_sampling" in opts:
+        if "libjpeg_sampling" in opts:
+            assert shim is not None, "no libjpeg-turbo to write with (gcc, jpeglib.h, -ljpeg)"
+            pixels = np.asarray(img)
+            path.write_bytes(libjpeg_write(shim, pixels if mode == "RGB" else 255 - pixels,
+                                           opts["libjpeg_sampling"], opts["quality"]))
+        elif "opencv_sampling" in opts:
             sampling = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{opts['opencv_sampling']}")
             assert cv2.imwrite(str(path), np.asarray(img)[..., ::-1].copy(), [
                 cv2.IMWRITE_JPEG_QUALITY, opts["quality"],
@@ -166,6 +351,7 @@ def make_jpeg_fixtures(out_dir, seed=9):
             img.save(path, "JPEG", **opts)
         with Image.open(path) as f:
             decodes[name] = np.asarray(f.convert("RGB"))
+    shim_dir.cleanup()
     save_npz_lzma(out_dir / "pil_decodes.npz", **decodes)
     return decodes
 
@@ -183,25 +369,30 @@ def test_committed_pil_decodes_match_the_jpegs():
         # the CPU route of read_rgb is PIL's decode
         np.testing.assert_array_equal(image_io.read_rgb(JPEG_DIR / f"{name}.jpg", "cpu"),
                                       ref[name])
-    assert sum(f.stat().st_size for f in JPEG_DIR.iterdir()) < 500_000
+    assert sum(f.stat().st_size for f in JPEG_DIR.iterdir()) < 600_000
 
 
 def test_fixture_generator_makes_the_named_images(tmp_path):
     decodes = make_jpeg_fixtures(tmp_path)
-    for name, (w, h, _, mode) in JPEG_FIXTURES.items():
+    for name, (w, h, opts, mode) in JPEG_FIXTURES.items():
         assert decodes[name].shape == (h, w, 3)
         header = image_io.jpeg_header((tmp_path / f"{name}.jpg").read_bytes())
         assert header["components"] == {"L": 1, "RGB": 3, "CMYK": 4}[mode]
-        assert header["subsampled"] == (mode == "RGB" and "444" not in name)
+        assert header["subsampled"] == (mode == "RGB" and "444" not in name
+                                        or "libjpeg_sampling" in opts)
+        if "libjpeg_sampling" in opts:
+            assert header["sampling"] == opts["libjpeg_sampling"], name
         assert header["progressive"] == name.startswith("progressive")
         assert header["rgb"] == name.startswith("adobergb"), name
         assert header["ycck"] == name.startswith("ycck"), name
 
 
 def test_decode_refusals_on_the_cpu(tmp_path):
-    """What nvJPEG cannot decode as PIL does is refused by name before any
-    card work: a 4-component JPEG whose K is sampled otherwise than its
-    first plane, a file that is no JPEG. A JPEG coded in RGB is decoded (no
+    """What libjpeg-turbo cannot upsample is refused by name before any
+    card work: a plane sampled by a fraction of the largest factors (PIL
+    refuses it too); a file that is no JPEG. A 4-component JPEG whose K is
+    sampled otherwise than its first plane is no longer refused: each plane
+    gets its factors and its size. A JPEG coded in RGB is decoded (no
     longer refused), and is told from YCbCr as libjpeg-turbo tells it: a
     JFIF segment means YCbCr whatever an Adobe segment says; CMYK and YCCK
     are decoded too (no longer refused)."""
@@ -210,8 +401,16 @@ def test_decode_refusals_on_the_cpu(tmp_path):
     sof = cmyk.index(b"\xff\xc0")
     cmyk[sof + 11] = 0x11  # C at 1 x 1 ...
     cmyk[sof + 20] = 0x22  # ... and K at 2 x 2: K above the first plane
-    with pytest.raises(image_io.JpegDecodeError, match="K is sampled"):
-        image_io.decode_jpeg(bytes(cmyk))
+    header = image_io.jpeg_header(bytes(cmyk))
+    factors = image_io.upsampling_factors(header["sampling"])
+    assert factors == ((2, 2), (2, 2), (2, 2), (1, 1))
+    assert image_io.plane_shapes(header, factors) == [(32, 48)] * 3 + [(64, 96)]
+    fractional = bytearray(cmyk)
+    fractional[sof + 11] = 0x31  # C at 3 x 1 under K at 2 x 2: 2 / 3
+    with pytest.raises(image_io.JpegInputError, match="fraction"):
+        image_io.decode_jpeg(bytes(fractional))
+    with pytest.raises(Exception):  # PIL (libjpeg-turbo) refuses it as well
+        Image.open(io.BytesIO(bytes(fractional))).convert("RGB")
     rgb = (JPEG_DIR / "rgb444_160x120.jpg").read_bytes()
     both = rgb[:2] + ADOBE_RGB_SEGMENT + rgb[2:]  # JFIF and Adobe transform 0
     header = image_io.jpeg_header(both)
@@ -276,9 +475,12 @@ def test_decode_bound_rejects_a_wrong_chroma():
     headers = {n: image_io.jpeg_header((JPEG_DIR / f"{n}.jpg").read_bytes())
                for n in ref.files}
     # chroma: the subsampled fixtures coded in YCbCr
-    subsampled = [n for n, h in headers.items() if h["subsampled"] and not h["rgb"]]
-    assert sorted(subsampled) == ["odd_211x97", "progressive_240x180", "rgb411_94x64",
-                                  "rgb420_480x360"]
+    subsampled = [n for n, h in headers.items()
+                  if h["subsampled"] and not h["rgb"] and h["components"] == 3]
+    assert sorted(subsampled) == [
+        "odd_211x97", "progressive_240x180", "rgb411_94x64", "rgb420_480x360",
+        "sampling_cb_cr_apart_99x65", "sampling_luma_below_93x61",
+        "sampling_no_full_plane_90x58", "sampling_y1x4_96x61", "sampling_y3x1_97x40"]
     for name in subsampled:
         pil = ref[name]
         y, cb, cr = _ycbcr(pil)
@@ -322,12 +524,18 @@ def test_nvjpeg_binding_builds_apart_from_the_kernels(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_read_rgb_on_card_matches_pil_within_bound():
+    """Every fixture within the bound; one of the samplings written by
+    libjpeg-turbo may instead be refused by nvJPEG, by its status's name."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: nvJPEG runs on the card")
     ref = np.load(JPEG_DIR / "pil_decodes.npz")
     for name in ref.files:
         path = JPEG_DIR / f"{name}.jpg"
-        ours = image_io.read_rgb(path)
+        try:
+            ours = image_io.read_rgb(path)
+        except image_io.JpegInputError as e:
+            assert "libjpeg_sampling" in JPEG_FIXTURES[name][2] and "NVJPEG_STATUS" in str(e)
+            continue
         assert ours.shape == ref[name].shape and ours.dtype == np.uint8
         subsampled = image_io.jpeg_header(path.read_bytes())["subsampled"]
         assert _decode_misses(ours, ref[name], subsampled) == [], name

@@ -22,9 +22,15 @@ YCbCr -> RGB (``image_io.ycc_to_rgb`` and its plain version
   ``convert("RGB")`` of seeded CMYK values;
   on the 4:1:1 fixture (written by OpenCV) its chroma, taken back to one
   sample in 4, through the plain version at 4 x 1 is PIL's RGB too;
-* samplings other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 are
-  refused by name; a frame header of more pixels than ``MAX_PIXELS`` is
-  refused before the binding is asked for anything;
+* every sampling libjpeg-turbo upsamples, each plane by its own whole
+  ratio (the luma 1 x 4 or 3 x 1 over the chroma, Cb and Cr apart, the luma
+  below the chroma, no plane full size, a K plane sampled apart): the plain
+  version equals the transcription per plane on seeded planes, and on the
+  six fixtures libjpeg-turbo wrote at such samplings its raw planes
+  (``jpeg_read_raw_data``) through the plain version are PIL's RGB bit for
+  bit; a plane sampled by a fraction is refused by name, as libjpeg-turbo
+  and PIL refuse it, and a frame header of more pixels than
+  ``MAX_PIXELS`` is refused before the binding is asked for anything;
 * ``decode_png`` against ``PIL.Image.open(...).convert("RGB")``, bit for
   bit, for every colour type and bit depth it takes (16 bits included) and
   each of the five row filters, Adam7-interlaced too (written by the test's
@@ -142,21 +148,21 @@ def _int_upsample(input_data, h_expand, v_expand):
 
 def _libjpeg_upsample(plane, hf, vf):
     """One component as jinit_upsampler sets it up (do_fancy_upsampling,
-    full-scale IDCT), with jdmainct.c's context rows: the first row above
-    the image, the last real row below it."""
+    full-scale IDCT) for its whole ratio ``hf`` x ``vf``, with jdmainct.c's
+    context rows: the first row above the image, the last real row below it."""
     rows = [list(map(int, r)) for r in plane]
     width = len(rows[0])
     context = [rows[0]] + rows + [rows[-1]]
-    if (hf, vf) == (1, 1):
+    if (hf, vf) == (1, 1):  # fullsize_upsample
         return rows
     if (hf, vf) == (2, 1):
         return _h2v1_fancy_upsample(rows, width) if width > 2 else _box_upsample(rows, 2, 1)
     if (hf, vf) == (1, 2):
         return _h1v2_fancy_upsample(context, width)
-    if hf == 4:
-        return _int_upsample(rows, hf, vf)
-    return (_h2v2_fancy_upsample(context, width) if width > 2
-            else _box_upsample(rows, 2, 2))
+    if (hf, vf) == (2, 2):
+        return (_h2v2_fancy_upsample(context, width) if width > 2
+                else _box_upsample(rows, 2, 2))
+    return _int_upsample(rows, hf, vf)  # every other whole ratio
 
 
 def _ycc_rgb_tables():
@@ -233,6 +239,44 @@ def test_reference_without_the_matrix_is_libjpeg_turbos_upsampling(factors):
                                       err_msg=f"{w}x{h} at {factors}")
 
 
+# each component's (h, v) sampling factors, as libjpeg-turbo writes them: the
+# luma sampled 1 x 4 and 3 x 1 over the chroma, Cb and Cr sampled apart, the
+# luma below the chroma, no plane full size, and four components with K
+# under the first plane
+SAMPLINGS = [[(1, 4), (1, 1), (1, 1)], [(3, 1), (1, 1), (1, 1)], [(2, 2), (1, 1), (2, 1)],
+             [(1, 1), (2, 2), (2, 2)], [(2, 1), (1, 2), (1, 2)], [(4, 2), (2, 1), (1, 2)],
+             [(2, 2), (1, 1), (1, 1), (1, 1)], [(1, 1), (1, 1), (1, 1), (2, 2)],
+             [(1, 2), (1, 2), (2, 1), (2, 2)]]
+
+
+@pytest.mark.parametrize("sampling", SAMPLINGS, ids=str)
+def test_reference_equals_libjpeg_turbo_per_plane(sampling):
+    """Every plane upsampled by its own whole ratio, as the transcription
+    upsamples it, then the colour conversion: YCbCr through the tables, R,
+    G, B as they are, and with a K plane, CMYK and YCCK through the plain
+    version's full-size conversion (held against PIL's above)."""
+    factors = image_io.upsampling_factors(sampling)
+    rng = np.random.default_rng(len(str(sampling)))
+    for w, h in SIZES:
+        header = {"width": w, "height": h}
+        planes = [rng.integers(0, 256, s, dtype=np.uint8)
+                  for s in image_io.plane_shapes(header, factors)]
+        up = [np.asarray(_libjpeg_upsample(p, *f), np.uint8)[:h, :w]
+              for p, f in zip(planes, factors)]
+        t = [torch.from_numpy(p) for p in planes]
+        full = [torch.from_numpy(np.ascontiguousarray(u)) for u in up]
+        for transform in (True, False):
+            ours = image_io.planes_to_rgb(t, factors, transform, reference=True, size=(h, w))
+            if len(planes) == 4:
+                want = image_io.planes_to_rgb(full, (1, 1), transform, reference=True).numpy()
+            elif transform:
+                want = _ycc_rgb_convert(*(u.tolist() for u in up))
+            else:
+                want = np.stack(up, -1)
+            np.testing.assert_array_equal(ours.numpy(), want,
+                                          err_msg=f"{w}x{h} at {sampling}, {transform}")
+
+
 def test_reference_takes_the_extremes_of_the_tables():
     """Saturated chroma against dark and bright luma clamps as range_limit
     does."""
@@ -277,7 +321,7 @@ def test_colour_conversion_of_pil_upsampled_planes_is_pils_rgb():
         rgb = image_io.ycc_to_rgb_reference(ycc[..., 0], ycc[..., 1], ycc[..., 2], (1, 1))
         np.testing.assert_array_equal(rgb.numpy(), ref[name], err_msg=name)
         n += 1
-    assert n == 5
+    assert n == 10  # five from PIL's and OpenCV's encoders, five from libjpeg-turbo's
 
 
 def _read_as_ycbcr(data: bytes) -> bytes:
@@ -382,25 +426,42 @@ def _with_sampling(data: bytes, sampling) -> bytes:
     return bytes(out)
 
 
-def test_other_samplings_are_refused_by_name():
+def test_other_samplings_are_refused_by_name(monkeypatch):
+    """Each component gets its own whole upsampling ratio, as
+    ``jinit_upsampler`` gives it, and its plane its size; a fractional ratio
+    is refused by name from the header, before the binding is asked, as
+    libjpeg-turbo refuses it (and PIL with it)."""
     data = (JPEG_DIR / "rgb420_480x360.jpg").read_bytes()
     assert image_io.jpeg_header(data)["sampling"] == [(2, 2), (1, 1), (1, 1)]
-    assert image_io.chroma_factors([(2, 2), (1, 1), (1, 1)]) == (2, 2)
-    assert image_io.chroma_factors([(2, 1), (1, 1), (1, 1)]) == (2, 1)
-    assert image_io.chroma_factors([(1, 2), (1, 1), (1, 1)]) == (1, 2)
-    assert image_io.chroma_factors([(2, 2), (2, 2), (2, 2)]) == (1, 1)
-    # 4:1:1 and 4:1:0 are decoded now, by libjpeg-turbo's int_upsample
-    assert image_io.chroma_factors([(4, 1), (1, 1), (1, 1)]) == (4, 1)
-    assert image_io.chroma_factors([(4, 2), (1, 1), (1, 1)]) == (4, 2)
-    for sampling, name in (([(1, 4), (1, 1), (1, 1)], "unusual"),
-                           ([(3, 1), (1, 1), (1, 1)], "unusual"),
-                           ([(2, 2), (1, 1), (2, 1)], "unusual"),
-                           ([(1, 1), (2, 2), (2, 2)], "unusual")):
-        with pytest.raises(image_io.JpegDecodeError, match=name):
-            image_io.chroma_factors(sampling)
+    factors = image_io.upsampling_factors
+    assert factors([(2, 2), (1, 1), (1, 1)]) == ((1, 1), (2, 2), (2, 2))
+    assert factors([(2, 1), (1, 1), (1, 1)]) == ((1, 1), (2, 1), (2, 1))
+    assert factors([(1, 2), (1, 1), (1, 1)]) == ((1, 1), (1, 2), (1, 2))
+    assert factors([(2, 2), (2, 2), (2, 2)]) == ((1, 1),) * 3
+    assert factors([(4, 1), (1, 1), (1, 1)]) == ((1, 1), (4, 1), (4, 1))
+    assert factors([(4, 2), (1, 1), (1, 1)]) == ((1, 1), (4, 2), (4, 2))
+    # once refused as unusual, now each plane by its own ratio
+    header = {"width": 97, "height": 61}
+    for sampling, want, shapes in (
+            ([(1, 4), (1, 1), (1, 1)], ((1, 1), (1, 4), (1, 4)), [(61, 97), (16, 97), (16, 97)]),
+            ([(3, 1), (1, 1), (1, 1)], ((1, 1), (3, 1), (3, 1)), [(61, 97), (61, 33), (61, 33)]),
+            ([(2, 2), (1, 1), (2, 1)], ((1, 1), (2, 2), (1, 2)), [(61, 97), (31, 49), (31, 97)]),
+            ([(1, 1), (2, 2), (2, 2)], ((2, 2), (1, 1), (1, 1)), [(31, 49), (61, 97), (61, 97)])):
+        assert factors(sampling) == want
+        assert image_io.plane_shapes(header, want) == shapes
+    monkeypatch.setattr(image_io, "_lib", lambda: pytest.fail("the binding was asked"))
+    for sampling in ([(3, 1), (2, 1), (2, 1)], [(2, 3), (1, 2), (1, 2)],
+                     [(4, 1), (3, 1), (3, 1)]):
+        with pytest.raises(image_io.JpegInputError, match="fraction"):
+            factors(sampling)
         # refused from the header, before the card is asked
-        with pytest.raises(image_io.JpegDecodeError, match=name):
-            image_io.decode_jpeg_planes(_with_sampling(data, sampling))
+        bad = _with_sampling(data, sampling)
+        with pytest.raises(image_io.JpegInputError, match="JERR_FRACT_SAMPLE_NOTIMPL"):
+            image_io.decode_jpeg_planes(bad)
+        if Image is not None:  # PIL refuses it too
+            with pytest.raises(Exception):
+                Image.open(io.BytesIO(bad)).convert("RGB")
+    monkeypatch.undo()
     # a header that is malformed: the input's fault, by name, not a bare
     # ZeroDivisionError or unpacking error
     sof = data.index(b"\xff\xc0")
@@ -413,6 +474,33 @@ def test_other_samplings_are_refused_by_name():
             image_io.decode_jpeg_planes(bad)
         with pytest.raises(image_io.ImageInputError, match=match):
             image_io.jpeg_header(bad)
+
+
+@pytest.mark.skipif(Image is None, reason="PIL is the reference")
+def test_sampling_fixtures_through_the_plain_version_are_pils_rgb(tmp_path):
+    """The fixtures written by libjpeg-turbo at samplings PIL's encoder does
+    not write: their planes before upsampling (libjpeg-turbo's
+    ``jpeg_read_raw_data``, the planes nvJPEG gives on the card) through the
+    plain version with each plane's factors give PIL's RGB decode bit for
+    bit."""
+    from test_torch_data import JPEG_FIXTURES, libjpeg_raw_planes, libjpeg_shim
+
+    shim = libjpeg_shim(tmp_path)
+    if shim is None:
+        pytest.skip("no libjpeg-turbo to build against (gcc, jpeglib.h, -ljpeg)")
+    ref = np.load(JPEG_DIR / "pil_decodes.npz")
+    names = [n for n, (_, _, opts, _) in JPEG_FIXTURES.items() if "libjpeg_sampling" in opts]
+    assert len(names) == 6
+    for name in names:
+        data = (JPEG_DIR / f"{name}.jpg").read_bytes()
+        header = image_io.jpeg_header(data)
+        factors = image_io.upsampling_factors(header["sampling"])
+        planes = [torch.from_numpy(p) for p in libjpeg_raw_planes(shim, data)]
+        assert [tuple(p.shape) for p in planes] == image_io.plane_shapes(header, factors)
+        transform = header["ycck"] if len(planes) == 4 else not header["rgb"]
+        rgb = image_io.planes_to_rgb(planes, factors, transform, reference=True,
+                                     size=(header["height"], header["width"]))
+        np.testing.assert_array_equal(rgb.numpy(), ref[name], err_msg=name)
 
 
 def bomb_jpeg(width=20000, height=20000) -> bytes:
@@ -694,18 +782,21 @@ def test_kernel_is_bit_exact_on_nvjpeg_planes():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel and nvJPEG run on the card")
     for path in sorted(JPEG_DIR.glob("*.jpg")):
-        planes, factors, transform = image_io.decode_jpeg_planes(path.read_bytes())
+        data = path.read_bytes()
+        planes, factors, transform = image_io.decode_jpeg_planes(data)
         if factors is None:
             continue
-        assert transform == path.name.startswith(("rgb", "odd", "progressive", "ycck")), \
-            path.name
+        assert transform == path.name.startswith(("rgb", "odd", "progressive", "ycck",
+                                                  "sampling")), path.name
         assert len(planes) == (4 if path.name.startswith(("cmyk", "ycck")) else 3)
+        header = image_io.jpeg_header(data)
+        size = (header["height"], header["width"])
         before = image_io.ycc_to_rgb.launches
         with torch.cuda.stream(image_io._local.stream):
-            ours = image_io.planes_to_rgb(planes, factors, transform).cpu()
+            ours = image_io.planes_to_rgb(planes, factors, transform, size=size).cpu()
         assert image_io.ycc_to_rgb.launches == before + 1
         ref = image_io.planes_to_rgb([p.cpu() for p in planes], factors, transform,
-                                     reference=True)
+                                     reference=True, size=size)
         torch.testing.assert_close(ours, ref, atol=0, rtol=0, msg=path.name)
 
 

@@ -358,7 +358,7 @@ def test_port_imports_no_jax():
         "scripts/bench_serving", "data/png", "data/image_io", "data/video",
         "data/video_retrieval", "scripts/bench_video_pipeline", "parallel/mesh",
         "utils/util", "parallel/tensor", "data/gif", "data/bmp", "scripts/dryrun_fullsize",
-        "scripts/profile_trace")} <= walked
+        "scripts/profile_trace", "data/webp")} <= walked
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "vtc_tpu", "pandas", "regex")
     pil_imports = []
     for f in files:

@@ -9,7 +9,9 @@ test-tiny with the JAX weights carried across by ``state_dict_from_jax``.
 * ``images_b64`` (JPEG and PNG) on the port's CPU route equal, JSON for
   JSON, posting the floats that the port's ``clip_preprocess`` makes of
   PIL's decode of the same bytes (``tests/test_serving.py:230``), and the
-  committed PNG fixtures too;
+  committed PNG fixtures too; on the card's route (the device named, the
+  JPEG binding stubbed) the GIF, BMP and WebP fixtures equal posting the
+  floats of their committed PIL decodes;
 * every 400 and 404 of ``tests/test_serving.py:269-313``, on both servers;
 * ``warmup`` runs each text bucket;
 * ``scripts/serve.py``'s ``build_server`` from a config and a gallery
@@ -314,6 +316,34 @@ def test_gif_and_bmp_fixtures_on_the_card_route(servers, monkeypatch):
     for data, said in ((gb.bomb_gif(), "decompression bomb"),
                        (gb.bomb_bmp(), "decompression bomb"),
                        (gif[: len(gif) // 2], "truncated"), (bmp[: len(bmp) // 2], "truncated")):
+        got = _post(server.port, "/search/image",
+                    {"images_b64": [base64.b64encode(data).decode()]})
+        assert got[0] == 400 and said in got[1]["error"], got
+
+
+def test_webp_fixtures_on_the_card_route(servers, monkeypatch):
+    """On the card's route (the JPEG binding stubbed to fail if asked) WebP
+    queries, lossy, lossless, with alpha, extended and animated, give what
+    posting the floats of their committed PIL decodes gives; a bomb-sized
+    header and a truncated file get a 400, the bomb refused from its header."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import test_torch_webp as tw
+    from vtc_tpu_torch.data import image_io
+
+    _, server = servers
+    monkeypatch.setattr(image_io, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(image_io._build, "load_library", _fail_to_load)
+    ref = np.load(tw.DIR / "pil_decodes.npz")
+    names = ["lossy_q75_m4.webp", "lossless_16colours.webp", "alpha_quad_c1_f2_q100.webp",
+             "vp8x_meta_lossy.webp", "anim_lossless.webp", "lossy_480x360.webp"]
+    b64 = _post(server.port, "/search/image", {"images_b64": [
+        base64.b64encode((tw.DIR / n).read_bytes()).decode() for n in names], "k": 5})
+    floats = _post(server.port, "/search/image", {"images": np.stack([
+        clip_preprocess(ref[n.replace(".", "_")], 32) for n in names]).tolist(), "k": 5})
+    assert b64[0] == 200 and b64[1] == floats[1], b64
+    lossy = (tw.DIR / "lossy_q75_m4.webp").read_bytes()
+    for data, said in ((tw.bomb_webp(), "decompression bomb"),
+                       (lossy[: len(lossy) // 2], "truncated")):
         got = _post(server.port, "/search/image",
                     {"images_b64": [base64.b64encode(data).decode()]})
         assert got[0] == 400 and said in got[1]["error"], got

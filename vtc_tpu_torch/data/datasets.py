@@ -355,9 +355,12 @@ class FeaturesDataset:
 
 
 class ImTextDataset(VisionTitleCommentDatasetBase):
-    """Thumbnails, titles and comments. Each item's JPEG is decoded on
-    ``device`` (default: the card, by nvJPEG; ``"cpu"``: PIL), then
-    resized, cropped and normalized on the host as the JAX package does."""
+    """Thumbnails, titles and comments. Each item's thumbnail (a ``.jpg``
+    path whose bytes may be any format ``decode_rgb`` reads: a WebP from an
+    image host included) is decoded on ``device`` (default: the card's
+    route, nvJPEG for a JPEG and the host decoders for the rest; ``"cpu"``:
+    PIL), then resized, cropped and normalized on the host as the JAX
+    package does."""
 
     def __init__(
         self,

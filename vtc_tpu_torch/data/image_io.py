@@ -6,39 +6,44 @@ The JAX package opens its images with ``PIL.Image.open(...).convert(
 one; nothing switches between them quietly:
 
 * the card (``device`` None or CUDA): a JPEG is decoded by nvJPEG into its
-  Y, Cb and Cr planes on the card (``csrc/jpeg_decode.cu``), and the
-  kernel ``ycc_to_rgb`` upsamples the chroma and converts to RGB as
-  libjpeg-turbo does (its "fancy" upsampling and the integer tables of
-  ``jdcolor.c``), so only nvJPEG's IDCT sets the pixels apart from PIL's.
-  A grayscale JPEG is decoded as its luma plane and repeated into three
-  equal channels, as ``convert("RGB")`` does. 4:1:1 and 4:1:0 chroma is
-  box-replicated, as libjpeg-turbo's ``int_upsample`` does. A JPEG coded in
-  RGB (an Adobe segment with colour transform 0, or the component ids R, G,
-  B without a JFIF or Adobe segment: libjpeg-turbo's
-  ``default_decompress_parms``) takes the same upsampling without the colour
-  matrix: its planes are R, G and B. A 4-component JPEG is decoded into its
-  four planes (``NVJPEG_OUTPUT_UNCHANGED``) and converted as PIL converts
-  it: CMYK planes, stored inverted by Adobe's convention, or YCCK ones,
-  whose Y, Cb and Cr go through the YCbCr tables first (libjpeg-turbo's
-  ``ycck_cmyk_convert``), then PIL's ``cmyk2rgb``. What cannot be matched
-  to PIL (a sampling other than 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and
-  4:1:0, a fourth component sampled otherwise than the first) or fails to
-  decode raises ``JpegDecodeError``, and no other
-  decoder stands in; an image of more than ``MAX_PIXELS`` pixels is refused
-  from its header, before anything is allocated, as PIL refuses it. A PNG,
-  a GIF and a BMP are decoded on the host, by ``png.decode_png``,
-  ``gif.decode_gif`` and ``bmp.decode_bmp``, each PIL's pixels bit for bit
-  (WebP and the other formats PIL reads raise ``JpegInputError``);
+  planes on the card (``csrc/jpeg_decode.cu``), and the kernel
+  ``ycc_to_rgb`` upsamples each plane and converts to RGB as libjpeg-turbo
+  does (the integer tables of ``jdcolor.c``), so only nvJPEG's IDCT sets the
+  pixels apart from PIL's. Each plane is upsampled by its own ratio, the
+  largest sampling factors over its own, by the method libjpeg-turbo's
+  ``jinit_upsampler`` picks: "fancy" 2 x 1, 1 x 2 and 2 x 2, the box for a
+  plane at most 2 samples wide at 2 x 1 and 2 x 2 and for every other whole
+  ratio (``int_upsample``). 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0
+  come through nvJPEG's YUV output, every other sampling through its planes
+  as coded: Cb and Cr sampled apart, a luma sampled below the chroma, 1 x 4
+  or 3 x 1, a K plane sampled otherwise than the first. A plane sampled by a
+  fraction of the largest factors is refused from the header, as
+  libjpeg-turbo refuses it (``JERR_FRACT_SAMPLE_NOTIMPL``). A grayscale JPEG
+  is decoded as its luma plane and repeated into three equal channels, as
+  ``convert("RGB")`` does. A JPEG coded in RGB (an Adobe segment with
+  colour transform 0, or the component ids R, G, B without a JFIF or Adobe
+  segment: libjpeg-turbo's ``default_decompress_parms``) takes the same
+  upsampling without the colour matrix: its planes are R, G and B. A
+  4-component JPEG is converted as PIL converts it: CMYK planes, stored
+  inverted by Adobe's convention, or YCCK ones, whose Y, Cb and Cr go
+  through the YCbCr tables first (libjpeg-turbo's ``ycck_cmyk_convert``),
+  then PIL's ``cmyk2rgb``. What fails to decode raises ``JpegDecodeError``
+  (nvJPEG's refusal named by its status), and no other decoder stands in;
+  an image of more than ``MAX_PIXELS`` pixels is refused from its header,
+  before anything is allocated, as PIL refuses it. A PNG, a GIF, a BMP and a
+  WebP are decoded on the host, by ``png.decode_png``, ``gif.decode_gif``,
+  ``bmp.decode_bmp`` and ``webp.decode_webp``, each PIL's pixels bit for
+  bit (the other formats PIL reads raise ``JpegInputError``);
 * the CPU (``device="cpu"``): PIL, imported in the function, as the JAX
   package does.
 
 A fault of the bytes themselves (not an image the route decodes, a
 malformed file, a kind of image refused by name) raises an
 ``ImageInputError``: ``JpegInputError``, ``png.PngDecodeError``,
-``gif.GifDecodeError``, ``bmp.BmpDecodeError``, or PIL's
-error wrapped on the CPU route. Every other error (a binding that does not
-build or load, a failed launch, the card's own errors) is the program's,
-and is not an ``ImageInputError``.
+``gif.GifDecodeError``, ``bmp.BmpDecodeError``, ``webp.WebpDecodeError``,
+or PIL's error wrapped on the CPU route. Every other error (a binding that
+does not build or load, a failed launch, the card's own errors) is the
+program's, and is not an ``ImageInputError``.
 
 ``ycc_to_rgb`` is the kernel's wrapper: on CUDA tensors it launches the
 kernel and counts the launch in ``ycc_to_rgb.launches``; on CPU tensors it
@@ -68,8 +73,9 @@ _SOF_MARKERS = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # jdcolor.c's build_ycc_rgb_table: FIX(x) = int(x * 2**16 + 0.5), ONE_HALF
 _CR_R, _CB_B, _CR_G, _CB_G, _HALF = 91881, 116130, 46802, 22554, 1 << 15
-# the chroma's upsampling (hf, vf) of each sampling decoded: libjpeg-turbo's
-# fancy upsampling for factors of 1 and 2, int_upsample's box for 4:1:1, 4:1:0
+# the chroma's upsampling (hf, vf) of the samplings nvJPEG's YUV output takes
+# (4:4:4, 4:2:2, 4:4:0, 4:2:0, 4:1:1, 4:1:0: the luma full size, Cb and Cr
+# alike); every other sampling is decoded as coded (NVJPEG_OUTPUT_UNCHANGED)
 FACTORS = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2))
 # PIL refuses an image of more pixels as a decompression bomb (twice its
 # Image.MAX_IMAGE_PIXELS), at open; so do the port's JPEG and PNG decoders,
@@ -160,37 +166,63 @@ def jpeg_header(data: bytes) -> dict:
     return info
 
 
-def chroma_factors(sampling, path="<bytes>") -> Tuple[int, int]:
-    """``(hf, vf)``: how many times the chroma planes are upsampled across
-    and down, from the components' sampling factors: one of ``FACTORS``,
-    with the luma sampled most and Cb and Cr alike. Anything else (Cb and
-    Cr sampled apart, a chroma plane sampled above the luma, factors such
-    as 1 x 4 or 3 x 1) raises ``JpegInputError``."""
-    luma, cb, cr = sampling
-    hmax = max(s[0] for s in sampling)
-    vmax = max(s[1] for s in sampling)
-    factors = None
-    if cb == cr and luma == (hmax, vmax) and hmax % cb[0] == 0 and vmax % cb[1] == 0:
-        factors = (hmax // cb[0], vmax // cb[1])
-        if factors in FACTORS:
-            return factors
-    raise JpegInputError(
-        f"{path}: an unusual JPEG (sampling factors {sampling}): the card's route upsamples "
-        "the chroma as libjpeg-turbo does for 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and 4:1:0 "
-        "only")
+def upsampling_factors(sampling, path="<bytes>") -> Tuple[Tuple[int, int], ...]:
+    """``(hf, vf)`` of each component: how many times libjpeg-turbo's
+    ``jinit_upsampler`` upsamples its plane across and down, the largest
+    sampling factors over its own. A ratio that is not a whole number raises
+    ``JpegInputError`` from the header, as libjpeg-turbo raises
+    ``JERR_FRACT_SAMPLE_NOTIMPL`` (and PIL with it)."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    if any(hmax % h or vmax % v for h, v in sampling):
+        raise JpegInputError(
+            f"{path}: sampling factors {sampling}: a plane upsampled by a fraction, which "
+            "libjpeg-turbo does not implement either (JERR_FRACT_SAMPLE_NOTIMPL)")
+    return tuple((hmax // h, vmax // v) for h, v in sampling)
+
+
+def plane_factors(factors, n: int) -> Tuple[Tuple[int, int], ...]:
+    """Each of ``n`` planes' ``(hf, vf)``: ``factors`` as given, one pair a
+    plane, or a single pair, the chroma's, with the luma and K full size."""
+    if len(factors) == 2 and all(isinstance(f, int) for f in factors):
+        return ((1, 1),) + (tuple(factors),) * 2 + ((1, 1),) * (n - 3)
+    if len(factors) != n:
+        raise ValueError(f"{len(factors)} upsampling factors for {n} planes")
+    return tuple(tuple(int(x) for x in f) for f in factors)
+
+
+def _image_size(planes, factors, size) -> Tuple[int, int]:
+    """``(h, w)``: ``size``, or the shape of the first plane not upsampled."""
+    if size is not None:
+        return tuple(size)
+    for p, f in zip(planes, factors):
+        if f == (1, 1):
+            return tuple(p.shape)
+    raise ValueError(f"no plane of {factors} is full size: the image size must be given")
+
+
+def _check_planes(planes, factors, h: int, w: int) -> None:
+    """Each plane is the size libjpeg-turbo gives it: the image's divided by
+    its factors, rounded up."""
+    if any(hf < 1 or vf < 1 or tuple(p.shape) != (-(-h // vf), -(-w // hf))
+           for p, (hf, vf) in zip(planes, factors)):
+        raise ValueError(f"planes {[tuple(p.shape) for p in planes]} upsampled by {factors} "
+                         f"do not cover the image {(h, w)}")
 
 
 def _upsample_reference(plane: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
-    """libjpeg-turbo's upsampling of one chroma plane (int32 ``[ch, cw]`` ->
-    ``[vf·ch, hf·cw]``): ``h2v2_fancy_upsample``, ``h2v1_fancy_upsample``,
-    ``h1v2_fancy_upsample`` (``jdsample.c``), the edge sample standing in
-    for the missing neighbour at every border (``jdmainct.c``'s context rows
-    at the top and bottom); a plane at most 2 samples wide that is upsampled
-    across by 2, and a plane upsampled across by 4 (4:1:1, 4:1:0), are
-    box-replicated (``h2v1_upsample``, ``h2v2_upsample``, ``int_upsample``),
-    as ``jinit_upsampler`` chooses."""
+    """libjpeg-turbo's upsampling of one plane (int32 ``[ch, cw]`` ->
+    ``[vf·ch, hf·cw]``) as ``jinit_upsampler`` picks it: ``h2v1_fancy_upsample``
+    (2 x 1), ``h1v2_fancy_upsample`` (1 x 2) and ``h2v2_fancy_upsample`` (2 x
+    2) (``jdsample.c``), the edge sample standing in for the missing
+    neighbour at every border (``jdmainct.c``'s context rows at the top and
+    bottom); a plane at most 2 samples wide upsampled 2 x 1 or 2 x 2 is
+    box-replicated (``h2v1_upsample``, ``h2v2_upsample``), and so is every
+    other whole ratio (``int_upsample``: 4 x 1, 4 x 2, 1 x 4, 3 x 1 ...)."""
     ch, cw = plane.shape
-    if hf == 4 or (hf == 2 and cw <= 2):
+    if (hf, vf) == (1, 1):
+        return plane
+    if not ((hf, vf) == (1, 2) or ((hf, vf) in ((2, 1), (2, 2)) and cw > 2)):
         return plane.repeat_interleave(vf, 0).repeat_interleave(hf, 1)
 
     def interleave(a, b, dim):  # a, b, a, b ... along dim
@@ -205,50 +237,57 @@ def _upsample_reference(plane: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
         left = torch.cat([sums[:, :1], sums[:, :-1]], 1)
         right = torch.cat([sums[:, 1:], sums[:, -1:]], 1)
         return interleave((3 * sums + left + 8) >> 4, (3 * sums + right + 7) >> 4, 1)
-    if hf == 2:
-        left = torch.cat([plane[:, :1], plane[:, :-1]], 1)
-        right = torch.cat([plane[:, 1:], plane[:, -1:]], 1)
-        return interleave((3 * plane + left + 1) >> 2, (3 * plane + right + 2) >> 2, 1)
-    return plane
+    left = torch.cat([plane[:, :1], plane[:, :-1]], 1)
+    right = torch.cat([plane[:, 1:], plane[:, -1:]], 1)
+    return interleave((3 * plane + left + 1) >> 2, (3 * plane + right + 2) >> 2, 1)
 
 
 def ycc_to_rgb_reference(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                         factors: Tuple[int, int], transform: bool = True,
-                         k: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         factors, transform: bool = True, k: Optional[torch.Tensor] = None,
+                         size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The plain version of the ``ycc_to_rgb`` kernel on CPU tensors: uint8
-    planes Y ``[h, w]``, Cb and Cr ``[ch, cw]`` sampled ``factors = (hf,
-    vf)`` times below the luma -> uint8 ``[h, w, 3]`` RGB. The chroma is
-    upsampled as libjpeg-turbo does, cropped to ``w x h``, and converted
-    with ``jdcolor.c``'s integer tables (``SCALEBITS`` 16), clamped to
-    0-255. With ``transform`` False (a JPEG coded in RGB) the three planes
-    are R, G and B: upsampled and cropped alike, with no colour matrix
-    (``jdcolor.c:rgb_rgb_convert``). With a fourth plane ``k`` (``[h, w]``)
-    the image is CMYK (``transform`` False: the planes are Adobe's inverted
-    C, M, Y) or YCCK (True: the YCbCr tables give 255 minus C, M, Y, as
-    ``ycck_cmyk_convert``), and PIL's ``cmyk2rgb`` makes RGB:
-    ``K - K·c/255`` in its integer rounding."""
-    hf, vf = factors
-    h, w = y.shape
-    up = [_upsample_reference(p.to(torch.int32), hf, vf)[:h, :w] for p in (cb, cr)]
-    if up[0].shape != (h, w):
-        raise ValueError(f"chroma planes {tuple(cb.shape)} upsampled by {factors} do not "
-                         f"cover the luma {tuple(y.shape)}")
-    luma = y.to(torch.int32)
+    planes Y, Cb, Cr (and K), each sampled ``(hf, vf)`` times below the image
+    (``factors``: a pair a plane, or one pair for Cb and Cr with the luma
+    and K full size) -> uint8 ``[h, w, 3]`` RGB, ``size = (h, w)`` by
+    default the shape of the first plane not upsampled. Each plane is
+    upsampled as libjpeg-turbo does (``_upsample_reference``), cropped to
+    ``w x h``, and converted with ``jdcolor.c``'s integer tables
+    (``SCALEBITS`` 16), clamped to 0-255. With ``transform`` False (a JPEG
+    coded in RGB) the three planes are R, G and B: upsampled and cropped
+    alike, with no colour matrix (``jdcolor.c:rgb_rgb_convert``). With a
+    fourth plane ``k`` the image is CMYK (``transform`` False: the planes
+    are Adobe's inverted C, M, Y) or YCCK (True: the YCbCr tables give 255
+    minus C, M, Y, as ``ycck_cmyk_convert``), and PIL's ``cmyk2rgb`` makes
+    RGB: ``K - K·c/255`` in its integer rounding."""
+    planes = (y, cb, cr) + (() if k is None else (k,))
+    factors = plane_factors(factors, len(planes))
+    h, w = _image_size(planes, factors, size)
+    _check_planes(planes, factors, h, w)
+    up = [_upsample_reference(p.to(torch.int32), hf, vf)[:h, :w]
+          for p, (hf, vf) in zip(planes, factors)]
+    luma = up[0]
     if transform:
-        dcb, dcr = up[0] - 128, up[1] - 128
+        dcb, dcr = up[1] - 128, up[2] - 128
         rgb = torch.stack([luma + ((_CR_R * dcr + _HALF) >> 16),
                            luma + ((-_CB_G * dcb + _HALF - _CR_G * dcr) >> 16),
                            luma + ((_CB_B * dcb + _HALF) >> 16)], -1).clamp(0, 255)
     else:
-        rgb = torch.stack([luma, *up], -1)
+        rgb = torch.stack(up[:3], -1)
     if k is not None:
-        kk = k.to(torch.int32)[..., None]
+        kk = up[3][..., None]
         # PIL's C, M, Y: the inverted planes of a CMYK JPEG, the converted
         # ones of a YCCK JPEG; PIL's K: 255 minus the plane, so nk is the plane
         c = rgb if transform else 255 - rgb
         tmp = c * kk + 128
         rgb = (kk - (((tmp >> 8) + tmp) >> 8)).clamp(0, 255)
     return rgb.to(torch.uint8)
+
+
+class _Plane(ctypes.Structure):
+    """``csrc/jpeg_decode.cu``'s ``Plane``: a uint8 plane on the card and
+    how many times it is upsampled across and down."""
+    _fields_ = [("p", ctypes.c_void_p), ("pitch", ctypes.c_int), ("w", ctypes.c_int),
+                ("h", ctypes.c_int), ("hf", ctypes.c_int), ("vf", ctypes.c_int)]
 
 
 def _lib():
@@ -264,9 +303,9 @@ def _lib():
         p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         ip = ctypes.POINTER(i)
         lib.vtc_jpeg_info.argtypes = [ctypes.c_char_p, size, ip, ip]
-        lib.vtc_jpeg_decode.argtypes = [ctypes.c_char_p, size, i, p, size, p, size, p, size,
+        lib.vtc_jpeg_decode.argtypes = [ctypes.c_char_p, size, i, i, p, size, p, size, p, size,
                                         p, size, p]
-        lib.vtc_ycc_to_rgb.argtypes = [p, i, p, i, p, i, p, i, i, i, i, i, i, i, i, p, i, p]
+        lib.vtc_ycc_to_rgb.argtypes = [ctypes.POINTER(_Plane), i, i, i, i, p, i, p]
         lib.vtc_jpeg_info.restype = lib.vtc_jpeg_decode.restype = i
         lib.vtc_ycc_to_rgb.restype = i
     return lib
@@ -283,48 +322,46 @@ def _check(rc: int, what: str, path) -> None:
     raise error(f"{path}: nvJPEG {what} failed with {name}")
 
 
-def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-               factors: Tuple[int, int], transform: bool = True,
-               k: Optional[torch.Tensor] = None) -> torch.Tensor:
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, factors,
+               transform: bool = True, k: Optional[torch.Tensor] = None,
+               size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """uint8 ``[h, w, 3]`` RGB from the Y, Cb and Cr planes (uint8, rows
-    contiguous) with the chroma sampled ``factors = (hf, vf)`` times below
-    the luma: the CUDA kernel of ``csrc/jpeg_decode.cu`` on CUDA tensors, on
-    the current stream; ``ycc_to_rgb_reference`` on CPU tensors. With
-    ``transform`` False the planes are R, G and B (a JPEG coded in RGB):
-    the same upsampling, no colour matrix; a fourth plane ``k`` makes the
-    image CMYK or YCCK, as ``ycc_to_rgb_reference`` says."""
+    contiguous), each upsampled ``(hf, vf)`` times (``factors``, as
+    ``ycc_to_rgb_reference`` takes them): the CUDA kernel of
+    ``csrc/jpeg_decode.cu`` on CUDA tensors, on the current stream;
+    ``ycc_to_rgb_reference`` on CPU tensors. With ``transform`` False the
+    planes are R, G and B (a JPEG coded in RGB): the same upsampling, no
+    colour matrix; a fourth plane ``k`` makes the image CMYK or YCCK, as
+    ``ycc_to_rgb_reference`` says."""
     if y.device.type == "cpu":
-        return ycc_to_rgb_reference(y, cb, cr, factors, transform, k)
-    hf, vf = factors
-    h, w = y.shape
-    ch, cw = cb.shape
-    planes = (("y", y), ("cb", cb), ("cr", cr)) + ((("k", k),) if k is not None else ())
-    for name, t in planes:
+        return ycc_to_rgb_reference(y, cb, cr, factors, transform, k, size)
+    planes = (y, cb, cr) + (() if k is None else (k,))
+    factors = plane_factors(factors, len(planes))
+    h, w = _image_size(planes, factors, size)
+    for name, t in zip(("y", "cb", "cr", "k"), planes):
         if t.device != y.device or t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1:
             raise ValueError(f"ycc_to_rgb: {name} must be a uint8 [rows, cols] plane with "
                              f"contiguous rows on {y.device}")
-    if (hf, vf) not in FACTORS or cr.shape != cb.shape or (
-            -(-w // hf), -(-h // vf)) != (cw, ch) or (k is not None and k.shape != y.shape):
-        raise ValueError(f"ycc_to_rgb: chroma {tuple(cb.shape)}/{tuple(cr.shape)} upsampled "
-                         f"by {factors} does not make the luma {tuple(y.shape)}")
+    _check_planes(planes, factors, h, w)
+    args = (_Plane * 4)(*(_Plane(t.data_ptr(), t.stride(0), t.shape[1], t.shape[0], *f)
+                          for t, f in zip(planes, factors)))
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
     mode = int(bool(transform)) + (2 if k is not None else 0)
     with torch.cuda.device(y.device):
-        err = _lib().vtc_ycc_to_rgb(
-            y.data_ptr(), y.stride(0), cb.data_ptr(), cb.stride(0), cr.data_ptr(),
-            cr.stride(0), None if k is None else k.data_ptr(), 0 if k is None else k.stride(0),
-            w, h, cw, ch, hf, vf, mode, out.data_ptr(), out.stride(0),
-            torch.cuda.current_stream(y.device).cuda_stream)
+        err = _lib().vtc_ycc_to_rgb(args, len(planes), w, h, mode, out.data_ptr(),
+                                    out.stride(0),
+                                    torch.cuda.current_stream(y.device).cuda_stream)
     _build.check_launch(err, "ycc_to_rgb")
     ycc_to_rgb.launches += 1
     return out
 
 
-def planes_to_rgb(planes, factors, transform: bool = True, reference: bool = False):
+def planes_to_rgb(planes, factors, transform: bool = True, reference: bool = False,
+                  size: Optional[Tuple[int, int]] = None):
     """``ycc_to_rgb`` (or its plain version) of ``decode_jpeg_planes``'s
     three or four colour planes."""
     fn = ycc_to_rgb_reference if reference else ycc_to_rgb
-    return fn(*planes[:3], factors, transform, planes[3] if len(planes) == 4 else None)
+    return fn(*planes[:3], factors, transform, planes[3] if len(planes) == 4 else None, size)
 
 
 ycc_to_rgb.launches = 0
@@ -339,15 +376,19 @@ def _decode_stream(device: torch.device) -> torch.cuda.Stream:
 
 def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path="<bytes>"):
     """nvJPEG's decode of the JPEG bytes ``data`` before colour conversion:
-    ``(planes, factors, transform)`` with the uint8 Y, Cb and Cr planes on
-    the card at their own sizes (R, G and B where ``transform`` is False: a
-    JPEG coded in RGB), C, M, Y and K (``transform`` False) or Y, Cb, Cr
-    and K (True) for a 4-component one, and the chroma's upsampling ``(hf,
-    vf)``; or the luma alone and None for a grayscale JPEG
-    (``planes_to_rgb`` converts them). The planes are allocated on, and
-    decoded on, the calling thread's decode stream, and the call returns
-    when the decode has finished. An image of more than ``MAX_PIXELS``
-    pixels raises ``JpegInputError`` before the binding is called."""
+    ``(planes, factors, transform)`` with the uint8 planes on the card at
+    their own sizes (Y, Cb and Cr; R, G and B where ``transform`` is False:
+    a JPEG coded in RGB; C, M, Y and K (``transform`` False) or Y, Cb, Cr
+    and K (True) for a 4-component one) and each plane's upsampling ``(hf,
+    vf)`` (``upsampling_factors``); or the luma alone and None for a
+    grayscale JPEG (``planes_to_rgb`` converts them; where no plane is full
+    size it is given the header's size). The six samplings nvJPEG's YUV
+    output takes are decoded through it; every other one as coded
+    (``NVJPEG_OUTPUT_UNCHANGED``, as 4-component images are). The planes are
+    allocated on, and decoded on, the calling thread's decode stream, and the
+    call returns when the decode has finished. An image of more than
+    ``MAX_PIXELS`` pixels, or a plane upsampled by a fraction, raises
+    ``JpegInputError`` before the binding is called."""
     header = jpeg_header(data)
     if header["width"] * header["height"] > MAX_PIXELS:
         raise JpegInputError(
@@ -356,11 +397,7 @@ def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path=
     n = header["components"]
     if n not in (1, 3, 4):
         raise JpegInputError(f"{path}: a {n}-component JPEG: PIL reads 1, 3 or 4")
-    if n == 4 and header["sampling"][3] != header["sampling"][0]:
-        raise JpegInputError(
-            f"{path}: a 4-component JPEG whose K is sampled otherwise than its first "
-            f"plane ({header['sampling']}): the card's route upsamples planes 2 and 3 only")
-    factors = chroma_factors(header["sampling"][:3], path) if n > 1 else None
+    factors = upsampling_factors(header["sampling"], path) if n > 1 else None
     lib = _lib()
     # nvJPEG and the planes on ``device`` whichever card the calling thread (a
     # loader's worker) would pick; None: that card
@@ -368,25 +405,37 @@ def decode_jpeg_planes(data: bytes, device: Optional[torch.device] = None, path=
         return _decode_planes(lib, data, header, n, factors, device, path)
 
 
+# nvJPEG's output formats, as vtc_jpeg_decode numbers them
+_OUTPUT_Y, _OUTPUT_YUV, _OUTPUT_UNCHANGED = 0, 1, 2
+
+
+def plane_shapes(header: dict, factors) -> list:
+    """``(rows, cols)`` of each component's plane as libjpeg-turbo sizes it
+    (``downsampled_width``, ``downsampled_height``): the image's divided by
+    the plane's upsampling factors, rounded up."""
+    h, w = header["height"], header["width"]
+    return [(-(-h // vf), -(-w // hf)) for hf, vf in factors]
+
+
 def _decode_planes(lib, data, header, n, factors, device, path):
     widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
     _check(lib.vtc_jpeg_info(data, len(data), widths, heights), "image info", path)
-    w, h = widths[0], heights[0]
-    sizes = [(h, w)]
+    sizes = [(heights[0], widths[0])] if factors is None else plane_shapes(header, factors)
     if factors is not None:
-        sizes += [(-(-h // factors[1]), -(-w // factors[0]))] * 2 + [(h, w)] * (n - 3)
         got = [(heights[c], widths[c]) for c in range(n)]
         if got != sizes:
             raise JpegDecodeError(f"{path}: nvJPEG's planes {got} are not the sizes the "
                                   f"header's sampling gives, {sizes}")
+    yuv = n == 3 and factors[0] == (1, 1) and factors[1] == factors[2] and factors[1] in FACTORS
+    output = _OUTPUT_Y if n == 1 else _OUTPUT_YUV if yuv else _OUTPUT_UNCHANGED
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     stream = _decode_stream(device)
     with torch.cuda.stream(stream):
         planes = [torch.empty(s, dtype=torch.uint8, device=device) for s in sizes]
         ptrs = [(t.data_ptr(), t.stride(0)) for t in planes] + [(None, 0)] * (4 - len(planes))
         what = "progressive decode" if header["progressive"] else "decode"
-        _check(lib.vtc_jpeg_decode(data, len(data), len(planes), *ptrs[0], *ptrs[1], *ptrs[2],
-                                   *ptrs[3], stream.cuda_stream), what, path)
+        _check(lib.vtc_jpeg_decode(data, len(data), len(planes), output, *ptrs[0], *ptrs[1],
+                                   *ptrs[2], *ptrs[3], stream.cuda_stream), what, path)
     transform = header["ycck"] if n == 4 else not header["rgb"]
     return planes, factors, transform
 
@@ -401,15 +450,18 @@ def decode_jpeg(data: bytes, device: Optional[torch.device] = None, path="<bytes
     with torch.cuda.stream(_local.stream):
         if factors is None:
             return planes[0][..., None].expand(-1, -1, 3).contiguous()
-        return planes_to_rgb(planes, factors, transform)
+        header = jpeg_header(data)
+        return planes_to_rgb(planes, factors, transform, size=(header["height"],
+                                                                header["width"]))
 
 
 def decode_rgb(data: bytes, device=None, path="<bytes>") -> np.ndarray:
     """uint8 ``[h, w, 3]`` RGB of the encoded image ``data``, on the host:
     on the card (default; raises without one) a JPEG by ``decode_jpeg``, and
-    on the host a PNG by ``png.decode_png``, a GIF by ``gif.decode_gif`` and
-    a BMP by ``bmp.decode_bmp`` (told apart by their magic bytes), any other
-    format raising ``JpegInputError``; by PIL where ``device`` is the CPU, whose errors
+    on the host a PNG by ``png.decode_png``, a GIF by ``gif.decode_gif``, a
+    BMP by ``bmp.decode_bmp`` and a RIFF WebP by ``webp.decode_webp`` (told
+    apart by their magic bytes), any other format raising
+    ``JpegInputError``; by PIL where ``device`` is the CPU, whose errors
     (PIL reading the bytes) are raised as ``ImageInputError``."""
     device = resolve_device(device)
     if device.type == "cpu":
@@ -434,6 +486,10 @@ def decode_rgb(data: bytes, device=None, path="<bytes>") -> np.ndarray:
         from .bmp import decode_bmp
 
         return decode_bmp(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        from .webp import decode_webp
+
+        return decode_webp(data)
     img = decode_jpeg(data, device if device.index is not None else None, path)
     with torch.cuda.stream(_local.stream):
         return img.cpu().numpy()

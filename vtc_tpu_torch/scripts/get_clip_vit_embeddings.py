@@ -6,7 +6,8 @@
 
 CSV (``data.table.read_csv``) -> each row's ``<video_path without
 results/ and .mp4>.jpg`` under ``--root``, decoded by ``read_rgb`` (on the
-card: nvJPEG and the ``ycc_to_rgb`` kernel) and CLIP-preprocessed on the
+card's route: nvJPEG and the ``ycc_to_rgb`` kernel for a JPEG, the host
+decoders for a PNG, GIF, BMP or WebP) and CLIP-preprocessed on the
 host, through the ``DataLoader`` -> batched ``encode_image`` of
 ``PretrainedCLIP`` on the card (bf16 activations unless ``--fp32``) ->
 ``{"reddit_ids", "embeddings"}`` in ``--out`` (``np.savez``; a ``.pth``

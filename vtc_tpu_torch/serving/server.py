@@ -13,10 +13,11 @@ Endpoints (JSON in and out):
   POST /search/text  {"queries": ["a cat", ...], "k": 10}
   POST /search/image {"images": [[...]], "k": 10}    # [n, 3, H, W] floats
                                                       # (preprocessed)
-  POST /search/image {"images_b64": ["<base64 JPEG/PNG>", ...], "k": 10}
+  POST /search/image {"images_b64": ["<base64 image>", ...], "k": 10}
        # encoded bytes, decoded on the service's device (on the card: a
-       # JPEG by nvJPEG and the ycc_to_rgb kernel, a PNG by data/png.py; on
-       # the CPU: PIL), then CLIP-preprocessed on the host (PIL's resampler,
+       # JPEG by nvJPEG and the ycc_to_rgb kernel; a PNG, GIF, BMP or WebP
+       # on the host by data/png.py, gif.py, bmp.py, webp.py; on the CPU:
+       # PIL), then CLIP-preprocessed on the host (PIL's resampler,
        # data/preprocess.py)
   all  -> {"ids": [[...]], "scores": [[...]]}
 
@@ -135,7 +136,8 @@ class RetrievalHTTPServer:
         return {"ids": ids.tolist(), "scores": scores.tolist()}
 
     def decode_b64_images(self, items) -> np.ndarray:
-        """base64 JPEG/PNG -> CLIP-preprocessed float32 ``[n, 3, S, S]``,
+        """base64 image bytes (JPEG, PNG, GIF, BMP, WebP) -> CLIP-preprocessed
+        float32 ``[n, 3, S, S]``,
         decoded on the service's device (``image_io.decode_rgb``): the same
         array a client gets by decoding the bytes on that route,
         preprocessing with ``clip_preprocess`` and posting floats. Bytes at
